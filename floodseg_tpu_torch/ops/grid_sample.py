@@ -1,0 +1,81 @@
+"""Bilinear grid sampling with border padding: the plain PyTorch warp.
+
+Counterpart of floodseg_tpu/ops/grid_sample.py, and the plain version of
+the warp kernel K1 (csrc/warp.cu, wrapped by ops/warp_kernels.py). It
+computes what floodseg_tpu/ops/pallas_warp.py::grid_sample_pallas computes:
+four bilinear taps per output point with float32 weights, float32
+accumulation, and one rounding to the input dtype at the end. Equivalent to
+``torch.nn.functional.grid_sample(mode="bilinear", padding_mode="border")``
+on NHWC tensors, which the port never calls.
+
+The arithmetic is written one rounded operation at a time, in the order
+the CUDA kernel performs it, so that the kernel and this version agree to
+the last bit in float32.
+"""
+
+import torch
+
+
+def tap_coords(h: int, w: int, grid: torch.Tensor, align_corners: bool):
+    """Bilinear tap coordinates with border clamping, torch convention.
+
+    Returns (x0, x1, y0, y1) int64 and the fractional (wx, wy). The float
+    math runs at >= float32; the floor comes before the integer cast, and
+    the clamp to [0, W-1] / [0, H-1] after it.
+    """
+    gxy = grid.to(torch.promote_types(grid.dtype, torch.float32))
+    gx, gy = gxy[..., 0], gxy[..., 1]
+    if align_corners:
+        fx = (gx + 1.0) * 0.5 * (w - 1)
+        fy = (gy + 1.0) * 0.5 * (h - 1)
+    else:
+        fx = ((gx + 1.0) * w - 1.0) * 0.5
+        fy = ((gy + 1.0) * h - 1.0) * 0.5
+    x0f, y0f = torch.floor(fx), torch.floor(fy)
+    wx, wy = fx - x0f, fy - y0f
+    xi, yi = x0f.to(torch.int64), y0f.to(torch.int64)
+    x0 = xi.clamp(0, w - 1)
+    x1 = (xi + 1).clamp(0, w - 1)
+    y0 = yi.clamp(0, h - 1)
+    y1 = (yi + 1).clamp(0, h - 1)
+    return x0, x1, y0, y1, wx, wy
+
+
+def tap_indices_weights(h: int, w: int, grid: torch.Tensor, align_corners: bool):
+    """Flat tap indices (..., 4) into the (H*W) plane and their weights
+    (..., 4), in the order (y0,x0), (y0,x1), (y1,x0), (y1,x1)."""
+    x0, x1, y0, y1, wx, wy = tap_coords(h, w, grid, align_corners)
+    idx = torch.stack([y0 * w + x0, y0 * w + x1, y1 * w + x0, y1 * w + x1], dim=-1)
+    wgt = torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy),
+                       (1 - wx) * wy, wx * wy], dim=-1)
+    return idx, wgt
+
+
+def blend_taps(vals: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
+    """((v0*w0 + v1*w1) + v2*w2) + v3*w3 for vals (..., 4, C) already in the
+    compute dtype and weights (..., 4)."""
+    acc = vals[..., 0, :] * wgt[..., 0, None]
+    for k in range(1, 4):
+        acc = acc + vals[..., k, :] * wgt[..., k, None]
+    return acc
+
+
+def grid_sample(x: torch.Tensor, grid: torch.Tensor,
+                align_corners: bool = False) -> torch.Tensor:
+    """Sample NHWC ``x`` (B, H, W, C) at normalized coordinates ``grid``
+    (B, gh, gw, 2) -> (B, gh, gw, C).
+
+    ``grid[..., 0]`` is x in [-1, 1] over the width, ``grid[..., 1]`` is y
+    over the height. Out-of-range coordinates clamp to the edge.
+    """
+    b, h, w, c = x.shape
+    gb, gh, gw, _ = grid.shape
+    if gb != b:
+        raise ValueError(f"batch mismatch: x has {b}, grid has {gb}")
+    idx, wgt = tap_indices_weights(h, w, grid.reshape(b, gh * gw, 2), align_corners)
+    cdt = torch.promote_types(x.dtype, torch.float32)
+    flat = x.reshape(b, h * w, c)
+    bi = torch.arange(b, device=x.device)[:, None, None]
+    vals = flat[bi, idx].to(cdt)                     # (B, P, 4, C)
+    out = blend_taps(vals, wgt.to(cdt))
+    return out.to(x.dtype).reshape(b, gh, gw, c)

@@ -1,0 +1,207 @@
+"""The warp kernels K1 and K2: wrappers, plain versions, launch counts.
+
+Counterpart of floodseg_tpu/ops/pallas_warp.py. The kernels are CUDA C++
+for sm_90a in ``csrc/warp.cu`` (their notes there give the Pallas kernel
+each replaces, its bound on the card and what the design does about it):
+
+- K1 ``grid_sample_cuda(x, grid, align_corners)`` replaces
+  ``grid_sample_pallas``; its plain version is ``ops.grid_sample.grid_sample``.
+- K2 ``warp_chain_cuda(y0, grids)`` replaces ``warp_chain_pallas``; its
+  plain version is ``warp_chain_plain`` below.
+
+Each wrapper checks device, dtype (float32 or bfloat16; grids float32),
+shape and contiguity and raises on anything its kernel does not take. For
+tensors on the CPU it then computes the plain version; for CUDA tensors it
+launches the kernel on the current stream, or raises. Outputs are
+allocated with ``torch.empty`` and nothing synchronises. Each wrapper
+counts its launches in ``<wrapper>.launches``, a plain integer that
+``reset_launch_counts`` sets back to 0.
+"""
+
+import ctypes
+
+import torch
+
+from floodseg_tpu_torch.ops import build
+from floodseg_tpu_torch.ops.grid_sample import (
+    blend_taps,
+    grid_sample,
+    tap_indices_weights,
+)
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VEC_BYTES = 16            # one 16-byte load per thread and tap
+_CHAIN_THREADS = 512       # csrc/warp.cu kChainThreads
+_CHAIN_ITEMS = (1, 2, 4, 8, 16)  # register-staged items per thread, compiled
+_SMEM_OPTIN = 232448       # dynamic shared memory an sm_90 block may opt into
+_CHAIN_PREF_BYTES = 64     # preferred channel bytes per point in a K2 tile
+
+
+def _library():
+    lib = build.load("warp")
+    if not getattr(lib, "_floodseg_bound", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.floodseg_grid_sample.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
+        lib.floodseg_grid_sample.restype = i
+        lib.floodseg_warp_chain.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.floodseg_warp_chain.restype = i
+        lib._floodseg_bound = True
+    return lib
+
+
+def _check_pair(x: torch.Tensor, grid: torch.Tensor, what: str) -> bool:
+    """Validate a (data, grids) pair; True when both lie on the CPU."""
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what}: data must be float32 or bfloat16, got {x.dtype}")
+    if grid.dtype != torch.float32:
+        raise TypeError(f"{what}: grids must be float32, got {grid.dtype}")
+    if not (x.is_contiguous() and grid.is_contiguous()):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if x.device.type == "cpu" and grid.device.type == "cpu":
+        return True
+    if x.device != grid.device or x.device.type != "cuda":
+        raise ValueError(f"{what}: data on {x.device} and grids on "
+                         f"{grid.device}; both must be on one CUDA device "
+                         "or both on the CPU")
+    return False
+
+
+def _vectorized(c: int, *tensors: torch.Tensor) -> bool:
+    itemsize = tensors[0].element_size()
+    return (c * itemsize) % _VEC_BYTES == 0 and all(
+        t.data_ptr() % _VEC_BYTES == 0 for t in tensors)
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def grid_sample_cuda(x: torch.Tensor, grid: torch.Tensor,
+                     align_corners: bool = False) -> torch.Tensor:
+    """K1: bilinear border-padded warp. x (B, H, W, C), grid (B, gh, gw, 2)
+    float32 -> (B, gh, gw, C) in x.dtype."""
+    if x.dim() != 4 or grid.dim() != 4 or grid.shape[-1] != 2:
+        raise ValueError(f"grid_sample_cuda: x must be (B, H, W, C) and grid "
+                         f"(B, gh, gw, 2); got {tuple(x.shape)} and {tuple(grid.shape)}")
+    b, h, w, c = x.shape
+    gb, gh, gw, _ = grid.shape
+    if gb != b:
+        raise ValueError(f"grid_sample_cuda: batch mismatch {b} vs {gb}")
+    if _check_pair(x, grid, "grid_sample_cuda"):
+        return grid_sample(x, grid, align_corners)
+    out = torch.empty((b, gh, gw, c), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    vec = _vectorized(c, x, out)
+    with torch.cuda.device(x.device):
+        err = _library().floodseg_grid_sample(
+            x.data_ptr(), grid.data_ptr(), out.data_ptr(), b, h, w, c, gh, gw,
+            int(bool(align_corners)), _DTYPE_CODES[x.dtype], int(vec),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "grid_sample_cuda")
+    grid_sample_cuda.launches += 1
+    return out
+
+
+grid_sample_cuda.launches = 0
+
+
+def _merged_weights(idx: torch.Tensor, wgt: torch.Tensor, dtype) -> torch.Tensor:
+    """The TPU chain kernel's one-hot row: weights of coinciding taps summed
+    into the first of them in float32 (in tap order), then rounded to the
+    state dtype. idx, wgt: (P, 4)."""
+    out = []
+    for k in range(4):
+        s = torch.zeros_like(wgt[:, 0])
+        first = torch.ones_like(idx[:, 0], dtype=torch.bool)
+        for j in range(4):
+            same = idx[:, j] == idx[:, k]
+            s = s + torch.where(same, wgt[:, j], 0.0)
+            if j < k:
+                first &= ~same
+        out.append(torch.where(first, s, 0.0))
+    return torch.stack(out, dim=-1).to(dtype).to(wgt.dtype)
+
+
+def warp_chain_plain(y0: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2: apply ``grids`` (T, 1, gh, gw, 2) one after the
+    other to ``y0`` (1, gh, gw, C) at grid resolution (align_corners=False)
+    and return every intermediate, (T + 1, gh, gw, C) = [y0, w(y0, g0), ...].
+    The carry is rounded to y0.dtype after every step."""
+    _, gh, gw, c = y0.shape
+    t = grids.shape[0]
+    p = gh * gw
+    cdt = torch.promote_types(y0.dtype, torch.float32)
+    state = y0.reshape(p, c)
+    steps = [state]
+    for i in range(t):
+        idx, wgt = tap_indices_weights(gh, gw, grids[i, 0].reshape(p, 2), False)
+        wq = _merged_weights(idx, wgt, y0.dtype).to(cdt)
+        state = blend_taps(state[idx].to(cdt), wq).to(y0.dtype)
+        steps.append(state)
+    return torch.stack(steps).reshape(t + 1, gh, gw, c)
+
+
+def _chain_tile(points: int, c: int, itemsize: int, vec_elems: int):
+    """Largest channel tile (a multiple of the vector width dividing C, at most
+    64 bytes a point) whose carry fits one block's shared memory and whose
+    items fit the register staging. Returns (c_tile, items per thread)."""
+    max_items = _CHAIN_THREADS * _CHAIN_ITEMS[-1]
+    for ct in range(max(vec_elems, _CHAIN_PREF_BYTES // itemsize), 0, -1):
+        if c % ct or ct % vec_elems:
+            continue
+        if points * ct * itemsize > _SMEM_OPTIN:
+            continue
+        n_items = points * (ct // vec_elems)
+        if n_items > max_items:
+            continue
+        per_thread = -(-n_items // _CHAIN_THREADS)
+        return ct, next(k for k in _CHAIN_ITEMS if k >= per_thread)
+    raise ValueError(
+        f"warp_chain_cuda: a grid of {points} points with C={c} does not fit "
+        f"one block (at most {max_items} point-vectors and {_SMEM_OPTIN} bytes "
+        "of shared memory)")
+
+
+def warp_chain_cuda(y0: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
+    """K2: the fused warp chain. y0 (1, gh, gw, C); grids (T, 1, gh, gw, 2)
+    float32 -> (T + 1, gh, gw, C). T = 0 returns y0 without a launch."""
+    if y0.dim() != 4 or y0.shape[0] != 1:
+        raise ValueError(f"warp_chain_cuda: y0 must be (1, gh, gw, C), got {tuple(y0.shape)}")
+    _, gh, gw, c = y0.shape
+    if grids.dim() != 5 or tuple(grids.shape[1:]) != (1, gh, gw, 2):
+        raise ValueError(f"warp_chain_cuda: grids must be (T, 1, {gh}, {gw}, 2), "
+                         f"got {tuple(grids.shape)}")
+    on_cpu = _check_pair(y0, grids, "warp_chain_cuda")
+    t = grids.shape[0]
+    if t == 0:
+        return y0.reshape(1, gh, gw, c)
+    if on_cpu:
+        return warp_chain_plain(y0, grids)
+    out = torch.empty((t + 1, gh, gw, c), dtype=y0.dtype, device=y0.device)
+    vec = _vectorized(c, y0, out)
+    itemsize = y0.element_size()
+    c_tile, items = _chain_tile(gh * gw, c, itemsize,
+                                _VEC_BYTES // itemsize if vec else 1)
+    with torch.cuda.device(y0.device):
+        err = _library().floodseg_warp_chain(
+            y0.data_ptr(), grids.data_ptr(), out.data_ptr(), t, gh, gw, c,
+            c_tile, items, _DTYPE_CODES[y0.dtype], int(vec),
+            torch.cuda.current_stream(y0.device).cuda_stream)
+    _raise_on(err, "warp_chain_cuda")
+    warp_chain_cuda.launches += 1
+    return out
+
+
+warp_chain_cuda.launches = 0
+
+
+def reset_launch_counts() -> None:
+    grid_sample_cuda.launches = 0
+    warp_chain_cuda.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"grid_sample_cuda": grid_sample_cuda.launches,
+            "warp_chain_cuda": warp_chain_cuda.launches}

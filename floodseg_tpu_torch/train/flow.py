@@ -1,0 +1,154 @@
+"""Flow-predict program builders (counterpart of the predict builders in
+floodseg_tpu/train/flow.py).
+
+``make_flow_predict_fn`` and ``make_cached_flow_predict_fn`` keep the JAX
+package's signatures and return values. Where the JAX builders jit a
+program that applies a flax module to a ``variables`` tree, these bind the
+``variables`` mapping (the model's ``state_dict()`` keys) to the module for
+the call with ``torch.func.functional_call``, the PyTorch counterpart of
+``apply``, and run eagerly under ``torch.inference_mode``.
+
+The returned functions take key frames as uint8 or float pixel values in
+NHWC and normalise them on the device with ``MEAN``/``STD``, as bench.py
+does around the JAX builders. They run on ``device`` (``None`` -> ``cuda``;
+core/device.py) and move the model there, channels-last on the card.
+Float policy: each call runs inside ``full_precision_f32`` (TF32 off for
+convolutions and matrix products, the caller's flags restored after), so a
+float32 model computes in float32 as the JAX package's does.
+"""
+
+from typing import Callable, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+from torch.func import functional_call
+
+from floodseg_tpu_torch.core.device import DeviceLike, full_precision_f32, resolve_device
+from floodseg_tpu_torch.data.transforms import MEAN, STD
+from floodseg_tpu_torch.video.flow_model import FlowInterpolator
+
+_INT8_SLICE = ("the int8 {} belongs to the port's int8 slice (ROADMAP queue 1 "
+               "item 6, with kernel K3); use the full-precision {}")
+
+
+def _predict_encode(model: nn.Module, int8_encode: bool) -> Callable:
+    """Encode closure: the model's ``encode`` (full precision)."""
+    if int8_encode:
+        raise NotImplementedError(_INT8_SLICE.format("encoder trunk", "encoder"))
+    return lambda x: model.encode(x)[0]
+
+
+def _predict_decode(model: nn.Module, int8_decode: bool) -> Callable:
+    """Decode closure: the model's ``decode`` (full precision)."""
+    if int8_decode:
+        raise NotImplementedError(_INT8_SLICE.format("decoder", "decoder"))
+    return model.decode
+
+
+class _Bound(nn.Module):
+    """Holds ``model`` as a submodule so that ``functional_call`` can bind a
+    variables mapping to it for the duration of one ``fn`` call."""
+
+    def __init__(self, model: nn.Module, fn: Callable):
+        super().__init__()
+        self.model = model
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def _prepare(model: nn.Module, device: torch.device) -> nn.Module:
+    model.to(device).eval()
+    if device.type == "cuda":
+        model.to(memory_format=torch.channels_last)
+    return model
+
+
+def _builder(model, n, feature_based, no_warp, out_size, default_grid,
+             int8_decode, int8_encode, device, cached_key):
+    dev = resolve_device(device)
+    interp = FlowInterpolator(
+        encode=_predict_encode(model, int8_encode),
+        decode=_predict_decode(model, int8_decode),
+        feature_based=feature_based, no_warp=no_warp)
+    model = _prepare(model, dev)
+    dg = None if default_grid is None else torch.as_tensor(
+        np.asarray(default_grid, np.float32), device=dev).contiguous()
+    mean = torch.tensor(MEAN, dtype=torch.float32, device=dev)
+    std = torch.tensor(STD, dtype=torch.float32, device=dev)
+
+    def norm(x):
+        return (torch.as_tensor(x, device=dev).to(torch.float32) - mean) / std
+
+    def grids(g):
+        return torch.as_tensor(g, dtype=torch.float32, device=dev).contiguous()
+
+    def run(first, frame_next, mvs_left, mvs_right, return_next_enc):
+        """first: a frame (full) or the cached previous encoding."""
+        frame_prev = None if cached_key else norm(first)
+        f_prev_enc = torch.as_tensor(first, device=dev) if cached_key else None
+        return interp.predict_clip(
+            frame_prev, norm(frame_next), grids(mvs_left), grids(mvs_right), n,
+            default_grid=dg, out_size=out_size, f_prev_enc=f_prev_enc,
+            return_next_enc=return_next_enc, argmax_epilogue=True)
+
+    bound = _Bound(model, run)
+
+    def call(variables: Mapping[str, torch.Tensor], *args):
+        with torch.inference_mode(), full_precision_f32():
+            state = {f"model.{k}": v for k, v in variables.items()}
+            return functional_call(bound, state, args)
+
+    return call
+
+
+def make_flow_predict_fn(model: nn.Module, n: int, feature_based: bool = True,
+                         no_warp: bool = False,
+                         out_size: Tuple[int, int] = (1072, 1920),
+                         default_grid: Optional[np.ndarray] = None,
+                         int8_decode: bool = False,
+                         int8_encode: bool = False,
+                         device: DeviceLike = None) -> Callable:
+    """One program for a whole key-frame window.
+
+    Returns fn(variables, frame_prev, frame_next, mvs_left, mvs_right) ->
+    (n, out_h, out_w) int32 class maps: interpolation, upsample to
+    ``out_size`` (align_corners=True) and argmax, all on the device.
+    """
+    call = _builder(model, n, feature_based, no_warp, out_size, default_grid,
+                    int8_decode, int8_encode, device, cached_key=False)
+    return lambda variables, fp, fn, ml, mr: call(variables, fp, fn, ml, mr, False)
+
+
+def make_cached_flow_predict_fn(model: nn.Module, n: int,
+                                feature_based: bool = True,
+                                no_warp: bool = False,
+                                out_size: Tuple[int, int] = (1072, 1920),
+                                default_grid: Optional[np.ndarray] = None,
+                                int8_decode: bool = False,
+                                int8_encode: bool = False,
+                                fused_argmax: bool = True,
+                                device: DeviceLike = None):
+    """(full_fn, cached_fn) for sequential video with key-feature reuse:
+    consecutive windows share a key frame, so the previous window's encoded
+    next key replaces one of the two encoder passes (eval BN makes the
+    outputs equal).
+
+    full_fn(variables, fp, fn, ml, mr)           -> (maps, f_next_enc)
+    cached_fn(variables, f_prev_enc, fn, ml, mr) -> (maps, f_next_enc)
+
+    ``fused_argmax`` is kept for the JAX signature; the port's epilogue is
+    always ``resize_argmax``, which gives the same maps as resize-then-argmax.
+    """
+    if not fused_argmax:
+        raise NotImplementedError(
+            "the unfused resize-then-argmax epilogue gives the same maps as "
+            "resize_argmax and is not ported; use fused_argmax=True")
+    args = (model, n, feature_based, no_warp, out_size, default_grid,
+            int8_decode, int8_encode, device)
+    full = _builder(*args, cached_key=False)
+    cached = _builder(*args, cached_key=True)
+    return (lambda variables, fp, fn, ml, mr: full(variables, fp, fn, ml, mr, True),
+            lambda variables, enc, fn, ml, mr: cached(variables, enc, fn, ml, mr, True))

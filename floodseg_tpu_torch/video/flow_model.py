@@ -1,0 +1,150 @@
+"""Keyframe-warp interpolation, inference (counterpart of
+floodseg_tpu/video/flow_model.py).
+
+Encode the two key frames only, warp the feature (or logit) maps along the
+per-frame block-MV grids, blend the forward and backward warps linearly,
+and decode. The warps go through the hand-written kernels: the first warp
+of each chain changes shape (feature resolution -> grid resolution) and is
+K1 (``grid_sample_cuda``); the n-2 further warps run at grid resolution in
+one K2 launch (``warp_chain_cuda``). The key map is resampled once through
+the identity ``default_grid`` with K1 (align_corners=True). On CPU tensors
+the wrappers compute their plain versions.
+
+The contract is the JAX package's outputs, not its TPU schedule. The int8
+decoder's absmax hints belong to the int8 slice and are not here.
+"""
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from floodseg_tpu_torch.ops.resize import resize_argmax, resize_bilinear
+from floodseg_tpu_torch.ops.warp_kernels import grid_sample_cuda, warp_chain_cuda
+
+
+def warp(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """One block-MV warp (bilinear, border, align_corners=False)."""
+    return grid_sample_cuda(x, grid, align_corners=False)
+
+
+def _hw(x: torch.Tensor):
+    return tuple(x.shape[1:3])
+
+
+@dataclass(frozen=True)
+class FlowInterpolator:
+    """Wraps an encoder/decoder pair with keyframe-warp interpolation.
+
+    encode: NHWC images -> NHWC feature map; decode: NHWC features -> NHWC
+    logits. feature_based: warp features then decode (True), or decode the
+    key frames then warp their logits (False). no_warp: pure linear blend of
+    the key maps.
+    """
+
+    encode: Callable[[torch.Tensor], torch.Tensor]
+    decode: Callable[[torch.Tensor], torch.Tensor]
+    feature_based: bool = True
+    no_warp: bool = False
+
+    @staticmethod
+    def _predict_chain(f: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
+        """f (1, H, W, C), grids (T, 1, gh, gw, 2) -> (T, gh, gw, C): step k
+        is f warped through grids[0..k]."""
+        return warp_chain_cuda(warp(f, grids[0]), grids[1:])
+
+    def predict_clip(
+        self,
+        frame_prev: Optional[torch.Tensor],
+        frame_next: Optional[torch.Tensor],
+        mvs_left: Optional[torch.Tensor],
+        mvs_right: Optional[torch.Tensor],
+        n: int,
+        default_grid: Optional[torch.Tensor] = None,
+        out_size: Optional[tuple] = None,
+        f_prev_enc: Optional[torch.Tensor] = None,
+        return_next_enc: bool = False,
+        argmax_epilogue: bool = False,
+    ):
+        """Segment all ``n`` frames of a keyframe window.
+
+        frame_prev/frame_next: (1, H, W, 3) key frames (frame_next None for
+        the tail window). mvs_left: (n-1, 1, gh, gw, 2) forward grids;
+        mvs_right: the matching inv_grids, reversed. Returns (n, H', W',
+        classes) logits for frames [prev, ..., prev+n-1], or int32 class
+        maps (n, H', W') with ``argmax_epilogue``.
+
+        ``f_prev_enc`` replaces the encoding of frame_prev (the previous
+        window's next key); ``return_next_enc`` also returns the raw encoding
+        of frame_next, before the identity-grid resample.
+        """
+        ref_frame = frame_prev if frame_prev is not None else frame_next
+        h, w = _hw(ref_frame)
+        out_size = tuple(out_size or (h, w))
+        single = frame_next is None
+
+        enc, dec = self.encode, self.decode
+        if not self.feature_based:
+            # segmentation mode decodes the key frames first and warps the
+            # full-resolution logits; the batched decode is then the identity
+            def enc(x):
+                o = self.decode(self.encode(x))
+                if _hw(o) != (h, w):
+                    o = resize_bilinear(o, (h, w), align_corners=True)
+                return o
+
+            def dec(x):
+                return x
+
+        if single:
+            f = f_prev_enc if f_prev_enc is not None else enc(frame_prev)
+            f_next = None
+        elif f_prev_enc is not None:
+            f = f_prev_enc
+            f_next = enc(frame_next)
+        else:
+            # both key frames in one batched encoder call (eval BN is
+            # batch-invariant)
+            f_both = enc(torch.cat([frame_prev, frame_next], dim=0))
+            f, f_next = f_both[:1], f_both[1:]
+        f_next_raw = f_next
+        fh, fw = _hw(f)
+
+        if not single and not self.no_warp:
+            fwd = self._predict_chain(f.contiguous(), mvs_left)
+            bwd = self._predict_chain(f_next.contiguous(), mvs_right)
+
+        # key-frame map through the identity grid (feature_based only)
+        if self.feature_based and not self.no_warp and default_grid is not None:
+            fk = grid_sample_cuda(f.contiguous(), default_grid[None],
+                                  align_corners=True)
+            if _hw(fk) != (fh, fw):
+                fk = resize_bilinear(fk, (fh, fw), align_corners=True)
+            f = fk
+
+        inter = None
+        if not single:
+            p = torch.arange(1, n, dtype=torch.float32,
+                             device=f.device)[:, None, None, None]
+            wf = ((n - p) / n).to(f.dtype)
+            wb = (p / n).to(f.dtype)
+            if self.no_warp:
+                inter = wf * f + wb * f_next
+            else:
+                # step k pairs fwd[k] with bwd[n-2-k]; the blend and the
+                # bilinear resize are both linear, so only the fused maps
+                # are resized back to feature resolution
+                inter = wf * fwd + wb * torch.flip(bwd, dims=(0,))
+                if _hw(inter) != (fh, fw):
+                    inter = resize_bilinear(inter, (fh, fw), align_corners=True)
+
+        # the key map and the interpolated maps decode as two calls, and only
+        # the logits are concatenated (eval BN makes this equal to one call)
+        out = dec(f) if single else torch.cat([dec(f), dec(inter)], dim=0)
+        if argmax_epilogue:
+            out = resize_argmax(out, out_size, align_corners=True)
+        elif _hw(out) != out_size:
+            out = resize_bilinear(out, out_size, align_corners=True)
+        if return_next_enc:
+            return out, f_next_raw
+        return out

@@ -1,0 +1,142 @@
+"""The warp kernels' wrappers (floodseg_tpu_torch/ops/warp_kernels.py).
+
+On the CPU: the wrappers check what their kernels take and then compute
+the plain versions. On the card (``cuda`` marker; skipped without one):
+K1 and K2 against their plain versions. This file imports no JAX, so the
+card-only tests run on a machine without it:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q -m cuda
+
+(the repository's conftest files set JAX up; ``--noconftest`` skips them).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from floodseg_tpu_torch.ops import (
+    grid_sample,
+    grid_sample_cuda,
+    launch_counts,
+    reset_launch_counts,
+    warp_chain_cuda,
+    warp_chain_plain,
+)
+from floodseg_tpu_torch.ops.warp_kernels import _chain_tile
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+# the kernels and the plain versions round the same float32 arithmetic in
+# the same order, so they agree to the bit; allow one bf16 ulp all the same
+BF16_TOL = dict(rtol=2 ** -8, atol=1e-6)
+
+
+def _inputs(seed, dtype, device="cpu"):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((2, 13, 17, 72)).astype(np.float32))
+    grid = torch.from_numpy(rng.uniform(-1.2, 1.2, (2, 5, 6, 2)).astype(np.float32))
+    grids = torch.from_numpy(rng.uniform(-1.1, 1.1, (6, 1, 5, 6, 2)).astype(np.float32))
+    return x.to(device, dtype), grid.to(device), grids.to(device)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the warp kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def test_wrappers_route_cpu_tensors_to_plain():
+    reset_launch_counts()
+    x, grid, grids = _inputs(7, torch.float32)
+    for align in (False, True):
+        np.testing.assert_array_equal(grid_sample_cuda(x, grid, align).numpy(),
+                                      grid_sample(x, grid, align).numpy())
+    y0 = x[:1, :5, :6].to(torch.bfloat16).contiguous()
+    np.testing.assert_array_equal(warp_chain_cuda(y0, grids).float().numpy(),
+                                  warp_chain_plain(y0, grids).float().numpy())
+    # the plain route is not a kernel launch
+    assert launch_counts() == {"grid_sample_cuda": 0, "warp_chain_cuda": 0}
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x, grid, grids = _inputs(8, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        grid_sample_cuda(x.transpose(1, 2), grid.transpose(1, 2))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        grid_sample_cuda(x.double(), grid)
+    with pytest.raises(TypeError, match="grids must be float32"):
+        grid_sample_cuda(x, grid.double())
+    with pytest.raises(ValueError, match="batch mismatch"):
+        grid_sample_cuda(x, grid[:1].contiguous())
+    y0 = x[:1, :5, :6].contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_chain_cuda(y0, grids.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        warp_chain_cuda(y0.half(), grids)
+    with pytest.raises(ValueError, match="grids must be"):
+        warp_chain_cuda(y0, grids[:, :, :4])
+    with pytest.raises(ValueError, match="y0 must be"):
+        warp_chain_cuda(x, grids)
+
+
+@pytest.mark.parametrize("points,c,itemsize,vec,expect", [
+    (32 * 32, 4096, 2, 8, (32, 8)),     # the flow-predict chain: 128 blocks
+    (32 * 32, 4096, 4, 4, (16, 8)),
+    (67 * 120, 256, 2, 8, (8, 16)),     # the reference's 1072x1920 grid
+    (67 * 120, 256, 4, 4, (4, 16)),
+    (4 * 4, 5, 4, 1, (5, 1)),           # segmentation mode: 5 logit channels
+])
+def test_chain_tile_fits_one_block(points, c, itemsize, vec, expect):
+    """K2's channel tile: at most 64 bytes a point, a multiple of the vector
+    width dividing C, small enough for 227 KB of shared memory and the
+    register staging."""
+    ct, items = _chain_tile(points, c, itemsize, vec)
+    assert (ct, items) == expect
+    assert points * ct * itemsize <= 232448
+
+
+def test_chain_tile_raises_on_a_grid_too_large():
+    with pytest.raises(ValueError, match="does not fit one block"):
+        _chain_tile(135 * 240, 4096, 2, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_on_card(dtype):
+    dev = _card()
+    x, grid, grids = _inputs(9, dtype, dev)
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    reset_launch_counts()
+    for align in (False, True):
+        np.testing.assert_allclose(grid_sample_cuda(x, grid, align).float().cpu(),
+                                   grid_sample(x, grid, align).float().cpu(), **tol)
+    y0 = x[:1, :5, :6].contiguous()
+    np.testing.assert_allclose(warp_chain_cuda(y0, grids).float().cpu(),
+                               warp_chain_plain(y0, grids).float().cpu(), **tol)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"grid_sample_cuda": 2, "warp_chain_cuda": 1}
+
+
+@pytest.mark.cuda
+def test_kernels_take_unaligned_channel_counts_on_card():
+    """C = 5 (segmentation mode warps logits): no 16-byte vectors, one
+    element at a time."""
+    dev = _card()
+    x, grid, grids = _inputs(10, torch.float32, dev)
+    x5 = x[..., :5].contiguous()
+    np.testing.assert_allclose(grid_sample_cuda(x5, grid, True).cpu(),
+                               grid_sample(x5, grid, True).cpu(), **F32_TOL)
+    y0 = x5[:1, :5, :6].contiguous()
+    np.testing.assert_allclose(warp_chain_cuda(y0, grids).cpu(),
+                               warp_chain_plain(y0, grids).cpu(), **F32_TOL)
+
+
+@pytest.mark.cuda
+def test_card_wrappers_raise_and_never_reroute():
+    dev = _card()
+    x, grid, grids = _inputs(11, torch.float32, dev)
+    with pytest.raises(ValueError, match="both must be on one CUDA device"):
+        grid_sample_cuda(x, grid.cpu())
+    big = torch.zeros((1, 135, 240, 4096), dtype=torch.bfloat16, device=dev)
+    big_grids = torch.zeros((2, 1, 135, 240, 2), device=dev)
+    with pytest.raises(ValueError, match="does not fit one block"):
+        warp_chain_cuda(big, big_grids)
