@@ -7,25 +7,40 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions. No CUDA device -> exit 1 before anything else.
-2. Build the hand-written kernels from csrc/ with nvcc (sm_90a).
+2. Build the hand-written kernels from csrc/ with nvcc (sm_90a), one nvcc
+   for each source, all at once: warp.cu (K1, K2) and resize.cu (K3).
 3. Each kernel against its plain PyTorch version, on the card, at the
-   shapes the flow-predict path gives it, on random grids and on the main
-   path's own grids; then its time on the main path's inputs (CUDA events,
+   shapes the flow-predict paths give it: K1 and K2 on random grids and on
+   the main path's own grids; K3 on the interpolated stack the int8 main
+   path feeds it in its first window (24x32x32x4096 -> 65x65), on random
+   data in both align modes, at an odd shape whose C is not a 16-channel
+   vector, and with values far past the clip range. K1 and K2 agree to
+   the bit (tolerance float32 1e-5, bf16 1 ulp); K3's int8 outputs must be
+   equal. Then each kernel's time on the main path's inputs (CUDA events,
    median, L2 flushed and the host's enqueue hidden behind a sleep kernel
-   before each launch) beside the plain version's, the
-   least time the card could take (bound), and one PyTorch library call
-   computing the same function (F.grid_sample, a yardstick only).
+   before each launch) beside the plain version's, the least time the
+   card could take (bound), and a PyTorch library yardstick (F.grid_sample
+   for K1 and K2; for K3, F.interpolate then the torch quantize, a
+   two-call composition, since no single call computes K3).
 4. The flow-predict slice in float32 (TF32 off) on the card against the
    same slice on the CPU: PSPNet-50 at 129 px key frames, n = 5.
+4b. The int8 decoder on the card against the CPU: the same int8 input and
+   int8 weights give equal int32 accumulators; the bf16 logits of
+   int8_seghead_decode agree within 2 bf16 ulps of their largest magnitude.
 5. The main path: PSPNet-50 in bf16 at full width, 513 px key frames,
    n = 25, 32x32 block grids, through make_cached_flow_predict_fn, with
    bench.py's protocol (8 timed windows, median of 5 passes). The launch
    counters are set to 0 before and read after: K1 must have launched 3
-   times and K2 twice per window.
+   times and K2 twice per window, K3 never.
    Then torch.profiler over two more cached windows: the device's busy
    time and idle share per window, kernel time by name (the table and the
    trace go to build/profile/).
-6. A JSON line {"kernels": [...]}, then the nvidia-smi line, then the last
+6. The int8 main path: the same model, windows and protocol with
+   int8_decode=True. K1 3, K2 2 and K3 1 launches per window; frames/s and
+   peak memory; the profiler over two cached windows; the device-time
+   split of the int8 decode's pieces (im2col copy and torch._int_mm, timed
+   with CUDA events at the path's shapes).
+7. A JSON line {"kernels": [...]}, then the nvidia-smi line, then the last
    line {"ok": true, "device": {...}}.
 """
 
@@ -43,17 +58,19 @@ import torch.nn.functional as F
 from floodseg_tpu_torch.core import full_precision_f32
 from floodseg_tpu_torch.data import MEAN, STD, Resize, predict_windows, synthetic_clip
 from floodseg_tpu_torch.models import build_model, init_from_generator_
-from floodseg_tpu_torch.ops import build
+from floodseg_tpu_torch.ops import build, launch_counts, quant, reset_launch_counts
 from floodseg_tpu_torch.ops.grid_sample import grid_sample, tap_indices_weights
+from floodseg_tpu_torch.ops.resize_kernels import (
+    resize_quantize_int8_cuda,
+    resize_quantize_int8_plain,
+)
 from floodseg_tpu_torch.ops.warp_kernels import (
     grid_sample_cuda,
-    launch_counts,
-    reset_launch_counts,
     warp_chain_cuda,
     warp_chain_plain,
 )
 from floodseg_tpu_torch.train import make_cached_flow_predict_fn
-from floodseg_tpu_torch.video import FlowInterpolator, default_grid
+from floodseg_tpu_torch.video import FlowInterpolator, default_grid, flow_model
 
 # the flow-predict workload of bench.py
 FRAME_DELTA = 25
@@ -62,9 +79,11 @@ CLIPS_TIMED = 8
 PASSES = 5
 CLASSES = 5
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor) rate
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor) and
+# dense int8 tensor-core rates
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 F32_TOL = 1e-5
 
 
@@ -275,6 +294,152 @@ def time_kernels(device) -> dict:
     return res
 
 
+# -------------------------------------------------------------------- K3
+
+PAD1 = ((1, 1), (1, 1))
+FEAT_HW = (65, 65)
+
+
+def k3_compare(name, got, ref) -> float:
+    """K3 against its plain version: the int8 outputs must be equal."""
+    diff = (got.int() - ref.int()).abs()
+    err = float(diff.max())
+    share = float((diff != 0).float().mean())
+    log(f"  {name}: max_abs_err {err:.0f} on {share:.2e} of lanes (tol 0) -> "
+        f"{'ok' if err == 0 else 'FAIL'}")
+    if err != 0:
+        raise AssertionError(f"{name} disagrees with its plain version by {err}")
+    return err
+
+
+def check_k3(stack, scale, seed=0) -> float:
+    """Phase 3a for K3, float32 and bf16: the main path's first-window stack
+    at its own scale, random data in both align modes at the same shape and
+    at an odd shape with C = 37 (one channel a thread), every case again at
+    a fiftieth of its scale (most lanes saturate)."""
+    g = torch.Generator().manual_seed(seed)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        cases = [("main-path stack", stack.to(dtype), scale, FEAT_HW, True)]
+        for shape, hw in ((tuple(stack.shape), FEAT_HW), ((3, 6, 5, 37), (11, 9))):
+            x = (torch.randn(shape, generator=g) * 3).to(stack.device, dtype)
+            s = quant.scale_from_absmax(x.float().abs().amax())
+            cases += [("random", x, s, hw, align) for align in (True, False)]
+        for what, x, s, hw, align in cases:
+            for sc, sat in ((s, ""), (s / 50, ", saturating")):
+                err = max(err, k3_compare(
+                    f"K3 {tag} {what} x{tuple(x.shape)} -> {hw} align={align}{sat}",
+                    resize_quantize_int8_cuda(x, sc, hw, align),
+                    resize_quantize_int8_plain(x, sc, hw, align)))
+    return err
+
+
+def time_k3(stack, scale) -> dict:
+    """Phase 3b for K3 on the main path's first-window stack."""
+    flush = L2Flush(stack.device)
+    cpm = sleep_cycles_per_ms()
+    out = resize_quantize_int8_cuda(stack, scale, FEAT_HW, True)
+    b, _, w, c = stack.shape
+    # per output element: the W blend (2 multiplies, 1 add), the divide, the
+    # round and the clip; per H-interpolated value: 2 multiplies and 1 add
+    flops = 6 * out.numel() + 3 * b * FEAT_HW[0] * w * c
+    bd = bound(nbytes(stack, scale, out), flops)
+    xn = stack.permute(0, 3, 1, 2)  # NCHW view of the NHWC (channels-last) stack
+
+    def library():  # two calls: PyTorch has no fused resize + quantize
+        y = F.interpolate(xn, size=FEAT_HW, mode="bilinear", align_corners=True)
+        return quant.quantize_with_scale(y.permute(0, 2, 3, 1), scale)
+
+    r = {"ms": time_ms(lambda: resize_quantize_int8_cuda(stack, scale, FEAT_HW, True),
+                       flush, cpm),
+         "plain_ms": time_ms(lambda: resize_quantize_int8_plain(stack, scale, FEAT_HW, True),
+                             flush, cpm, reps=5),
+         "library_ms": time_ms(library, flush, cpm, reps=10),
+         "bound_ms": bd[0], "bound_by": bd[1]}
+    log(f"  resize_quantize_int8_cuda x{tuple(stack.shape)} {stack.dtype} -> int8 "
+        f"{tuple(out.shape)}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"F.interpolate + quantize {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}) -> {r['bound_ms'] / r['ms']:.1%} of bound")
+    return r
+
+
+def capture_k3_input(model, wins, dev, n=FRAME_DELTA, size=SIZE, frame_hw=(512, 512)):
+    """The interpolated stack and scale that the int8 main path gives K3 in
+    its first window, recorded on the way through the full program."""
+    full, _ = make_cached_flow_predict_fn(
+        model, n=n, out_size=(size, size), default_grid=default_grid(*frame_hw),
+        int8_decode=True, device=dev)
+    seen = {}
+    kernel = flow_model.resize_quantize_int8_cuda
+
+    def recording(x, scale, out_hw, align_corners=True):
+        seen.update(x=x.clone(), scale=scale.clone(), out_hw=tuple(out_hw),
+                    align=align_corners)
+        return kernel(x, scale, out_hw, align_corners)
+
+    flow_model.resize_quantize_int8_cuda = recording
+    try:
+        w = wins[0]
+        full(model.state_dict(), w["frame_prev"], w["frame_next"], w["mvs_left"],
+             w["mvs_right"])
+    finally:
+        flow_model.resize_quantize_int8_cuda = kernel
+    sync(torch.device(dev))
+    grid_hw = tuple(wins[0]["mvs_left"].shape[2:4])
+    feat = (size - 1) // 8 + 1
+    if (seen.get("out_hw") != (feat, feat) or seen["align"] is not True
+            or tuple(seen["x"].shape) != (n - 1,) + grid_hw + (4096,)):
+        raise AssertionError(f"K3's main-path input is not as expected: "
+                             f"{ {k: getattr(v, 'shape', v) for k, v in seen.items()} }")
+    log(f"  K3's input in the first int8 window: {tuple(seen['x'].shape)} "
+        f"{seen['x'].dtype}, scale {float(seen['scale']):.6e}")
+    return seen["x"], seen["scale"]
+
+
+def check_int8_decode_card_vs_cpu(model, shape=(2, 33, 33, 4096), seed=2) -> None:
+    """Phase 4b: the same int8 input and int8 weights give equal int32
+    accumulators on the card and the CPU; int8_seghead_decode's bf16 logits
+    (each device folding and quantizing the head itself) agree within 2
+    bf16 ulps of their largest magnitude: the 1x1 conv sums in another order
+    before its bf16 rounding, and a one-ulp rsqrt difference in the fold can
+    move an int8 weight by one step."""
+    g = torch.Generator().manual_seed(seed)
+    x_q = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+    absmax = torch.tensor(4.0)
+    head = model.cls.state_dict()
+    head_cpu = {k: v.cpu() for k, v in head.items()}
+
+    def qweights(h):
+        w_f, _ = quant.fold_bn(h["0.weight"], h["1.weight"], h["1.bias"],
+                               h["1.running_mean"], h["1.running_var"])
+        return quant.quantize_weight_per_channel(w_f)[0]
+
+    w_q = qweights(head_cpu)
+    t0 = time.perf_counter()
+    acc_cpu = quant.conv_int8(x_q, w_q, PAD1)
+    t1 = time.perf_counter()
+    acc_card = quant.conv_int8(x_q.cuda(), w_q.cuda(), PAD1).cpu()
+    same = torch.equal(acc_cpu, acc_card)
+    log(f"  conv_int8 {tuple(x_q.shape)} x {tuple(w_q.shape)} -> int32 "
+        f"{tuple(acc_cpu.shape)}: card {'equals' if same else 'DIFFERS FROM'} CPU "
+        f"(CPU {t1 - t0:.3f} s)")
+    if not same:
+        raise AssertionError("int32 accumulators differ between card and CPU")
+    flips = int((qweights(head).cpu() != w_q).sum())
+    ref = quant.int8_seghead_decode(head_cpu, x_q, torch.bfloat16, act_absmax=absmax)
+    got = quant.int8_seghead_decode(head, x_q.cuda(), torch.bfloat16,
+                                    act_absmax=absmax.cuda()).cpu()
+    scale = float(ref.float().abs().max())
+    tol = scale * 2.0 ** -6
+    err = float((got.float() - ref.float()).abs().max())
+    log(f"  int8_seghead_decode bf16 logits {tuple(ref.shape)}: max_abs_err {err:.3e}, "
+        f"tol {tol:.3e} (2 bf16 ulps at max|logit| {scale:.3e}); {flips} of "
+        f"{w_q.numel()} int8 weights differ between the devices' folds")
+    if not err <= tol:
+        raise AssertionError(f"int8 decode logits differ between card and CPU: {err}")
+
+
 # ------------------------------------------------------------- the slice
 
 def random_pspnet(dtype, seed=0):
@@ -303,12 +468,21 @@ def clip_windows(n, frame_hw, num_windows, size, device, seed=0):
     return wins
 
 
-def window_logits(model, w, n, dg, size, device):
+def window_logits(model, w, n, dg, size, device, int8=False):
     """Logits (n, size, size, classes) of one window through the
-    interpolator, frames normalised as the predict builders do."""
+    interpolator, frames normalised as the predict builders do; ``int8``
+    decodes with the int8 SegHead at the key encodings' absmax hint."""
     mean = torch.tensor(MEAN, device=device)
     std = torch.tensor(STD, device=device)
-    interp = FlowInterpolator(lambda x: model.encode(x)[0], model.decode)
+    dtype = model.cls[-1].compute_dtype
+
+    def int8_decode(f, act_absmax=None):
+        return quant.int8_seghead_decode(model.cls.state_dict(), f, dtype,
+                                         act_absmax=act_absmax)
+
+    interp = FlowInterpolator(lambda x: model.encode(x)[0],
+                              int8_decode if int8 else model.decode,
+                              decode_wants_absmax=int8)
     with torch.inference_mode():
         return interp.predict_clip(
             (w["frame_prev"].float() - mean) / std,
@@ -317,18 +491,19 @@ def window_logits(model, w, n, dg, size, device):
             default_grid=torch.as_tensor(dg, device=device), out_size=(size, size))
 
 
-def slice_outputs(model, device, n, size, frame_hw, wins):
+def slice_outputs(model, device, n, size, frame_hw, wins, int8):
     """Logits of window 0 through the interpolator, and the int32 maps and
     next encodings of the full program (window 0) and the cached program
     (window 1) through make_cached_flow_predict_fn."""
     dg = default_grid(*frame_hw)
     full, cached = make_cached_flow_predict_fn(
-        model, n=n, out_size=(size, size), default_grid=dg, device=device)
+        model, n=n, out_size=(size, size), default_grid=dg, int8_decode=int8,
+        device=device)
     variables = model.state_dict()
     w0, w1 = (  # the builders take raw frames; the interpolator normalised ones
         {k: (v.to(device) if torch.is_tensor(v) else v) for k, v in w.items()}
         for w in wins[:2])
-    logits = window_logits(model, w0, n, dg, size, device)
+    logits = window_logits(model, w0, n, dg, size, device, int8)
     maps0, enc0 = full(variables, w0["frame_prev"], w0["frame_next"],
                        w0["mvs_left"], w0["mvs_right"])
     maps1, enc1 = cached(variables, enc0, w1["frame_next"], w1["mvs_left"],
@@ -337,28 +512,32 @@ def slice_outputs(model, device, n, size, frame_hw, wins):
                                         maps1=maps1, enc1=enc1).items()}
 
 
-def check_slice_card_vs_cpu(n=5, size=129, seed=1) -> None:
-    """Phase 4: float32 (TF32 off), the same weights and inputs on both."""
+def check_slice_card_vs_cpu(n=5, size=129, seed=1, int8=False) -> None:
+    """Phase 4: float32 (TF32 off), the same weights and inputs on both.
+    Full-precision decoder: float32 on both, summed in different orders
+    through ~55 layers, the logits agree to 1e-4 of their scale. int8
+    decoder: a value that the two devices' float32 encoders put on either
+    side of a rounding boundary is quantized one step apart, which moves
+    nearby logits by about 1e-3 of their scale; the tolerance is 2e-3."""
     frame_hw = (size - 1, size - 1)
     cpu_model = random_pspnet(torch.float32, seed)
     gpu_model = copy.deepcopy(cpu_model)
     wins = clip_windows(n, frame_hw, 2, size, "cpu", seed)
     with full_precision_f32():
-        log(f"  cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-            f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+        log(f"  {'int8' if int8 else 'float32'} decoder; cudnn.allow_tf32="
+            f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32="
+            f"{torch.backends.cuda.matmul.allow_tf32}")
         t0 = time.perf_counter()
-        ref = slice_outputs(cpu_model, torch.device("cpu"), n, size, frame_hw, wins)
+        ref = slice_outputs(cpu_model, torch.device("cpu"), n, size, frame_hw, wins, int8)
         t1 = time.perf_counter()
-        got = slice_outputs(gpu_model, torch.device("cuda"), n, size, frame_hw, wins)
+        got = slice_outputs(gpu_model, torch.device("cuda"), n, size, frame_hw, wins, int8)
         torch.cuda.synchronize()
     log(f"  cpu {t1 - t0:.1f} s, card {time.perf_counter() - t1:.1f} s")
-    # float32 on both, summed in different orders through ~55 layers: the
-    # logits agree to 1e-4 of their scale
     scale = float(ref["logits"].abs().max())
-    tol = 1e-4 * scale
+    tol = (2e-3 if int8 else 1e-4) * scale
     err = float((got["logits"] - ref["logits"]).abs().max())
     log(f"  logits {tuple(ref['logits'].shape)}: max_abs_err {err:.3e}, "
-        f"tol {tol:.3e} (1e-4 x max|logit| {scale:.3e})")
+        f"tol {tol:.3e} ({2e-3 if int8 else 1e-4:g} x max|logit| {scale:.3e})")
     if not err <= tol:
         raise AssertionError(f"card and CPU logits disagree: {err} > {tol}")
     for k in ("enc0", "enc1"):
@@ -388,20 +567,14 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def run_main_path(dev=torch.device("cuda"), n=FRAME_DELTA, size=SIZE,
-                  frame_hw=(512, 512)) -> dict:
-    """Phase 5: PSPNet-50 bf16, 513 px, n = 25, bench.py's protocol."""
-    t0 = time.perf_counter()
-    model = random_pspnet(torch.bfloat16, seed=0)
-    wins = clip_windows(n, frame_hw, CLIPS_TIMED + 2, size, dev)
+def run_main_path(model, wins, int8, dev=torch.device("cuda"), n=FRAME_DELTA,
+                  size=SIZE, frame_hw=(512, 512)) -> dict:
+    """Phases 5 and 6: PSPNet-50 bf16, 513 px, n = 25, bench.py's protocol,
+    with the full-precision or the int8 decoder."""
     full, cached = make_cached_flow_predict_fn(
         model, n=n, out_size=(size, size), default_grid=default_grid(*frame_hw),
-        device=dev)
+        int8_decode=int8, device=dev)
     variables = model.state_dict()
-    sync(dev)
-    log(f"  set-up {time.perf_counter() - t0:.1f} s: {len(wins)} windows of "
-        f"{n} frames, key frames {tuple(wins[0]['frame_prev'].shape)}, "
-        f"grids {tuple(wins[0]['mvs_left'].shape)}")
     state = {"feat": None, "next_id": None, "windows": 0}
 
     def run(w, first=False):
@@ -416,6 +589,7 @@ def run_main_path(dev=torch.device("cuda"), n=FRAME_DELTA, size=SIZE,
         return out
 
     timed = wins[1:1 + CLIPS_TIMED]
+    sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
@@ -436,10 +610,13 @@ def run_main_path(dev=torch.device("cuda"), n=FRAME_DELTA, size=SIZE,
     counts = launch_counts()
     windows = state["windows"]
     log(f"  launches over {windows} windows: {counts}")
-    if counts != {"grid_sample_cuda": 3 * windows, "warp_chain_cuda": 2 * windows}:
-        raise AssertionError(f"the main path did not go through the kernels 3 "
-                             f"and 2 times per window: {counts} for {windows} windows")
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    per_window = {"grid_sample_cuda": 3, "warp_chain_cuda": 2,
+                  "resize_quantize_int8_cuda": 1 if int8 else 0}
+    expected = {k: v * windows if dev.type == "cuda" else 0 for k, v in per_window.items()}
+    if counts != expected:
+        raise AssertionError(f"the main path did not go through the kernels as "
+                             f"expected per window: {counts}, expected {expected}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
 
     if out.shape != (n, size, size) or out.dtype != torch.int32:
         raise AssertionError(f"maps {tuple(out.shape)} {out.dtype}")
@@ -449,26 +626,28 @@ def run_main_path(dev=torch.device("cuda"), n=FRAME_DELTA, size=SIZE,
     if not bool(torch.isfinite(state["feat"]).all()):
         raise AssertionError("non-finite next-key encoding")
     # logits of one window (outside the counted run): finite, expected shape
-    logits = window_logits(model, timed[0], n, default_grid(*frame_hw), size, dev)
+    logits = window_logits(model, timed[0], n, default_grid(*frame_hw), size, dev, int8)
     if logits.shape != (n, size, size, CLASSES) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError(f"logits {tuple(logits.shape)} not finite or misshapen")
     log(f"  maps {tuple(out.shape)} int32 in [{lo}, {hi}], logits "
         f"{tuple(logits.shape)} {logits.dtype} finite, peak memory {peak_gb:.2f} GB")
 
-    if dev.type == "cuda":
-        profile(run, timed)
+    prof = profile(run, timed, "int8" if int8 else "bf16") if dev.type == "cuda" else {}
     return {"fps": statistics.median(fps), "fps_passes": fps, "windows": windows,
-            "launches": counts, "peak_gb": peak_gb}
+            "launches": counts, "peak_gb": peak_gb, "maps": out, **prof}
 
 
 PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "profile")
+KERNEL_NAMES = {"grid_sample_cuda": "grid_sample_kernel",
+                "warp_chain_cuda": "warp_chain_kernel",
+                "resize_quantize_int8_cuda": "resize_quantize_kernel"}
 
 
-def profile(run, timed) -> None:
+def profile(run, timed, tag) -> dict:
     """torch.profiler over two cached windows: device busy time and idle
-    share per window, and kernel time by name."""
+    share per window, each kernel's time per window, kernel time by name."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     os.makedirs(PROFILE_DIR, exist_ok=True)
     run(timed[0], first=True)
@@ -478,13 +657,14 @@ def profile(run, timed) -> None:
             run(w)
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
-    with open(os.path.join(PROFILE_DIR, "main_path_profile.txt"), "w") as f:
+    with open(os.path.join(PROFILE_DIR, f"{tag}_main_path_profile.txt"), "w") as f:
         f.write(table)
-    trace = os.path.join(PROFILE_DIR, "main_path_trace.json")
+    trace = os.path.join(PROFILE_DIR, f"{tag}_main_path_trace.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
-        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in json.load(f)["traceEvents"]
-                       if e.get("ph") == "X" and e.get("cat") == "kernel")
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
     busy, cur = 0.0, None
     for s, e in spans:  # union of kernel intervals
         if cur is None or s > cur[1]:
@@ -494,10 +674,53 @@ def profile(run, timed) -> None:
             cur[1] = max(cur[1], e)
     busy += cur[1] - cur[0]
     span = max(e for _, e in spans) - spans[0][0]
+    per_kernel = {k: sum(e["dur"] for e in kernels if v in e["name"]) / 2e3
+                  for k, v in KERNEL_NAMES.items()}
     log(f"  profiler, 2 cached windows: device busy {busy / 2e3:.3f} ms/window "
         f"of {span / 2e3:.3f} ms (idle share {1 - busy / span:.1%} under the "
-        f"profiler); table and trace in {PROFILE_DIR}")
+        f"profiler); ms/window by kernel {per_kernel}; table and trace in "
+        f"{PROFILE_DIR}")
     log(table)
+    return {"busy_ms": busy / 2e3, "span_ms": span / 2e3, "kernel_ms": per_kernel}
+
+
+def time_decode_pieces(model, n=FRAME_DELTA) -> dict:
+    """Phase 6b: the int8 decode's pieces at the main path's shapes (the
+    key map, 1x65x65x4096, and the stack, 24x65x65x4096), CUDA events with
+    the L2 flushed: the im2col copy, torch._int_mm, and the whole decode
+    (weights folded and quantized, the epilogue and the 1x1 conv included)."""
+    dev = torch.device("cuda")
+    flush = L2Flush(dev)
+    cpm = sleep_cycles_per_ms()
+    head = model.cls.state_dict()
+    w_f, _ = quant.fold_bn(head["0.weight"], head["1.weight"], head["1.bias"],
+                           head["1.running_mean"], head["1.running_var"])
+    w_q, _ = quant.quantize_weight_per_channel(w_f)
+    w_mat = w_q.permute(0, 2, 3, 1).reshape(w_q.shape[0], -1).t()
+    g = torch.Generator().manual_seed(3)
+    res = {}
+    for name, b in (("key map", 1), ("stack", n - 1)):
+        x_q = torch.randint(-127, 128, (b,) + FEAT_HW + (4096,), generator=g,
+                            dtype=torch.int8).to(dev)
+        absmax = torch.tensor(4.0, device=dev)
+        cols, _ = quant.im2col_nhwc(x_q, 3, 3, PAD1)
+        m, k = cols.shape
+        r = {"im2col_ms": time_ms(lambda: quant.im2col_nhwc(x_q, 3, 3, PAD1), flush, cpm,
+                                  reps=10),
+             "int_mm_ms": time_ms(lambda: torch._int_mm(cols, w_mat), flush, cpm, reps=10),
+             "decode_ms": time_ms(lambda: quant.int8_seghead_decode(
+                 head, x_q, torch.bfloat16, act_absmax=absmax), flush, cpm, reps=10),
+             "im2col_bytes": cols.numel() + x_q.numel(),
+             "int_mm_tops": 2 * m * k * w_mat.shape[1] / 1e12}
+        r["int_mm_bound_ms"] = r["int_mm_tops"] * 1e12 / PEAK_INT8_OPS * 1e3
+        log(f"  decode of the {name} {tuple(x_q.shape)}: im2col {r['im2col_ms']:.4f} ms "
+            f"({r['im2col_bytes'] / 1e9:.3f} GB moved at least), _int_mm "
+            f"{r['int_mm_ms']:.4f} ms ({r['int_mm_tops']:.3f} TOP, bound "
+            f"{r['int_mm_bound_ms']:.4f} ms at the int8 peak), whole decode "
+            f"{r['decode_ms']:.4f} ms")
+        res[name] = r
+        del cols
+    return res
 
 
 # ------------------------------------------------------------------ main
@@ -516,37 +739,69 @@ def main() -> int:
 
     log("[2] build")
     t0 = time.perf_counter()
-    build.build(["warp"])
-    log(f"  csrc/warp.cu -> sm_90a in {time.perf_counter() - t0:.1f} s")
-    for line in build.BUILD_INFO["warp"]["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas " + line.strip())
+    build.build(["warp", "resize"])
+    log(f"  csrc/warp.cu and csrc/resize.cu -> sm_90a in {time.perf_counter() - t0:.1f} s")
+    for src in ("warp", "resize"):
+        for line in build.BUILD_INFO[src]["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {src}.cu: " + line.strip())
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = random_pspnet(torch.bfloat16, seed=0)
+    wins = clip_windows(FRAME_DELTA, (512, 512), CLIPS_TIMED + 2, SIZE, dev)
+    log(f"  set-up {time.perf_counter() - t0:.1f} s: PSPNet-50 bf16, {len(wins)} "
+        f"windows of {FRAME_DELTA} frames, key frames "
+        f"{tuple(wins[0]['frame_prev'].shape)}, grids {tuple(wins[0]['mvs_left'].shape)}")
 
     log("[3] kernels against their plain versions (main-path shapes)")
-    dev = torch.device("cuda")
     errs = check_kernels(dev)
+    stack, scale = capture_k3_input(model, wins, dev)
+    errs["resize_quantize_int8_cuda"] = check_k3(stack, scale)
     timing = time_kernels(dev)
+    timing["resize_quantize_int8_cuda"] = time_k3(stack, scale)
+    del stack
 
     log("[4] slice on the card against the slice on the CPU (float32)")
     check_slice_card_vs_cpu()
+    check_slice_card_vs_cpu(int8=True)
+    log("[4b] int8 decode on the card against the CPU")
+    check_int8_decode_card_vs_cpu(model)
 
-    log("[5] main path: PSPNet-50 bf16, 513 px key frames, n = 25")
-    main_path = run_main_path()
-    log(f"  {main_path['fps']:.2f} frames/s (median of {PASSES} passes x "
-        f"{CLIPS_TIMED} windows; passes {[round(f, 2) for f in main_path['fps_passes']]}) "
-        f"on {smi}")
+    paths = {}
+    for phase, int8 in (("[5]", False), ("[6]", True)):
+        log(f"{phase} main path: PSPNet-50 bf16, 513 px key frames, n = {FRAME_DELTA}, "
+            f"{'int8' if int8 else 'bf16'} decoder")
+        r = paths["int8" if int8 else "bf16"] = run_main_path(model, wins, int8)
+        log(f"  {r['fps']:.2f} frames/s (median of {PASSES} passes x {CLIPS_TIMED} "
+            f"windows; passes {[round(f, 2) for f in r['fps_passes']]}), peak memory "
+            f"{r['peak_gb']:.2f} GB on {smi}")
+    agree = float((paths["int8"]["maps"] == paths["bf16"]["maps"]).float().mean())
+    log(f"  the int8 and bf16 decoders' maps of the last timed window agree on "
+        f"{agree:.4f} of pixels")
+    pieces = time_decode_pieces(model)
+    busy = paths["int8"]["busy_ms"]
+    k3_ms = paths["int8"]["kernel_ms"]["resize_quantize_int8_cuda"]
+    im2col = sum(p["im2col_ms"] for p in pieces.values())
+    int_mm = sum(p["int_mm_ms"] for p in pieces.values())
+    log(f"  int8 window split (ms of {busy:.3f} busy): K3 {k3_ms:.4f} (profiler), "
+        f"im2col {im2col:.4f}, _int_mm {int_mm:.4f} (events, L2 flushed), the rest "
+        f"{busy - k3_ms - im2col - int_mm:.4f}")
 
-    sources = {"grid_sample_cuda": ("floodseg_tpu/ops/pallas_warp.py:70",),
-               "warp_chain_cuda": ("floodseg_tpu/ops/pallas_warp.py:139",)}
+    sources = {"grid_sample_cuda": ("floodseg_tpu/ops/pallas_warp.py:70", "warp.cu"),
+               "warp_chain_cuda": ("floodseg_tpu/ops/pallas_warp.py:139", "warp.cu"),
+               "resize_quantize_int8_cuda": ("floodseg_tpu/ops/pallas_resize.py:135",
+                                             "resize.cu")}
     kernels = []
-    for kname, (replaces,) in sources.items():
+    for kname, (replaces, src) in sources.items():
         t = timing[kname]
+        by_path = {p: r["launches"][kname] for p, r in paths.items()}
         kernels.append({
-            "name": kname, "route": "cuda", "source": "floodseg_tpu_torch/csrc/warp.cu",
-            "replaces": replaces, "launches": main_path["launches"][kname],
-            "max_abs_err": errs[kname], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "passed": True})
+            "name": kname, "route": "cuda", "source": f"floodseg_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": errs[kname], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "passed": True})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

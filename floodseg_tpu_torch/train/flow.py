@@ -26,24 +26,40 @@ from torch.func import functional_call
 
 from floodseg_tpu_torch.core.device import DeviceLike, full_precision_f32, resolve_device
 from floodseg_tpu_torch.data.transforms import MEAN, STD
+from floodseg_tpu_torch.ops.quant import int8_seghead_decode
 from floodseg_tpu_torch.video.flow_model import FlowInterpolator
-
-_INT8_SLICE = ("the int8 {} belongs to the port's int8 slice (ROADMAP queue 1 "
-               "item 6, with kernel K3); use the full-precision {}")
 
 
 def _predict_encode(model: nn.Module, int8_encode: bool) -> Callable:
     """Encode closure: the model's ``encode`` (full precision)."""
     if int8_encode:
-        raise NotImplementedError(_INT8_SLICE.format("encoder trunk", "encoder"))
+        raise NotImplementedError(
+            "the int8 encoder trunk (ops/quant.py::int8_resnet_trunk and "
+            "ppm_folded) is not ported yet (ROADMAP queue 1 item 14); use the "
+            "full-precision encoder")
     return lambda x: model.encode(x)[0]
 
 
 def _predict_decode(model: nn.Module, int8_decode: bool) -> Callable:
-    """Decode closure: the model's ``decode`` (full precision)."""
-    if int8_decode:
-        raise NotImplementedError(_INT8_SLICE.format("decoder", "decoder"))
-    return model.decode
+    """Decode closure: the model's ``decode``, or the int8-quantized SegHead
+    (ops/quant.py::int8_seghead_decode) of the ``cls`` head, its weights
+    folded and quantized from the variables bound for the call. The
+    DeepLabHead's int8 decoder comes with DeepLabV3; other heads raise."""
+    if not int8_decode:
+        return model.decode
+    head = getattr(model, "cls", None)
+    if not isinstance(head, nn.Sequential):
+        raise ValueError(
+            "int8_decode supports the pspnet SegHead and the deeplabv3 "
+            "DeepLabHead decoders; use bf16 decode for other archs")
+
+    dtype = getattr(head[-1], "compute_dtype", torch.bfloat16)
+
+    def decode(f, act_absmax=None):
+        return int8_seghead_decode(head.state_dict(keep_vars=True), f, dtype=dtype,
+                                   act_absmax=act_absmax)
+
+    return decode
 
 
 class _Bound(nn.Module):
@@ -72,7 +88,8 @@ def _builder(model, n, feature_based, no_warp, out_size, default_grid,
     interp = FlowInterpolator(
         encode=_predict_encode(model, int8_encode),
         decode=_predict_decode(model, int8_decode),
-        feature_based=feature_based, no_warp=no_warp)
+        feature_based=feature_based, no_warp=no_warp,
+        decode_wants_absmax=int8_decode)
     model = _prepare(model, dev)
     dg = None if default_grid is None else torch.as_tensor(
         np.asarray(default_grid, np.float32), device=dev).contiguous()

@@ -10,16 +10,26 @@ one K2 launch (``warp_chain_cuda``). The key map is resampled once through
 the identity ``default_grid`` with K1 (align_corners=True). On CPU tensors
 the wrappers compute their plain versions.
 
-The contract is the JAX package's outputs, not its TPU schedule. The int8
-decoder's absmax hints belong to the int8 slice and are not here.
+With an int8 decoder (``decode_wants_absmax``), the interpolator passes
+the decoder a bound on the decoded stack's |max|: the larger absmax of the
+two raw key encodings, taken before any warp, since every decoded map is a
+convex combination of them. The interpolated stack goes from grid
+resolution to feature resolution and to int8 at that bound's scale in one
+K3 launch (``resize_quantize_int8_cuda``), and the key map is quantized at
+the same scale, so the decoder receives int8 maps.
+
+The contract is the JAX package's outputs, not its TPU schedule.
 """
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, Optional
 
 import torch
 
+from floodseg_tpu_torch.ops.quant import quantize_with_scale, scale_from_absmax
 from floodseg_tpu_torch.ops.resize import resize_argmax, resize_bilinear
+from floodseg_tpu_torch.ops.resize_kernels import resize_quantize_int8_cuda
 from floodseg_tpu_torch.ops.warp_kernels import grid_sample_cuda, warp_chain_cuda
 
 
@@ -32,6 +42,10 @@ def _hw(x: torch.Tensor):
     return tuple(x.shape[1:3])
 
 
+def _absmax(x: torch.Tensor) -> torch.Tensor:
+    return torch.amax(x.abs()).float()
+
+
 @dataclass(frozen=True)
 class FlowInterpolator:
     """Wraps an encoder/decoder pair with keyframe-warp interpolation.
@@ -39,13 +53,15 @@ class FlowInterpolator:
     encode: NHWC images -> NHWC feature map; decode: NHWC features -> NHWC
     logits. feature_based: warp features then decode (True), or decode the
     key frames then warp their logits (False). no_warp: pure linear blend of
-    the key maps.
+    the key maps. decode_wants_absmax: ``decode`` is an int8 decoder taking
+    ``act_absmax=`` (ops/quant.py::int8_seghead_decode); feature_based only.
     """
 
     encode: Callable[[torch.Tensor], torch.Tensor]
-    decode: Callable[[torch.Tensor], torch.Tensor]
+    decode: Callable[..., torch.Tensor]
     feature_based: bool = True
     no_warp: bool = False
+    decode_wants_absmax: bool = False
 
     @staticmethod
     def _predict_chain(f: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
@@ -110,6 +126,15 @@ class FlowInterpolator:
         f_next_raw = f_next
         fh, fw = _hw(f)
 
+        # int8 decoder: max|stack| <= max(max|f|, max|f_next|), known before
+        # the feature-resolution maps exist
+        absmax_hint = scale = None
+        if self.decode_wants_absmax and self.feature_based:
+            absmax_hint = _absmax(f)
+            if f_next is not None:
+                absmax_hint = torch.maximum(absmax_hint, _absmax(f_next))
+            scale = scale_from_absmax(absmax_hint)
+
         if not single and not self.no_warp:
             fwd = self._predict_chain(f.contiguous(), mvs_left)
             bwd = self._predict_chain(f_next.contiguous(), mvs_right)
@@ -136,7 +161,18 @@ class FlowInterpolator:
                 # are resized back to feature resolution
                 inter = wf * fwd + wb * torch.flip(bwd, dims=(0,))
                 if _hw(inter) != (fh, fw):
-                    inter = resize_bilinear(inter, (fh, fw), align_corners=True)
+                    if scale is not None:
+                        inter = resize_quantize_int8_cuda(inter, scale, (fh, fw),
+                                                          align_corners=True)
+                    else:
+                        inter = resize_bilinear(inter, (fh, fw), align_corners=True)
+
+        if scale is not None:
+            # every piece at the hint's scale: equal to quantizing the stack
+            f = quantize_with_scale(f, scale)
+            if inter is not None and inter.dtype != torch.int8:
+                inter = quantize_with_scale(inter, scale)
+            dec = partial(dec, act_absmax=absmax_hint)
 
         # the key map and the interpolated maps decode as two calls, and only
         # the logits are concatenated (eval BN makes this equal to one call)

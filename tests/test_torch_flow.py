@@ -84,7 +84,8 @@ def test_predict_clip_pspnet50_matches_jax(pair, tail):
     assert ours.shape == ref.shape == ((1 if tail else n), 65, 65, 5)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert launch_counts() == {"grid_sample_cuda": 0, "warp_chain_cuda": 0}
+    assert launch_counts() == {"grid_sample_cuda": 0, "warp_chain_cuda": 0,
+                               "resize_quantize_int8_cuda": 0}
 
 
 def _tiny_pair(seed=1):
@@ -190,10 +191,12 @@ def test_cached_predict_builders_match_jax(pair):
 
 
 def test_predict_builders_raise_on_int8():
+    """The int8 encoder trunk is not ported: asking for it raises. (The int8
+    decoder is, tests/test_torch_flow_int8.py.)"""
     m = torch.nn.Module()
-    with pytest.raises(NotImplementedError, match="int8 slice"):
-        make_flow_predict_fn(m, n=5, int8_decode=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 slice"):
+    with pytest.raises(NotImplementedError, match="int8 encoder trunk"):
+        make_flow_predict_fn(m, n=5, int8_encode=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="int8 encoder trunk"):
         make_cached_flow_predict_fn(m, n=5, int8_encode=True, device="cpu")
 
 
@@ -282,7 +285,8 @@ def test_port_imports_no_jax():
         "             or m == 'floodseg_tpu' or m.startswith('floodseg_tpu.'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
-        "assert 'floodseg_tpu_torch.ops.warp_kernels' in sys.modules\n")
+        "for m in ('ops.warp_kernels', 'ops.quant', 'ops.resize_kernels'):\n"
+        "    assert 'floodseg_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)

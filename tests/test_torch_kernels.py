@@ -1,8 +1,9 @@
-"""The warp kernels' wrappers (floodseg_tpu_torch/ops/warp_kernels.py).
+"""The kernels' wrappers (floodseg_tpu_torch/ops/warp_kernels.py and
+ops/resize_kernels.py).
 
 On the CPU: the wrappers check what their kernels take and then compute
 the plain versions. On the card (``cuda`` marker; skipped without one):
-K1 and K2 against their plain versions. This file imports no JAX, so the
+K1, K2 and K3 against their plain versions. This file imports no JAX, so the
 card-only tests run on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q -m cuda
@@ -19,6 +20,8 @@ from floodseg_tpu_torch.ops import (
     grid_sample_cuda,
     launch_counts,
     reset_launch_counts,
+    resize_quantize_int8_cuda,
+    resize_quantize_int8_plain,
     warp_chain_cuda,
     warp_chain_plain,
 )
@@ -40,7 +43,7 @@ def _inputs(seed, dtype, device="cpu"):
 
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the warp kernels have no CPU mode")
+        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -54,7 +57,8 @@ def test_wrappers_route_cpu_tensors_to_plain():
     np.testing.assert_array_equal(warp_chain_cuda(y0, grids).float().numpy(),
                                   warp_chain_plain(y0, grids).float().numpy())
     # the plain route is not a kernel launch
-    assert launch_counts() == {"grid_sample_cuda": 0, "warp_chain_cuda": 0}
+    assert launch_counts() == {"grid_sample_cuda": 0, "warp_chain_cuda": 0,
+                               "resize_quantize_int8_cuda": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -113,7 +117,8 @@ def test_kernels_match_plain_on_card(dtype):
     np.testing.assert_allclose(warp_chain_cuda(y0, grids).float().cpu(),
                                warp_chain_plain(y0, grids).float().cpu(), **tol)
     torch.cuda.synchronize()
-    assert launch_counts() == {"grid_sample_cuda": 2, "warp_chain_cuda": 1}
+    assert launch_counts() == {"grid_sample_cuda": 2, "warp_chain_cuda": 1,
+                               "resize_quantize_int8_cuda": 0}
 
 
 @pytest.mark.cuda
@@ -140,3 +145,76 @@ def test_card_wrappers_raise_and_never_reroute():
     big_grids = torch.zeros((2, 1, 135, 240, 2), device=dev)
     with pytest.raises(ValueError, match="does not fit one block"):
         warp_chain_cuda(big, big_grids)
+
+
+# ------------------------------------------------------------------- K3
+
+def _k3_inputs(seed, dtype, device="cpu", shape=(2, 7, 9, 48)):
+    """x (B, h, w, C) and a float32 scale from its absmax, as the
+    flow-predict path makes it."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 3)
+    x = x.to(device, dtype)
+    return x, (x.float().abs().amax() / 127).to(device)
+
+
+def test_k3_wrapper_routes_cpu_tensors_to_plain():
+    reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        x, s = _k3_inputs(12, dtype)
+        for align in (True, False):
+            got = resize_quantize_int8_cuda(x, s, (13, 5), align)
+            assert got.dtype == torch.int8 and got.shape == (2, 13, 5, 48)
+            np.testing.assert_array_equal(
+                got.numpy(), resize_quantize_int8_plain(x, s, (13, 5), align).numpy())
+    assert launch_counts()["resize_quantize_int8_cuda"] == 0
+
+
+def test_k3_wrapper_rejects_what_the_kernel_does_not_take():
+    x, s = _k3_inputs(13, torch.float32)
+    with pytest.raises(ValueError, match="must be \\(B, h, w, C\\)"):
+        resize_quantize_int8_cuda(x[0], s, (9, 9))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        resize_quantize_int8_cuda(x.half(), s, (9, 9))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        resize_quantize_int8_cuda(x.double(), s, (9, 9))
+    for bad in (s.double(), torch.stack([s, s]), 0.5):
+        with pytest.raises(TypeError, match="scale must be a float32 tensor"):
+            resize_quantize_int8_cuda(x, bad, (9, 9))
+    with pytest.raises(ValueError, match="bad output size"):
+        resize_quantize_int8_cuda(x, s, (0, 9))
+    with pytest.raises(ValueError, match="contiguous"):
+        resize_quantize_int8_cuda(x.transpose(1, 2), s, (9, 9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain_on_card(dtype):
+    """Equal int8 outputs: 16-channel vectors (C = 48) and one channel a
+    thread (C = 37), up- and downsampling, both align modes, and values far
+    past the clip range."""
+    dev = _card()
+    reset_launch_counts()
+    launches = 0
+    for shape, out_hw in (((2, 7, 9, 48), (13, 17)), ((1, 16, 16, 48), (5, 31)),
+                          ((3, 6, 5, 37), (11, 9))):
+        x, s = _k3_inputs(14, dtype, dev, shape)
+        for align in (True, False):
+            for scale in (s, s / 50):  # s / 50 saturates most lanes
+                got = resize_quantize_int8_cuda(x, scale, out_hw, align)
+                np.testing.assert_array_equal(
+                    got.cpu().numpy(),
+                    resize_quantize_int8_plain(x, scale, out_hw, align).cpu().numpy())
+                launches += 1
+    torch.cuda.synchronize()
+    assert launch_counts()["resize_quantize_int8_cuda"] == launches
+
+
+@pytest.mark.cuda
+def test_k3_wrapper_raises_and_never_reroutes_on_card():
+    dev = _card()
+    x, s = _k3_inputs(15, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="both must be on one CUDA device"):
+        resize_quantize_int8_cuda(x, s.cpu(), (9, 9))
+    with pytest.raises(ValueError, match="both must be on one CUDA device"):
+        resize_quantize_int8_cuda(x.cpu(), s, (9, 9))

@@ -76,6 +76,23 @@ def test_resize_bilinear_bf16_computes_in_f32():
                                rtol=2 ** -8, atol=0)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("size", [(13, 21), (4, 3)])
+def test_resize_bilinear_fast_lowp_matches_jax(dtype, align, size):
+    """fast_lowp rounds the matrices and the between-axes value to the input
+    dtype: equal to the bit in bf16 (the two-tap products are exact) and,
+    on these inputs, in float32."""
+    rng = np.random.default_rng(5)
+    x = jnp.asarray(rng.standard_normal((2, 7, 9, 6)) * 3, dtype)
+    ref = np.asarray(jax_resize_bilinear(x, size, align_corners=align,
+                                         fast_lowp=True).astype(jnp.float32))
+    xt = _t(np.asarray(x.astype(jnp.float32))).to(getattr(torch, dtype))
+    ours = resize_bilinear(xt, size, align_corners=align, fast_lowp=True)
+    assert ours.dtype == xt.dtype and ours.shape == (2,) + size + (6,)
+    np.testing.assert_array_equal(ours.float().numpy(), ref)
+
+
 @pytest.mark.parametrize("align", [True, False])
 def test_resize_argmax_matches_jax(align):
     rng = np.random.default_rng(3)
