@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (floodseg_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase, as below
+    python3 chip_smoke.py --k3     # K3 alone: build, check, time (about 20 s)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions. No CUDA device -> exit 1 before anything else.
 2. Build the hand-written kernels from csrc/ with nvcc (sm_90a), one nvcc
-   for each source, all at once: warp.cu (K1, K2) and resize.cu (K3).
+   for each source, all at once: warp.cu (K1, K2) and resize.cu (K3);
+   ptxas's registers and spills; for K3, cuobjdump's count of slow-pipe
+   instructions inside each instantiation's loops.
 3. Each kernel against its plain PyTorch version, on the card, at the
    shapes the flow-predict paths give it: K1 and K2 on random grids and on
    the main path's own grids; K3 on the interpolated stack the int8 main
    path feeds it in its first window (24x32x32x4096 -> 65x65), on random
    data in both align modes, at an odd shape whose C is not a 16-channel
-   vector, and with values far past the clip range. K1 and K2 agree to
+   vector, with values far past the clip range, and on every finite bf16
+   value through an identity resize at four scales. K1 and K2 agree to
    the bit (tolerance float32 1e-5, bf16 1 ulp); K3's int8 outputs must be
    equal. Then each kernel's time on the main path's inputs (CUDA events,
    median, L2 flushed and the host's enqueue hidden behind a sleep kernel
@@ -47,6 +51,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 import copy
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -312,13 +318,25 @@ def k3_compare(name, got, ref) -> float:
     return err
 
 
+def finite_bf16_values(device) -> torch.Tensor:
+    """Every finite bf16 bit pattern (65,280 values), as (1, 1, 4080, 16)."""
+    v = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    v = v[torch.isfinite(v.float())]
+    return v.reshape(1, 1, -1, 16).to(device)
+
+
 def check_k3(stack, scale, seed=0) -> float:
     """Phase 3a for K3, float32 and bf16: the main path's first-window stack
     at its own scale, random data in both align modes at the same shape and
     at an odd shape with C = 37 (one channel a thread), every case again at
-    a fiftieth of its scale (most lanes saturate)."""
+    a fiftieth of its scale (most lanes saturate); then every finite bf16
+    value through an identity resize (out_hw equal to the input's), at the
+    stack's scale, a fiftieth of it, FLT_MIN and 2**-7 (many values on
+    half-integers), so each value's quantize is checked on its own."""
     g = torch.Generator().manual_seed(seed)
     err = 0.0
+    every = finite_bf16_values(stack.device)
+    tiny = torch.tensor(torch.finfo(torch.float32).tiny, device=stack.device)
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         cases = [("main-path stack", stack.to(dtype), scale, FEAT_HW, True)]
@@ -332,6 +350,14 @@ def check_k3(stack, scale, seed=0) -> float:
                     f"K3 {tag} {what} x{tuple(x.shape)} -> {hw} align={align}{sat}",
                     resize_quantize_int8_cuda(x, sc, hw, align),
                     resize_quantize_int8_plain(x, sc, hw, align)))
+        x = every.to(dtype)
+        hw = tuple(x.shape[1:3])
+        for sc, what in ((scale, "the stack's scale"), (scale / 50, "a fiftieth of it"),
+                         (tiny, "FLT_MIN"), (torch.full_like(tiny, 2.0 ** -7), "2**-7")):
+            err = max(err, k3_compare(
+                f"K3 {tag} every finite bf16 value x{tuple(x.shape)} -> {hw} (identity), "
+                f"scale {what}", resize_quantize_int8_cuda(x, sc, hw, True),
+                resize_quantize_int8_plain(x, sc, hw, True)))
     return err
 
 
@@ -725,11 +751,80 @@ def time_decode_pieces(model, n=FRAME_DELTA) -> dict:
 
 # ------------------------------------------------------------------ main
 
+# slow-pipe conversions and functions, the divide's range check, calls
+SLOW_PIPE = ("MUFU", "F2I", "I2F", "FRND", "F2F", "FCHK", "CALL")
+
+
+def sass_loops(lib) -> None:
+    """For each K3 instantiation in the built library: its instructions
+    inside loops (from a backward branch's target to the branch, by
+    ``cuobjdump -sass``) and the SLOW_PIPE ones among them."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("  cuobjdump not found: no SASS count")
+        return
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    for func in text.split("Function : ")[1:]:
+        name = func.splitlines()[0].strip()
+        if "resize_quantize_kernel" not in name:
+            continue
+        ins = [(int(a, 16), op) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", func)]
+        branches = [(int(t, 16), int(a, 16)) for a, t in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?BRA\s+(?:`\(\S+\)\s+)?0x([0-9a-f]+)",
+            func)]
+        loops = [(t, a) for t, a in branches if t < a]
+        inside = [op for a, op in ins if any(t <= a <= b for t, b in loops)]
+        ops = [op for _, op in ins]
+        slow_in = {o: inside.count(o) for o in SLOW_PIPE if o in inside}
+        slow_all = {o: ops.count(o) for o in SLOW_PIPE if o in ops}
+        inst = re.search(r"resize_quantize_kernelI\d*(\w+?)Li(\d+)E", name)
+        log(f"  SASS resize_quantize_kernel<{inst.group(1) if inst else name}, "
+            f"{inst.group(2) if inst else '?'}>: {len(ins)} instructions, {len(inside)} in "
+            f"loops; slow-pipe in loops {slow_in or 'none'}, in all {slow_all or 'none'}")
+
+
+def build_kernels(sources) -> None:
+    t0 = time.perf_counter()
+    paths = build.build(sources)
+    log(f"  {' and '.join(f'csrc/{s}.cu' for s in sources)} -> sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for src in sources:
+        for line in build.BUILD_INFO[src]["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {src}.cu: " + line.strip())
+    if "resize" in paths:
+        sass_loops(paths["resize"])
+
+
+def k3_alone(seed=0) -> int:
+    """--k3: build csrc/resize.cu, then phase 3 for K3 on a seeded stack of
+    the int8 main path's shape (24x32x32x4096 bf16, scale from its absmax).
+    The stack is post-ReLU like the encoder features the path blends (half
+    of its lanes 0); it is timed again as drawn, without the ReLU, since a
+    kernel's cost can depend on the data."""
+    log(f"[k3] {nvidia_smi_line()} | torch {torch.__version__} CUDA {torch.version.cuda}")
+    build_kernels(["resize"])
+    g = torch.Generator().manual_seed(seed)
+    drawn = (torch.randn((FRAME_DELTA - 1, 32, 32, 4096), generator=g) * 3).to(
+        "cuda", torch.bfloat16)
+    stack = drawn.clamp_min(0)
+    scale = quant.scale_from_absmax(stack.float().abs().amax())
+    check_k3(stack, scale)
+    for what, x in (("post-ReLU", stack), ("as drawn", drawn)):
+        log(f"  stack {what}:")
+        time_k3(x, quant.scale_from_absmax(x.float().abs().amax()))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--k3"]:
+        return k3_alone()
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
@@ -738,13 +833,7 @@ def main() -> int:
         f"{sys.version.split()[0]}")
 
     log("[2] build")
-    t0 = time.perf_counter()
-    build.build(["warp", "resize"])
-    log(f"  csrc/warp.cu and csrc/resize.cu -> sm_90a in {time.perf_counter() - t0:.1f} s")
-    for src in ("warp", "resize"):
-        for line in build.BUILD_INFO[src]["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}.cu: " + line.strip())
+    build_kernels(["warp", "resize"])
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()

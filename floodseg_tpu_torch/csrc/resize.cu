@@ -14,26 +14,63 @@
 //   each and one rounded add, no fused multiply-add, so the plain PyTorch
 //   version (ops/resize_kernels.py::resize_quantize_int8_plain) gives the
 //   same int8 values to the bit. The scale is read from device memory, so
-//   the host never waits for it. A NaN input quantizes to -127 here.
+//   the host never waits for it.
+//
 //   Bound on an H100 SXM (3.35 TB/s): bytes. At the flow-predict shape
 //   (x 24x32x32x4096 bf16 = 201.3 MB in, 24x65x65x4096 int8 = 415.3 MB
-//   out) that is 0.184 ms; the arithmetic (about 3 GFLOP of float32) is a
-//   quarter of that at the 67 TFLOP/s float32 rate.
-//   Design: the TPU kernel does both contractions as dense matrix products
-//   in VMEM because the TPU has a matrix unit and gathers badly. On Hopper
-//   the resize is a stream: the grid covers (map, output row) x channel
-//   chunks, and each thread owns 16 channels (one 16-byte int8 store) of
-//   one output row and walks along it. The row's two source rows are fixed,
-//   so the thread forms the H-interpolated value of a source column once,
-//   keeps the last two in registers, and reuses them for every output
-//   pixel that taps that column: a source pixel vector is loaded once for
-//   each output row that taps it (about four times at the flow-predict
-//   shape, the repeats mostly from the L2), and the full-resolution
-//   intermediate never reaches device memory. Loads and stores are 16
-//   bytes a thread, neighbouring threads on neighbouring channels, so
-//   every warp access is coalesced. A channel count that is not a
-//   multiple of 16 (or an unaligned pointer) takes a one-channel-a-thread
-//   instantiation of the same code.
+//   out) that is 0.184 ms. The instructions come close to it: about 19 an
+//   output element (the W blend, the bf16 round, the quantize and the
+//   packing, about 15, and a share of the H blend) are 0.24 ms of issue for
+//   the card's 132 SMs at 128 a clock and 1.98 GHz.
+//
+//   Design: the grid covers (map, output row) x 128-thread channel chunks;
+//   each thread owns 16 channels (one 16-byte int8 store) of one output
+//   row and walks along it. The row's two source rows are fixed, so the
+//   thread forms the H-interpolated values of a source column once, keeps
+//   the last two in registers and reuses them for every output pixel that
+//   taps that column: a source pixel vector is loaded once for each output
+//   row that taps it (about four times at the flow-predict shape, the
+//   repeats mostly from the L2), and the full-resolution intermediate never
+//   reaches device memory. Loads and stores are 16 bytes a thread,
+//   neighbouring threads on neighbouring channels, so every warp access is
+//   coalesced. A channel count that is not a multiple of 16 (or an
+//   unaligned pointer) takes a one-channel-a-thread instantiation.
+//
+//   What held the first version of this kernel at 17% of its bound was the
+//   arithmetic, not the walk: four operations an element on the slow
+//   conversion / multi-function pipe (the IEEE divide __fdiv_rn, rintf,
+//   __float2int_rn and the float to bf16 round), and the divide's FCHK
+//   test, which by the SASS and the timings sends a zero dividend down a
+//   called slow path, so that the post-ReLU features of the flow-predict
+//   stack (many zeros) took longer than random data. The walk was not the limit: on an H100, a design that
+//   issues every load before any arithmetic (two passes through a shared
+//   tile) and a walk that loads one column ahead were both slower than this
+//   one, and are not kept. Every element now takes full-rate operations
+//   only, and no path depends on the data:
+//   - The round to bf16 is integer arithmetic on the float's bits,
+//     (u + 0x7fff + ((u >> 16) & 1)) & 0xffff0000, the Pallas kernel's own
+//     _round_to_bf16_grid: equal to __float2bfloat16_rn on every value
+//     that is not a NaN.
+//   - The quotient: r = __frcp_rn(s) once a thread (s >= FLT_MIN, as
+//     ops/quant.py::scale_from_absmax clamps it, so r is finite); per
+//     element q0 = v * r, e = fma(-q0, s, v), q = fma(e, r, q0): the
+//     correctly rounded v / s (Markstein's correction step;
+//     tests/test_torch_kernels.py replays it in exact arithmetic against
+//     IEEE division on every finite bf16 value at several scales).
+//   - Range guard and clip in one: v is first clamped to +-b, b = 127 * s
+//     rounded (at most FLT_MAX), so q0 is finite and |q| < 127.5: the clip
+//     after rounding is a no-op, and a value beyond b gives +-127 as the
+//     clip would.
+//   - rint and the int8: q + 1.5 * 2^23 (one rounded add) holds rint(q)
+//     in its low mantissa bits for |q| < 2^22, so its low byte is the
+//     two's-complement int8 (ptxas packs four into a word with three byte
+//     permutes).
+//   NaN: the integer round turns the card's NaN, 0x7fffffff, into -0.0,
+//   so in bf16 a NaN from either blend counts as -0 from there on; in
+//   float32 a NaN output reaches the clamp and quantizes to -127. The plain
+//   version casts NaN to int8, which PyTorch leaves undefined. Bit equality
+//   with it holds for finite inputs and a finite scale s in
+//   [FLT_MIN, FLT_MAX / 128].
 //
 // C interface for ctypes: the entry returns cudaGetLastError() after its
 // launch, as an int; 0 is success. The launch goes on the caller's stream
@@ -44,6 +81,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cfloat>
 #include <stdint.h>
 
 namespace {
@@ -64,8 +102,10 @@ struct Num<__nv_bfloat16> {
   static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
   }
+  // round to nearest even on the float's bits (the note above)
   static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
+    const uint32_t u = __float_as_uint(v);
+    return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
   }
 };
 
@@ -112,9 +152,25 @@ __device__ __forceinline__ void lerp(const float (&a)[V], float wa,
   }
 }
 
-__device__ __forceinline__ int quantize(float v, float s) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.0f), 127.0f);
-  return __float2int_rn(q);
+// clip(rint(v / s), +-127) with full-rate operations only (the note
+// above): s, its correctly rounded reciprocal r, the clamp bound b.
+struct Quantizer {
+  float s, r, b;
+  // -> an int whose low byte is the int8
+  __device__ __forceinline__ int operator()(float v) const {
+    v = fminf(fmaxf(v, -b), b);
+    const float q0 = __fmul_rn(v, r);
+    const float q = __fmaf_rn(__fmaf_rn(-q0, s, v), r, q0);
+    return (int)__float_as_uint(__fadd_rn(q, 12582912.0f));  // + 1.5 * 2^23
+  }
+};
+
+__device__ __forceinline__ Quantizer make_quantizer(float s) {
+  Quantizer qz;
+  qz.s = s;
+  qz.r = __frcp_rn(s);
+  qz.b = fminf(__fmul_rn(127.0f, s), FLT_MAX);
+  return qz;
 }
 
 template <int V>
@@ -146,7 +202,7 @@ resize_quantize_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   if (v >= nv) return;
   const int bi = blockIdx.x / hh;
   const int y = blockIdx.x - bi * hh;
-  const float s = *scale;
+  const Quantizer qz = make_quantizer(*scale);
   const float wy0 = h_w[2 * y], wy1 = h_w[2 * y + 1];
   const size_t ch = (size_t)v * V;
   const T* row0 = x + ((size_t)bi * h + h_idx[2 * y]) * w * c + ch;
@@ -186,7 +242,7 @@ resize_quantize_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     lerp<T, V>(ta, w_w[2 * X], tb, w_w[2 * X + 1], r);
     int q[V];
 #pragma unroll
-    for (int e = 0; e < V; ++e) q[e] = quantize(r[e], s);
+    for (int e = 0; e < V; ++e) q[e] = qz(r[e]);
     store_int8<V>(o + (size_t)X * c, q);
   }
 }

@@ -43,6 +43,12 @@ def _library():
     return lib
 
 
+def vector_path(x: torch.Tensor) -> bool:
+    """Whether K3 takes x 16 channels a thread (C a multiple of 16, the data
+    16-byte aligned) or one channel a thread."""
+    return x.shape[-1] % _VEC_CHANNELS == 0 and x.data_ptr() % _VEC_BYTES == 0
+
+
 def resize_quantize_int8_plain(x: torch.Tensor, scale: torch.Tensor, out_hw,
                                align_corners: bool = True) -> torch.Tensor:
     """Plain version of K3: the composition it fuses, as written."""
@@ -80,12 +86,11 @@ def resize_quantize_int8_cuda(x: torch.Tensor, scale: torch.Tensor, out_hw,
         return out
     h_idx, h_w = tap_tensors(h, hh, bool(align_corners), x.dtype, x.device)
     w_idx, w_w = tap_tensors(w, ww, bool(align_corners), x.dtype, x.device)
-    vec = c % _VEC_CHANNELS == 0 and x.data_ptr() % _VEC_BYTES == 0
     with torch.cuda.device(x.device):
         err = _library().floodseg_resize_quantize(
             x.data_ptr(), scale.data_ptr(), h_idx.data_ptr(), h_w.data_ptr(),
             w_idx.data_ptr(), w_w.data_ptr(), out.data_ptr(), b, h, w, c, hh, ww,
-            _DTYPE_CODES[x.dtype], int(vec),
+            _DTYPE_CODES[x.dtype], int(vector_path(x)),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"resize_quantize_int8_cuda: CUDA launch failed with "

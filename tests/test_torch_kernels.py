@@ -2,9 +2,11 @@
 ops/resize_kernels.py).
 
 On the CPU: the wrappers check what their kernels take and then compute
-the plain versions. On the card (``cuda`` marker; skipped without one):
-K1, K2 and K3 against their plain versions. This file imports no JAX, so the
-card-only tests run on a machine without it:
+the plain versions; K3's instantiation choice; and the identities K3's
+quantize rests on (csrc/resize.cu's note), replayed in exact arithmetic.
+On the card (``cuda`` marker; skipped without one): K1, K2 and K3 against
+their plain versions. This file imports no JAX, so the card-only tests run
+on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q -m cuda
 
@@ -19,12 +21,14 @@ from floodseg_tpu_torch.ops import (
     grid_sample,
     grid_sample_cuda,
     launch_counts,
+    quantize_with_scale,
     reset_launch_counts,
     resize_quantize_int8_cuda,
     resize_quantize_int8_plain,
     warp_chain_cuda,
     warp_chain_plain,
 )
+from floodseg_tpu_torch.ops.resize_kernels import vector_path
 from floodseg_tpu_torch.ops.warp_kernels import _chain_tile
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -218,3 +222,103 @@ def test_k3_wrapper_raises_and_never_reroutes_on_card():
         resize_quantize_int8_cuda(x, s.cpu(), (9, 9))
     with pytest.raises(ValueError, match="both must be on one CUDA device"):
         resize_quantize_int8_cuda(x.cpu(), s, (9, 9))
+
+
+def _finite_bf16_values() -> np.ndarray:
+    """Every finite bf16 value (65,280), as float32."""
+    v = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    return v[np.isfinite(v)]
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 fma(a, b, c), rounded once: a * b is exact in float64, the
+    sum and its error are exact as a float64 pair (TwoSum), and a float64
+    sum that lands on a float32 midpoint is resolved by the error's sign."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = c.astype(np.float64)
+    s = p + c
+    t = s - c
+    err = (p - (s - t)) + (c - t)
+    f = s.astype(np.float32)
+    up, down = np.nextafter(f, np.float32(np.inf)), np.nextafter(f, np.float32(-np.inf))
+    d = s - f.astype(np.float64)
+    f = np.where((d > 0) & (2 * d == up - f.astype(np.float64)) & (err > 0), up, f)
+    return np.where((d < 0) & (-2 * d == f.astype(np.float64) - down) & (err < 0), down, f)
+
+
+def _kernel_quantize(v: np.ndarray, s: np.float32) -> np.ndarray:
+    """csrc/resize.cu's Quantizer, step by step in float32."""
+    r = np.float32(1.0 / np.float64(s))           # __frcp_rn
+    b = np.minimum(np.float32(127) * s, np.finfo(np.float32).max)
+    v = np.minimum(np.maximum(v, -b), b)
+    q0 = v * r
+    q = _fma32(_fma32(-q0, np.full_like(v, s), v), np.full_like(v, r), q0)
+    bits = (q + np.float32(1.5 * 2 ** 23)).view(np.uint32)
+    return (bits & 0xFF).astype(np.uint8).view(np.int8)  # the low byte
+
+
+# scales: a flow-predict stack's and a fiftieth of it, the smallest the
+# quantizer allows, one that puts many values on half-integers, far ends of
+# the range, and two at which v * (1 / s) alone misrounds a bf16 value (a
+# seeded search found them), so the correction step is needed
+_SCALES = {"stack": 3.1e-2, "stack/50": 6.2e-4, "FLT_MIN": float(np.finfo(np.float32).tiny),
+           "2**-7": 2.0 ** -7, "1e-30": 1e-30, "3e30": 3e30,
+           "0x3e57e753": 0.21084336936473846, "0x4215e50e": 37.47368621826172}
+
+
+@pytest.mark.parametrize("scale", list(_SCALES.values()), ids=list(_SCALES))
+def test_k3_quantize_identity(scale):
+    """K3's quantize (reciprocal once, Markstein's correction step, clamp
+    to +-127 * s before it, rint by adding 1.5 * 2**23, the low byte)
+    equals clip(rint(v / s), +-127) with IEEE division on every finite bf16
+    value, as quant.quantize_with_scale computes it."""
+    v = _finite_bf16_values()
+    s = np.float32(scale)
+    ref = quantize_with_scale(torch.from_numpy(v), torch.tensor(s)).numpy()
+    with np.errstate(over="ignore"):
+        got = _kernel_quantize(v, s)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_k3_bf16_round_identity():
+    """The kernel's bf16 round, (u + 0x7fff + ((u >> 16) & 1)) & 0xffff0000
+    on the float's bits, equals the cast to bf16 on every non-NaN float32
+    here: seeded bit patterns of every exponent, the bf16 midpoints and
+    their neighbours, and the largest finite values."""
+    rng = np.random.default_rng(1)
+    mids = (rng.integers(0, 1 << 16, 4096, dtype=np.uint32) << 16) | 0x8000
+    u = np.concatenate([rng.integers(0, 1 << 32, 1 << 18, dtype=np.uint64).astype(np.uint32),
+                        mids, mids - 1, mids + 1,
+                        np.array([0x7F7FFFFF, 0x7F7F8000, 0xFF7FFFFF, 0x7F800000],
+                                 dtype=np.uint32)])
+    u = u[~np.isnan(u.view(np.float32))]
+    got = ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).view(np.float32)
+    ref = torch.from_numpy(u.view(np.float32)).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("make,vec", [
+    (lambda: torch.zeros((24, 32, 32, 4096), dtype=torch.bfloat16), True),  # main path
+    (lambda: torch.zeros((3, 6, 5, 37), dtype=torch.bfloat16), False),       # C = 37
+    (lambda: torch.zeros(2 * 7 * 9 * 48 + 1)[1:].view(2, 7, 9, 48), False),  # 4-byte offset
+], ids=["main-path", "c37", "unaligned-view"])
+def test_k3_vector_path(make, vec):
+    """Which instantiation a shape takes: 16 channels a thread only for C a
+    multiple of 16 at a 16-byte aligned address."""
+    assert vector_path(make()) is vec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_every_bf16_value_on_card(dtype):
+    """Every finite bf16 value through an identity resize, so each value's
+    quantize is checked on its own, at the scales of
+    test_k3_quantize_identity: equal int8 outputs."""
+    dev = _card()
+    x = torch.from_numpy(_finite_bf16_values()).reshape(1, 1, -1, 16).to(dev, dtype)
+    hw = tuple(x.shape[1:3])
+    for scale in _SCALES.values():
+        s = torch.tensor(scale, dtype=torch.float32, device=dev)
+        np.testing.assert_array_equal(
+            resize_quantize_int8_cuda(x, s, hw, True).cpu().numpy(),
+            resize_quantize_int8_plain(x, s, hw, True).cpu().numpy())
