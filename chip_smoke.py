@@ -2,6 +2,7 @@
 """Drive the PyTorch / CUDA port (floodseg_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py          # every phase, as below
+    python3 chip_smoke.py --k2     # K2 alone: build, check, time (about 20 s)
     python3 chip_smoke.py --k3     # K3 alone: build, check, time (about 20 s)
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -10,15 +11,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA versions. No CUDA device -> exit 1 before anything else.
 2. Build the hand-written kernels from csrc/ with nvcc (sm_90a), one nvcc
    for each source, all at once: warp.cu (K1, K2) and resize.cu (K3);
-   ptxas's registers and spills; for K3, cuobjdump's count of slow-pipe
-   instructions inside each instantiation's loops.
+   ptxas's registers and spills for each instantiation; for K2 and K3,
+   cuobjdump's count of slow-pipe instructions inside each instantiation's
+   loops.
 3. Each kernel against its plain PyTorch version, on the card, at the
    shapes the flow-predict paths give it: K1 and K2 on random grids and on
-   the main path's own grids; K3 on the interpolated stack the int8 main
-   path feeds it in its first window (24x32x32x4096 -> 65x65), on random
-   data in both align modes, at an odd shape whose C is not a 16-channel
-   vector, with values far past the clip range, and on every finite bf16
-   value through an identity resize at four scales. K1 and K2 agree to
+   the main path's own grids, K2 also on a grid that clamps every point to
+   one corner and on the identity grid, and in both of its designs
+   (ping-pong at 32x32, single-buffer at 67x120); K3 on the interpolated
+   stack the int8 main path feeds it in its first window (24x32x32x4096
+   -> 65x65), on random data in both align modes, at an odd shape whose C
+   is not a 16-channel vector, with values far past the clip range, and
+   on every finite bf16 value through an identity resize at four scales.
+   K1 and K2 agree to
    the bit (tolerance float32 1e-5, bf16 1 ulp); K3's int8 outputs must be
    equal. Then each kernel's time on the main path's inputs (CUDA events,
    median, L2 flushed and the host's enqueue hidden behind a sleep kernel
@@ -71,6 +76,7 @@ from floodseg_tpu_torch.ops.resize_kernels import (
     resize_quantize_int8_plain,
 )
 from floodseg_tpu_torch.ops.warp_kernels import (
+    _chain_geometry,
     grid_sample_cuda,
     warp_chain_cuda,
     warp_chain_plain,
@@ -168,13 +174,39 @@ def check_kernels(device, **shapes) -> dict:
             errs["grid_sample_cuda"] = max(errs["grid_sample_cuda"], compare(
                 f"K1 {tag} x{tuple(x.shape)} {what} grid{tuple(g.shape)} align={align}",
                 grid_sample_cuda(x, g, align), grid_sample(x, g, align), dtype))
-        y0m = grid_sample(x, mvs[0], False)
-        for y, gs, what in ((y0, grids, "random"), (y0w, gridsw, "random"),
-                            (y0m, mvs[1:], "main-path")):
-            errs["warp_chain_cuda"] = max(errs["warp_chain_cuda"], compare(
-                f"K2 {tag} y0{tuple(y.shape)} {what} T={gs.shape[0]} (every step)",
-                warp_chain_cuda(y, gs), warp_chain_plain(y, gs), dtype))
+        errs["warp_chain_cuda"] = max(errs["warp_chain_cuda"],
+                                      check_k2(x, y0, grids, y0w, gridsw, mvs, dg))
     return errs
+
+
+def k2_design(y0) -> str:
+    """Which of K2's designs the wrapper takes for y0 (1, gh, gw, C)."""
+    _, gh, gw, c = y0.shape
+    isz = y0.element_size()
+    vec = 16 // isz if (c * isz) % 16 == 0 else 1
+    return "ping-pong" if _chain_geometry(gh * gw, c, isz, vec).table_points else "single-buffer"
+
+
+def check_k2(x, y0, grids, y0w, gridsw, mvs, dg) -> float:
+    """K2 against its plain version in x's dtype: random grids at 32x32 and
+    at the reference's 67x120 (the single-buffer design), the main path's
+    own grids from K1's plain output, and two degenerate grids on the same
+    input: every point clamped to the top-left corner (the four taps of a
+    point coincide and merge) and the identity grid (the 32x32 block
+    centres, align_corners=False)."""
+    dtype = x.dtype
+    tag = str(dtype).replace("torch.", "")
+    y0m = grid_sample(x, mvs[0], False)
+    ident = dg.expand((mvs.shape[0] - 1,) + tuple(dg.shape)).contiguous()
+    corner = torch.full_like(ident, -1.1)
+    err = 0.0
+    for y, gs, what in ((y0, grids, "random"), (y0w, gridsw, "random"),
+                        (y0m, mvs[1:], "main-path"), (y0m, corner, "corner"),
+                        (y0m, ident, "identity")):
+        err = max(err, compare(
+            f"K2 {tag} y0{tuple(y.shape)} {what} T={gs.shape[0]} ({k2_design(y)}, every step)",
+            warp_chain_cuda(y, gs), warp_chain_plain(y, gs), dtype))
+    return err
 
 
 # ---------------------------------------------------------------- timing
@@ -258,15 +290,7 @@ def time_kernels(device) -> dict:
     y0 = grid_sample_cuda(x, grid, False)
     # the library call takes NCHW data, and grids of the data's dtype
     xn = x.permute(0, 3, 1, 2).contiguous()
-    y0n = y0.permute(0, 3, 1, 2).contiguous()
-    grid_l, dg_l, grids_l = grid.to(x.dtype), dg.to(x.dtype), grids.to(x.dtype)
-
-    def lib_chain():
-        y = y0n
-        for i in range(grids.shape[0]):
-            y = F.grid_sample(y, grids_l[i], mode="bilinear", padding_mode="border",
-                              align_corners=False)
-        return y
+    grid_l, dg_l = grid.to(x.dtype), dg.to(x.dtype)
 
     def k1(g, g_l, align):
         out = grid_sample_cuda(x, g, align)
@@ -281,23 +305,41 @@ def time_kernels(device) -> dict:
             "bound_ms": b[0], "bound_by": b[1],
         }
 
-    out2 = warp_chain_cuda(y0, grids)
-    b2 = bound(nbytes(y0, grids, out2), 7 * (out2.numel() - y0.numel()))
     res = {
         "grid_sample_cuda": k1(grid, grid_l, False),
         "grid_sample_cuda (identity grid, align_corners=True)": k1(dg, dg_l, True),
-        "warp_chain_cuda": {
-            "ms": time_ms(lambda: warp_chain_cuda(y0, grids), flush, cpm),
-            "plain_ms": time_ms(lambda: warp_chain_plain(y0, grids), flush, cpm, reps=5),
-            "library_ms": time_ms(lib_chain, flush, cpm, reps=10),
-            "bound_ms": b2[0], "bound_by": b2[1],
-        },
+        "warp_chain_cuda": time_k2(y0, grids, flush, cpm),
     }
     for name, r in res.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"F.grid_sample {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) -> {r['bound_ms'] / r['ms']:.1%} of bound")
     return res
+
+
+def time_k2(y0, grids, flush, cpm, full=True) -> dict:
+    """K2's time on y0 and grids beside its bound (y0 and the grids read
+    once, every step written once; 4 multiplies and 3 adds per element of
+    a step); with ``full``, also its plain version's and the library
+    yardstick's: T chained F.grid_sample calls on NCHW data."""
+    out = warp_chain_cuda(y0, grids)
+    b = bound(nbytes(y0, grids, out), 7 * (out.numel() - y0.numel()))
+    r = {"ms": time_ms(lambda: warp_chain_cuda(y0, grids), flush, cpm),
+         "bound_ms": b[0], "bound_by": b[1]}
+    if full:
+        y0n = y0.permute(0, 3, 1, 2).contiguous()
+        grids_l = grids.to(y0.dtype)
+
+        def lib_chain():
+            y = y0n
+            for i in range(grids.shape[0]):
+                y = F.grid_sample(y, grids_l[i], mode="bilinear", padding_mode="border",
+                                  align_corners=False)
+            return y
+
+        r["plain_ms"] = time_ms(lambda: warp_chain_plain(y0, grids), flush, cpm, reps=5)
+        r["library_ms"] = time_ms(lib_chain, flush, cpm, reps=10)
+    return r
 
 
 # -------------------------------------------------------------------- K3
@@ -667,7 +709,7 @@ def run_main_path(model, wins, int8, dev=torch.device("cuda"), n=FRAME_DELTA,
 PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "profile")
 KERNEL_NAMES = {"grid_sample_cuda": "grid_sample_kernel",
-                "warp_chain_cuda": "warp_chain_kernel",
+                "warp_chain_cuda": "warp_chain_",  # either design
                 "resize_quantize_int8_cuda": "resize_quantize_kernel"}
 
 
@@ -755,10 +797,53 @@ def time_decode_pieces(model, n=FRAME_DELTA) -> dict:
 SLOW_PIPE = ("MUFU", "F2I", "I2F", "FRND", "F2F", "FCHK", "CALL")
 
 
-def sass_loops(lib) -> None:
-    """For each K3 instantiation in the built library: its instructions
-    inside loops (from a backward branch's target to the branch, by
-    ``cuobjdump -sass``) and the SLOW_PIPE ones among them."""
+def kernel_label(mangled: str) -> str:
+    """'warp_chain_kernel<bf16, 8, 1>' from an instantiation's mangled name
+    (the template arguments this file's kernels take: types and integers)."""
+    m = re.search(r"([a-z_]+_kernel)I(\w*)", mangled)
+    if not m:
+        return mangled
+    args, rest = [], m.group(2)
+    while rest and rest[0] != "E":
+        lit = re.match(r"L[a-z](\d+)E", rest)
+        named = re.match(r"(\d+)", rest)
+        if lit:
+            args.append(lit.group(1))
+            rest = rest[lit.end():]
+        elif named:
+            n, k = int(named.group(1)), named.end()
+            args.append({"__nv_bfloat16": "bf16"}.get(rest[k:k + n], rest[k:k + n]))
+            rest = rest[k + n:]
+        elif rest[0] == "f":
+            args.append("float")
+            rest = rest[1:]
+        else:
+            break
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def ptxas_usage(log_text: str):
+    """(label, registers, spill stores, spill loads) for each function in
+    nvcc's -Xptxas -v output."""
+    rows, fn, spill = [], None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Function properties for|Compiling entry function) '?(\w+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            rows.append((kernel_label(fn), int(m.group(1)), *spill))
+            fn, spill = None, (0, 0)
+    return rows
+
+
+def sass_loops(lib, kernels) -> None:
+    """For each instantiation of the named kernels in the built library: its
+    instructions inside loops (from a backward branch's target to the
+    branch, by ``cuobjdump -sass``) and the SLOW_PIPE ones among them."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log("  cuobjdump not found: no SASS count")
@@ -766,8 +851,8 @@ def sass_loops(lib) -> None:
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
     for func in text.split("Function : ")[1:]:
-        name = func.splitlines()[0].strip()
-        if "resize_quantize_kernel" not in name:
+        label = kernel_label(func.splitlines()[0].strip())
+        if label.split("<")[0] not in kernels:
             continue
         ins = [(int(a, 16), op) for a, op in re.findall(
             r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", func)]
@@ -779,10 +864,13 @@ def sass_loops(lib) -> None:
         ops = [op for _, op in ins]
         slow_in = {o: inside.count(o) for o in SLOW_PIPE if o in inside}
         slow_all = {o: ops.count(o) for o in SLOW_PIPE if o in ops}
-        inst = re.search(r"resize_quantize_kernelI\d*(\w+?)Li(\d+)E", name)
-        log(f"  SASS resize_quantize_kernel<{inst.group(1) if inst else name}, "
-            f"{inst.group(2) if inst else '?'}>: {len(ins)} instructions, {len(inside)} in "
+        log(f"  SASS {label}: {len(ins)} instructions, {len(inside)} in "
             f"loops; slow-pipe in loops {slow_in or 'none'}, in all {slow_all or 'none'}")
+
+
+# the kernels whose loops phase 2 counts, by source
+SASS_KERNELS = {"warp": ("warp_chain_kernel", "warp_chain_single_kernel"),
+                "resize": ("resize_quantize_kernel",)}
 
 
 def build_kernels(sources) -> None:
@@ -791,11 +879,36 @@ def build_kernels(sources) -> None:
     log(f"  {' and '.join(f'csrc/{s}.cu' for s in sources)} -> sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
     for src in sources:
-        for line in build.BUILD_INFO[src]["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}.cu: " + line.strip())
-    if "resize" in paths:
-        sass_loops(paths["resize"])
+        for label, regs, st, ld in ptxas_usage(build.BUILD_INFO[src]["log"]):
+            log(f"  ptxas {src}.cu {label}: {regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
+        sass_loops(paths[src], SASS_KERNELS[src])
+
+
+def k2_alone(seed=0) -> int:
+    """--k2: build csrc/warp.cu, check K2 in float32 and bf16 (phase 3's
+    cases and the degenerate grids), then time it in bf16 on the main
+    path's first-window grids from K1's output on a seeded 65x65x4096 key
+    encoding, and on seeded random grids of the same shape, since bank
+    conflicts in the gather depend on the grid."""
+    log(f"[k2] {nvidia_smi_line()} | torch {torch.__version__} CUDA {torch.version.cuda}")
+    build_kernels(["warp"])
+    dev = torch.device("cuda")
+    mvs, dg = main_path_grids(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, _, y0, grids, y0w, gridsw = kernel_cases(dev, dtype)
+        check_k2(x, y0, grids, y0w, gridsw, mvs, dg)
+    flush, cpm = L2Flush(dev), sleep_cycles_per_ms()
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((1, 65, 65, 4096), generator=g).to(dev, torch.bfloat16)
+    y0 = grid_sample_cuda(x, mvs[0], False)
+    rand = (torch.rand(tuple(mvs[1:].shape), generator=g) * 2.2 - 1.1).to(dev)
+    for what, gs in (("main-path grids", mvs[1:]), ("random grids", rand)):
+        r = time_k2(y0, gs, flush, cpm, full=False)
+        log(f"  warp_chain_cuda y0{tuple(y0.shape)} bf16, {what} T={gs.shape[0]}: kernel "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) -> "
+            f"{r['bound_ms'] / r['ms']:.1%} of bound")
+    return 0
 
 
 def k3_alone(seed=0) -> int:
@@ -823,6 +936,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--k2"]:
+        return k2_alone()
     if sys.argv[1:] == ["--k3"]:
         return k3_alone()
     t_start = time.perf_counter()

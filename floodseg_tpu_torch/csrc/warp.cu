@@ -28,18 +28,51 @@
 //   float32 accumulation, and the carry is rounded to the state dtype after
 //   every step.
 //   Bound on an H100 SXM: bytes. At the flow-predict shape (T = 23,
-//   32x32 points, C = 4096, bf16) the output is 24 x 8.4 MB = 201 MB,
-//   about 60 us.
+//   32x32 points, C = 4096, bf16) y0, the grids and the 24 output planes of
+//   8.4 MB are 209.9 MB, 62.7 us at 3.35 TB/s. Dispatching the blend's
+//   instructions (about 11.5 an output element) takes some 35 us over 128
+//   SMs; the design has to overlap the two.
 //   Design: Pallas walks the T axis in order on one core and keeps the
 //   carry in VMEM. Hopper blocks run in no order, so the grid covers
 //   channel tiles only and a loop over T runs inside each block. The block
-//   keeps its (P, c_tile) carry in shared memory for all T steps, so the
-//   carry never goes back to device memory: device memory sees y0 read
-//   once and every step written once. Each step gathers into registers,
-//   synchronises, then writes the registers to the single shared buffer and
-//   to out[t+1]. A single buffer lets the reference's 67x120 grid (8040
-//   points) fit: c_tile is chosen by the host from P so the tile fits the
-//   227 KB a block may use.
+//   keeps its (P, c_tile) carry in shared memory for all T steps, so device
+//   memory sees y0 read once and every step written once.
+//   The first design, on one carry, took 4.3 times the bound. What held
+//   it back, and what this one does about each:
+//   - Two barriers a step (gather into registers, barrier, write, barrier),
+//     nothing of one phase overlapping the next, and 32 registers a thread
+//     of staging. Here: two carries, read from carry[s & 1] and written to
+//     carry[(s + 1) & 1]; each item's result goes from registers straight
+//     to the other carry and to out[s + 1] (16-byte stores), and a step
+//     ends with one barrier.
+//   - Taps recomputed by each of the c_tile / V threads that share a point,
+//     from a grid entry loaded from device memory right after the barrier:
+//     about half of an item's instructions, and an L2 round trip on the
+//     critical path. Here: a tap table a step, in shared memory: each point's
+//     four source points (uint16) and merged weights (in the state dtype,
+//     exact, since they are rounded to it), built once a point by one
+//     thread with the same make_taps and merged_weights. The grid of step
+//     s + 1 is loaded at the start of step s and its table written after
+//     step s's gather, into the other of two tables. The threads of a point
+//     read its entry as a shared-memory broadcast. The arithmetic is the
+//     same, so the result is bit-equal.
+//   - One 512-thread block a SM at the 128-register cap. Here: 1024
+//     threads (at most 64 registers; a 16-channel bf16 tile at two blocks
+//     a SM, 512 threads, measured slower, PERF.md).
+//   One barrier a step is enough: step s writes carry[(s + 1) & 1] and
+//   table[(s + 1) & 1], which were last read in step s - 1, before the
+//   barrier that closed it; and what step s writes is read only in step
+//   s + 1, after the barrier that closes step s. The prologue fills
+//   carry[0], out[0] and table[0], then one barrier.
+//   At the flow-predict shape: a 32-channel bf16 tile (16 in float32), 128
+//   blocks, 2 x 128 KB of carries and 2 x 16 KB of tables (24 KB in
+//   float32). The ping-pong design is taken wherever two carries and two
+//   tables fit a block's 227 KB for some channel tile (up to a few
+//   thousand points; uint16 indices need fewer than 65536). Larger grids,
+//   such as the reference's 67x120 (8040 points, 257 KB for the narrowest
+//   bf16 pair), take warp_chain_single_kernel: one carry, the taps per
+//   item, and a step that writes out[s + 1], then after a barrier copies
+//   each thread's items of it back into the carry, and a second barrier.
 //
 // C interface for ctypes. Every entry returns cudaGetLastError() after its
 // launch, as an int; 0 is success. Launches go on the caller's stream and
@@ -53,7 +86,7 @@
 namespace {
 
 constexpr int kSampleThreads = 256;
-constexpr int kChainThreads = 512;
+constexpr int kChainThreads = 1024;
 
 template <typename T>
 struct Num;
@@ -195,56 +228,165 @@ __device__ __forceinline__ void merged_weights(const Taps& t, float (&wq)[4]) {
   }
 }
 
-template <typename T, int V, int ITEMS>
+// The grid coordinates of a thread's table points for one step: points
+// threadIdx.x + j * blockDim.x, j < TPT.
+template <int TPT>
+struct GridPoints {
+  float x[TPT], y[TPT];
+};
+
+template <int TPT>
+__device__ __forceinline__ void load_grid(const float* __restrict__ g,
+                                          int points, GridPoints<TPT>& gp) {
+#pragma unroll
+  for (int j = 0; j < TPT; ++j) {
+    const int p = threadIdx.x + j * blockDim.x;
+    if (p < points) {
+      gp.x[j] = __ldg(g + 2 * p);
+      gp.y[j] = __ldg(g + 2 * p + 1);
+    }
+  }
+}
+
+// One table entry a point: its four source points (uint16) and their
+// merged weights, already rounded to the state dtype, so storing them as T
+// loses nothing.
+template <typename T, int TPT>
+__device__ __forceinline__ void write_taps(const GridPoints<TPT>& gp,
+                                           int points, int gh, int gw,
+                                           ushort4* __restrict__ idx,
+                                           Vec<T, 4>* __restrict__ wgt) {
+#pragma unroll
+  for (int j = 0; j < TPT; ++j) {
+    const int p = threadIdx.x + j * blockDim.x;
+    if (p < points) {
+      const Taps t = make_taps(gp.x[j], gp.y[j], gh, gw, false);
+      float wq[4];
+      merged_weights<T>(t, wq);
+      idx[p] = make_ushort4((unsigned short)t.idx[0], (unsigned short)t.idx[1],
+                            (unsigned short)t.idx[2], (unsigned short)t.idx[3]);
+      Vec<T, 4> w;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w.v[k] = Num<T>::store(wq[k]);
+      wgt[p] = w;
+    }
+  }
+}
+
+// The ping-pong design. Shared memory: weights [2][points], indices
+// [2][points], carries [2][points][nv]. Thread i owns vector i % nv of
+// points i / nv, i / nv + blockDim.x / nv, ...; blockDim.x is a multiple of
+// nv. Step s reads carry[s & 1] and table[s & 1] and writes
+// carry[(s + 1) & 1] and table[(s + 1) & 1].
+template <typename T, int V, int TPT>
 __global__ void __launch_bounds__(kChainThreads)
 warp_chain_kernel(const T* __restrict__ y0, const float* __restrict__ grids,
                   T* __restrict__ out, int steps, int gh, int gw, int c,
                   int c_tile) {
   using VT = Vec<T, V>;
+  using WT = Vec<T, 4>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int points = gh * gw;
+  const int nv = c_tile / V;
+  const int items = points * nv;
+  WT* const wgt = reinterpret_cast<WT*>(smem);
+  ushort4* const idx = reinterpret_cast<ushort4*>(wgt + 2 * points);
+  VT* const carry = reinterpret_cast<VT*>(idx + 2 * points);
+  const int v = threadIdx.x % nv;
+  const int first = threadIdx.x / nv;
+  const int stride = blockDim.x / nv;
+  const size_t plane = (size_t)points * c;
+  const T* src = y0 + (size_t)blockIdx.x * c_tile + v * V;
+  T* dst = out + (size_t)blockIdx.x * c_tile + v * V;
+
+  for (int p = first; p < points; p += stride) {
+    const VT val = *reinterpret_cast<const VT*>(src + (size_t)p * c);
+    carry[p * nv + v] = val;
+    *reinterpret_cast<VT*>(dst + (size_t)p * c) = val;
+  }
+  {
+    GridPoints<TPT> gp;
+    load_grid<TPT>(grids, points, gp);
+    write_taps<T, TPT>(gp, points, gh, gw, idx, wgt);
+  }
+  __syncthreads();
+
+  for (int s = 0; s < steps; ++s) {
+    const int cur = s & 1, nxt = cur ^ 1;
+    // the next step's grid, loaded now so that its latency hides behind
+    // this step's gather
+    const bool ahead = s + 1 < steps;
+    GridPoints<TPT> gp;
+    if (ahead) load_grid<TPT>(grids + (size_t)(s + 1) * points * 2, points, gp);
+    const VT* cin = carry + cur * items;
+    VT* cnext = carry + nxt * items;
+    const ushort4* ic = idx + cur * points;
+    const WT* wc = wgt + cur * points;
+    T* o = dst + (size_t)(s + 1) * plane;
+    for (int p = first; p < points; p += stride) {
+      const ushort4 ix = ic[p];  // a broadcast to the nv threads of point p
+      const WT wt = wc[p];
+      const float w[4] = {Num<T>::load(wt.v[0]), Num<T>::load(wt.v[1]),
+                          Num<T>::load(wt.v[2]), Num<T>::load(wt.v[3])};
+      VT a[4];
+      a[0] = cin[ix.x * nv + v];
+      a[1] = cin[ix.y * nv + v];
+      a[2] = cin[ix.z * nv + v];
+      a[3] = cin[ix.w * nv + v];
+      const VT r = blend<T, V>(a, w);
+      cnext[p * nv + v] = r;
+      *reinterpret_cast<VT*>(o + (size_t)p * c) = r;
+    }
+    if (ahead) write_taps<T, TPT>(gp, points, gh, gw, idx + nxt * points,
+                                  wgt + nxt * points);
+    __syncthreads();
+  }
+}
+
+// The single-buffer design, for grids whose two carries and tables do not
+// fit. The threads own vectors and points as in warp_chain_kernel. Each step
+// gathers from the carry and writes out[s + 1]; after a barrier, each thread
+// copies its own items of out[s + 1] (just written, so in L2) back into the
+// carry; a second barrier closes the step.
+template <typename T, int V>
+__global__ void __launch_bounds__(kChainThreads)
+warp_chain_single_kernel(const T* __restrict__ y0,
+                         const float* __restrict__ grids, T* __restrict__ out,
+                         int steps, int gh, int gw, int c, int c_tile) {
+  using VT = Vec<T, V>;
   extern __shared__ __align__(16) unsigned char smem[];
   VT* carry = reinterpret_cast<VT*>(smem);  // [points][nv]
   const int points = gh * gw;
   const int nv = c_tile / V;
-  const int items = points * nv;
-  const size_t c0 = (size_t)blockIdx.x * c_tile;
+  const int v = threadIdx.x % nv;
+  const int first = threadIdx.x / nv;
+  const int stride = blockDim.x / nv;
   const size_t plane = (size_t)points * c;
+  const T* src = y0 + (size_t)blockIdx.x * c_tile + v * V;
+  T* dst = out + (size_t)blockIdx.x * c_tile + v * V;
 
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int p = it / nv, v = it - p * nv;
-    const size_t off = (size_t)p * c + c0 + (size_t)v * V;
-    const VT val = *reinterpret_cast<const VT*>(y0 + off);
-    carry[it] = val;
-    *reinterpret_cast<VT*>(out + off) = val;
+  for (int p = first; p < points; p += stride) {
+    const VT val = *reinterpret_cast<const VT*>(src + (size_t)p * c);
+    carry[p * nv + v] = val;
+    *reinterpret_cast<VT*>(dst + (size_t)p * c) = val;
   }
   __syncthreads();
 
   for (int s = 0; s < steps; ++s) {
     const float* g = grids + (size_t)s * points * 2;
-    VT res[ITEMS];
+    T* o = dst + (size_t)(s + 1) * plane;
+    for (int p = first; p < points; p += stride) {
+      const Taps t = make_taps(g[2 * p], g[2 * p + 1], gh, gw, false);
+      float wq[4];
+      merged_weights<T>(t, wq);
+      VT a[4];
 #pragma unroll
-    for (int i = 0; i < ITEMS; ++i) {
-      const int it = threadIdx.x + i * kChainThreads;
-      if (it < items) {
-        const int p = it / nv, v = it - p * nv;
-        const Taps t = make_taps(g[2 * p], g[2 * p + 1], gh, gw, false);
-        float wq[4];
-        merged_weights<T>(t, wq);
-        VT a[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) a[k] = carry[t.idx[k] * nv + v];
-        res[i] = blend<T, V>(a, wq);
-      }
+      for (int k = 0; k < 4; ++k) a[k] = carry[t.idx[k] * nv + v];
+      *reinterpret_cast<VT*>(o + (size_t)p * c) = blend<T, V>(a, wq);
     }
     __syncthreads();
-    T* o = out + (size_t)(s + 1) * plane;
-#pragma unroll
-    for (int i = 0; i < ITEMS; ++i) {
-      const int it = threadIdx.x + i * kChainThreads;
-      if (it < items) {
-        const int p = it / nv, v = it - p * nv;
-        carry[it] = res[i];
-        *reinterpret_cast<VT*>(o + (size_t)p * c + c0 + (size_t)v * V) = res[i];
-      }
+    for (int p = first; p < points; p += stride) {
+      carry[p * nv + v] = *reinterpret_cast<const VT*>(o + (size_t)p * c);
     }
     __syncthreads();
   }
@@ -254,41 +396,55 @@ struct ChainArgs {
   const void* y0;
   const void* grids;
   void* out;
-  int steps, gh, gw, c, c_tile;
+  int steps, gh, gw, c, c_tile, threads;
   cudaStream_t stream;
 };
 
-template <typename T, int V, int ITEMS>
-cudaError_t launch_chain(const ChainArgs& a) {
-  const size_t smem = (size_t)a.gh * a.gw * a.c_tile * sizeof(T);
+template <typename T, typename K>
+cudaError_t launch_chain(K kernel, const ChainArgs& a, size_t smem) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        warp_chain_kernel<T, V, ITEMS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  warp_chain_kernel<T, V, ITEMS><<<a.c / a.c_tile, kChainThreads, smem, a.stream>>>(
+  kernel<<<a.c / a.c_tile, a.threads, smem, a.stream>>>(
       static_cast<const T*>(a.y0), static_cast<const float*>(a.grids),
       static_cast<T*>(a.out), a.steps, a.gh, a.gw, a.c, a.c_tile);
   return cudaGetLastError();
 }
 
+template <typename T, int V, int TPT>
+cudaError_t launch_pingpong(const ChainArgs& a) {
+  const size_t per_point =
+      sizeof(Vec<T, 4>) + sizeof(ushort4) + (size_t)a.c_tile * sizeof(T);
+  return launch_chain<T>(warp_chain_kernel<T, V, TPT>, a,
+                         2 * (size_t)a.gh * a.gw * per_point);
+}
+
+// table_points: 0 takes the single-buffer design; 1, 2, 4 or 8 the
+// ping-pong design with that many tap-table points a thread.
 template <typename T, int V>
-cudaError_t chain_items(int items, const ChainArgs& a) {
-  switch (items) {
-    case 1: return launch_chain<T, V, 1>(a);
-    case 2: return launch_chain<T, V, 2>(a);
-    case 4: return launch_chain<T, V, 4>(a);
-    case 8: return launch_chain<T, V, 8>(a);
-    case 16: return launch_chain<T, V, 16>(a);
+cudaError_t chain_design(int table_points, const ChainArgs& a) {
+  const int nv = a.c_tile / V;
+  if (a.threads < nv || a.threads > kChainThreads || a.threads % nv) {
+    return cudaErrorInvalidValue;
+  }
+  switch (table_points) {
+    case 0:
+      return launch_chain<T>(warp_chain_single_kernel<T, V>, a,
+                             (size_t)a.gh * a.gw * a.c_tile * sizeof(T));
+    case 1: return launch_pingpong<T, V, 1>(a);
+    case 2: return launch_pingpong<T, V, 2>(a);
+    case 4: return launch_pingpong<T, V, 4>(a);
+    case 8: return launch_pingpong<T, V, 8>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t chain_vec(int vec, int items, const ChainArgs& a) {
-  return vec ? chain_items<T, static_cast<int>(16 / sizeof(T))>(items, a)
-             : chain_items<T, 1>(items, a);
+cudaError_t chain_vec(int vec, int table_points, const ChainArgs& a) {
+  return vec ? chain_design<T, static_cast<int>(16 / sizeof(T))>(table_points, a)
+             : chain_design<T, 1>(table_points, a);
 }
 
 template <typename T>
@@ -319,13 +475,14 @@ extern "C" int floodseg_grid_sample(const void* x, const void* grid, void* out,
 
 extern "C" int floodseg_warp_chain(const void* y0, const void* grids,
                                    void* out, int steps, int gh, int gw,
-                                   int c, int c_tile, int items, int dtype,
-                                   int vec, void* stream) {
-  const ChainArgs a{y0, grids, out, steps, gh, gw, c, c_tile,
+                                   int c, int c_tile, int threads,
+                                   int table_points, int dtype, int vec,
+                                   void* stream) {
+  const ChainArgs a{y0, grids, out, steps, gh, gw, c, c_tile, threads,
                     static_cast<cudaStream_t>(stream)};
   switch (dtype) {
-    case 0: return (int)chain_vec<float>(vec, items, a);
-    case 1: return (int)chain_vec<__nv_bfloat16>(vec, items, a);
+    case 0: return (int)chain_vec<float>(vec, table_points, a);
+    case 1: return (int)chain_vec<__nv_bfloat16>(vec, table_points, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

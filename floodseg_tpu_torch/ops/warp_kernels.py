@@ -19,6 +19,7 @@ counts its launches in ``<wrapper>.launches``, a plain integer that
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -31,8 +32,9 @@ from floodseg_tpu_torch.ops.grid_sample import (
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_BYTES = 16            # one 16-byte load per thread and tap
-_CHAIN_THREADS = 512       # csrc/warp.cu kChainThreads
-_CHAIN_ITEMS = (1, 2, 4, 8, 16)  # register-staged items per thread, compiled
+_CHAIN_THREADS = 1024      # csrc/warp.cu kChainThreads
+_CHAIN_TABLE_POINTS = (1, 2, 4, 8)  # tap-table points a thread, compiled
+_TAP_INDEX_BYTES = 8       # four uint16 source points a table entry
 _SMEM_OPTIN = 232448       # dynamic shared memory an sm_90 block may opt into
 _CHAIN_PREF_BYTES = 64     # preferred channel bytes per point in a K2 tile
 
@@ -43,7 +45,7 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.floodseg_grid_sample.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.floodseg_grid_sample.restype = i
-        lib.floodseg_warp_chain.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.floodseg_warp_chain.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.floodseg_warp_chain.restype = i
         lib._floodseg_bound = True
     return lib
@@ -143,25 +145,46 @@ def warp_chain_plain(y0: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
     return torch.stack(steps).reshape(t + 1, gh, gw, c)
 
 
-def _chain_tile(points: int, c: int, itemsize: int, vec_elems: int):
-    """Largest channel tile (a multiple of the vector width dividing C, at most
-    64 bytes a point) whose carry fits one block's shared memory and whose
-    items fit the register staging. Returns (c_tile, items per thread)."""
-    max_items = _CHAIN_THREADS * _CHAIN_ITEMS[-1]
-    for ct in range(max(vec_elems, _CHAIN_PREF_BYTES // itemsize), 0, -1):
-        if c % ct or ct % vec_elems:
-            continue
-        if points * ct * itemsize > _SMEM_OPTIN:
-            continue
-        n_items = points * (ct // vec_elems)
-        if n_items > max_items:
-            continue
-        per_thread = -(-n_items // _CHAIN_THREADS)
-        return ct, next(k for k in _CHAIN_ITEMS if k >= per_thread)
+class ChainGeometry(NamedTuple):
+    """How K2 runs on a grid. ``table_points``: the tap-table points a
+    thread builds each step in the ping-pong design (two carries, two tap
+    tables), or 0 for the single-buffer design (one carry, no table).
+    ``smem``: the block's dynamic shared memory in bytes."""
+    c_tile: int
+    threads: int
+    table_points: int
+    smem: int
+
+
+def _chain_geometry(points: int, c: int, itemsize: int, vec_elems: int) -> ChainGeometry:
+    """K2's geometry. The channel tile is a multiple of the vector width
+    dividing C, at most 64 bytes a point, and as wide as fits. The
+    ping-pong design is taken wherever two carries and two tap tables
+    (four uint16 indices and four weights a point) fit one block's shared
+    memory at some tile; else the single-buffer design, whose carry must
+    fit alone. A block has ``_CHAIN_THREADS`` threads, or the largest
+    multiple of a point's vectors below that: a thread keeps one vector of
+    a point."""
+    tiles = [ct for ct in range(max(vec_elems, _CHAIN_PREF_BYTES // itemsize), 0, -1)
+             if c % ct == 0 and ct % vec_elems == 0]
+    def threads(ct):
+        return _CHAIN_THREADS // (ct // vec_elems) * (ct // vec_elems)
+
+    for ct in tiles:
+        smem = 2 * points * (ct * itemsize + _TAP_INDEX_BYTES + 4 * itemsize)
+        per_thread = -(-points // threads(ct))
+        # uint16 tap indices: the design never fits 65536 points anyway
+        if (smem <= _SMEM_OPTIN and points < 1 << 16
+                and per_thread <= _CHAIN_TABLE_POINTS[-1]):
+            return ChainGeometry(ct, threads(ct), next(
+                k for k in _CHAIN_TABLE_POINTS if k >= per_thread), smem)
+    for ct in tiles:
+        if points * ct * itemsize <= _SMEM_OPTIN:
+            return ChainGeometry(ct, threads(ct), 0, points * ct * itemsize)
     raise ValueError(
         f"warp_chain_cuda: a grid of {points} points with C={c} does not fit "
-        f"one block (at most {max_items} point-vectors and {_SMEM_OPTIN} bytes "
-        "of shared memory)")
+        f"one block ({points * tiles[-1] * itemsize} bytes of carry at the "
+        f"narrowest tile, at most {_SMEM_OPTIN} bytes of shared memory)")
 
 
 def warp_chain_cuda(y0: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
@@ -182,12 +205,11 @@ def warp_chain_cuda(y0: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
     out = torch.empty((t + 1, gh, gw, c), dtype=y0.dtype, device=y0.device)
     vec = _vectorized(c, y0, out)
     itemsize = y0.element_size()
-    c_tile, items = _chain_tile(gh * gw, c, itemsize,
-                                _VEC_BYTES // itemsize if vec else 1)
+    geo = _chain_geometry(gh * gw, c, itemsize, _VEC_BYTES // itemsize if vec else 1)
     with torch.cuda.device(y0.device):
         err = _library().floodseg_warp_chain(
             y0.data_ptr(), grids.data_ptr(), out.data_ptr(), t, gh, gw, c,
-            c_tile, items, _DTYPE_CODES[y0.dtype], int(vec),
+            geo.c_tile, geo.threads, geo.table_points, _DTYPE_CODES[y0.dtype], int(vec),
             torch.cuda.current_stream(y0.device).cuda_stream)
     _raise_on(err, "warp_chain_cuda")
     warp_chain_cuda.launches += 1

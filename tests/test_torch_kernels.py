@@ -29,7 +29,7 @@ from floodseg_tpu_torch.ops import (
     warp_chain_plain,
 )
 from floodseg_tpu_torch.ops.resize_kernels import vector_path
-from floodseg_tpu_torch.ops.warp_kernels import _chain_tile
+from floodseg_tpu_torch.ops.warp_kernels import ChainGeometry, _chain_geometry
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # the kernels and the plain versions round the same float32 arithmetic in
@@ -86,25 +86,64 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         warp_chain_cuda(x, grids)
 
 
+# (c_tile, threads, table_points, smem): table_points 0 is the
+# single-buffer design; smem = 2 carries + 2 tap tables in the ping-pong one
 @pytest.mark.parametrize("points,c,itemsize,vec,expect", [
-    (32 * 32, 4096, 2, 8, (32, 8)),     # the flow-predict chain: 128 blocks
-    (32 * 32, 4096, 4, 4, (16, 8)),
-    (67 * 120, 256, 2, 8, (8, 16)),     # the reference's 1072x1920 grid
-    (67 * 120, 256, 4, 4, (4, 16)),
-    (4 * 4, 5, 4, 1, (5, 1)),           # segmentation mode: 5 logit channels
+    # the flow-predict chain: 128 blocks, 2 x 64 KB carries + 2 x 16 KB tables
+    (32 * 32, 4096, 2, 8, (32, 1024, 1, 2 * 1024 * (64 + 16))),
+    (32 * 32, 4096, 4, 4, (16, 1024, 1, 2 * 1024 * (64 + 24))),
+    # the reference's 1072x1920 grid: one carry of the narrowest tile
+    (67 * 120, 256, 2, 8, (8, 1024, 0, 8040 * 16)),
+    (67 * 120, 256, 4, 4, (4, 1024, 0, 8040 * 16)),
+    # segmentation mode (5 logit channels, one element a vector): 204 points
+    # a pass of 1020 threads
+    (4 * 4, 5, 4, 1, (5, 1020, 1, 2 * 16 * (20 + 24))),
+    (32 * 32, 5, 4, 1, (5, 1020, 2, 2 * 1024 * (20 + 24))),
+    (32 * 32, 5, 2, 1, (5, 1020, 2, 2 * 1024 * (10 + 16))),
 ])
 def test_chain_tile_fits_one_block(points, c, itemsize, vec, expect):
-    """K2's channel tile: at most 64 bytes a point, a multiple of the vector
-    width dividing C, small enough for 227 KB of shared memory and the
-    register staging."""
-    ct, items = _chain_tile(points, c, itemsize, vec)
-    assert (ct, items) == expect
-    assert points * ct * itemsize <= 232448
+    """K2's geometry: the channel tile is at most 64 bytes a point and a
+    multiple of the vector width dividing C; the ping-pong design wherever
+    two carries and two tap tables fit 227 KB of shared memory, else the
+    single-buffer design."""
+    geo = _chain_geometry(points, c, itemsize, vec)
+    assert geo == ChainGeometry(*expect)
+    assert geo.smem <= 232448
+
+
+@pytest.mark.parametrize("itemsize,vec", [(2, 8), (4, 4), (2, 1), (4, 1)],
+                         ids=["bf16", "float32", "bf16-one-element", "float32-one-element"])
+def test_chain_geometry_is_launchable(itemsize, vec):
+    """Every geometry the wrapper picks is one csrc/warp.cu launches: a
+    tile that divides C into whole vectors, at most 1024 threads and a
+    whole number of a point's vectors a pass, 227 KB of shared memory; in
+    the ping-pong design also a compiled table size that covers every
+    point and uint16 tap indices."""
+    for points in (1, 30, 1024, 2000, 3600, 5000, 8040, 20000):
+        for c in (vec, 3 * vec, 5 * vec, 256, 4096):
+            try:
+                geo = _chain_geometry(points, c, itemsize, vec)
+            except ValueError:
+                assert points * vec * itemsize > 232448
+                continue
+            nv = geo.c_tile // vec
+            assert c % geo.c_tile == 0 and geo.c_tile % vec == 0
+            assert geo.c_tile * itemsize <= max(64, vec * itemsize)
+            assert 0 < geo.threads <= 1024 and geo.threads % nv == 0
+            assert geo.smem <= 232448
+            if geo.table_points:
+                assert geo.table_points in (1, 2, 4, 8) and points < 1 << 16
+                assert geo.table_points * geo.threads >= points
+                assert geo.smem == 2 * points * (geo.c_tile * itemsize + 8 + 4 * itemsize)
+            else:
+                assert geo.smem == points * geo.c_tile * itemsize
+                # the single-buffer design only where no tile fits two carries
+                assert 2 * points * (vec * itemsize + 8 + 4 * itemsize) > 232448
 
 
 def test_chain_tile_raises_on_a_grid_too_large():
     with pytest.raises(ValueError, match="does not fit one block"):
-        _chain_tile(135 * 240, 4096, 2, 8)
+        _chain_geometry(135 * 240, 4096, 2, 8)
 
 
 @pytest.mark.cuda
@@ -137,6 +176,31 @@ def test_kernels_take_unaligned_channel_counts_on_card():
     y0 = x5[:1, :5, :6].contiguous()
     np.testing.assert_allclose(warp_chain_cuda(y0, grids).cpu(),
                                warp_chain_plain(y0, grids).cpu(), **F32_TOL)
+
+
+def _corner_grids(steps, gh, gw):
+    """Every point clamped to the top-left corner: its four taps coincide."""
+    return torch.full((steps, 1, gh, gw, 2), -1.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_both_designs_match_plain_on_card(dtype):
+    """K2 equals its plain version to the bit in both designs: the ping-pong
+    one on a 5x6 grid, the single-buffer one on the reference's 67x120
+    grid; each on random grids at +-1.1 and on the corner grid."""
+    dev = _card()
+    rng = np.random.default_rng(16)
+    for (gh, gw, c), pingpong in (((5, 6, 72), True), ((67, 120, 16), False)):
+        y0 = torch.from_numpy(rng.standard_normal((1, gh, gw, c)).astype(np.float32))
+        rand = torch.from_numpy(rng.uniform(-1.1, 1.1, (4, 1, gh, gw, 2)).astype(np.float32))
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        geo = _chain_geometry(gh * gw, c, itemsize, 16 // itemsize)
+        assert bool(geo.table_points) is pingpong
+        for grids in (rand, _corner_grids(4, gh, gw)):
+            y, g = y0.to(dev, dtype), grids.to(dev)
+            np.testing.assert_array_equal(warp_chain_cuda(y, g).float().cpu().numpy(),
+                                          warp_chain_plain(y, g).float().cpu().numpy())
 
 
 @pytest.mark.cuda
