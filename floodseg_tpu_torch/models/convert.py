@@ -1,22 +1,34 @@
 """The weight bridge: floodseg_tpu variable trees -> the port's state_dict.
 
-``from_jax_variables`` takes a PSPNet's ``{"params", "batch_stats"}`` tree
-(nested mappings of numpy arrays, as ``jax.device_get`` returns them) and
-emits the reference's PSPNet key names, exactly as
-floodseg_tpu/models/lightning_export.py::export_pspnet_variables(...,
-flow=False) does. The port keeps its own copy of that mapping and needs no
-JAX at run time:
+``from_jax_variables`` takes a ``{"params", "batch_stats"}`` tree (nested
+mappings of numpy arrays, as ``jax.device_get`` returns them) of either
+flow architecture, picked from the tree (``ppm`` for PSPNet,
+``classifier``/``aspp`` for DeepLabV3), and emits the reference's key
+names exactly as floodseg_tpu/models/lightning_export.py does:
+``export_pspnet_variables(..., flow=False)`` and
+``export_deeplabv3_variables``. The port keeps its own copy of that
+mapping and needs no JAX at run time:
 
   conv  HWIO kernel -> OIHW ``weight`` (+ ``bias``)
   BN    scale/bias -> weight/bias, batch_stats mean/var ->
         running_mean/running_var, plus ``num_batches_tracked`` = 0
-  stem  conv1/bn1/conv2/bn2/conv3/bn3 -> layer0.{0,1,3,4,6,7}
   trunk layerX_blockY.convZ/bnZ/downsample_{conv,bn} -> layerX.Y.convZ/bnZ/
         downsample.{0,1}
+
+PSPNet (the reference's names):
+  stem  conv1/bn1/conv2/bn2/conv3/bn3 -> layer0.{0,1,3,4,6,7}
   PPM   binI_conv/binI_bn -> ppm.features.I.{1,2}
   heads cls/aux conv1/bn/conv2 -> cls/aux.{0,1,4}
 
-``load_jax_variables`` strict-loads the result into a port PSPNet.
+DeepLabV3 (torchvision's names, all of the trunk under ``backbone.``):
+  stem  conv1/bn1 -> backbone.conv1/bn1
+  ASPP  b0_conv/b0_bn, bI_conv/bI_bn -> classifier.0.convs.{0,I}.{0,1};
+        pool_conv/pool_bn -> classifier.0.convs.4.{1,2};
+        project_conv/project_bn -> classifier.0.project.{0,1}
+  head  conv/bn/classifier -> classifier.{1,2,4}
+  aux   aux_classifier conv/bn/classifier -> aux_classifier.{0,1,4}
+
+``load_jax_variables`` strict-loads the result into a port model.
 """
 
 from typing import Dict, Mapping
@@ -43,48 +55,89 @@ def _bn(out: dict, p: Mapping, s: Mapping, key: str) -> None:
     out[f"{key}.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
 
 
+def _conv_bn(out: dict, p: Mapping, s: Mapping, conv: str, bn: str,
+             conv_key: str, bn_key: str) -> None:
+    _conv(out, p[conv], conv_key)
+    _bn(out, p[bn], s[bn], bn_key)
+
+
 def _seg_head(out: dict, p: Mapping, s: Mapping, key: str) -> None:
-    _conv(out, p["conv1"], f"{key}.0")
-    _bn(out, p["bn"], s["bn"], f"{key}.1")
+    _conv_bn(out, p, s, "conv1", "bn", f"{key}.0", f"{key}.1")
     _conv(out, p["conv2"], f"{key}.4")
 
 
-_STEM = {"conv1": "layer0.0", "bn1": "layer0.1", "conv2": "layer0.3",
-         "bn2": "layer0.4", "conv3": "layer0.6", "bn3": "layer0.7"}
-
-
-def from_jax_variables(variables: Mapping) -> Dict[str, np.ndarray]:
-    """JAX PSPNet variables -> the reference's PSPNet state_dict (numpy)."""
-    p, s = variables["params"], variables["batch_stats"]
-    bp, bs = p["backbone"], s["backbone"]
-    out: Dict[str, np.ndarray] = {}
-    for i in (1, 2, 3):
-        _conv(out, bp[f"conv{i}"], _STEM[f"conv{i}"])
-        _bn(out, bp[f"bn{i}"], bs[f"bn{i}"], _STEM[f"bn{i}"])
+def _trunk(out: dict, bp: Mapping, bs: Mapping, stem: Mapping[str, str],
+           prefix: str = "") -> None:
+    """The stem's convs and BNs under the names in ``stem``, then every
+    bottleneck of layer1..4."""
+    for name, key in stem.items():
+        if name.startswith("conv"):
+            _conv(out, bp[name], prefix + key)
+        else:
+            _bn(out, bp[name], bs[name], prefix + key)
     for name in bp:
         if not name.startswith("layer"):
             continue
         li, bi = name[len("layer"):].split("_block")
-        key = f"layer{li}.{bi}"
+        key = f"{prefix}layer{li}.{bi}"
         for ci in (1, 2, 3):
-            _conv(out, bp[name][f"conv{ci}"], f"{key}.conv{ci}")
-            _bn(out, bp[name][f"bn{ci}"], bs[name][f"bn{ci}"], f"{key}.bn{ci}")
+            _conv_bn(out, bp[name], bs[name], f"conv{ci}", f"bn{ci}",
+                     f"{key}.conv{ci}", f"{key}.bn{ci}")
         if "downsample_conv" in bp[name]:
-            _conv(out, bp[name]["downsample_conv"], f"{key}.downsample.0")
-            _bn(out, bp[name]["downsample_bn"], bs[name]["downsample_bn"],
-                f"{key}.downsample.1")
+            _conv_bn(out, bp[name], bs[name], "downsample_conv", "downsample_bn",
+                     f"{key}.downsample.0", f"{key}.downsample.1")
+
+
+_PSP_STEM = {"conv1": "layer0.0", "bn1": "layer0.1", "conv2": "layer0.3",
+             "bn2": "layer0.4", "conv3": "layer0.6", "bn3": "layer0.7"}
+_TV_STEM = {"conv1": "conv1", "bn1": "bn1"}
+
+
+def _pspnet(p: Mapping, s: Mapping) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    _trunk(out, p["backbone"], s["backbone"], _PSP_STEM)
     for i in range(len([k for k in p["ppm"] if k.endswith("_conv")])):
-        _conv(out, p["ppm"][f"bin{i}_conv"], f"ppm.features.{i}.1")
-        _bn(out, p["ppm"][f"bin{i}_bn"], s["ppm"][f"bin{i}_bn"],
-            f"ppm.features.{i}.2")
+        _conv_bn(out, p["ppm"], s["ppm"], f"bin{i}_conv", f"bin{i}_bn",
+                 f"ppm.features.{i}.1", f"ppm.features.{i}.2")
     _seg_head(out, p["cls"], s["cls"], "cls")
     if "aux" in p:
         _seg_head(out, p["aux"], s["aux"], "aux")
     return out
 
 
+def _deeplabv3(p: Mapping, s: Mapping) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    _trunk(out, p["backbone"], s["backbone"], _TV_STEM, prefix="backbone.")
+    ap, as_ = p["classifier"]["aspp"], s["classifier"]["aspp"]
+    for i in range(4):
+        _conv_bn(out, ap, as_, f"b{i}_conv", f"b{i}_bn",
+                 f"classifier.0.convs.{i}.0", f"classifier.0.convs.{i}.1")
+    _conv_bn(out, ap, as_, "pool_conv", "pool_bn",
+             "classifier.0.convs.4.1", "classifier.0.convs.4.2")
+    _conv_bn(out, ap, as_, "project_conv", "project_bn",
+             "classifier.0.project.0", "classifier.0.project.1")
+    _conv_bn(out, p["classifier"], s["classifier"], "conv", "bn",
+             "classifier.1", "classifier.2")
+    _conv(out, p["classifier"]["classifier"], "classifier.4")
+    if "aux_classifier" in p:
+        _conv_bn(out, p["aux_classifier"], s["aux_classifier"], "conv", "bn",
+                 "aux_classifier.0", "aux_classifier.1")
+        _conv(out, p["aux_classifier"]["classifier"], "aux_classifier.4")
+    return out
+
+
+def from_jax_variables(variables: Mapping) -> Dict[str, np.ndarray]:
+    """JAX PSPNet or DeepLabV3 variables -> the reference's state_dict (numpy)."""
+    p, s = variables["params"], variables["batch_stats"]
+    if "ppm" in p:
+        return _pspnet(p, s)
+    if "aspp" in p.get("classifier", {}):
+        return _deeplabv3(p, s)
+    raise ValueError(f"not a PSPNet or DeepLabV3 variable tree: {sorted(p)}")
+
+
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
-    """Strict-load JAX PSPNet variables into the port's ``model``."""
+    """Strict-load JAX PSPNet or DeepLabV3 variables into the port's ``model``."""
     state = {k: torch.from_numpy(np.array(v))  # a writable copy of each leaf
              for k, v in from_jax_variables(variables).items()}
     model.load_state_dict(state, strict=True)

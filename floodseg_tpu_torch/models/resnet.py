@@ -1,13 +1,22 @@
-"""Deep-base ResNet trunk with semseg dilation (NCHW inside).
+"""ResNet trunks with dilated layer3 and layer4 (NCHW inside).
 
-Counterpart of floodseg_tpu/models/resnet.py for the PSPNet backbone
-(``deep_base=True``, ``semseg_dilation=True``): a three-conv stem, then
-max-pool 3/2/1; every block of layer3 at dilation 2 and of layer4 at
-dilation 4, both at stride 1. Module names are the reference's torch names
-(``layer0`` Sequential for the stem, ``layerX.Y.convZ/bnZ/downsample``).
+Counterpart of floodseg_tpu/models/resnet.py, in its two styles:
+
+- ``deep_base=True``, ``semseg_dilation=True`` (PSPNet): a three-conv stem,
+  then max-pool 3/2/1; every block of layer3 at dilation 2 and of layer4 at
+  dilation 4. Module names are the reference's torch names (``layer0``
+  Sequential for the stem, ``layerX.Y.convZ/bnZ/downsample``).
+- ``deep_base=False``, ``semseg_dilation=False`` (DeepLabV3): torchvision's
+  7x7/2 stem as ``conv1``/``bn1``, then max-pool 3/2/1; torchvision's
+  ``replace_stride_with_dilation=[False, True, True]``, where the first
+  block of a dilated stage keeps the previous stage's dilation, so layer3
+  runs at [1, 2, 2, ...] and layer4 at [2, 4, 4].
+
+layer3 and layer4 run at stride 1 in both, with a downsample on each
+first block.
 """
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
 import torch.nn as nn
@@ -47,25 +56,46 @@ class Bottleneck(nn.Module):
         return self.relu(y + residual)
 
 
+def stage_dilations(n_blocks: int, new: int, prev: int, semseg: bool) -> List[int]:
+    """Each block's dilation in a stage dilated to ``new`` (the JAX
+    package's ``stage_dilations``)."""
+    if new == 1:
+        return [1] * n_blocks
+    if semseg:
+        return [new] * n_blocks
+    return [prev] + [new] * (n_blocks - 1)
+
+
 class ResNetFeatures(nn.Module):
     """Stem + layer1..4 -> {"c2", "c3", "c4"} (layer2/3/4 outputs, NCHW)."""
 
-    def __init__(self, depth: int = 50, dtype: torch.dtype = torch.float32):
+    def __init__(self, depth: int = 50, deep_base: bool = True,
+                 semseg_dilation: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         blocks = DEPTH_BLOCKS[depth]
-        self.layer0 = nn.Sequential(
-            Conv2d(3, 64, 3, stride=2, padding=1, bias=False, dtype=dtype),
-            BatchNorm2d(64, dtype), nn.ReLU(inplace=True),
-            Conv2d(64, 64, 3, padding=1, bias=False, dtype=dtype),
-            BatchNorm2d(64, dtype), nn.ReLU(inplace=True),
-            Conv2d(64, 128, 3, padding=1, bias=False, dtype=dtype),
-            BatchNorm2d(128, dtype), nn.ReLU(inplace=True),
-            MaxPool(3, 2, 1))
-        inplanes = 128
-        stages = ((64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4))
-        for li, ((planes, stride, dilation), n) in enumerate(zip(stages, blocks), 1):
+        self.deep_base = deep_base
+        if deep_base:
+            self.layer0 = nn.Sequential(
+                Conv2d(3, 64, 3, stride=2, padding=1, bias=False, dtype=dtype),
+                BatchNorm2d(64, dtype), nn.ReLU(inplace=True),
+                Conv2d(64, 64, 3, padding=1, bias=False, dtype=dtype),
+                BatchNorm2d(64, dtype), nn.ReLU(inplace=True),
+                Conv2d(64, 128, 3, padding=1, bias=False, dtype=dtype),
+                BatchNorm2d(128, dtype), nn.ReLU(inplace=True),
+                MaxPool(3, 2, 1))
+            inplanes = 128
+        else:
+            self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, dtype=dtype)
+            self.bn1 = BatchNorm2d(64, dtype)
+            self.relu = nn.ReLU(inplace=True)
+            self.maxpool = MaxPool(3, 2, 1)
+            inplanes = 64
+        stages = ((64, 1, [1] * blocks[0]), (128, 2, [1] * blocks[1]),
+                  (256, 1, stage_dilations(blocks[2], 2, 1, semseg_dilation)),
+                  (512, 1, stage_dilations(blocks[3], 4, 2, semseg_dilation)))
+        for li, (planes, stride, dilations) in enumerate(stages, 1):
             layer = []
-            for i in range(n):
+            for i, dilation in enumerate(dilations):
                 layer.append(Bottleneck(
                     inplanes, planes, stride=stride if i == 0 else 1,
                     dilation=dilation,
@@ -75,8 +105,13 @@ class ResNetFeatures(nn.Module):
                 inplanes = planes * 4
             setattr(self, f"layer{li}", nn.Sequential(*layer))
 
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        if self.deep_base:
+            return self.layer0(x)
+        return self.maxpool(self.relu(self.bn1(self.conv1(x))))
+
     def features(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = self.layer1(self.layer0(x))
+        x = self.layer1(self.stem(x))
         c2 = self.layer2(x)
         c3 = self.layer3(c2)
         return {"c2": c2, "c3": c3, "c4": self.layer4(c3)}

@@ -1,9 +1,10 @@
 from floodseg_tpu_torch.ops import resize_kernels, warp_kernels
 from floodseg_tpu_torch.ops.grid_sample import grid_sample
-from floodseg_tpu_torch.ops.pool import adaptive_avg_pool, max_pool
+from floodseg_tpu_torch.ops.pool import adaptive_avg_pool, global_avg_pool, max_pool
 from floodseg_tpu_torch.ops.quant import (
     conv_int8,
     fold_bn,
+    int8_deeplab_decode,
     int8_seghead_decode,
     quantize_activation_dynamic,
     quantize_weight_per_channel,
@@ -37,8 +38,10 @@ __all__ = [
     "adaptive_avg_pool",
     "conv_int8",
     "fold_bn",
+    "global_avg_pool",
     "grid_sample",
     "grid_sample_cuda",
+    "int8_deeplab_decode",
     "int8_seghead_decode",
     "launch_counts",
     "max_pool",

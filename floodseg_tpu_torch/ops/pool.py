@@ -5,6 +5,7 @@
   floodseg_tpu/ops/pool.py does.
 - ``max_pool`` reproduces ``nn.MaxPool2d`` (the ResNet stem's 3/2/1), which
   pads with -inf.
+- ``global_avg_pool`` is the mean over H and W (ASPP's pooling branch).
 """
 
 from functools import lru_cache
@@ -52,3 +53,11 @@ def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
     """Max pool NHWC ``x`` (``nn.MaxPool2d`` semantics, -inf padding)."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
     return y.permute(0, 2, 3, 1)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Mean of NHWC ``x`` over H and W, kept as (B, 1, 1, C). As ``jnp.mean``
+    does, a bf16 input is summed and divided in float32 and the mean cast
+    back to bf16."""
+    cdt = torch.promote_types(x.dtype, torch.float32)
+    return x.to(cdt).mean(dim=(1, 2), keepdim=True).to(x.dtype)

@@ -1,7 +1,9 @@
-"""Post-training int8 quantization of the flow-predict decoder.
+"""Post-training int8 quantization of the flow-predict decoders.
 
 Counterpart of floodseg_tpu/ops/quant.py, for the PSPNet SegHead (conv3x3
--> BN -> ReLU -> Dropout -> conv1x1, ``models/pspnet.py::seg_head``):
+-> BN -> ReLU -> Dropout -> conv1x1, ``models/pspnet.py::seg_head``) and
+the DeepLabV3 DeepLabHead (``int8_deeplab_decode``: ASPP, projection and
+the trailing 3x3 in int8, ``models/deeplabv3.py::deeplab_head``):
 
 - eval-mode BN folds into the 3x3 conv: w' = w * gamma/sqrt(var+eps) per
   out-channel, b' = beta - mean * gamma/sqrt(var+eps);
@@ -19,15 +21,16 @@ padded input, as the JAX package leaves its int8 convolution to XLA; it is
 a library product, not one of the port's kernels. The integer sums are
 exact, so the accumulator equals the JAX package's bit for bit.
 
-Not here yet: ``int8_deeplab_decode`` (with DeepLabV3), ``int8_resnet_trunk``
-and ``ppm_folded`` (the int8 encoder), ``int8_auto_default`` (the port's
-benchmark decides the H100 default).
+Not here yet: ``int8_resnet_trunk`` and ``ppm_folded`` (the int8 encoder),
+``int8_auto_default`` (the port's benchmark decides the H100 default).
 """
 
 from typing import Mapping, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from floodseg_tpu_torch.ops.resize import resize_bilinear
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -103,12 +106,8 @@ def im2col_nhwc(x: torch.Tensor, kh: int, kw: int, padding: Pairs,
     return view.reshape(b * ho * wo, kh * kw * cw).view(x.dtype), (b, ho, wo)
 
 
-def _check_int_mm(m: int, k: int, n: int) -> None:
-    """torch._int_mm's size rules on CUDA: M > 16, K and N multiples of 8."""
-    if m <= 16 or k % 8 or n % 8:
-        raise ValueError(
-            f"conv_int8: the int8 GEMM needs M > 16 and K, N multiples of 8; "
-            f"got M={m}, K={k}, N={n}")
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
 def conv_int8(x_q: torch.Tensor, w_q: torch.Tensor, padding: Pairs,
@@ -117,8 +116,11 @@ def conv_int8(x_q: torch.Tensor, w_q: torch.Tensor, padding: Pairs,
     Cin, kh, kw) OIHW -> (B, Ho, Wo, Cout) int32.
 
     im2col (M = B*Ho*Wo rows, K = kh*kw*Cin) times the weight as a
-    column-major (K, Cout) matrix, through ``torch._int_mm``; a shape that
-    breaks the GEMM's size rules raises. (On an H100, torch 2.11 / CUDA
+    column-major (K, Cout) matrix, through ``torch._int_mm``. The GEMM's
+    size rules on CUDA (M > 16, K and N multiples of 8) are met on every
+    device by zero rows up to M = 17 and zero columns up to the next
+    multiples of 8, sliced off after: sums of zeros change no integer sum,
+    so the result is exact at every shape. (On an H100, torch 2.11 / CUDA
     12.8, a row-major B raised CUBLAS_STATUS_NOT_SUPPORTED at M = 17; the
     column-major view works at every size tried.)"""
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
@@ -128,22 +130,30 @@ def conv_int8(x_q: torch.Tensor, w_q: torch.Tensor, padding: Pairs,
         raise ValueError(f"conv_int8: input has {x_q.shape[-1]} channels, "
                          f"weight expects {cin}")
     cols, out_bhw = im2col_nhwc(x_q, kh, kw, padding, dilation, strides)
-    _check_int_mm(cols.shape[0], cols.shape[1], cout)
+    m, k = cols.shape
+    m_pad, k_pad, n_pad = max(m, 17), _round_up(k, 8), _round_up(cout, 8)
+    if (m_pad, k_pad) != (m, k):
+        cols = F.pad(cols, (0, k_pad - k, 0, m_pad - m))
     # (Cout, kh, kw, Cin) rows, transposed: a column-major (K, Cout) view
-    w_mat = w_q.permute(0, 2, 3, 1).reshape(cout, kh * kw * cin).t()
-    return torch._int_mm(cols, w_mat).reshape(*out_bhw, cout)
+    w_rows = w_q.permute(0, 2, 3, 1).reshape(cout, k)
+    if (n_pad, k_pad) != (cout, k):
+        w_rows = F.pad(w_rows, (0, k_pad - k, 0, n_pad - cout))
+    acc = torch._int_mm(cols, w_rows.t())
+    if (m_pad, n_pad) != (m, cout):
+        acc = acc[:m, :cout]
+    return acc.reshape(*out_bhw, cout)
 
 
 _SEGHEAD_KEYS = ("0.weight", "1.weight", "1.bias", "1.running_mean",
                  "1.running_var", "4.weight", "4.bias")
 
 
-def _require(head: Mapping[str, torch.Tensor], key: str):
+def _require(head: Mapping[str, torch.Tensor], key: str, shape: str = "SegHead"):
     if key not in head:
         raise ValueError(
-            f"int8_decode requires a SegHead-shaped decoder (state_dict[{key}] "
-            f"missing) — it supports the pspnet cls head; use bf16 decode "
-            f"for other archs")
+            f"int8_decode requires a {shape}-shaped decoder (state_dict[{key}] "
+            f"missing) — it supports the pspnet cls head and the deeplabv3 "
+            f"classifier; use bf16 decode for other archs")
     return head[key]
 
 
@@ -170,6 +180,81 @@ def int8_seghead_decode(head: Mapping[str, torch.Tensor], f: torch.Tensor,
     y = torch.relu(y).to(dtype)
     out = F.conv2d(y.permute(0, 3, 1, 2), w2.to(dtype))
     return out.permute(0, 2, 3, 1) + b2.to(dtype)
+
+
+def _deeplab_param(head: Mapping[str, torch.Tensor], key: str):
+    return _require(head, key, "DeepLabHead")
+
+
+def _fold_quant(head: Mapping[str, torch.Tensor], conv: str, bn: str, eps: float):
+    """Fold a conv + BN pair of ``head`` and quantize the folded weight:
+    (w_q, sw, b_f)."""
+    w_f, b_f = fold_bn(_deeplab_param(head, f"{conv}.weight"), *(
+        _deeplab_param(head, f"{bn}.{k}")
+        for k in ("weight", "bias", "running_mean", "running_var")), eps)
+    w_q, sw = quantize_weight_per_channel(w_f)
+    return w_q, sw, b_f
+
+
+def int8_deeplab_decode(head: Mapping[str, torch.Tensor], f: torch.Tensor,
+                        dtype: torch.dtype = torch.bfloat16, rates=(12, 24, 36),
+                        eps: float = 1e-5, act_absmax=None) -> torch.Tensor:
+    """DeepLabHead eval forward with its heavy convs in int8 (BN folded).
+
+    head: the head's state (``model.classifier.state_dict()`` keys: ASPP
+    ``0.convs.{0..3}.{0,1}``, pooling branch ``0.convs.4.{1,2}``,
+    ``0.project.{0,1}``, then ``1``, ``2``, ``4``). f: (B, H, W, 2048) NHWC
+    features, or int8 features quantized at the scale of ``act_absmax``.
+    Returns (B, H, W, classes) logits in ``dtype``, rounded where the JAX
+    package's are:
+
+    - the ASPP 1x1 and the three dilated 3x3 convs share the input's scale;
+      each is ``conv_int8``, then ``acc * (sx * sw) + b_f`` and ReLU in
+      float32;
+    - the pooling branch works on the dequantized input (``x_q * sx``): a
+      float32 mean, a BN-folded float32 1x1 and ReLU, resized back with
+      align_corners=False;
+    - the 1280-channel concat and the projection's output are each
+      quantized at a dynamic per-call scale, so a batch decodes as one call;
+    - the trailing 3x3 is int8; the classifier 1x1 runs in ``dtype`` and
+      adds its bias in ``dtype``.
+
+    Each im2col is freed when its conv returns, so the branches' patch
+    matrices do not add up."""
+    h, w = f.shape[1], f.shape[2]
+    x_q, sx = quantize_activation_dynamic(f, absmax=act_absmax)
+
+    branches = []
+    for i, r in enumerate((0,) + tuple(rates)):
+        w_q, sw, b_f = _fold_quant(head, f"0.convs.{i}.0", f"0.convs.{i}.1", eps)
+        dil = (r, r) if r else (1, 1)
+        acc = conv_int8(x_q, w_q, padding=((r, r), (r, r)), dilation=dil)
+        branches.append(torch.relu(acc.float() * (sx * sw) + b_f))
+
+    # the image-pooling branch, full precision on the dequantized input
+    f_real = x_q.float() * sx if f.dtype == torch.int8 else f.float()
+    y = f_real.mean(dim=(1, 2), keepdim=True)
+    del f_real
+    wp, bp = fold_bn(*(_deeplab_param(head, k) for k in (
+        "0.convs.4.1.weight", "0.convs.4.2.weight", "0.convs.4.2.bias",
+        "0.convs.4.2.running_mean", "0.convs.4.2.running_var")), eps)
+    y = torch.relu(torch.einsum("bhwi,oi->bhwo", y, wp[:, :, 0, 0]) + bp)
+    branches.append(resize_bilinear(y, (h, w), align_corners=False))
+
+    cat = torch.cat(branches, dim=-1)
+    del branches
+    c_q, sc = quantize_activation_dynamic(cat)
+    del cat
+    w_q, sw, b_f = _fold_quant(head, "0.project.0", "0.project.1", eps)
+    acc = conv_int8(c_q, w_q, padding=((0, 0), (0, 0)))
+    proj = torch.relu(acc.float() * (sc * sw) + b_f)
+
+    p_q, sp = quantize_activation_dynamic(proj)
+    w_q, sw, b_f = _fold_quant(head, "1", "2", eps)
+    acc = conv_int8(p_q, w_q, padding=((1, 1), (1, 1)))
+    y = torch.relu(acc.float() * (sp * sw) + b_f).to(dtype)
+    out = F.conv2d(y.permute(0, 3, 1, 2), _deeplab_param(head, "4.weight").to(dtype))
+    return out.permute(0, 2, 3, 1) + head["4.bias"].to(dtype)
 
 
 def seghead_decode_folded_f32(head: Mapping[str, torch.Tensor], f: torch.Tensor,

@@ -26,7 +26,8 @@ from torch.func import functional_call
 
 from floodseg_tpu_torch.core.device import DeviceLike, full_precision_f32, resolve_device
 from floodseg_tpu_torch.data.transforms import MEAN, STD
-from floodseg_tpu_torch.ops.quant import int8_seghead_decode
+from floodseg_tpu_torch.models.deeplabv3 import ASPP
+from floodseg_tpu_torch.ops.quant import int8_deeplab_decode, int8_seghead_decode
 from floodseg_tpu_torch.video.flow_model import FlowInterpolator
 
 
@@ -41,25 +42,40 @@ def _predict_encode(model: nn.Module, int8_encode: bool) -> Callable:
 
 
 def _predict_decode(model: nn.Module, int8_decode: bool) -> Callable:
-    """Decode closure: the model's ``decode``, or the int8-quantized SegHead
-    (ops/quant.py::int8_seghead_decode) of the ``cls`` head, its weights
-    folded and quantized from the variables bound for the call. The
-    DeepLabHead's int8 decoder comes with DeepLabV3; other heads raise."""
+    """Decode closure: the model's ``decode``, or an int8-quantized decoder
+    whose weights are folded and quantized from the variables bound for the
+    call: the PSPNet SegHead ``cls`` (ops/quant.py::int8_seghead_decode) or
+    the DeepLabV3 DeepLabHead ``classifier`` (int8_deeplab_decode). Other
+    heads raise."""
     if not int8_decode:
         return model.decode
     head = getattr(model, "cls", None)
-    if not isinstance(head, nn.Sequential):
-        raise ValueError(
-            "int8_decode supports the pspnet SegHead and the deeplabv3 "
-            "DeepLabHead decoders; use bf16 decode for other archs")
+    if isinstance(head, nn.Sequential):
+        int8_decode_fn = int8_seghead_decode
+    else:
+        head = getattr(model, "classifier", None)
+        if not (isinstance(head, nn.Sequential) and isinstance(head[0], ASPP)):
+            raise ValueError(
+                "int8_decode supports the pspnet SegHead and the deeplabv3 "
+                "DeepLabHead decoders; use bf16 decode for other archs")
+        int8_decode_fn = int8_deeplab_decode
 
     dtype = getattr(head[-1], "compute_dtype", torch.bfloat16)
 
     def decode(f, act_absmax=None):
-        return int8_seghead_decode(head.state_dict(keep_vars=True), f, dtype=dtype,
-                                   act_absmax=act_absmax)
+        return int8_decode_fn(head.state_dict(keep_vars=True), f, dtype=dtype,
+                              act_absmax=act_absmax)
 
     return decode
+
+
+def decode_split_ok(model: nn.Module) -> bool:
+    """Whether predict_clip decodes the key map and the interpolated maps as
+    two calls: only for the PSPNet SegHead (``cls``), as the JAX package's
+    ``_decode_split_ok`` decides. The DeepLabHead decodes the window as one
+    call; its int8 form quantizes at per-call scales, so a split decode
+    would compute something else."""
+    return isinstance(getattr(model, "cls", None), nn.Module)
 
 
 class _Bound(nn.Module):
@@ -89,7 +105,7 @@ def _builder(model, n, feature_based, no_warp, out_size, default_grid,
         encode=_predict_encode(model, int8_encode),
         decode=_predict_decode(model, int8_decode),
         feature_based=feature_based, no_warp=no_warp,
-        decode_wants_absmax=int8_decode)
+        decode_wants_absmax=int8_decode, decode_split=decode_split_ok(model))
     model = _prepare(model, dev)
     dg = None if default_grid is None else torch.as_tensor(
         np.asarray(default_grid, np.float32), device=dev).contiguous()

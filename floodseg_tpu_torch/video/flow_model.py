@@ -62,6 +62,7 @@ class FlowInterpolator:
     feature_based: bool = True
     no_warp: bool = False
     decode_wants_absmax: bool = False
+    decode_split: bool = False
 
     @staticmethod
     def _predict_chain(f: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
@@ -174,9 +175,12 @@ class FlowInterpolator:
                 inter = quantize_with_scale(inter, scale)
             dec = partial(dec, act_absmax=absmax_hint)
 
-        # the key map and the interpolated maps decode as two calls, and only
-        # the logits are concatenated (eval BN makes this equal to one call)
-        out = dec(f) if single else torch.cat([dec(f), dec(inter)], dim=0)
+        if single:
+            out = dec(f)
+        elif self.decode_split:
+            out = torch.cat([dec(f), dec(inter)], dim=0)
+        else:
+            out = dec(torch.cat([f, inter], dim=0))
         if argmax_epilogue:
             out = resize_argmax(out, out_size, align_corners=True)
         elif _hw(out) != out_size:

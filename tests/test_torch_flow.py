@@ -28,10 +28,18 @@ from floodseg_tpu.video.grid import default_grid as jax_default_grid
 from floodseg_tpu_torch.core import full_precision_f32, resolve_device
 from floodseg_tpu_torch.data import MEAN, STD, Resize, predict_windows, synthetic_clip
 from floodseg_tpu_torch.ops import launch_counts, reset_launch_counts
+from floodseg_tpu_torch.models import build_model, init_from_generator_
 from floodseg_tpu_torch.train import make_cached_flow_predict_fn, make_flow_predict_fn
+from floodseg_tpu_torch.train.flow import decode_split_ok
 from floodseg_tpu_torch.video import FlowInterpolator, default_grid
 
-from torch_port_fixtures import pspnet50_pair
+from torch_port_fixtures import (
+    builder_windows,
+    jnorm,
+    pspnet50_pair,
+    run_port_builders,
+    smooth_grids,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,14 +48,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(scope="module")
 def pair():
     return pspnet50_pair(size=65)
-
-
-def _grids(rng, t, gh, gw):
-    """Smooth near-identity grids (T, 1, gh, gw, 2); the jitter pushes the
-    edge points past [-1, 1], so the border clamp is exercised."""
-    base = np.stack(np.meshgrid(np.linspace(-1, 1, gw), np.linspace(-1, 1, gh)),
-                    axis=-1)[None, None]
-    return (base + rng.uniform(-0.08, 0.08, (t, 1, gh, gw, 2))).astype(np.float32)
 
 
 def _jax_interp(jm, variables, **kw):
@@ -69,7 +69,7 @@ def test_predict_clip_pspnet50_matches_jax(pair, tail):
     n = 5
     fp = rng.standard_normal((1, 65, 65, 3)).astype(np.float32)
     fn = None if tail else rng.standard_normal((1, 65, 65, 3)).astype(np.float32)
-    ml, mr = _grids(rng, n - 1, 4, 4), _grids(rng, n - 1, 4, 4)
+    ml, mr = smooth_grids(rng, n - 1, 4, 4), smooth_grids(rng, n - 1, 4, 4)
     dg = jax_default_grid(64, 64)
     np.testing.assert_array_equal(default_grid(64, 64), dg)
 
@@ -123,7 +123,7 @@ def test_predict_clip_branches_match_jax(feature_based, no_warp):
     n = 5
     fp = rng.standard_normal((1, 64, 64, 3)).astype(np.float32)
     fn = rng.standard_normal((1, 64, 64, 3)).astype(np.float32)
-    ml, mr = _grids(rng, n - 1, 4, 4), _grids(rng, n - 1, 4, 4)
+    ml, mr = smooth_grids(rng, n - 1, 4, 4), smooth_grids(rng, n - 1, 4, 4)
     dg = default_grid(64, 64)
     kw = dict(feature_based=feature_based, no_warp=no_warp)
     ref = JaxInterpolator(je, jd, **kw).predict_clip(
@@ -137,57 +137,123 @@ def test_predict_clip_branches_match_jax(feature_based, no_warp):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
 
 
-def test_cached_predict_builders_match_jax(pair):
-    """Full window, then the cached window that reuses its next-key
-    encoding, through both packages' builders. The port's builders take the
-    raw uint8 frames and normalise on the device; the JAX builders get the
-    frames normalised on the host."""
-    jm, variables, port = pair
-    n, out_size = 5, (72, 80)
-    clip = synthetic_clip(2 * n + 1, size=(64, 64), frame_ids=(0, n, 2 * n), seed=3)
-    wins = predict_windows(clip, n)
-    resize = Resize((65, 65))
-    frames = [resize(w[k]).numpy() for w in wins for k in ("frame_prev", "frame_next")]
-    assert frames[0].dtype == np.uint8 and frames[0].shape == (1, 65, 65, 3)
+@pytest.mark.parametrize("n", [5, 25])
+def test_predict_clip_bf16_within_jax_default_warp(n):
+    """bf16 warps: the port's (K1's and K2's plain versions, the Pallas
+    kernels' four taps with merged weights) against the JAX package's
+    default predict path (the XLA gather's LERP,
+    floodseg_tpu/ops/grid_sample.py), both predict_clips in bf16. The
+    encoder is the identity on unit-scale bf16 maps (9x9x8) and the decoder
+    a float32 cast, so the logits are the interpolated maps themselves:
+    frame 0 (one warp, through the identity grid) within 2e-2 and the
+    chained frames within 3e-2, the JAX package's own Pallas-versus-gather
+    tolerances (tests/test_pallas_warp.py); the class maps (argmax over the
+    8 channels) equal wherever the top-2 gap exceeds twice the tolerance.
+    n = 25 runs the main path's 23-step chain on 4x4 grids. Measured: frame 0
+    equal; the chained frames at most 0.0156 (n = 5) and 0.0234 (n = 25)
+    apart at values up to 3.5, and 99.2% or more of the maps equal."""
+    rng = np.random.default_rng(n)
+    fp, fn = (rng.standard_normal((1, 9, 9, 8)).astype(np.float32) for _ in range(2))
+    ml, mr = smooth_grids(rng, n - 1, 4, 4), smooth_grids(rng, n - 1, 4, 4)
     dg = default_grid(64, 64)
+    ref = JaxInterpolator(lambda x: x, lambda f: f.astype(jnp.float32)).predict_clip(
+        jnp.asarray(fp, jnp.bfloat16), jnp.asarray(fn, jnp.bfloat16), jnp.asarray(ml),
+        jnp.asarray(mr), n, default_grid=jnp.asarray(dg))
+    ref = np.asarray(ref)
+    with torch.no_grad():
+        ours = FlowInterpolator(lambda x: x, lambda f: f.float()).predict_clip(
+            torch.from_numpy(fp).to(torch.bfloat16), torch.from_numpy(fn).to(torch.bfloat16),
+            torch.from_numpy(ml), torch.from_numpy(mr), n,
+            default_grid=torch.from_numpy(dg)).numpy()
+    assert ours.shape == ref.shape == (n, 9, 9, 8)
+    for frames, tol in ((slice(0, 1), 2e-2), (slice(1, n), 3e-2)):
+        np.testing.assert_allclose(ours[frames], ref[frames], rtol=tol, atol=tol)
+        top2 = np.sort(ref[frames], axis=-1)[..., -2:]
+        clear = (top2[..., 1] - top2[..., 0]) > 2 * tol * (1 + np.abs(top2[..., 1]))
+        assert clear.mean() > 0.5
+        np.testing.assert_array_equal(ours[frames].argmax(-1)[clear],
+                                      ref[frames].argmax(-1)[clear])
 
-    def jnorm(x):
-        return ((x.astype(np.float32) - np.asarray(JAX_MEAN, np.float32))
-                / np.asarray(JAX_STD, np.float32))
 
+@pytest.fixture(scope="module")
+def jax_windows(pair):
+    """Two windows of a synthetic clip (65 px key frames, n = 5) through the
+    JAX package's cached builders (window 0 full, window 1 cached), and its
+    interpolator's logits of both. The JAX builders get the frames
+    normalised on the host; the port's take the raw uint8 frames."""
+    jm, variables, _ = pair
+    ref = builder_windows()
+    n, out_size, wins, frames, dg = (ref[k] for k in ("n", "out_size", "wins",
+                                                      "frames", "dg"))
     j_full, j_cached = jax_cached_fns(jm, n=n, out_size=out_size, default_grid=dg)
     j0, jenc0 = j_full(variables, jnorm(frames[0]), jnorm(frames[1]),
                        wins[0]["mvs_left"], wins[0]["mvs_right"])
     j1, jenc1 = j_cached(variables, jenc0, jnorm(frames[3]),
                          wins[1]["mvs_left"], wins[1]["mvs_right"])
+    logits = [_jax_interp(jm, variables).predict_clip(
+        jnorm(frames[0]) if i == 0 else None, jnorm(frames[2 * i + 1]),
+        wins[i]["mvs_left"], wins[i]["mvs_right"], n, default_grid=jnp.asarray(dg),
+        out_size=out_size, f_prev_enc=None if i == 0 else jenc0) for i in (0, 1)]
+    return dict(ref, maps=(j0, j1), encs=(jenc0, jenc1), logits=logits)
 
-    full, cached = make_cached_flow_predict_fn(port, n=n, out_size=out_size,
-                                               default_grid=dg, device="cpu")
-    state = port.state_dict()
-    p0, penc0 = full(state, frames[0], frames[1], wins[0]["mvs_left"],
-                     wins[0]["mvs_right"])
-    p1, penc1 = cached(state, penc0, frames[3], wins[1]["mvs_left"],
-                       wins[1]["mvs_right"])
-    single = make_flow_predict_fn(port, n=n, out_size=out_size, default_grid=dg,
-                                  device="cpu")(state, frames[0], frames[1],
-                                                wins[0]["mvs_left"], wins[0]["mvs_right"])
 
-    # the raw next-key encodings agree like the encoder does
-    np.testing.assert_allclose(penc0.numpy(), np.asarray(jenc0), **TOL)
-    np.testing.assert_allclose(penc1.numpy(), np.asarray(jenc1), **TOL)
-    np.testing.assert_array_equal(single.numpy(), p0.numpy())
-    for i, (ours, ref) in enumerate(((p0, j0), (p1, j1))):
+def assert_builders_match_jax(maps, encs, single, ref, gap=1e-4, enc_tol=TOL):
+    """The raw next-key encodings agree like the encoder does; the single-
+    window builder gives the full program's maps; the int32 maps equal
+    JAX's wherever the top-2 logit gap exceeds ``gap``."""
+    n, out_size = ref["n"], ref["out_size"]
+    for ours, theirs in zip(encs, ref["encs"]):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), **enc_tol)
+    np.testing.assert_array_equal(single.numpy(), maps[0].numpy())
+    for ours, theirs, lg in zip(maps, ref["maps"], ref["logits"]):
         assert ours.dtype == torch.int32 and ours.shape == (n,) + out_size
-        w = wins[i]
-        fpi = jnorm(frames[2 * i]) if i == 0 else None
-        logits = _jax_interp(jm, variables).predict_clip(
-            fpi, jnorm(frames[2 * i + 1]), w["mvs_left"], w["mvs_right"], n,
-            default_grid=jnp.asarray(dg), out_size=out_size,
-            f_prev_enc=None if i == 0 else jenc0)
-        top2 = np.sort(np.asarray(logits), axis=-1)[..., -2:]
-        clear = (top2[..., 1] - top2[..., 0]) > 1e-4
+        top2 = np.sort(np.asarray(lg), axis=-1)[..., -2:]
+        clear = (top2[..., 1] - top2[..., 0]) > gap
         assert clear.mean() > 0.9
-        np.testing.assert_array_equal(ours.numpy()[clear], np.asarray(ref)[clear])
+        np.testing.assert_array_equal(ours.numpy()[clear], np.asarray(theirs)[clear])
+
+
+def test_cached_predict_builders_match_jax(pair, jax_windows):
+    """Full window, then the cached window that reuses its next-key
+    encoding, through both packages' builders."""
+    _, _, port = pair
+    maps, encs, single = run_port_builders(port, port.state_dict(), jax_windows)
+    assert_builders_match_jax(maps, encs, single, jax_windows)
+
+
+def test_predict_builders_bind_variables_not_module_weights(pair, jax_windows):
+    """The builders' contract is JAX's: fn(variables, ...) depends on
+    ``variables`` alone. Built on a model whose own weights come from
+    another seed and called with the fixture's variables, they give the
+    maps and encodings of JAX run on those variables, and exactly what the
+    builders give on the fixture's own model."""
+    _, _, port = pair
+    other = init_from_generator_(build_model("pspnet", layers=50, with_aux=False),
+                                 torch.Generator().manual_seed(11))
+    own = {k: v.clone() for k, v in other.state_dict().items()}
+    maps, encs, single = run_port_builders(other, port.state_dict(), jax_windows)
+    assert_builders_match_jax(maps, encs, single, jax_windows)
+    ref_maps, ref_encs, _ = run_port_builders(port, port.state_dict(), jax_windows)
+    for a, b in zip(maps + encs, ref_maps + ref_encs):
+        assert torch.equal(a, b)
+    # the module's own weights are untouched
+    for k, v in other.state_dict().items():
+        assert torch.equal(v, own[k]), k
+
+
+def test_predict_builders_split_decode_for_the_seghead(pair, jax_windows, monkeypatch):
+    """PSPNet's SegHead decodes the key map and the interpolated maps as
+    two calls (the JAX package's _decode_split_ok); the tail window, one."""
+    _, _, port = pair
+    assert decode_split_ok(port)
+    batches = []
+    decode = port.decode
+    monkeypatch.setattr(port, "decode", lambda f: batches.append(f.shape[0]) or decode(f))
+    n, wins, frames = jax_windows["n"], jax_windows["wins"], jax_windows["frames"]
+    fn = make_flow_predict_fn(port, n=n, out_size=jax_windows["out_size"],
+                              default_grid=jax_windows["dg"], device="cpu")
+    fn(port.state_dict(), frames[0], frames[1], wins[0]["mvs_left"], wins[0]["mvs_right"])
+    assert batches == [1, n - 1]
 
 
 def test_predict_builders_raise_on_int8():
@@ -285,7 +351,8 @@ def test_port_imports_no_jax():
         "             or m == 'floodseg_tpu' or m.startswith('floodseg_tpu.'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
-        "for m in ('ops.warp_kernels', 'ops.quant', 'ops.resize_kernels'):\n"
+        "for m in ('ops.warp_kernels', 'ops.quant', 'ops.resize_kernels',\n"
+        "          'models.deeplabv3'):\n"
         "    assert 'floodseg_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

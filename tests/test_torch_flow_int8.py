@@ -19,20 +19,25 @@ import numpy as np
 import pytest
 import torch
 
-from floodseg_tpu.data.transforms import MEAN as JAX_MEAN, STD as JAX_STD
 from floodseg_tpu.ops import quant as jq
 from floodseg_tpu.train.flow import make_cached_flow_predict_fn as jax_cached_fns
 from floodseg_tpu.train.flow import make_flow_predict_fn as jax_predict_fn
 from floodseg_tpu.video import FlowInterpolator as JaxInterpolator
 
-from floodseg_tpu_torch.data import Resize, predict_windows, synthetic_clip
+from floodseg_tpu_torch.models import build_model, init_from_generator_
 from floodseg_tpu_torch.ops import launch_counts, reset_launch_counts
 from floodseg_tpu_torch.ops import quant as port_quant
 from floodseg_tpu_torch.train import make_cached_flow_predict_fn, make_flow_predict_fn
 from floodseg_tpu_torch.train.flow import _predict_decode
 from floodseg_tpu_torch.video import FlowInterpolator, default_grid
 
-from torch_port_fixtures import pspnet50_pair
+from torch_port_fixtures import (
+    builder_windows,
+    jnorm,
+    pspnet50_pair,
+    run_port_builders,
+    smooth_grids,
+)
 
 LOGIT_ATOL = 5e-3
 LANE_SHARE = 1e-4
@@ -43,12 +48,6 @@ NO_LAUNCHES = {"grid_sample_cuda": 0, "warp_chain_cuda": 0,
 @pytest.fixture(scope="module")
 def pair():
     return pspnet50_pair(size=65)
-
-
-def _grids(rng, t, gh, gw):
-    base = np.stack(np.meshgrid(np.linspace(-1, 1, gw), np.linspace(-1, 1, gh)),
-                    axis=-1)[None, None]
-    return (base + rng.uniform(-0.08, 0.08, (t, 1, gh, gw, 2))).astype(np.float32)
 
 
 def _jax_int8_interp(jm, variables, seen):
@@ -96,7 +95,7 @@ def test_predict_clip_int8_matches_jax(pair, port_int8_maps, tail):
     n = 5
     fp = rng.standard_normal((1, 65, 65, 3)).astype(np.float32)
     fn = None if tail else rng.standard_normal((1, 65, 65, 3)).astype(np.float32)
-    ml, mr = _grids(rng, n - 1, 4, 4), _grids(rng, n - 1, 4, 4)
+    ml, mr = smooth_grids(rng, n - 1, 4, 4), smooth_grids(rng, n - 1, 4, 4)
     dg = default_grid(64, 64)
 
     jax_maps = []
@@ -106,7 +105,7 @@ def test_predict_clip_int8_matches_jax(pair, port_int8_maps, tail):
     reset_launch_counts()
     interp = FlowInterpolator(encode=lambda x: port.encode(x)[0],
                               decode=_predict_decode(port, True),
-                              decode_wants_absmax=True)
+                              decode_wants_absmax=True, decode_split=True)
     with torch.no_grad():
         ours = interp.predict_clip(
             torch.from_numpy(fp), None if tail else torch.from_numpy(fn),
@@ -122,22 +121,15 @@ def test_predict_clip_int8_matches_jax(pair, port_int8_maps, tail):
     np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=LOGIT_ATOL)
 
 
-def test_predict_builders_int8_match_jax(pair, port_int8_maps):
-    """Window 0 through the full programs, then window 1 through the cached
-    one that reuses window 0's next-key encoding, in both packages; the
-    port's single-window builder gives the full program's maps."""
-    jm, variables, port = pair
-    n, out_size = 5, (72, 80)
-    clip = synthetic_clip(2 * n + 1, size=(64, 64), frame_ids=(0, n, 2 * n), seed=3)
-    wins = predict_windows(clip, n)
-    resize = Resize((65, 65))
-    frames = [resize(w[k]).numpy() for w in wins for k in ("frame_prev", "frame_next")]
-    dg = default_grid(64, 64)
-
-    def jnorm(x):
-        return ((x.astype(np.float32) - np.asarray(JAX_MEAN, np.float32))
-                / np.asarray(JAX_STD, np.float32))
-
+@pytest.fixture(scope="module")
+def jax_int8_windows(pair):
+    """Window 0 through JAX's full program and window 1 through its cached
+    one (int8_decode=True), and JAX's logits and int8 maps of the same two
+    windows, eagerly."""
+    jm, variables, _ = pair
+    ref = builder_windows()
+    n, out_size, wins, frames, dg = (ref[k] for k in ("n", "out_size", "wins",
+                                                      "frames", "dg"))
     j_full, j_cached = jax_cached_fns(jm, n=n, out_size=out_size, default_grid=dg,
                                       int8_decode=True)
     j0, jenc0 = j_full(variables, jnorm(frames[0]), jnorm(frames[1]),
@@ -149,37 +141,61 @@ def test_predict_builders_int8_match_jax(pair, port_int8_maps):
         variables, jnorm(frames[0]), jnorm(frames[1]), wins[0]["mvs_left"],
         wins[0]["mvs_right"])
     np.testing.assert_array_equal(np.asarray(j0_single), np.asarray(j0))
-
-    reset_launch_counts()
-    full, cached = make_cached_flow_predict_fn(port, n=n, out_size=out_size,
-                                               default_grid=dg, int8_decode=True,
-                                               device="cpu")
-    state = port.state_dict()
-    p0, penc0 = full(state, frames[0], frames[1], wins[0]["mvs_left"],
-                     wins[0]["mvs_right"])
-    p1, _ = cached(state, penc0, frames[3], wins[1]["mvs_left"], wins[1]["mvs_right"])
-    ours_maps = list(port_int8_maps)
-    single = make_flow_predict_fn(port, n=n, out_size=out_size, default_grid=dg,
-                                  int8_decode=True, device="cpu")(
-        state, frames[0], frames[1], wins[0]["mvs_left"], wins[0]["mvs_right"])
-    assert launch_counts() == NO_LAUNCHES
-    np.testing.assert_array_equal(single.numpy(), p0.numpy())
-    np.testing.assert_allclose(penc0.numpy(), np.asarray(jenc0), rtol=1e-4, atol=1e-4)
-
-    # JAX's logits and int8 maps of the same two windows, eagerly
     jax_maps = []
     interp = _jax_int8_interp(jm, variables, jax_maps)
     logits = [interp.predict_clip(
         jnorm(frames[0]) if i == 0 else None, jnorm(frames[2 * i + 1]),
         wins[i]["mvs_left"], wins[i]["mvs_right"], n, default_grid=jnp.asarray(dg),
         out_size=out_size, f_prev_enc=None if i == 0 else jenc0) for i in (0, 1)]
-    _assert_int8_maps_close(ours_maps, jax_maps)
-    for ours, ref, lg in ((p0, j0, logits[0]), (p1, j1, logits[1])):
+    return dict(ref, maps=(j0, j1), enc0=jenc0, logits=logits, int8_maps=jax_maps)
+
+
+def _assert_int8_builders_match_jax(maps, encs, single, ours_maps, ref):
+    n, out_size = ref["n"], ref["out_size"]
+    np.testing.assert_array_equal(single.numpy(), maps[0].numpy())
+    np.testing.assert_allclose(encs[0].numpy(), np.asarray(ref["enc0"]), rtol=1e-4,
+                               atol=1e-4)
+    _assert_int8_maps_close(ours_maps, ref["int8_maps"])
+    for ours, theirs, lg in zip(maps, ref["maps"], ref["logits"]):
         assert ours.dtype == torch.int32 and ours.shape == (n,) + out_size
         top2 = np.sort(np.asarray(lg), axis=-1)[..., -2:]
         clear = (top2[..., 1] - top2[..., 0]) > 2 * LOGIT_ATOL
         assert clear.mean() > 0.9
-        np.testing.assert_array_equal(ours.numpy()[clear], np.asarray(ref)[clear])
+        np.testing.assert_array_equal(ours.numpy()[clear], np.asarray(theirs)[clear])
+
+
+def test_predict_builders_int8_match_jax(pair, port_int8_maps, jax_int8_windows):
+    """Window 0 through the full programs, then window 1 through the cached
+    one that reuses window 0's next-key encoding, in both packages; the
+    port's single-window builder gives the full program's maps."""
+    _, _, port = pair
+    reset_launch_counts()
+    maps, encs, single = run_port_builders(port, port.state_dict(), jax_int8_windows,
+                                           int8_decode=True)
+    assert launch_counts() == NO_LAUNCHES
+    # the SegHead decodes the key map and the stack as two calls
+    assert [m.shape[0] for m in port_int8_maps] == [1, 4, 1, 4, 1, 4]
+    _assert_int8_builders_match_jax(maps, encs, single, port_int8_maps[:4],
+                                    jax_int8_windows)
+
+
+def test_predict_builders_int8_bind_variables_not_module_weights(pair, port_int8_maps,
+                                                                 jax_int8_windows):
+    """The int8 head folds and quantizes the variables bound for the call,
+    not the module's own weights: built on a model from another seed and
+    called with the fixture's variables, the builders give JAX's maps on
+    those variables, and exactly the maps of the fixture's own model."""
+    _, _, port = pair
+    other = init_from_generator_(build_model("pspnet", layers=50, with_aux=False),
+                                 torch.Generator().manual_seed(11))
+    maps, encs, single = run_port_builders(other, port.state_dict(), jax_int8_windows,
+                                           int8_decode=True)
+    _assert_int8_builders_match_jax(maps, encs, single, port_int8_maps[:4],
+                                    jax_int8_windows)
+    ref_maps, ref_encs, _ = run_port_builders(port, port.state_dict(), jax_int8_windows,
+                                              int8_decode=True)
+    for a, b in zip(maps + encs, ref_maps + ref_encs):
+        assert torch.equal(a, b)
 
 
 def test_int8_decode_raises_on_other_heads():

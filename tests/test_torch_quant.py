@@ -171,21 +171,33 @@ def test_conv_int8_matches_jax_options(kwargs, ksize):
     np.testing.assert_array_equal(ours.numpy(), ref)
 
 
-def test_conv_int8_raises_on_gemm_size_rules():
-    """torch._int_mm's rules on the card (M > 16, K and N multiples of 8)
-    raise on every device instead of taking another route."""
+@pytest.mark.parametrize("x_shape,w_shape", [
+    ((1, 4, 4, 8), (3, 3, 8, 8)),      # M = 16
+    ((1, 1, 1, 16), (3, 3, 16, 24)),   # M = 1, a one-pixel map
+    ((1, 5, 5, 3), (3, 3, 3, 8)),      # K = 27
+    ((1, 5, 5, 8), (3, 3, 8, 5)),      # N = 5
+    ((2, 2, 3, 5), (3, 3, 5, 13)),     # M = 12, K = 45, N = 13
+], ids=["M16", "M1", "K27", "N5", "all_three"])
+def test_conv_int8_off_gemm_size_rules_matches_jax(x_shape, w_shape):
+    """Shapes outside torch._int_mm's rules on the card (M > 16, K and N
+    multiples of 8) are padded with zeros and sliced on every device: the
+    int32 accumulator equals JAX's, which has no such rules."""
+    rng = np.random.default_rng(sum(x_shape) + sum(w_shape))
+    x = rng.integers(-127, 128, x_shape, dtype=np.int8)
+    w = rng.integers(-127, 128, w_shape, dtype=np.int8)
+    ref = np.asarray(jq.conv_int8(jnp.asarray(x), jnp.asarray(w), padding=PAD1))
+    ours = conv_int8(_t(x), _t(_oihw(w)), padding=PAD1)
+    assert ours.dtype == torch.int32 and ours.shape == ref.shape
+    np.testing.assert_array_equal(ours.numpy(), ref)
+
+
+def test_conv_int8_raises_on_non_int8_operands():
     x = torch.zeros((1, 4, 4, 8), dtype=torch.int8)
     w = torch.zeros((8, 8, 3, 3), dtype=torch.int8)
-    with pytest.raises(ValueError, match="M > 16"):
-        conv_int8(x, w, padding=PAD1)                              # M = 16
-    with pytest.raises(ValueError, match="M > 16"):
-        conv_int8(torch.zeros((1, 5, 5, 3), dtype=torch.int8),
-                  torch.zeros((8, 3, 3, 3), dtype=torch.int8), padding=PAD1)  # K = 27
-    with pytest.raises(ValueError, match="M > 16"):
-        conv_int8(torch.zeros((1, 5, 5, 8), dtype=torch.int8),
-                  torch.zeros((5, 8, 3, 3), dtype=torch.int8), padding=PAD1)  # N = 5
     with pytest.raises(TypeError, match="int8 operands"):
         conv_int8(x.float(), w, padding=PAD1)
+    with pytest.raises(ValueError, match="channels"):
+        conv_int8(x[..., :4].contiguous(), w, padding=PAD1)
 
 
 def test_int8_seghead_decode_matches_jax(head):

@@ -1,17 +1,24 @@
 """Shared set-up for the port's parity tests (tests/test_torch_*.py).
 
-A JAX PSPNet-50 initialised from PRNGKey(0), with every BatchNorm's scale,
-bias, running mean and running variance replaced by seeded numpy values so
-that no BN is the identity, carried into the port through the weight
-bridge (floodseg_tpu_torch/models/convert.py).
+A JAX PSPNet-50 or DeepLabV3-50 initialised from PRNGKey(``key``), with
+every BatchNorm's scale, bias, running mean and running variance replaced
+by values from a seeded numpy generator so that no BN is the identity,
+carried into the port through the weight bridge
+(floodseg_tpu_torch/models/convert.py); and the flow tests' inputs: block
+grids, two windows of a synthetic clip, and the port's predict builders
+driven over them.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from floodseg_tpu.data.transforms import MEAN as JAX_MEAN, STD as JAX_STD
 from floodseg_tpu.models import build_model as jax_build_model
+from floodseg_tpu_torch.data import Resize, predict_windows, synthetic_clip
 from floodseg_tpu_torch.models import build_model, load_jax_variables
+from floodseg_tpu_torch.train import make_cached_flow_predict_fn, make_flow_predict_fn
+from floodseg_tpu_torch.video import default_grid
 
 
 def _perturb_bn(params, stats, rng):
@@ -35,16 +42,72 @@ def _to_dict(tree):
     return np.asarray(tree)
 
 
-def pspnet50_pair(size: int = 65, seed: int = 0, classes: int = 5):
-    """(jax_model, variables as numpy dicts, port PSPNet-50 with the same
-    weights), both float32 and without the aux head."""
-    jm = jax_build_model("pspnet", classes=classes, layers=50, with_aux=False)
+def _pair(arch: str, size: int, seed: int, classes: int, key: int):
+    jm = jax_build_model(arch, classes=classes, layers=50, with_aux=False)
     x0 = jnp.zeros((1, size, size, 3), jnp.float32)
     variables = _to_dict(jax.device_get(jax.jit(
-        lambda: jm.init({"params": jax.random.PRNGKey(0)}, x0, train=False))()))
+        lambda: jm.init({"params": jax.random.PRNGKey(key)}, x0, train=False))()))
     _perturb_bn(variables["params"], variables["batch_stats"],
                 np.random.default_rng(seed))
     port = load_jax_variables(
-        build_model("pspnet", classes=classes, layers=50, with_aux=False),
-        variables)
+        build_model(arch, classes=classes, layers=50, with_aux=False), variables)
     return jm, variables, port
+
+
+def pspnet50_pair(size: int = 65, seed: int = 0, classes: int = 5, key: int = 0):
+    """(jax_model, variables as numpy dicts, port PSPNet-50 with the same
+    weights), both float32 and without the aux head."""
+    return _pair("pspnet", size, seed, classes, key)
+
+
+def deeplabv3_pair(size: int = 65, seed: int = 0, classes: int = 5, key: int = 0):
+    """(jax_model, variables as numpy dicts, port DeepLabV3-50 with the same
+    weights), both float32 and without the aux head."""
+    return _pair("deeplabv3", size, seed, classes, key)
+
+
+def smooth_grids(rng, t, gh, gw):
+    """Smooth near-identity grids (T, 1, gh, gw, 2); the jitter pushes the
+    edge points past [-1, 1], so the border clamp is exercised."""
+    base = np.stack(np.meshgrid(np.linspace(-1, 1, gw), np.linspace(-1, 1, gh)),
+                    axis=-1)[None, None]
+    return (base + rng.uniform(-0.08, 0.08, (t, 1, gh, gw, 2))).astype(np.float32)
+
+
+def jnorm(x):
+    """Key frames normalised on the host, as the JAX builders' callers do;
+    the port's builders take the raw uint8 frames and normalise on the
+    device."""
+    return ((x.astype(np.float32) - np.asarray(JAX_MEAN, np.float32))
+            / np.asarray(JAX_STD, np.float32))
+
+
+def builder_windows(n: int = 5, out_size=(72, 80)):
+    """Two windows of a synthetic clip of 64 px frames, its key frames
+    resized to 65 px uint8 (1, 65, 65, 3): frames[0], frames[1] are window
+    0's, frames[3] window 1's next key."""
+    clip = synthetic_clip(2 * n + 1, size=(64, 64), frame_ids=(0, n, 2 * n), seed=3)
+    wins = predict_windows(clip, n)
+    resize = Resize((65, 65))
+    frames = [resize(w[k]).numpy() for w in wins for k in ("frame_prev", "frame_next")]
+    assert frames[0].dtype == np.uint8 and frames[0].shape == (1, 65, 65, 3)
+    return dict(n=n, out_size=out_size, wins=wins, frames=frames, dg=default_grid(64, 64))
+
+
+def run_port_builders(model, variables, ref, **kw):
+    """The port's cached builders (window 0 full, window 1 cached) and its
+    single-window builder over ``builder_windows`` ``ref``, built on
+    ``model`` and called with ``variables``: ((maps0, maps1), (enc0, enc1),
+    single-window maps0)."""
+    n, out_size, dg, wins, frames = (ref[k] for k in ("n", "out_size", "dg", "wins",
+                                                      "frames"))
+    full, cached = make_cached_flow_predict_fn(model, n=n, out_size=out_size,
+                                               default_grid=dg, device="cpu", **kw)
+    p0, penc0 = full(variables, frames[0], frames[1], wins[0]["mvs_left"],
+                     wins[0]["mvs_right"])
+    p1, penc1 = cached(variables, penc0, frames[3], wins[1]["mvs_left"],
+                       wins[1]["mvs_right"])
+    single = make_flow_predict_fn(model, n=n, out_size=out_size, default_grid=dg,
+                                  device="cpu", **kw)(
+        variables, frames[0], frames[1], wins[0]["mvs_left"], wins[0]["mvs_right"])
+    return (p0, p1), (penc0, penc1), single
