@@ -37,8 +37,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    channel tile, so 64 blocks); K3 on the stack the DeepLabV3 int8 path
    feeds it (24x32x32x2048 -> 64x64). The same tolerances, and each timed
    beside its bound.
+3v. K1 and K2 at the ViT path's shapes (C = 768): K1 up-samples the
+   (1, 16, 16, 768) token map to the 32x32 block grid (random grids, the
+   main path's grids, the identity grid); K2 23 steps on (1, 32, 32, 768)
+   (a 32-channel tile, so 24 blocks; the count is logged beside the
+   card's SMs). The same tolerances, each timed beside its bound and
+   F.grid_sample.
 4. The flow-predict slice in float32 (TF32 off) on the card against the
-   same slice on the CPU: PSPNet-50 at 129 px key frames, n = 5, with each
+   same slice on the CPU: PSPNet-50 at 129 px key frames from a clip of
+   128 px frames (SLICE_FRAME_HW, every slice check), n = 5, with each
    decoder; with an int8 decoder, the share of int8 lanes one step apart.
 4b. The int8 decoder on the card against the CPU: the same int8 input and
    int8 weights give equal int32 accumulators; the bf16 logits of
@@ -49,14 +56,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    trailing 3x3) replayed on the card from the CPU's int8 input and
    weights gives the CPU's int32 accumulator; the bf16 logits agree within
    the stated share of their largest magnitude.
+4v. The Segmenter ViT-B/32 slice on the card against the CPU, 128 px key
+   frames (4x4 tokens, 8x8 grids), n = 5, the MaskTransformer decoding a
+   window as one call: in float32, then in bf16 (bf16 products reduced in
+   float32 on the card, as the builders run them), logits and encodings
+   within SLICE_TOL and ENC_TOL; the bf16 logits are read once more with
+   PyTorch's default reduced-precision reduction, for the record.
 5. The main path: PSPNet-50 in bf16 at full width, 513 px key frames,
    n = 25, 32x32 block grids, through make_cached_flow_predict_fn, with
    bench.py's protocol (8 timed windows, median of 5 passes). The launch
    counters are set to 0 before and read after: K1 must have launched 3
    times and K2 twice per window, K3 never.
    Then torch.profiler over two more cached windows: the device's busy
-   time and idle share per window, kernel time by name (the table and the
-   trace go to build/profile/).
+   time and idle share per window, the kernels a window, kernel time by
+   name and by family (KERNEL_FAMILIES; the table and the trace go to
+   build/profile/).
 6. The int8 main path: the same model, windows and protocol with
    int8_decode=True. K1 3, K2 2 and K3 1 launches per window; frames/s and
    peak memory; the profiler over two cached windows; the device-time
@@ -69,9 +83,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. The same with the int8 DeepLabHead (K3 1 per window), then the device-
    time split of its int8 decode at 25x64x64x2048 (each int8 conv's im2col
    copy and torch._int_mm, CUDA events).
+9. The ViT main path (bench.py --arch vit): ViT-B/32 in bf16 at full
+   width, 512 px key frames (16x16x768 token maps), n = 25, the bf16
+   MaskTransformer decoding each window as one call (the ViT has no int8
+   decoder); the same protocol and launch checks (K1 3, K2 2, K3 0 per
+   window), profiler, peak memory.
    Each main path runs with only its own model on the card, so its peak
    memory is its own.
-9. A JSON line {"kernels": [...]}, then the nvidia-smi line, then the last
+10. A JSON line {"kernels": [...]}, then the nvidia-smi line, then the last
    line {"ok": true, "device": {...}}.
 """
 
@@ -107,11 +126,14 @@ from floodseg_tpu_torch.train import make_cached_flow_predict_fn
 from floodseg_tpu_torch.train.flow import _predict_decode, decode_split_ok
 from floodseg_tpu_torch.video import FlowInterpolator, default_grid, flow_model
 
-# the flow-predict workload of bench.py (SIZE: PSPNet; DL_SIZE: --arch deeplabv3)
+# the flow-predict workload of bench.py (SIZE: PSPNet; DL_SIZE: --arch
+# deeplabv3 and --arch vit)
 FRAME_DELTA = 25
 SIZE = 513
 DL_SIZE = 512
 DL_FEAT_HW = (64, 64)
+VIT_TOKENS_HW = (16, 16)  # ViT-B/32 at 512 px
+VIT_D = 768
 CLIPS_TIMED = 8
 PASSES = 5
 CLASSES = 5
@@ -585,10 +607,12 @@ def check_int8_deeplab_decode_card_vs_cpu(model, shape=(2, 33, 33, 2048), seed=2
 
 # ------------------------------------------------------------- the slice
 
-def random_model(arch, dtype, seed=0):
-    """PSPNet-50 or DeepLabV3-50 (no aux head) with weights from one
-    torch.Generator seed, every BN's statistics perturbed."""
-    model = build_model(arch, classes=CLASSES, layers=50, with_aux=False, dtype=dtype)
+def random_model(arch, dtype, seed=0, image_size=DL_SIZE):
+    """PSPNet-50 or DeepLabV3-50 (no aux head), or ViT-B/32 for
+    ``image_size`` px frames, with weights from one torch.Generator seed,
+    every BN's statistics and every LayerNorm perturbed."""
+    model = build_model(arch, classes=CLASSES, layers=50, image_size=image_size,
+                        with_aux=False, dtype=dtype)
     return init_from_generator_(model, torch.Generator().manual_seed(seed))
 
 
@@ -644,22 +668,35 @@ def slice_outputs(model, device, n, size, frame_hw, wins, int8):
                        w0["mvs_left"], w0["mvs_right"])
     maps1, enc1 = cached(variables, enc0, w1["frame_next"], w1["mvs_left"],
                          w1["mvs_right"])
-    return {k: v.cpu() for k, v in dict(logits=logits, maps0=maps0, enc0=enc0,
-                                        maps1=maps1, enc1=enc1).items()}
+    return {k: (v.float() if v.is_floating_point() else v).cpu()
+            for k, v in dict(logits=logits, maps0=maps0, enc0=enc0, maps1=maps1,
+                             enc1=enc1).items()}
 
 
-# card against CPU, share of the logits' largest magnitude: float32 through
-# ~55 layers in different summation orders agrees to 1e-4. With an int8
+# card against CPU, share of the logits' largest magnitude, by the slice's
+# arch and decoder ("float32", "int8" on a float32 model, "bfloat16"): float32
+# through ~55 layers in different summation orders agrees to 1e-4. With an int8
 # head, a value that the two devices' float32 encoders put on either side
 # of a rounding boundary is quantized one step apart: the SegHead's one
 # quantization moves nearby logits by about 1e-3 of their scale; the
 # DeepLabHead quantizes three times (the input, the ASPP concat, the
 # projection), and each one-step lane moves many values of the next map
-# (on the CPU against JAX: 0.7% of the scale, tests/test_torch_flow_deeplabv3.py)
 # (on the CPU against JAX: 0.7% of the scale, tests/test_torch_flow_deeplabv3.py;
-# on an H100 80GB HBM3, 700 W, card against CPU: 2.53%)
-SLICE_TOL = {("pspnet", False): 1e-4, ("pspnet", True): 2e-3,
-             ("deeplabv3", False): 1e-4, ("deeplabv3", True): 5e-2}
+# on an H100 80GB HBM3, 700 W, card against CPU: 2.53%). The ViT's float32
+# logits, after 14 transformer blocks and a LayerNorm over the 5 classes,
+# are held to the CNNs' 1e-4 (on the CPU against JAX at 64 px: 4.9e-5 at
+# most, tests/test_torch_flow_vit.py). In bf16 the ViT rounds the same
+# operations in the same order on both devices, but float32 sums inside a
+# rounding differ, so a value near a bf16 boundary lands one ulp apart and
+# the next layers carry it on: the bounds of ViT-B/32 in bf16 against JAX
+# on the CPU (tests/test_torch_vit.py::test_full_width_vit_b32_bf16_matches_jax,
+# 64 px), 24 bf16 ulps (2**-8 of the largest magnitude each) for the logits
+# and 8 for the encoder's token map (9.92 and 4.11 measured there).
+SLICE_TOL = {("pspnet", "float32"): 1e-4, ("pspnet", "int8"): 2e-3,
+             ("deeplabv3", "float32"): 1e-4, ("deeplabv3", "int8"): 5e-2,
+             ("vit", "float32"): 1e-4, ("vit", "bfloat16"): 24 * 2.0 ** -8}
+ENC_TOL = {"float32": 1e-4, "int8": 1e-4, "bfloat16": 8 * 2.0 ** -8}
+SLICE_FRAME_HW = (128, 128)  # the clip's frames; key frames resized to ``size``
 
 
 class Int8Inputs:
@@ -685,25 +722,31 @@ def lanes_off(a, b):
     return float((d != 0).float().mean()), int(d.max())
 
 
-def check_slice_card_vs_cpu(arch="pspnet", n=5, size=129, seed=1, int8=False) -> None:
-    """Phases 4 and 4d: float32 (TF32 off), the same weights and inputs on
-    both, logits within SLICE_TOL of their largest magnitude; the maps equal
-    away from near-ties."""
-    frame_hw = (size - 1, size - 1)
-    cpu_model = random_model(arch, torch.float32, seed)
+def check_slice_card_vs_cpu(arch="pspnet", n=5, size=129, seed=1, int8=False,
+                            dtype=torch.float32) -> None:
+    """Phases 4, 4d and 4v: a float32 model (TF32 off) or a bf16 one (bf16
+    products reduced in float32), the same weights and inputs on both,
+    logits within SLICE_TOL and the key encodings within ENC_TOL of their
+    largest magnitude; the maps equal away from near-ties. Key frames of
+    ``size`` px from a clip of SLICE_FRAME_HW frames."""
+    mode = "int8" if int8 else str(dtype).split(".")[-1]
+    cpu_model = random_model(arch, dtype, seed, image_size=size)
     gpu_model = copy.deepcopy(cpu_model)
-    wins = clip_windows(n, frame_hw, 2, size, "cpu", seed)
+    wins = clip_windows(n, SLICE_FRAME_HW, 2, size, "cpu", seed)
+    matmul = torch.backends.cuda.matmul
     with full_precision_f32():
-        log(f"  {'int8' if int8 else 'float32'} decoder; cudnn.allow_tf32="
-            f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32="
-            f"{torch.backends.cuda.matmul.allow_tf32}")
+        log(f"  {mode} decoder; cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+            f"cuda.matmul.allow_tf32={matmul.allow_tf32} cuda.matmul."
+            f"allow_bf16_reduced_precision_reduction="
+            f"{matmul.allow_bf16_reduced_precision_reduction}")
         t0 = time.perf_counter()
         with Int8Inputs() as ref_maps:
-            ref = slice_outputs(cpu_model, torch.device("cpu"), n, size, frame_hw, wins, int8)
+            ref = slice_outputs(cpu_model, torch.device("cpu"), n, size, SLICE_FRAME_HW,
+                                wins, int8)
         t1 = time.perf_counter()
         with Int8Inputs() as got_maps:
-            got = slice_outputs(gpu_model, torch.device("cuda"), n, size, frame_hw, wins,
-                                int8)
+            got = slice_outputs(gpu_model, torch.device("cuda"), n, size, SLICE_FRAME_HW,
+                                wins, int8)
         torch.cuda.synchronize()
     log(f"  cpu {t1 - t0:.1f} s, card {time.perf_counter() - t1:.1f} s")
     if int8:
@@ -719,18 +762,32 @@ def check_slice_card_vs_cpu(arch="pspnet", n=5, size=129, seed=1, int8=False) ->
         log(f"  int8 maps card vs CPU over {len(ref_maps.maps)} convs, the largest share "
             f"of lanes off and step by quantization: {worst}")
     scale = float(ref["logits"].abs().max())
-    share = SLICE_TOL[(arch, int8)]
+    share = SLICE_TOL[(arch, mode)]
     tol = share * scale
     err = float((got["logits"] - ref["logits"]).abs().max())
     log(f"  logits {tuple(ref['logits'].shape)}: max_abs_err {err:.3e} "
-        f"({err / scale:.2e} of max|logit| {scale:.3e}), tol {tol:.3e} ({share:g} x)")
+        f"({err / scale:.2e} of max|logit| {scale:.3e}; {err / scale / 2.0 ** -8:.2f} "
+        f"bf16 ulps of it), tol {tol:.3e} ({share:g} x)")
     if not err <= tol:
         raise AssertionError(f"card and CPU logits disagree: {err} > {tol}")
+    if dtype == torch.bfloat16:
+        # the reading with PyTorch's default, bf16 partial sums allowed (the
+        # block restores the flag on exit)
+        w0 = {k: (v.cuda() if torch.is_tensor(v) else v) for k, v in wins[0].items()}
+        with full_precision_f32():
+            matmul.allow_bf16_reduced_precision_reduction = True
+            loose = window_logits(gpu_model, w0, n, default_grid(*SLICE_FRAME_HW), size,
+                                  torch.device("cuda")).float().cpu()
+        e = float((loose - ref["logits"]).abs().max())
+        log(f"  logits with allow_bf16_reduced_precision_reduction=True: max_abs_err "
+            f"{e:.3e} ({e / scale / 2.0 ** -8:.2f} bf16 ulps of max|logit|; reading only)")
     for k in ("enc0", "enc1"):
         s = float(ref[k].abs().max())
         e = float((got[k] - ref[k]).abs().max())
-        log(f"  {k} {tuple(ref[k].shape)}: max_abs_err {e:.3e}, tol {1e-4 * s:.3e}")
-        if not e <= 1e-4 * s:
+        etol = ENC_TOL[mode] * s
+        log(f"  {k} {tuple(ref[k].shape)}: max_abs_err {e:.3e} ({e / s:.2e} of "
+            f"max|enc| {s:.3e}), tol {etol:.3e}")
+        if not e <= etol:
             raise AssertionError(f"card and CPU {k} disagree: {e}")
     # maps: equal wherever the top-2 gap of the CPU logits exceeds the
     # logits tolerance (window 0 logits are the full program's)
@@ -744,7 +801,7 @@ def check_slice_card_vs_cpu(arch="pspnet", n=5, size=129, seed=1, int8=False) ->
         raise AssertionError("card and CPU maps differ away from near-ties")
     same1 = float((got["maps1"] == ref["maps1"]).float().mean())
     log(f"  maps1 (cached window): {same1:.6f} equal")
-    if same1 < (0.99 if int8 else 0.999):
+    if same1 < (0.999 if mode == "float32" else 0.99):
         raise AssertionError(f"cached-window maps agree on only {same1:.6f}")
 
 
@@ -755,9 +812,9 @@ def sync(dev):
 
 def run_main_path(model, wins, int8, tag, dev=torch.device("cuda"), n=FRAME_DELTA,
                   size=SIZE, frame_hw=(512, 512)) -> dict:
-    """Phases 5 to 8: a bf16 model (PSPNet-50 at 513 px, DeepLabV3-50 at
-    512 px), n = 25, bench.py's protocol, with the full-precision or the
-    int8 decoder."""
+    """Phases 5 to 9: a bf16 model (PSPNet-50 at 513 px, DeepLabV3-50 and
+    ViT-B/32 at 512 px), n = 25, bench.py's protocol, with the
+    full-precision or the int8 decoder."""
     full, cached = make_cached_flow_predict_fn(
         model, n=n, out_size=(size, size), default_grid=default_grid(*frame_hw),
         int8_decode=int8, device=dev)
@@ -830,6 +887,28 @@ PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 KERNEL_NAMES = {"grid_sample_cuda": "grid_sample_kernel",
                 "warp_chain_cuda": "warp_chain_",  # either design
                 "resize_quantize_int8_cuda": "resize_quantize_kernel"}
+# a window's device time by family of kernel names; the first family whose
+# pattern a name contains takes it (cuDNN's implicit-GEMM convolutions
+# before the matrix products, the casts before the other elementwise work)
+KERNEL_FAMILIES = (
+    ("K1-K3", tuple(KERNEL_NAMES.values())),
+    ("convolutions", ("fprop", "cudnn")),
+    ("matrix products", ("gemm", "nvjet", "cutlass")),
+    ("copies and casts", ("copy", "CatArray")),
+    ("softmax", ("softmax",)),
+    ("reductions", ("reduce_kernel",)),
+    ("other elementwise", ("",)),
+)
+
+
+def kernel_families(kernels, windows=2) -> dict:
+    """ms a window of each KERNEL_FAMILIES family over trace kernel events."""
+    ms = {name: 0.0 for name, _ in KERNEL_FAMILIES}
+    for e in kernels:
+        family = next(name for name, pats in KERNEL_FAMILIES
+                      if any(p in e["name"] for p in pats))
+        ms[family] += e["dur"] / (1e3 * windows)
+    return ms
 
 
 def profile(run, timed, tag) -> dict:
@@ -863,12 +942,16 @@ def profile(run, timed, tag) -> dict:
     span = max(e for _, e in spans) - spans[0][0]
     per_kernel = {k: sum(e["dur"] for e in kernels if v in e["name"]) / 2e3
                   for k, v in KERNEL_NAMES.items()}
+    families = kernel_families(kernels)
     log(f"  profiler, 2 cached windows: device busy {busy / 2e3:.3f} ms/window "
         f"of {span / 2e3:.3f} ms (idle share {1 - busy / span:.1%} under the "
         f"profiler); ms/window by kernel {per_kernel}; table and trace in "
         f"{PROFILE_DIR}")
+    log(f"  {len(kernels) / 2:.0f} kernels a window; ms/window by family "
+        f"{ {k: round(v, 3) for k, v in families.items()} }")
     log(table)
-    return {"busy_ms": busy / 2e3, "span_ms": span / 2e3, "kernel_ms": per_kernel}
+    return {"busy_ms": busy / 2e3, "span_ms": span / 2e3, "kernel_ms": per_kernel,
+            "family_ms": families}
 
 
 def time_int8_conv(name, x_q, w_q, padding, dilation, flush, cpm) -> dict:
@@ -1145,6 +1228,15 @@ def main() -> int:
     del stack
     dl_model.cpu()
 
+    log("[3v] K1 and K2 at the ViT path's shapes (C = 768)")
+    vit_shape = (1,) + VIT_TOKENS_HW + (VIT_D,)
+    vit_errs = check_kernels(dev, k1_shape=vit_shape)
+    vit_timing = time_kernels(dev, k1_shape=vit_shape)
+    geo = _chain_geometry(32 * 32, VIT_D, 2, 8)
+    log(f"  K2 at C = {VIT_D} bf16: {geo.c_tile}-channel tile, {VIT_D // geo.c_tile} "
+        f"blocks of {geo.threads} threads on "
+        f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs")
+
     log("[4] slice on the card against the slice on the CPU (float32)")
     check_slice_card_vs_cpu()
     check_slice_card_vs_cpu(int8=True)
@@ -1155,18 +1247,27 @@ def main() -> int:
     check_slice_card_vs_cpu("deeplabv3", int8=True)
     log("[4e] DeepLabV3 int8 decode on the card against the CPU")
     check_int8_deeplab_decode_card_vs_cpu(dl_model)
+    log("[4v] ViT-B/32 slice on the card against the CPU (float32, then bf16)")
+    check_slice_card_vs_cpu("vit", size=128)
+    check_slice_card_vs_cpu("vit", size=128, dtype=torch.bfloat16)
 
+    vit_model = random_model("vit", torch.bfloat16, seed=0)
+    models = {"pspnet": model, "deeplabv3": dl_model, "vit": vit_model}
+    names = {"pspnet": "PSPNet-50", "deeplabv3": "DeepLabV3-50", "vit": "ViT-B/32"}
     paths = {}
-    for phase, arch, m, ws, size, int8 in (
-            ("[5]", "pspnet", model, wins, SIZE, False),
-            ("[6]", "pspnet", model, wins, SIZE, True),
-            ("[7]", "deeplabv3", dl_model, dl_wins, DL_SIZE, False),
-            ("[8]", "deeplabv3", dl_model, dl_wins, DL_SIZE, True)):
+    for phase, arch, ws, size, int8 in (
+            ("[5]", "pspnet", wins, SIZE, False),
+            ("[6]", "pspnet", wins, SIZE, True),
+            ("[7]", "deeplabv3", dl_wins, DL_SIZE, False),
+            ("[8]", "deeplabv3", dl_wins, DL_SIZE, True),
+            ("[9]", "vit", dl_wins, DL_SIZE, False)):
         tag = f"{arch}_{'int8' if int8 else 'bf16'}"
-        (dl_model if arch == "pspnet" else model).cpu()  # its own peak memory
-        log(f"{phase} main path: {'PSPNet-50' if arch == 'pspnet' else 'DeepLabV3-50'} "
-            f"bf16, {size} px key frames, n = {FRAME_DELTA}, "
-            f"{'int8' if int8 else 'bf16'} decoder")
+        m = models[arch]
+        for held in models.values():  # its own peak memory
+            if held is not m:
+                held.cpu()
+        log(f"{phase} main path: {names[arch]} bf16, {size} px key frames, "
+            f"n = {FRAME_DELTA}, {'int8' if int8 else 'bf16'} decoder")
         r = paths[tag] = run_main_path(m, ws, int8, tag, size=size)
         log(f"  {r['fps']:.2f} frames/s (median of {PASSES} passes x {CLIPS_TIMED} "
             f"windows; passes {[round(f, 2) for f in r['fps_passes']]}), peak memory "
@@ -1191,6 +1292,7 @@ def main() -> int:
                "warp_chain_cuda": ("floodseg_tpu/ops/pallas_warp.py:139", "warp.cu"),
                "resize_quantize_int8_cuda": ("floodseg_tpu/ops/pallas_resize.py:135",
                                              "resize.cu")}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for kname, (replaces, src) in sources.items():
         t = timing[kname]
@@ -1199,11 +1301,11 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": f"floodseg_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(errs[kname], dl_errs[kname]), "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "deeplabv3": {k: dl_timing[kname][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "max_abs_err": max(errs[kname], dl_errs[kname], vit_errs.get(kname, 0.0)),
+            **{k: t[k] for k in keys},
+            "deeplabv3": {k: dl_timing[kname][k] for k in keys},
+            **({"vit": {k: vit_timing[kname][k] for k in keys}} if kname in vit_timing
+               else {}),
             "passed": True})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

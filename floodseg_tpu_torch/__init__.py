@@ -14,8 +14,8 @@ Layout:
   csrc/    hand-written CUDA kernels for sm_90a (built with nvcc on first use)
   ops/     resize, pooling, the plain warp, int8 quantization of the decoders,
            the kernels' wrappers (warp_kernels: K1, K2; resize_kernels: K3)
-  models/  PSPNet and DeepLabV3 (eval) with the reference's torch key names,
-           and the weight bridge
+  models/  PSPNet, DeepLabV3 and the Segmenter ViT (eval) with the
+           reference's torch key names, and the weight bridge
   video/   block-MV grid algebra and the keyframe-warp interpolator
   train/   flow-predict program builders
   data/    normalisation constants, frame resize, in-memory synthetic clips

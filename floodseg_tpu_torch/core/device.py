@@ -14,7 +14,10 @@ float32 program here means float32 arithmetic as in the JAX package, and
 no other torch code in the process sees the flags change. bf16
 convolutions are unaffected; the float32 resize contractions inside a bf16
 program stay full float32, as ``precision="highest"`` keeps them in the
-JAX package.
+JAX package. It also turns off cuBLAS's reduced-precision reduction of
+bf16 products (on by default in PyTorch: a split-K GEMM may add its
+partial sums in bf16), so a bf16 product is summed in float32 and rounded
+once, as flax's ``Dense(precision="highest")`` does in the ViT.
 """
 
 import contextlib
@@ -37,12 +40,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 @contextlib.contextmanager
 def full_precision_f32() -> Iterator[None]:
-    """TF32 off for cuDNN convolutions and CUDA matrix products inside the
-    block; the previous flags are restored on exit."""
-    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """TF32 off for cuDNN convolutions and CUDA matrix products, and bf16
+    products reduced in float32, inside the block; the previous flags are
+    restored on exit."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = (cudnn.allow_tf32, matmul.allow_tf32,
+            matmul.allow_bf16_reduced_precision_reduction)
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        (cudnn.allow_tf32, matmul.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = prev

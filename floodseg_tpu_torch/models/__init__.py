@@ -1,8 +1,8 @@
 """Model factory (counterpart of floodseg_tpu/models/__init__.py).
 
-The port has the two flow-predict architectures, PSPNet and DeepLabV3
-(ResNet-50/101/152 trunks, eval); the Segmenter ViT comes with a later
-slice.
+The port has the three flow-predict architectures, eval only: PSPNet and
+DeepLabV3 (ResNet-50/101/152 trunks) and the Segmenter ViT (ViT-B/32 with
+the MaskTransformer decoder).
 """
 
 import torch
@@ -13,14 +13,17 @@ from floodseg_tpu_torch.models.deeplabv3 import DeepLabV3
 from floodseg_tpu_torch.models.layers import init_from_generator_
 from floodseg_tpu_torch.models.pspnet import PPM, PSPNet
 from floodseg_tpu_torch.models.resnet import ResNetFeatures
+from floodseg_tpu_torch.models.vit import MaskTransformer, SegmenterViT, VisionTransformer
 
-ARCHS = ("pspnet", "deeplabv3")
+ARCHS = ("pspnet", "deeplabv3", "vit")
 
 
-def build_model(arch: str, classes: int = 5, layers: int = 50,
+def build_model(arch: str, classes: int = 5, layers: int = 50, image_size: int = 768,
                 with_aux: bool = True, dtype: torch.dtype = torch.float32) -> nn.Module:
     """The model for ``arch`` in eval mode, on the CPU, float32 parameters
-    computing in ``dtype``. Weights come from ``load_jax_variables``,
+    computing in ``dtype``. ``layers`` and ``with_aux`` are the CNNs',
+    ``image_size`` (the position grid's frame size) the ViT's, as in the
+    JAX factory. Weights come from ``load_jax_variables``,
     ``load_state_dict`` or ``init_from_generator_``."""
     if arch == "pspnet":
         return PSPNet(classes=classes, layers=layers, with_aux=with_aux,
@@ -28,8 +31,11 @@ def build_model(arch: str, classes: int = 5, layers: int = 50,
     if arch == "deeplabv3":
         return DeepLabV3(classes=classes, layers=layers, with_aux=with_aux,
                          dtype=dtype).eval()
-    raise ValueError(f"arch {arch!r} is not ported yet; the port has {ARCHS}")
+    if arch == "vit":
+        return SegmenterViT(classes=classes, image_size=image_size, dtype=dtype).eval()
+    raise ValueError(f"unknown arch {arch!r}; expected one of {ARCHS}")
 
 
-__all__ = ["ARCHS", "DeepLabV3", "PPM", "PSPNet", "ResNetFeatures", "build_model",
-           "from_jax_variables", "init_from_generator_", "load_jax_variables"]
+__all__ = ["ARCHS", "DeepLabV3", "MaskTransformer", "PPM", "PSPNet", "ResNetFeatures",
+           "SegmenterViT", "VisionTransformer", "build_model", "from_jax_variables",
+           "init_from_generator_", "load_jax_variables"]

@@ -1,13 +1,15 @@
 """The weight bridge: floodseg_tpu variable trees -> the port's state_dict.
 
 ``from_jax_variables`` takes a ``{"params", "batch_stats"}`` tree (nested
-mappings of numpy arrays, as ``jax.device_get`` returns them) of either
-flow architecture, picked from the tree (``ppm`` for PSPNet,
+mappings of numpy arrays, as ``jax.device_get`` returns them) of any flow
+architecture, picked from the tree (``encoder.patch_proj`` for the ViT,
+whose tree has no ``batch_stats`` or an empty one; ``ppm`` for PSPNet,
 ``classifier``/``aspp`` for DeepLabV3), and emits the reference's key
 names exactly as floodseg_tpu/models/lightning_export.py does:
-``export_pspnet_variables(..., flow=False)`` and
-``export_deeplabv3_variables``. The port keeps its own copy of that
-mapping and needs no JAX at run time:
+``export_pspnet_variables(..., flow=False)``,
+``export_deeplabv3_variables``, and ``export_vit_encoder(p["encoder"],
+"encoder.")`` with ``export_mask_transformer(p["decoder"], "decoder.")``.
+The port keeps its own copy of that mapping and needs no JAX at run time:
 
   conv  HWIO kernel -> OIHW ``weight`` (+ ``bias``)
   BN    scale/bias -> weight/bias, batch_stats mean/var ->
@@ -28,6 +30,17 @@ DeepLabV3 (torchvision's names, all of the trunk under ``backbone.``):
   head  conv/bn/classifier -> classifier.{1,2,4}
   aux   aux_classifier conv/bn/classifier -> aux_classifier.{0,1,4}
 
+Segmenter ViT (timm's and Segmenter's names):
+  linear  (in, out) kernel -> (out, in) ``weight`` (+ ``bias``)
+  LN      scale/bias -> weight/bias
+  patch   patch_proj (P*P*C, D) kernel, rows in (py, px, c) order ->
+          OIHW conv weight (D, C, P, P) ``encoder.patch_embed.proj``
+  encoder cls_token, pos_embed, norm; blockI.{norm1, attn.qkv, attn.proj,
+          norm2, mlp.fc1, mlp.fc2} -> encoder.blocks.I.*
+  decoder proj_dec, cls_emb, proj_patch, proj_classes, decoder_norm,
+          mask_norm, blocks.I.* under ``decoder.``; the linear decoder's
+          head -> decoder.head
+
 ``load_jax_variables`` strict-loads the result into a port model.
 """
 
@@ -47,9 +60,13 @@ def _conv(out: dict, p: Mapping, key: str) -> None:
         out[f"{key}.bias"] = _f32(p["bias"])
 
 
-def _bn(out: dict, p: Mapping, s: Mapping, key: str) -> None:
+def _scale_bias(out: dict, p: Mapping, key: str) -> None:
     out[f"{key}.weight"] = _f32(p["scale"])
     out[f"{key}.bias"] = _f32(p["bias"])
+
+
+def _bn(out: dict, p: Mapping, s: Mapping, key: str) -> None:
+    _scale_bias(out, p, key)
     out[f"{key}.running_mean"] = _f32(s["mean"])
     out[f"{key}.running_var"] = _f32(s["var"])
     out[f"{key}.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
@@ -126,18 +143,75 @@ def _deeplabv3(p: Mapping, s: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
+def _linear(out: dict, p: Mapping, key: str) -> None:
+    out[f"{key}.weight"] = _f32(p["kernel"]).T
+    if "bias" in p:
+        out[f"{key}.bias"] = _f32(p["bias"])
+
+
+def _vit_block(out: dict, p: Mapping, key: str) -> None:
+    for ln in ("norm1", "norm2"):
+        _scale_bias(out, p[ln], f"{key}.{ln}")
+    for sub, name in (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"), ("mlp", "fc2")):
+        _linear(out, p[sub][name], f"{key}.{sub}.{name}")
+
+
+def _vit_blocks(out: dict, p: Mapping, prefix: str) -> None:
+    for name in p:
+        if name.startswith("block"):
+            _vit_block(out, p[name], f"{prefix}blocks.{name[len('block'):]}")
+
+
+def _vit_encoder(out: dict, p: Mapping, prefix: str) -> None:
+    k = _f32(p["patch_proj"]["kernel"])
+    d = k.shape[1]
+    patch = int(round((k.shape[0] // 3) ** 0.5))  # RGB frames
+    if patch * patch * 3 != k.shape[0]:
+        raise ValueError(f"patch kernel rows {k.shape[0]} are not P*P*3")
+    out[f"{prefix}patch_embed.proj.weight"] = k.reshape(patch, patch, 3, d).transpose(3, 2, 0, 1)
+    out[f"{prefix}patch_embed.proj.bias"] = _f32(p["patch_proj"]["bias"])
+    out[f"{prefix}cls_token"] = _f32(p["cls_token"])
+    out[f"{prefix}pos_embed"] = _f32(p["pos_embed"])
+    _scale_bias(out, p["norm"], f"{prefix}norm")
+    _vit_blocks(out, p, prefix)
+
+
+def _mask_transformer(out: dict, p: Mapping, prefix: str) -> None:
+    _linear(out, p["proj_dec"], f"{prefix}proj_dec")
+    for name in ("cls_emb", "proj_patch", "proj_classes"):
+        out[f"{prefix}{name}"] = _f32(p[name])
+    for ln in ("decoder_norm", "mask_norm"):
+        _scale_bias(out, p[ln], f"{prefix}{ln}")
+    _vit_blocks(out, p, prefix)
+
+
+def _vit(p: Mapping) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    _vit_encoder(out, p["encoder"], "encoder.")
+    if "head" in p["decoder"]:
+        _linear(out, p["decoder"]["head"], "decoder.head")
+    else:
+        _mask_transformer(out, p["decoder"], "decoder.")
+    return out
+
+
 def from_jax_variables(variables: Mapping) -> Dict[str, np.ndarray]:
-    """JAX PSPNet or DeepLabV3 variables -> the reference's state_dict (numpy)."""
-    p, s = variables["params"], variables["batch_stats"]
+    """JAX PSPNet, DeepLabV3 or SegmenterViT variables -> the reference's
+    state_dict (numpy)."""
+    p = variables["params"]
+    if "patch_proj" in p.get("encoder", {}):
+        return _vit(p)
+    s = variables["batch_stats"]
     if "ppm" in p:
         return _pspnet(p, s)
     if "aspp" in p.get("classifier", {}):
         return _deeplabv3(p, s)
-    raise ValueError(f"not a PSPNet or DeepLabV3 variable tree: {sorted(p)}")
+    raise ValueError(f"not a PSPNet, DeepLabV3 or SegmenterViT variable tree: {sorted(p)}")
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
-    """Strict-load JAX PSPNet or DeepLabV3 variables into the port's ``model``."""
+    """Strict-load JAX PSPNet, DeepLabV3 or SegmenterViT variables into the
+    port's ``model``."""
     state = {k: torch.from_numpy(np.array(v))  # a writable copy of each leaf
              for k, v in from_jax_variables(variables).items()}
     model.load_state_dict(state, strict=True)

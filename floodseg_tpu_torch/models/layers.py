@@ -4,9 +4,10 @@ Counterpart of floodseg_tpu/models/layers.py. A ``dtype`` argument behaves
 like flax's ``dtype=..., param_dtype=float32`` pair: parameters and buffers
 are held in float32 and the layer computes in ``dtype``.
 
-The modules work on NCHW-shaped tensors, as PyTorch's convolutions do; on
-the card they are channels-last in memory, so the permute to the NHWC
-layout of the public functions costs nothing.
+The convolution modules work on NCHW-shaped tensors, as PyTorch's
+convolutions do; on the card they are channels-last in memory, so the
+permute to the NHWC layout of the public functions costs nothing.
+``Linear`` and ``LayerNorm`` (the ViT's) act on the last axis.
 """
 
 import math
@@ -64,6 +65,45 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y.to(self.compute_dtype)
 
 
+class Linear(nn.Linear):
+    """flax's ``nn.Dense(dtype=..., param_dtype=float32,
+    precision="highest")``: the float32 weight and bias are cast to
+    ``dtype``, the product is rounded to ``dtype``, and the bias is added
+    after it, a second rounding in bf16 as in the JAX package (a fused
+    bias, as ``F.linear`` may take on the card, rounds once)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = torch.matmul(x.to(dt), self.weight.to(dt).t())
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax 0.12's ``nn.LayerNorm(epsilon=1e-5, dtype=...)`` over the last
+    axis, in its order: mean and the fast variance max(0, E[x^2] - E[x]^2)
+    in ``promote_types(dtype, float32)``, then ``mul = rsqrt(var + eps) *
+    scale`` and ``(x - mean) * mul + bias``, cast to ``dtype``.
+    ``F.layer_norm`` takes a two-pass variance in another order and is not
+    used."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__(features, eps=1e-5)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sdt = torch.promote_types(self.compute_dtype, torch.float32)
+        xs = x.to(sdt)
+        mean = xs.mean(-1, keepdim=True)
+        var = torch.clamp_min((xs * xs).mean(-1, keepdim=True) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(sdt)
+        return ((xs - mean) * mul + self.bias.to(sdt)).to(self.compute_dtype)
+
+
 class MaxPool(nn.Module):
     """``nn.MaxPool2d`` through ops.pool.max_pool (NCHW in and out)."""
 
@@ -88,6 +128,13 @@ def init_from_generator_(module: nn.Module, generator: torch.Generator) -> nn.Mo
     perturbed by about 10% so that no BN is the identity; the last BN of
     each residual branch (``bn3``) is scaled down so that activations stay
     in range through the residual stack, as zero-init-residual schemes do.
+
+    The ViT's layers: Linear weights normal with variance 1 / fan-in and
+    small biases; every LayerNorm's scale and bias perturbed by about 10%,
+    so that no LN is the identity; the class and position embeddings
+    (``cls_token``, ``pos_embed``, ``cls_emb``) normal at 0.02; the
+    MaskTransformer's ``proj_patch`` and ``proj_classes`` normal at
+    d**-0.5, the JAX package's init.
     """
     for name, m in module.named_modules():
         if isinstance(m, nn.Conv2d):
@@ -102,4 +149,16 @@ def init_from_generator_(module: nn.Module, generator: torch.Generator) -> nn.Mo
             m.running_mean.normal_(0.0, _BN_JITTER, generator=generator)
             m.running_var.uniform_(1.0 - _BN_JITTER, 1.0 + _BN_JITTER,
                                    generator=generator)
+        elif isinstance(m, nn.Linear):
+            m.weight.normal_(0.0, math.sqrt(1.0 / m.in_features), generator=generator)
+            if m.bias is not None:
+                m.bias.normal_(0.0, 0.01, generator=generator)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.normal_(1.0, _BN_JITTER, generator=generator)
+            m.bias.normal_(0.0, _BN_JITTER, generator=generator)
+        for pname, p in m.named_parameters(recurse=False):
+            if pname in ("cls_token", "pos_embed", "cls_emb"):
+                p.normal_(0.0, 0.02, generator=generator)
+            elif pname in ("proj_patch", "proj_classes"):
+                p.normal_(0.0, p.shape[0] ** -0.5, generator=generator)
     return module

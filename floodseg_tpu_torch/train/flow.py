@@ -13,8 +13,9 @@ NHWC and normalise them on the device with ``MEAN``/``STD``, as bench.py
 does around the JAX builders. They run on ``device`` (``None`` -> ``cuda``;
 core/device.py) and move the model there, channels-last on the card.
 Float policy: each call runs inside ``full_precision_f32`` (TF32 off for
-convolutions and matrix products, the caller's flags restored after), so a
-float32 model computes in float32 as the JAX package's does.
+convolutions and matrix products, bf16 products reduced in float32, the
+caller's flags restored after), so a float32 model computes in float32 and
+a bf16 one rounds each product once, as the JAX package's do.
 """
 
 from typing import Callable, Mapping, Optional, Tuple
@@ -72,9 +73,10 @@ def _predict_decode(model: nn.Module, int8_decode: bool) -> Callable:
 def decode_split_ok(model: nn.Module) -> bool:
     """Whether predict_clip decodes the key map and the interpolated maps as
     two calls: only for the PSPNet SegHead (``cls``), as the JAX package's
-    ``_decode_split_ok`` decides. The DeepLabHead decodes the window as one
-    call; its int8 form quantizes at per-call scales, so a split decode
-    would compute something else."""
+    ``_decode_split_ok`` decides. The DeepLabHead and the ViT's
+    MaskTransformer decode the window as one call; the DeepLabHead's int8
+    form quantizes at per-call scales, so a split decode would compute
+    something else."""
     return isinstance(getattr(model, "cls", None), nn.Module)
 
 

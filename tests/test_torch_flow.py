@@ -275,19 +275,27 @@ def test_cached_builder_raises_on_unfused_argmax():
 
 
 def test_full_precision_f32_is_scoped():
-    """TF32 is off inside the block and the caller's flags come back after,
-    also when the block raises."""
+    """TF32 and the bf16 reduced-precision reduction are off inside the
+    block and the caller's flags come back after, also when the block
+    raises."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    prev = cudnn.allow_tf32, matmul.allow_tf32
+
+    def flags():
+        return (cudnn.allow_tf32, matmul.allow_tf32,
+                matmul.allow_bf16_reduced_precision_reduction)
+
+    prev = flags()
     try:
-        cudnn.allow_tf32, matmul.allow_tf32 = True, True
+        (cudnn.allow_tf32, matmul.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = True, True, True
         with pytest.raises(ValueError):
             with full_precision_f32():
-                assert (cudnn.allow_tf32, matmul.allow_tf32) == (False, False)
+                assert flags() == (False, False, False)
                 raise ValueError
-        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+        assert flags() == (True, True, True)
     finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = prev
+        (cudnn.allow_tf32, matmul.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = prev
 
 
 def test_entry_points_default_to_cuda():
@@ -352,7 +360,7 @@ def test_port_imports_no_jax():
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
         "for m in ('ops.warp_kernels', 'ops.quant', 'ops.resize_kernels',\n"
-        "          'models.deeplabv3'):\n"
+        "          'models.deeplabv3', 'models.vit'):\n"
         "    assert 'floodseg_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

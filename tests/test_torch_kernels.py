@@ -5,8 +5,8 @@ On the CPU: the wrappers check what their kernels take and then compute
 the plain versions; K3's instantiation choice; and the identities K3's
 quantize rests on (csrc/resize.cu's note), replayed in exact arithmetic.
 On the card (``cuda`` marker; skipped without one): K1, K2 and K3 against
-their plain versions. This file imports no JAX, so the card-only tests run
-on a machine without it:
+their plain versions, K1 and K2 also at the ViT path's shapes. This file
+imports no JAX, so the card-only tests run on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q -m cuda
 
@@ -92,6 +92,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     # the flow-predict chain: 128 blocks, 2 x 64 KB carries + 2 x 16 KB tables
     (32 * 32, 4096, 2, 8, (32, 1024, 1, 2 * 1024 * (64 + 16))),
     (32 * 32, 4096, 4, 4, (16, 1024, 1, 2 * 1024 * (64 + 24))),
+    # the ViT-B/32 chain (C = 768): the same tile, 24 blocks
+    (32 * 32, 768, 2, 8, (32, 1024, 1, 2 * 1024 * (64 + 16))),
     # the reference's 1072x1920 grid: one carry of the narrowest tile
     (67 * 120, 256, 2, 8, (8, 1024, 0, 8040 * 16)),
     (67 * 120, 256, 4, 4, (4, 1024, 0, 8040 * 16)),
@@ -201,6 +203,27 @@ def test_k2_both_designs_match_plain_on_card(dtype):
             y, g = y0.to(dev, dtype), grids.to(dev)
             np.testing.assert_array_equal(warp_chain_cuda(y, g).float().cpu().numpy(),
                                           warp_chain_plain(y, g).float().cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_the_vit_shapes_match_plain_on_card(dtype):
+    """The ViT-B/32 path's shapes: K1 up-samples a (1, 16, 16, 768) token
+    map to a 32x32 grid in both align modes; K2 chains 23 warps on (1, 32,
+    32, 768), 24 blocks of a 32-channel tile. Both bit-equal to their plain
+    versions."""
+    dev = _card()
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal((1, 16, 16, 768)).astype(np.float32))
+    grid = torch.from_numpy(rng.uniform(-1.1, 1.1, (1, 32, 32, 2)).astype(np.float32))
+    grids = torch.from_numpy(rng.uniform(-1.1, 1.1, (23, 1, 32, 32, 2)).astype(np.float32))
+    x, grid, grids = x.to(dev, dtype), grid.to(dev), grids.to(dev)
+    for align in (False, True):
+        np.testing.assert_array_equal(grid_sample_cuda(x, grid, align).float().cpu().numpy(),
+                                      grid_sample(x, grid, align).float().cpu().numpy())
+    y0 = grid_sample(x, grid, False)
+    np.testing.assert_array_equal(warp_chain_cuda(y0, grids).float().cpu().numpy(),
+                                  warp_chain_plain(y0, grids).float().cpu().numpy())
 
 
 @pytest.mark.cuda

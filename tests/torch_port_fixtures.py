@@ -2,21 +2,24 @@
 
 A JAX PSPNet-50 or DeepLabV3-50 initialised from PRNGKey(``key``), with
 every BatchNorm's scale, bias, running mean and running variance replaced
-by values from a seeded numpy generator so that no BN is the identity,
-carried into the port through the weight bridge
-(floodseg_tpu_torch/models/convert.py); and the flow tests' inputs: block
-grids, two windows of a synthetic clip, and the port's predict builders
-driven over them.
+by values from a seeded numpy generator so that no BN is the identity, or
+a JAX SegmenterViT whose LayerNorms, biases and cls token are replaced the
+same way (flax initialises them to the identity and zeros), carried into
+the port through the weight bridge (floodseg_tpu_torch/models/convert.py);
+and the flow tests' inputs: block grids, two windows of a synthetic clip,
+and the port's predict builders driven over them.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from floodseg_tpu.data.transforms import MEAN as JAX_MEAN, STD as JAX_STD
 from floodseg_tpu.models import build_model as jax_build_model
+from floodseg_tpu.models.vit import SegmenterViT as JaxSegmenterViT
 from floodseg_tpu_torch.data import Resize, predict_windows, synthetic_clip
-from floodseg_tpu_torch.models import build_model, load_jax_variables
+from floodseg_tpu_torch.models import SegmenterViT, build_model, load_jax_variables
 from floodseg_tpu_torch.train import make_cached_flow_predict_fn, make_flow_predict_fn
 from floodseg_tpu_torch.video import default_grid
 
@@ -66,6 +69,40 @@ def deeplabv3_pair(size: int = 65, seed: int = 0, classes: int = 5, key: int = 0
     return _pair("deeplabv3", size, seed, classes, key)
 
 
+def _perturb_vit(params, rng):
+    """Replace every LayerNorm's scale and bias, every Dense bias and the
+    cls token in place."""
+    for name, sub in params.items():
+        if isinstance(sub, dict):
+            _perturb_vit(sub, rng)
+        elif name == "scale":
+            params[name] = rng.uniform(0.5, 1.5, sub.shape).astype(np.float32)
+        elif name in ("bias", "cls_token"):
+            params[name] = rng.normal(0.0, 0.1, sub.shape).astype(np.float32)
+
+
+def vit_pair(size: int = 64, seed: int = 0, classes: int = 5, key: int = 0,
+             dtype=jnp.float32, **config):
+    """(jax_model, variables as numpy dicts, port SegmenterViT with the same
+    weights) computing in ``dtype`` (jnp.float32 or jnp.bfloat16; the port's
+    in the torch dtype of the same name). ``config``: SegmenterViT's
+    image_size, patch_size, d_model, n_layers, dec_layers, n_heads,
+    decoder_type, as both packages name them; by default a narrow ViT/32
+    (d = 128, 2 heads, 2 + 2 layers) at ``size`` px. The variables come
+    from an init at ``size`` px."""
+    config = {"image_size": size, "patch_size": 32, "d_model": 128, "n_layers": 2,
+              "dec_layers": 2, "n_heads": 2, **config}
+    jm = JaxSegmenterViT(classes=classes, dropout=0.0, dtype=dtype, **config)
+    x0 = jnp.zeros((1, size, size, 3), jnp.float32)
+    variables = _to_dict(jax.device_get(jax.jit(
+        lambda: jm.init({"params": jax.random.PRNGKey(key)}, x0, train=False))()))
+    _perturb_vit(variables["params"], np.random.default_rng(seed))
+    tdtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    port = load_jax_variables(SegmenterViT(classes=classes, dtype=tdtype, **config).eval(),
+                              variables)
+    return jm, variables, port
+
+
 def smooth_grids(rng, t, gh, gw):
     """Smooth near-identity grids (T, 1, gh, gw, 2); the jitter pushes the
     edge points past [-1, 1], so the border clamp is exercised."""
@@ -82,15 +119,15 @@ def jnorm(x):
             / np.asarray(JAX_STD, np.float32))
 
 
-def builder_windows(n: int = 5, out_size=(72, 80)):
+def builder_windows(n: int = 5, out_size=(72, 80), frame_size: int = 65):
     """Two windows of a synthetic clip of 64 px frames, its key frames
-    resized to 65 px uint8 (1, 65, 65, 3): frames[0], frames[1] are window
-    0's, frames[3] window 1's next key."""
+    resized to ``frame_size`` px uint8 (1, s, s, 3): frames[0], frames[1]
+    are window 0's, frames[3] window 1's next key. 4x4 block grids."""
     clip = synthetic_clip(2 * n + 1, size=(64, 64), frame_ids=(0, n, 2 * n), seed=3)
     wins = predict_windows(clip, n)
-    resize = Resize((65, 65))
+    resize = Resize((frame_size, frame_size))
     frames = [resize(w[k]).numpy() for w in wins for k in ("frame_prev", "frame_next")]
-    assert frames[0].dtype == np.uint8 and frames[0].shape == (1, 65, 65, 3)
+    assert frames[0].dtype == np.uint8 and frames[0].shape == (1, frame_size, frame_size, 3)
     return dict(n=n, out_size=out_size, wins=wins, frames=frames, dg=default_grid(64, 64))
 
 
