@@ -9,9 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions. No CUDA device -> exit 1 before anything else.
-2. Build the hand-written kernels from csrc/ with nvcc (sm_90a), one nvcc
-   for each source, all at once: warp.cu (K1, K2) and resize.cu (K3);
-   ptxas's registers and spills for each instantiation; for K2 and K3,
+2. Build the hand-written kernels from csrc/ with nvcc (sm_90a) and the
+   image codec with the host C++ compiler, one compiler for each source,
+   all at once: warp.cu (K1, K2), resize.cu (K3) and jpeg.cpp; ptxas's
+   registers and spills for each kernel instantiation; for K2 and K3,
    cuobjdump's count of slow-pipe instructions inside each instantiation's
    loops.
 3. Each kernel against its plain PyTorch version, on the card, at the
@@ -43,6 +44,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    (a 32-channel tile, so 24 blocks; the count is logged beside the
    card's SMs). The same tolerances, each timed beside its bound and
    F.grid_sample.
+3c. K1 and K2 at the crop route's shapes (phase 12): PSPNet-50 encodes a
+   433 px crop to (1, 55, 55, 4096) (read from the model); K1 warps it onto
+   the first window's first crop grid (27x27) and, align_corners=True,
+   onto the 67x120 full-frame identity grid (the key-map resample, an
+   up-sample); K2 23 steps on (1, 27, 27, 4096) (its geometry logged). The
+   same tolerances, each timed beside its bound and F.grid_sample.
 4. The flow-predict slice in float32 (TF32 off) on the card against the
    same slice on the CPU: PSPNet-50 at 129 px key frames from a clip of
    128 px frames (SLICE_FRAME_HW, every slice check), n = 5, with each
@@ -90,7 +97,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    window), profiler, peak memory.
    Each main path runs with only its own model on the card, so its peak
    memory is its own.
-10. A JSON line {"kernels": [...]}, then the nvidia-smi line, then the last
+10. The image codec on this machine: a 1072x1920 synthetic frame through
+   the port's JPEG encoder and decoder at q92 (PSNR above 35 dB), ms a
+   frame on one thread and on 8 threads.
+11. The cached route from files, bench.py's protocol: a 512 px tree from
+   the port's writer, read by FlowDataset and the DataLoader (JPEG decode,
+   resize to 513, device_put), PSPNet-50 bf16, n = 25; frames/s with the
+   batches loaded before the timed loop and with the loader in the loop,
+   the per-stage host breakdown, K1 3 and K2 2 launches a window, and the
+   streamed windows' maps equal to the preloaded ones.
+12. The CLI's default crop route at full width through run_flow_predict:
+   a 1072x1920 tree of 51 frames (2 windows), 28 crops of 433 px a window,
+   n = 25, PSPNet-50 bf16, metrics, palette PNGs and the MJPG AVI. K1 84
+   and K2 56 launches a window; 50 PNGs; an AVI the port's reader reads as
+   50 frames; seconds a window split into the crops on the device, the
+   probabilities' copy to the host and the float64 canvas; device busy and
+   the copies from torch.profiler; peak memory.
+12b. The crop route in float32 on the card against the CPU at 128x192,
+   64 px crops, n = 5: probabilities within 1e-4, maps equal away from
+   near-ties.
+13. A JSON line {"kernels": [...]}, then the nvidia-smi line, then the last
    line {"ok": true, "device": {...}}.
 """
 
@@ -103,12 +129,29 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from floodseg_tpu_torch.core import full_precision_f32
-from floodseg_tpu_torch.data import MEAN, STD, Resize, predict_windows, synthetic_clip
+from floodseg_tpu_torch.core.profiler import PhaseProfiler, cuda_sync
+from floodseg_tpu_torch.data import (
+    MEAN,
+    STD,
+    DataLoader,
+    FlowDataset,
+    build_test_transform,
+    collate,
+    device_put,
+    generate_synthetic_dataset,
+    predict_windows,
+    read_mjpg_avi,
+    resize_frames,
+    synthetic_clip,
+)
+from floodseg_tpu_torch.data.image import decode_jpeg, encode_jpeg, imread
 from floodseg_tpu_torch.models import build_model, init_from_generator_
 from floodseg_tpu_torch.ops import build, launch_counts, quant, reset_launch_counts
 from floodseg_tpu_torch.ops.grid_sample import grid_sample, tap_indices_weights
@@ -122,9 +165,16 @@ from floodseg_tpu_torch.ops.warp_kernels import (
     warp_chain_cuda,
     warp_chain_plain,
 )
-from floodseg_tpu_torch.train import make_cached_flow_predict_fn
+from floodseg_tpu_torch.train import (
+    crop_offsets,
+    flow_sliding_window_predict,
+    make_cached_flow_predict_fn,
+    make_flow_predict_crop_fn,
+    run_flow_predict,
+)
 from floodseg_tpu_torch.train.flow import _predict_decode, decode_split_ok
 from floodseg_tpu_torch.video import FlowInterpolator, default_grid, flow_model
+from floodseg_tpu_torch.video.grid import crop_motion_vectors_stack_np
 
 # the flow-predict workload of bench.py (SIZE: PSPNet; DL_SIZE: --arch
 # deeplabv3 and --arch vit)
@@ -341,28 +391,38 @@ def time_kernels(device, k1_shape=(1, 65, 65, 4096)) -> dict:
     grid_l, dg_l = grid.to(x.dtype), dg.to(x.dtype)
 
     def k1(g, g_l, align):
-        out = grid_sample_cuda(x, g, align)
-        # 4 multiplies and 3 adds per output element
-        b = bound(k1_bytes(x, g, out, align), 7 * out.numel())
-        return {
-            "ms": time_ms(lambda: grid_sample_cuda(x, g, align), flush, cpm),
-            "plain_ms": time_ms(lambda: grid_sample(x, g, align), flush, cpm),
-            "library_ms": time_ms(lambda: F.grid_sample(
-                xn, g_l, mode="bilinear", padding_mode="border",
-                align_corners=align), flush, cpm),
-            "bound_ms": b[0], "bound_by": b[1],
-        }
+        return time_k1(x, xn, g, g_l, align, flush, cpm)
 
     res = {
         "grid_sample_cuda": k1(grid, grid_l, False),
         "grid_sample_cuda (identity grid, align_corners=True)": k1(dg, dg_l, True),
         "warp_chain_cuda": time_k2(y0, grids, flush, cpm),
     }
+    log_timing(res)
+    return res
+
+
+def time_k1(x, xn, g, g_l, align, flush, cpm) -> dict:
+    """K1's time on x (NHWC) and grid g beside its bound, its plain
+    version's and F.grid_sample's on xn (NCHW) and g_l (x's dtype)."""
+    out = grid_sample_cuda(x, g, align)
+    # 4 multiplies and 3 adds per output element
+    b = bound(k1_bytes(x, g, out, align), 7 * out.numel())
+    return {
+        "ms": time_ms(lambda: grid_sample_cuda(x, g, align), flush, cpm),
+        "plain_ms": time_ms(lambda: grid_sample(x, g, align), flush, cpm),
+        "library_ms": time_ms(lambda: F.grid_sample(
+            xn, g_l, mode="bilinear", padding_mode="border", align_corners=align),
+            flush, cpm),
+        "bound_ms": b[0], "bound_by": b[1],
+    }
+
+
+def log_timing(res: dict) -> None:
     for name, r in res.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"F.grid_sample {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) -> {r['bound_ms'] / r['ms']:.1%} of bound")
-    return res
 
 
 def time_k2(y0, grids, flush, cpm, full=True) -> dict:
@@ -620,12 +680,13 @@ def clip_windows(n, frame_hw, num_windows, size, device, seed=0):
     """In-memory synthetic windows, frames resized to ``size`` on ``device``."""
     clip = synthetic_clip(num_windows * n + 1, size=frame_hw,
                           frame_ids=range(0, num_windows * n + 1, n), seed=seed)
-    resize = Resize((size, size))
     wins = []
     for w in predict_windows(clip, n):
         wins.append({
-            "frame_prev": resize(torch.as_tensor(w["frame_prev"], device=device)),
-            "frame_next": resize(torch.as_tensor(w["frame_next"], device=device)),
+            "frame_prev": resize_frames(torch.as_tensor(w["frame_prev"], device=device),
+                                        (size, size)),
+            "frame_next": resize_frames(torch.as_tensor(w["frame_next"], device=device),
+                                        (size, size)),
             "mvs_left": torch.as_tensor(w["mvs_left"], device=device),
             "mvs_right": torch.as_tensor(w["mvs_right"], device=device),
             "prev_frame_id": w["prev_frame_id"],
@@ -1037,6 +1098,367 @@ def time_deeplab_decode_pieces(model, n=FRAME_DELTA, feat_hw=DL_FEAT_HW) -> dict
     return res
 
 
+# ------------------------------------------- from files: phases 3c, 10-12
+
+FRAME_HW = (1072, 1920)  # the reference's frames (core/config.py resize)
+CROP = 433               # PSPNet's train size, the CLI's default test crop
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "data")
+
+
+def crop_route_grids(device, n=FRAME_DELTA, crop=CROP, frame_hw=FRAME_HW):
+    """The grids phase 12 gives the kernels in its first window's first
+    crop (offset (0, 0)): mvs_left renormalized to the crop, (n-1, 1, 27,
+    27, 2), and the full-frame identity grid (1, 67, 120, 2) of the key-map
+    resample. The in-memory clip has the tree's grids (the same motion)."""
+    clip = synthetic_clip(n + 1, size=frame_hw, frame_ids=(), seed=0)
+    ml = crop_motion_vectors_stack_np(clip["grids"][1:n], *frame_hw, crop, crop, 0, 0)
+    return (torch.as_tensor(ml[:, None], device=device).contiguous(),
+            torch.as_tensor(default_grid(*frame_hw), device=device)[None].contiguous())
+
+
+def crop_feature_hw(model, device, crop=CROP):
+    """The encoding's size of a crop, from the model itself."""
+    with torch.inference_mode():
+        f = model.encode(torch.zeros((1, crop, crop, 3), device=device))[0]
+    return tuple(f.shape[1:3]), f.shape[3]
+
+
+def check_crop_kernels(model, dev) -> tuple:
+    """Phase 3c: K1 (1, 55, 55, 4096) -> 27x27 on the crop route's own
+    first-window grid, K1 -> the 67x120 full-frame identity grid
+    (align_corners=True, an up-sample), K2 23 steps on (1, 27, 27, 4096)
+    from K1's output; float32 and bf16 against the plain versions (phase 3's
+    tolerances), then bf16 timed beside bound and F.grid_sample."""
+    feat_hw, c = crop_feature_hw(model, dev)
+    log(f"  PSPNet-50 encodes a {CROP} px crop to {feat_hw + (c,)}")
+    ml, dg = crop_route_grids(dev)
+    geo = _chain_geometry(ml.shape[2] * ml.shape[3], c, 2, 8)
+    log(f"  K2 at {ml.shape[2]}x{ml.shape[3]} points, C = {c} bf16: "
+        f"{'ping-pong' if geo.table_points else 'single-buffer'} design, "
+        f"{geo.c_tile}-channel tile, {geo.table_points} table point(s) a thread, "
+        f"{c // geo.c_tile} blocks of {geo.threads} threads, {geo.smem} B shared memory")
+    errs = {"grid_sample_cuda": 0.0, "warp_chain_cuda": 0.0}
+    g = torch.Generator().manual_seed(0)
+    xs = torch.randn((1,) + feat_hw + (c,), generator=g)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        x = xs.to(dev, dtype)
+        for grid, align, what in ((ml[0], False, "crop chain head"),
+                                  (dg, True, "full-frame identity")):
+            errs["grid_sample_cuda"] = max(errs["grid_sample_cuda"], compare(
+                f"K1 {tag} x{tuple(x.shape)} {what} grid{tuple(grid.shape)} align={align}",
+                grid_sample_cuda(x, grid, align), grid_sample(x, grid, align), dtype))
+        y0 = grid_sample(x, ml[0], False)
+        errs["warp_chain_cuda"] = max(errs["warp_chain_cuda"], compare(
+            f"K2 {tag} y0{tuple(y0.shape)} crop grids T={ml.shape[0] - 1} ({k2_design(y0)})",
+            warp_chain_cuda(y0, ml[1:]), warp_chain_plain(y0, ml[1:]), dtype))
+    flush, cpm = L2Flush(dev), sleep_cycles_per_ms()
+    x = xs.to(dev, torch.bfloat16)
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    y0 = grid_sample_cuda(x, ml[0], False)
+    res = {
+        "grid_sample_cuda (crop -> 27x27)": time_k1(x, xn, ml[0], ml[0].to(x.dtype), False,
+                                                   flush, cpm),
+        "grid_sample_cuda (crop -> 67x120 identity, align_corners=True)": time_k1(
+            x, xn, dg, dg.to(x.dtype), True, flush, cpm),
+        "warp_chain_cuda (27x27, 23 steps)": time_k2(y0, ml[1:], flush, cpm),
+    }
+    log_timing(res)
+    return errs, res
+
+
+def psnr(a, b) -> float:
+    mse = float(((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean())
+    return 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+def codec_phase(threads=8, frames=32) -> dict:
+    """Phase 10: a 1072x1920 synthetic frame through the port's JPEG
+    encoder and decoder at q92; ms a frame on one thread (median of 5) and
+    on ``threads`` threads (wall time of ``frames`` calls over their count)."""
+    frame = synthetic_clip(1, size=FRAME_HW)["frames"][0]
+    data = encode_jpeg(frame, 92)
+    back = decode_jpeg(data)
+    q = psnr(back, frame)
+    log(f"  {FRAME_HW[0]}x{FRAME_HW[1]} q92: {len(data) / 1e3:.1f} kB, round trip "
+        f"PSNR {q:.2f} dB (must exceed 35)")
+    if not q > 35:
+        raise AssertionError(f"JPEG round trip PSNR {q:.2f} dB")
+    res = {"psnr_db": q, "jpeg_kb": len(data) / 1e3}
+    for what, fn in (("decode", lambda: decode_jpeg(data)),
+                     ("encode", lambda: encode_jpeg(frame, 92))):
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        with ThreadPoolExecutor(threads) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(lambda _: fn(), range(frames)))
+            wall = (time.perf_counter() - t0) * 1e3
+        res[f"{what}_ms"] = statistics.median(ts)
+        res[f"{what}_ms_{threads}_threads"] = wall / frames
+        log(f"  {what}: {res[f'{what}_ms']:.2f} ms a frame on 1 thread, "
+            f"{wall / frames:.2f} ms a frame on {threads} threads ({os.cpu_count()} CPUs)")
+    return res
+
+
+def med_ms(fn, args):
+    ts = []
+    for a in args:
+        t0 = time.perf_counter()
+        fn(a)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def files_phase(model, dev, n=FRAME_DELTA, size=SIZE) -> dict:
+    """Phase 11: bench.py's protocol from files. A 512 px tree from the
+    port's writer ((CLIPS_TIMED + 2) windows), read by FlowDataset (JPEG
+    decode, resize to 513, raw float32 pixels), DataLoader (8 threads,
+    prefetch 4, device_put), PSPNet-50 bf16 through make_cached_flow_predict_fn.
+    frames/s with the batches loaded before the timed loop (bench.py:206),
+    then with the loader in the loop (--streaming), and the per-stage host
+    breakdown (bench.py:390-435)."""
+    root = os.path.join(DATA_DIR, "tree_512")
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    generate_synthetic_dataset(root, num_frames=(CLIPS_TIMED + 2) * n + 1, size=(512, 512),
+                               frame_delta=n, num_labeled=4)
+    log(f"  tree: {(CLIPS_TIMED + 2) * n + 1} frames of 512x512 written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ds = FlowDataset("predict", root, type="u", frame_delta=n, predict_v_id="synth",
+                     transform=build_test_transform(resize=(size, size), normalize=False))
+
+    def put(b):
+        return device_put(b, dev)
+
+    t0 = time.perf_counter()
+    batches = list(DataLoader(ds, batch_size=1, num_workers=8, prefetch=4, device_put=put))
+    sync(dev)
+    log(f"  {len(batches)} windows loaded in {time.perf_counter() - t0:.2f} s: frame_prev "
+        f"{tuple(batches[0]['frame_prev'].shape)} {batches[0]['frame_prev'].dtype}, "
+        f"mvs_left {tuple(batches[0]['mvs_left'].shape)}")
+    full, cached = make_cached_flow_predict_fn(model, n=n, out_size=(size, size),
+                                               default_grid=ds.default_grid, device=dev)
+    variables = model.state_dict()
+    state = {"feat": None, "next_id": None, "windows": 0}
+
+    def run(b, first=False):
+        pfid = int(b["prev_frame_id"][0])
+        if first or state["feat"] is None or pfid != state["next_id"]:
+            out, feat = full(variables, b["frame_prev"], b["frame_next"], b["mvs_left"],
+                             b["mvs_right"])
+        else:
+            out, feat = cached(variables, state["feat"], b["frame_next"], b["mvs_left"],
+                               b["mvs_right"])
+        state["feat"], state["next_id"] = feat, int(b["next_frame_id"][0])
+        state["windows"] += 1
+        return out
+
+    reset_launch_counts()
+    preloaded = [run(batches[0], first=True), run(batches[1])]
+    timed = batches[1:1 + CLIPS_TIMED]
+    fps = []
+    for _ in range(PASSES):
+        sync(dev)
+        t0 = time.perf_counter()
+        for b in timed:
+            out = run(b)
+        sync(dev)
+        fps.append(len(timed) * n / (time.perf_counter() - t0))
+    log(f"  batches loaded before the loop: {statistics.median(fps):.2f} frames/s (median "
+        f"of {PASSES} passes x {len(timed)} windows; {[round(f, 2) for f in fps]})")
+
+    streamed = []
+    state["feat"] = state["next_id"] = None
+    t0 = None
+    for i, b in enumerate(DataLoader(ds, batch_size=1, num_workers=8, prefetch=4,
+                                     device_put=put)):
+        if t0 is None:
+            t0 = time.perf_counter()
+        out = run(b, first=(i == 0))
+        if i < 2:
+            streamed.append(out.clone())
+    sync(dev)
+    streaming_fps = (len(batches) - 1) * n / (time.perf_counter() - t0)
+    log(f"  loader in the loop (--streaming): {streaming_fps:.2f} frames/s over "
+        f"{len(batches) - 1} windows after the first arrived")
+    counts = launch_counts()
+    windows = state["windows"]
+    expected = {"grid_sample_cuda": 3 * windows, "warp_chain_cuda": 2 * windows,
+                "resize_quantize_int8_cuda": 0}
+    log(f"  launches over {windows} windows: {counts}")
+    if counts != expected:
+        raise AssertionError(f"the cached route from files launched {counts}, "
+                             f"expected {expected}")
+    for i in range(2):
+        same = torch.equal(streamed[i], preloaded[i])
+        log(f"  window {i}: maps from the streaming loader "
+            f"{'equal' if same else 'DIFFER FROM'} the preloaded batches' "
+            f"{tuple(preloaded[i].shape)}")
+        if not same:
+            raise AssertionError("maps differ between the streamed and preloaded batches")
+    if out.shape != (n, size, size) or int(out.min()) < 0 or int(out.max()) >= CLASSES:
+        raise AssertionError(f"maps {tuple(out.shape)} out of range")
+
+    idxs = list(range(min(6, len(ds))))
+    bd = {"item_load_ms": med_ms(lambda i: ds.get(i, np.random.default_rng((0, 0, i))), idxs),
+          "jpg_decode_ms": med_ms(lambda i: (imread(ds.frame_path("synth", i * n)),
+                                             imread(ds.frame_path("synth", (i + 1) * n))),
+                                  idxs),
+          "grid_npy_ms": med_ms(lambda i: [ds._load_grid("synth", i * n + k + 1, name)
+                                           for k in range(n - 1)
+                                           for name in ("grids", "inv_grids")], idxs)}
+    bd["transform_ms"] = max(0.0, bd["item_load_ms"] - bd["jpg_decode_ms"] - bd["grid_npy_ms"])
+    items = [ds.get(i, np.random.default_rng((0, 0, i))) for i in idxs]
+    bd["collate_ms"] = med_ms(lambda i: collate([items[i]]), idxs)
+    host = [collate([it]) for it in items]
+
+    def put_sync(i):
+        put(host[i])
+        sync(dev)
+
+    bd["device_put_ms"] = med_ms(put_sync, idxs)
+    bd["device_compute_ms_per_window"] = 1000 * n / statistics.median(fps)
+    log(f"  host breakdown, ms a window (medians of {len(idxs)}): "
+        f"{ {k: round(v, 3) for k, v in bd.items()} }")
+    return {"fps": statistics.median(fps), "fps_passes": fps, "streaming_fps": streaming_fps,
+            "breakdown": bd, "launches": counts, "windows": windows}
+
+
+def device_time(trace_path, windows) -> dict:
+    """Device busy ms (the union of kernel intervals) and device-to-host
+    copy ms a window from a chrome trace."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel")
+    busy, cur = 0.0, None
+    for s0, e0 in kernels:
+        if cur is None or s0 > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [s0, e0]
+        else:
+            cur[1] = max(cur[1], e0)
+    busy += 0.0 if cur is None else cur[1] - cur[0]
+    d2h = sum(e["dur"] for e in events if e.get("cat") == "gpu_memcpy"
+              and "DtoH" in e.get("name", ""))
+    return {"busy_ms": busy / 1e3 / windows, "d2h_ms": d2h / 1e3 / windows,
+            "kernels": len(kernels) / windows}
+
+
+def crop_route_phase(model, dev, n=FRAME_DELTA) -> dict:
+    """Phase 12: the CLI's default predict route at full width through
+    run_flow_predict: a 1072x1920 tree of 2n + 1 frames from the port's
+    writer (2 windows), 433x433 crops (28 a window), n = 25, PSPNet-50
+    bf16, metrics, palette PNGs and the AVI. torch.profiler (CUDA activity)
+    over the run gives device busy and the device-to-host copies."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    root = os.path.join(DATA_DIR, "tree_1072")
+    out_dir = os.path.join(DATA_DIR, "predict_1072")
+    for d in (root, out_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(root, num_frames=2 * n + 1, size=FRAME_HW, frame_delta=n,
+                               num_labeled=2)
+    log(f"  tree: {2 * n + 1} frames of {FRAME_HW[0]}x{FRAME_HW[1]} written in "
+        f"{time.perf_counter() - t0:.1f} s; {len(crop_offsets(*FRAME_HW, CROP, CROP))} "
+        f"crops of {CROP} px a window")
+    crops = len(crop_offsets(*FRAME_HW, CROP, CROP))
+    prof = PhaseProfiler(sync=cuda_sync)
+    video = os.path.join(out_dir, "synth.avi")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    activity = ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU
+    with tprofile(activities=[activity]) as tp:
+        summary = run_flow_predict(model, model.state_dict(), root, "synth", frame_delta=n,
+                                   resize=FRAME_HW, crop=(CROP, CROP), no_cropping=False,
+                                   save_images_dir=os.path.join(out_dir, "frames"),
+                                   video_path=video, profiler=prof, device=dev)
+    total = time.perf_counter() - t0
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    windows = summary["frames"] // n
+    trace = os.path.join(PROFILE_DIR, "pspnet_bf16_crop_route_trace.json")
+    tp.export_chrome_trace(trace)
+    dt = device_time(trace, windows)
+    log(f"  summary: { {k: (round(v, 4) if isinstance(v, float) else v) for k, v in summary.items() if k != 'predict_miou1_epoch_classes'} }")
+    # per crop: K1 for both chain heads and the key resample, K2 for both chains
+    expected = {"grid_sample_cuda": 3 * crops * windows, "warp_chain_cuda": 2 * crops * windows,
+                "resize_quantize_int8_cuda": 0}
+    log(f"  launches over {windows} windows: {counts} (expected {expected})")
+    if windows != 2 or counts != expected:
+        raise AssertionError(f"the crop route launched {counts} over {windows} windows")
+    pngs = sorted(os.listdir(os.path.join(out_dir, "frames")))
+    frames = read_mjpg_avi(video)
+    log(f"  {len(pngs)} PNGs; the AVI ({os.path.getsize(video) / 1e6:.1f} MB) reads back "
+        f"as {len(frames)} frames of {frames[0].shape if frames else None}")
+    if len(pngs) != 2 * n or len(frames) != 2 * n or frames[0].shape != FRAME_HW + (3,):
+        raise AssertionError(f"the crop route's PNGs or AVI are not {2 * n} frames")
+    m = imread(os.path.join(out_dir, "frames", "0.png"))
+    if m.shape != FRAME_HW or int(m.max()) >= CLASSES:
+        raise AssertionError(f"PNG map {m.shape} with classes up to {int(m.max())}")
+    per = {k: prof.mean(k) for k in ("predict_interference", "crop_forward",
+                                      "crop_probs_to_host", "crop_canvas")}
+    log(f"  seconds a window: {per['predict_interference']:.3f} (crops through the "
+        f"device {per['crop_forward']:.3f}, probabilities to the host "
+        f"{per['crop_probs_to_host']:.3f}, float64 canvas {per['crop_canvas']:.3f}); "
+        f"whole run with PNGs and AVI {total:.1f} s")
+    log(f"  device: busy {dt['busy_ms']:.1f} ms a window, {dt['kernels']:.0f} kernels, "
+        f"device-to-host copies {dt['d2h_ms']:.1f} ms (torch.profiler); peak memory "
+        f"{peak_gb:.2f} GB")
+    return {"summary": summary, "launches": counts, "windows": windows, "peak_gb": peak_gb,
+            "seconds": per, "total_s": total, **dt}
+
+
+def crop_card_vs_cpu(n=5, frame_hw=(128, 192), crop=64, seed=1) -> None:
+    """Phase 12b: the crop route in float32 on the card against the CPU at
+    a small size (128x192 frames, 64 px crops, n = 5): probabilities within
+    1e-4, maps equal away from near-ties (twice that)."""
+    root = os.path.join(DATA_DIR, "tree_small")
+    shutil.rmtree(root, ignore_errors=True)
+    generate_synthetic_dataset(root, num_frames=n + 1, size=frame_hw, frame_delta=n,
+                               num_labeled=1)
+    ds = FlowDataset("predict", root, type="u", frame_delta=n, predict_v_id="synth",
+                     transform=build_test_transform(resize=frame_hw, normalize=False))
+    batch = collate([ds.get(0, np.random.default_rng(0))])
+    cpu_model = random_model("pspnet", torch.float32, seed)
+    gpu_model = copy.deepcopy(cpu_model)
+    res = {}
+    for dev, m in ((torch.device("cpu"), cpu_model), (torch.device("cuda"), gpu_model)):
+        fn = make_flow_predict_crop_fn(m, n, CLASSES, default_grid=ds.default_grid, device=dev)
+        seen = {}
+
+        def recording(*args):
+            seen["probs"] = fn(*args)
+            return seen["probs"]
+
+        maps = flow_sliding_window_predict(recording, m.state_dict(), batch, CLASSES, crop,
+                                           crop, frame_hw)
+        res[dev.type] = (seen["probs"].cpu().numpy(), maps.cpu().numpy())
+    (pc, mc), (pg, mg) = res["cpu"], res["cuda"]
+    err = float(np.abs(pg - pc).max())
+    log(f"  probabilities {pc.shape}: max_abs_err {err:.3e} (tol 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"crop probabilities differ between card and CPU: {err}")
+    offs = crop_offsets(*frame_hw, crop, crop)
+    canvas = np.zeros((n,) + frame_hw + (CLASSES,))
+    count = np.zeros(frame_hw + (1,))
+    for (h, w), p in zip(offs, pc):
+        canvas[:, h:h + crop, w:w + crop] += p
+        count[h:h + crop, w:w + crop] += 1
+    top2 = np.sort(canvas / count, axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > 2e-4
+    same = mg == mc
+    log(f"  maps {mc.shape}: {same.mean():.6f} equal, {int((~same & clear).sum())} differ "
+        f"away from near-ties ({clear.mean():.4f} of pixels clear)")
+    if (~same & clear).any():
+        raise AssertionError("card and CPU crop-route maps differ away from near-ties")
+
+
 # ------------------------------------------------------------------ main
 
 # slow-pipe conversions and functions, the divide's range check, calls
@@ -1120,11 +1542,16 @@ SASS_KERNELS = {"warp": ("warp_chain_kernel", "warp_chain_single_kernel"),
 
 
 def build_kernels(sources) -> None:
+    """Build the sources at once (one compiler each); log ptxas's registers
+    and spills and the SASS loop counts of the CUDA ones."""
     t0 = time.perf_counter()
     paths = build.build(sources)
-    log(f"  {' and '.join(f'csrc/{s}.cu' for s in sources)} -> sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
+    each = ", ".join(f"{s} {build.BUILD_INFO[s]['seconds']:.1f} s" for s in sources)
+    log(f"  {' and '.join(f'csrc/{build._source(s).name}' for s in sources)} built in "
+        f"{time.perf_counter() - t0:.1f} s ({each})")
     for src in sources:
+        if src not in SASS_KERNELS:
+            continue
         for label, regs, st, ld in ptxas_usage(build.BUILD_INFO[src]["log"]):
             log(f"  ptxas {src}.cu {label}: {regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
@@ -1193,8 +1620,8 @@ def main() -> int:
         f"{torch.version.cuda} | {name} x{torch.cuda.device_count()} | python "
         f"{sys.version.split()[0]}")
 
-    log("[2] build")
-    build_kernels(["warp", "resize"])
+    log("[2] build (nvcc for the kernels, the host compiler for the image codec)")
+    build_kernels(["warp", "resize", "jpeg"])
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -1236,6 +1663,9 @@ def main() -> int:
     log(f"  K2 at C = {VIT_D} bf16: {geo.c_tile}-channel tile, {VIT_D // geo.c_tile} "
         f"blocks of {geo.threads} threads on "
         f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs")
+
+    log("[3c] K1 and K2 at the crop route's shapes (PSPNet-50, 433 px crops, C = 4096)")
+    crop_errs, crop_timing = check_crop_kernels(model, dev)
 
     log("[4] slice on the card against the slice on the CPU (float32)")
     check_slice_card_vs_cpu()
@@ -1288,10 +1718,31 @@ def main() -> int:
                 f"im2col {im2col:.4f}, _int_mm {int_mm:.4f} (events, L2 flushed), the rest "
                 f"{busy - k3_ms - im2col - int_mm:.4f}")
 
+    for held in models.values():
+        held.cpu()
+    t_files = time.perf_counter()
+    log("[10] the image codec on this machine")
+    codec = codec_phase()
+    log(f"[11] the cached route from files: PSPNet-50 bf16, a 512 px tree resized to {SIZE}, "
+        f"n = {FRAME_DELTA} (bench.py's protocol, with and without --streaming)")
+    paths["pspnet_bf16_files"] = files_phase(model, dev)
+    log(f"[12] the CLI's default crop route: PSPNet-50 bf16, {FRAME_HW[0]}x{FRAME_HW[1]} "
+        f"frames, {CROP} px crops, n = {FRAME_DELTA}, through run_flow_predict")
+    paths["pspnet_bf16_crop"] = crop = crop_route_phase(model, dev)
+    model.cpu()
+    log("[12b] the crop route card vs CPU (float32, 128x192 frames, 64 px crops, n = 5)")
+    crop_card_vs_cpu()
+    log(f"  phases 10-12: {time.perf_counter() - t_files:.1f} s")
+
     sources = {"grid_sample_cuda": ("floodseg_tpu/ops/pallas_warp.py:70", "warp.cu"),
                "warp_chain_cuda": ("floodseg_tpu/ops/pallas_warp.py:139", "warp.cu"),
                "resize_quantize_int8_cuda": ("floodseg_tpu/ops/pallas_resize.py:135",
                                              "resize.cu")}
+    crop_rows = {"grid_sample_cuda": {
+        "crop": crop_timing["grid_sample_cuda (crop -> 27x27)"],
+        "crop_key_resample": crop_timing[
+            "grid_sample_cuda (crop -> 67x120 identity, align_corners=True)"]},
+        "warp_chain_cuda": {"crop": crop_timing["warp_chain_cuda (27x27, 23 steps)"]}}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for kname, (replaces, src) in sources.items():
@@ -1301,12 +1752,16 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": f"floodseg_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(errs[kname], dl_errs[kname], vit_errs.get(kname, 0.0)),
+            "max_abs_err": max(errs[kname], dl_errs[kname], vit_errs.get(kname, 0.0),
+                               crop_errs.get(kname, 0.0)),
             **{k: t[k] for k in keys},
             "deeplabv3": {k: dl_timing[kname][k] for k in keys},
             **({"vit": {k: vit_timing[kname][k] for k in keys}} if kname in vit_timing
                else {}),
+            **{shape: {k: r[k] for k in keys} for shape, r in crop_rows.get(kname, {}).items()},
             "passed": True})
+    log(f"  codec {json.dumps({k: round(v, 3) for k, v in codec.items()})}; crop route "
+        f"{crop['seconds']['predict_interference']:.3f} s a window")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -10,15 +10,21 @@ Public functions keep the JAX package's NHWC layout. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"`` (core/device.py).
 
 Layout:
-  core/    device resolution and the float policy
+  core/    device resolution, the float policy, the phase profiler
   csrc/    hand-written CUDA kernels for sm_90a (built with nvcc on first use)
+           and the host image codec (jpeg.cpp, built with the host compiler)
   ops/     resize, pooling, the plain warp, int8 quantization of the decoders,
+           segmentation metrics,
            the kernels' wrappers (warp_kernels: K1, K2; resize_kernels: K3)
   models/  PSPNet, DeepLabV3 and the Segmenter ViT (eval) with the
            reference's torch key names, and the weight bridge
-  video/   block-MV grid algebra and the keyframe-warp interpolator
-  train/   flow-predict program builders
-  data/    normalisation constants, frame resize, in-memory synthetic clips
+  video/   block-MV grid algebra (with the crop renormalisation) and the
+           keyframe-warp interpolator
+  train/   flow-predict program builders (whole windows, cached, crops), the
+           sliding-window predict, run_predict and run_flow_predict
+  data/    JPEG/PNG codec and MJPG AVI, the predict transforms, FlowDataset,
+           collate, the prefetching DataLoader and device_put, synthetic
+           clips in memory and as a dataset tree
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,26 @@
-from floodseg_tpu_torch.data.synthetic import predict_windows, synthetic_clip
-from floodseg_tpu_torch.data.transforms import MEAN, STD, Resize
+from floodseg_tpu_torch.data.avi import MJPGWriter, read_mjpg_avi
+from floodseg_tpu_torch.data.dataset import ConcatDataset, FlowDataset, collate, parse_list
+from floodseg_tpu_torch.data.image import imread, write_jpeg, write_png
+from floodseg_tpu_torch.data.loader import DataLoader, device_put
+from floodseg_tpu_torch.data.synthetic import (
+    generate_synthetic_dataset,
+    predict_windows,
+    synthetic_clip,
+)
+from floodseg_tpu_torch.data.transforms import (
+    MEAN,
+    STD,
+    Compose,
+    IgnoreClasses,
+    Normalize,
+    Resize,
+    ToFloat,
+    build_test_transform,
+    resize_frames,
+)
 
-__all__ = ["MEAN", "STD", "Resize", "predict_windows", "synthetic_clip"]
+__all__ = ["MEAN", "STD", "Compose", "ConcatDataset", "DataLoader", "FlowDataset",
+           "IgnoreClasses", "MJPGWriter", "Normalize", "Resize", "ToFloat",
+           "build_test_transform", "collate", "device_put", "generate_synthetic_dataset",
+           "imread", "parse_list", "predict_windows", "read_mjpg_avi", "resize_frames",
+           "synthetic_clip", "write_jpeg", "write_png"]

@@ -1,8 +1,9 @@
 """Flow-predict program builders (counterpart of the predict builders in
 floodseg_tpu/train/flow.py).
 
-``make_flow_predict_fn`` and ``make_cached_flow_predict_fn`` keep the JAX
-package's signatures and return values. Where the JAX builders jit a
+``make_flow_predict_fn``, ``make_cached_flow_predict_fn`` and
+``make_flow_predict_crop_fn`` keep the JAX package's signatures and return
+values (and take ``device``). Where the JAX builders jit a
 program that applies a flax module to a ``variables`` tree, these bind the
 ``variables`` mapping (the model's ``state_dict()`` keys) to the module for
 the call with ``torch.func.functional_call``, the PyTorch counterpart of
@@ -18,7 +19,7 @@ caller's flags restored after), so a float32 model computes in float32 and
 a bf16 one rounds each product once, as the JAX package's do.
 """
 
-from typing import Callable, Mapping, Optional, Tuple
+from typing import Callable, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,15 +101,26 @@ def _prepare(model: nn.Module, device: torch.device) -> nn.Module:
     return model
 
 
-def _builder(model, n, feature_based, no_warp, out_size, default_grid,
-             int8_decode, int8_encode, device, cached_key):
+class _Program(NamedTuple):
+    """What every predict builder shares: the device, the interpolator over
+    the model's encode/decode closures, the default grid on the device, and
+    the on-device frame normalisation and grid conversion."""
+    dev: torch.device
+    interp: FlowInterpolator
+    dg: Optional[torch.Tensor]
+    norm: Callable
+    grids: Callable
+
+
+def _program(model, feature_based, no_warp, default_grid, int8_decode, int8_encode,
+             device) -> _Program:
     dev = resolve_device(device)
     interp = FlowInterpolator(
         encode=_predict_encode(model, int8_encode),
         decode=_predict_decode(model, int8_decode),
         feature_based=feature_based, no_warp=no_warp,
         decode_wants_absmax=int8_decode, decode_split=decode_split_ok(model))
-    model = _prepare(model, dev)
+    _prepare(model, dev)
     dg = None if default_grid is None else torch.as_tensor(
         np.asarray(default_grid, np.float32), device=dev).contiguous()
     mean = torch.tensor(MEAN, dtype=torch.float32, device=dev)
@@ -120,15 +132,12 @@ def _builder(model, n, feature_based, no_warp, out_size, default_grid,
     def grids(g):
         return torch.as_tensor(g, dtype=torch.float32, device=dev).contiguous()
 
-    def run(first, frame_next, mvs_left, mvs_right, return_next_enc):
-        """first: a frame (full) or the cached previous encoding."""
-        frame_prev = None if cached_key else norm(first)
-        f_prev_enc = torch.as_tensor(first, device=dev) if cached_key else None
-        return interp.predict_clip(
-            frame_prev, norm(frame_next), grids(mvs_left), grids(mvs_right), n,
-            default_grid=dg, out_size=out_size, f_prev_enc=f_prev_enc,
-            return_next_enc=return_next_enc, argmax_epilogue=True)
+    return _Program(dev, interp, dg, norm, grids)
 
+
+def _bind(model: nn.Module, run: Callable) -> Callable:
+    """call(variables, *args): ``run(*args)`` with ``variables`` bound to
+    the model, under inference mode and ``full_precision_f32``."""
     bound = _Bound(model, run)
 
     def call(variables: Mapping[str, torch.Tensor], *args):
@@ -137,6 +146,24 @@ def _builder(model, n, feature_based, no_warp, out_size, default_grid,
             return functional_call(bound, state, args)
 
     return call
+
+
+def _builder(model, n, feature_based, no_warp, out_size, default_grid,
+             int8_decode, int8_encode, device, cached_key):
+    prog = _program(model, feature_based, no_warp, default_grid, int8_decode,
+                    int8_encode, device)
+
+    def run(first, frame_next, mvs_left, mvs_right, return_next_enc):
+        """first: a frame (full) or the cached previous encoding."""
+        frame_prev = None if cached_key else prog.norm(first)
+        f_prev_enc = torch.as_tensor(first, device=prog.dev) if cached_key else None
+        return prog.interp.predict_clip(
+            frame_prev, prog.norm(frame_next), prog.grids(mvs_left),
+            prog.grids(mvs_right), n, default_grid=prog.dg, out_size=out_size,
+            f_prev_enc=f_prev_enc, return_next_enc=return_next_enc,
+            argmax_epilogue=True)
+
+    return _bind(model, run)
 
 
 def make_flow_predict_fn(model: nn.Module, n: int, feature_based: bool = True,
@@ -187,3 +214,40 @@ def make_cached_flow_predict_fn(model: nn.Module, n: int,
     cached = _builder(*args, cached_key=True)
     return (lambda variables, fp, fn, ml, mr: full(variables, fp, fn, ml, mr, True),
             lambda variables, enc, fn, ml, mr: cached(variables, enc, fn, ml, mr, True))
+
+
+def make_flow_predict_crop_fn(model: nn.Module, n: int, num_classes: int,
+                              feature_based: bool = True, no_warp: bool = False,
+                              default_grid: Optional[np.ndarray] = None,
+                              int8_decode: bool = False,
+                              device: DeviceLike = None) -> Callable:
+    """Crop predict for the default (no_cropping=False) predict path: the
+    full n-frame interpolation runs on every sliding-window crop.
+
+    Returns fn(variables, fp_crops (N, ch, cw, 3), fn_crops, ml/mr
+    (T, N, bh, bw, 2)) -> (N, n, ch, cw, num_classes) float32
+    probabilities on the device: each crop's logits up-sampled to the crop
+    (align_corners=True), then softmax in float32. Crops run one at a time
+    with batch 1 (the JAX package vmaps them), into one output buffer. The
+    key map is resampled through the FULL-frame ``default_grid``, as the
+    reference does on crops. Crops are raw pixels, normalised on the device.
+    """
+    prog = _program(model, feature_based, no_warp, default_grid, int8_decode, False,
+                    device)
+
+    def run(fp_crops, fn_crops, mvs_left, mvs_right):
+        fp = torch.as_tensor(fp_crops, device=prog.dev)
+        fn = torch.as_tensor(fn_crops, device=prog.dev)
+        ml, mr = prog.grids(mvs_left), prog.grids(mvs_right)
+        crops, ch, cw = fp.shape[:3]
+        out = torch.empty((crops, n, ch, cw, num_classes), dtype=torch.float32,
+                          device=prog.dev)
+        for i in range(crops):
+            logits = prog.interp.predict_clip(
+                prog.norm(fp[i:i + 1]), prog.norm(fn[i:i + 1]),
+                ml[:, i:i + 1].contiguous(), mr[:, i:i + 1].contiguous(), n,
+                default_grid=prog.dg, out_size=(ch, cw))
+            out[i] = torch.softmax(logits.to(torch.float32), dim=-1)[..., :num_classes]
+        return out
+
+    return _bind(model, run)

@@ -26,7 +26,8 @@ from floodseg_tpu.video import FlowInterpolator as JaxInterpolator
 from floodseg_tpu.video.grid import default_grid as jax_default_grid
 
 from floodseg_tpu_torch.core import full_precision_f32, resolve_device
-from floodseg_tpu_torch.data import MEAN, STD, Resize, predict_windows, synthetic_clip
+from floodseg_tpu_torch.data import (MEAN, STD, Resize, predict_windows, resize_frames,
+                                     synthetic_clip)
 from floodseg_tpu_torch.ops import launch_counts, reset_launch_counts
 from floodseg_tpu_torch.models import build_model, init_from_generator_
 from floodseg_tpu_torch.train import make_cached_flow_predict_fn, make_flow_predict_fn
@@ -336,31 +337,38 @@ def test_synthetic_windows_match_jax_dataset(tmp_path):
 def test_resize_frames_matches_cv2():
     """The port's frame resize (half-pixel bilinear, no cv2 on the card's
     machine) against cv2.INTER_LINEAR on uint8: cv2 rounds 11-bit fixed-point
-    weights, so the two agree within 1 grey level."""
+    weights, so the two agree within 1 grey level. The sample-dict
+    ``Resize`` gives the same frames."""
     cv2 = pytest.importorskip("cv2")
     img = np.random.default_rng(4).integers(0, 256, (64, 48, 3), dtype=np.uint8)
-    ours = Resize((65, 65))(img).numpy()
+    ours = resize_frames(img, (65, 65)).numpy()
     ref = cv2.resize(img, (65, 65), interpolation=cv2.INTER_LINEAR)
     assert ours.dtype == np.uint8 and ours.shape == ref.shape
     assert np.abs(ours.astype(int) - ref.astype(int)).max() <= 1
+    sample = Resize((65, 65))({"frame_prev": img}, np.random.default_rng(0))
+    np.testing.assert_array_equal(sample["frame_prev"], ours)
     assert MEAN == list(JAX_MEAN) and STD == list(JAX_STD)
 
 
 def test_port_imports_no_jax():
-    """No module of floodseg_tpu_torch, and not chip_smoke.py, imports jax or
-    floodseg_tpu; checked in a fresh interpreter's sys.modules."""
+    """No module of floodseg_tpu_torch, and not chip_smoke.py, imports jax,
+    floodseg_tpu, PIL, cv2 or imageio; checked in a fresh interpreter's
+    sys.modules after importing every module of the port."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import floodseg_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'floodseg_tpu' or m.startswith('floodseg_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'floodseg_tpu', 'PIL', 'cv2', 'imageio'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
         "for m in ('ops.warp_kernels', 'ops.quant', 'ops.resize_kernels',\n"
-        "          'models.deeplabv3', 'models.vit'):\n"
+        "          'models.deeplabv3', 'models.vit', 'ops.metrics', 'core.profiler',\n"
+        "          'data.image', 'data.avi', 'data.dataset', 'data.loader',\n"
+        "          'data.synthetic', 'data.transforms', 'train.evaluate',\n"
+        "          'train.predict'):\n"
         "    assert 'floodseg_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

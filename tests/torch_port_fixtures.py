@@ -18,7 +18,7 @@ import torch
 from floodseg_tpu.data.transforms import MEAN as JAX_MEAN, STD as JAX_STD
 from floodseg_tpu.models import build_model as jax_build_model
 from floodseg_tpu.models.vit import SegmenterViT as JaxSegmenterViT
-from floodseg_tpu_torch.data import Resize, predict_windows, synthetic_clip
+from floodseg_tpu_torch.data import predict_windows, resize_frames, synthetic_clip
 from floodseg_tpu_torch.models import SegmenterViT, build_model, load_jax_variables
 from floodseg_tpu_torch.train import make_cached_flow_predict_fn, make_flow_predict_fn
 from floodseg_tpu_torch.video import default_grid
@@ -125,8 +125,8 @@ def builder_windows(n: int = 5, out_size=(72, 80), frame_size: int = 65):
     are window 0's, frames[3] window 1's next key. 4x4 block grids."""
     clip = synthetic_clip(2 * n + 1, size=(64, 64), frame_ids=(0, n, 2 * n), seed=3)
     wins = predict_windows(clip, n)
-    resize = Resize((frame_size, frame_size))
-    frames = [resize(w[k]).numpy() for w in wins for k in ("frame_prev", "frame_next")]
+    frames = [resize_frames(w[k], (frame_size, frame_size)).numpy()
+              for w in wins for k in ("frame_prev", "frame_next")]
     assert frames[0].dtype == np.uint8 and frames[0].shape == (1, frame_size, frame_size, 3)
     return dict(n=n, out_size=out_size, wins=wins, frames=frames, dg=default_grid(64, 64))
 
