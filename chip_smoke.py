@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # every phase, as below
     python3 chip_smoke.py --k2     # K2 alone: build, check, time (about 20 s)
     python3 chip_smoke.py --k3     # K3 alone: build, check, time (about 20 s)
+    python3 chip_smoke.py --train  # the training phases alone: 3t, 4t and 14
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -50,6 +51,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    onto the 67x120 full-frame identity grid (the key-map resample, an
    up-sample); K2 23 steps on (1, 27, 27, 4096) (its geometry logged). The
    same tolerances, each timed beside its bound and F.grid_sample.
+3t. K1 and K1-bwd (K1's backward, csrc/warp.cu) at the training shapes:
+   (2, 55, 55, 4096) -> 27x27 (a chain's head) and (2, 27, 27, 4096) ->
+   27x27 (its steps), float32 and bf16, on random grids, the training
+   batch's own crop grids (a synthetic 1072x1920 clip's chains through the
+   train transform), the identity grid and a grid that clamps every point to
+   one corner (every atomic on one pixel). K1 must be bit-equal to its
+   plain version in float32 at batch 2; K1-bwd within 1e-5 of the plain
+   version's largest magnitude in float32, and in bf16 within 1 bf16 ulp of
+   its float32-summed plain version plus that 1e-5 (the sums' order, where
+   they cancel); the largest difference between two runs
+   of K1-bwd on one input is logged (atomics). Both timed in float32 beside
+   the bytes bound, the plain version and the library (F.grid_sample, and
+   aten.grid_sampler_2d_backward on NCHW for K1-bwd); K1-bwd in bf16 too.
 4. The flow-predict slice in float32 (TF32 off) on the card against the
    same slice on the CPU: PSPNet-50 at 129 px key frames from a clip of
    128 px frames (SLICE_FRAME_HW, every slice check), n = 5, with each
@@ -69,6 +83,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    float32 on the card, as the builders run them), logits and encodings
    within SLICE_TOL and ENC_TOL; the bf16 logits are read once more with
    PyTorch's default reduced-precision reduction, for the record.
+4t. One interpolated, one plain and one eval train step of PSPNet-50 (its
+   aux head included) at 65 px, batch 2, frame_delta 5, float32 with TF32
+   off and the flow config's SGD (lr 1e-4, heads 10x), each from the same
+   initial state, on the card against the CPU with the same dropout keep
+   masks: losses within rtol
+   1e-4, every parameter and BN statistic within 1e-4 of its tensor's
+   largest magnitude, eval counts within 1% of the pixels (OHEM's min_kept
+   of 100000 exceeds the pixels: no mining). What each step changed
+   (p1 - p0: the gradient through K1-bwd, momentum and decay, the BN
+   statistics' update) is held tensor by tensor: the same tensors move,
+   and the card's change is within STEP_FLOOR_FACTOR times the CPU float32
+   change's distance to the float64 change (the same steps in float64 on
+   the CPU), and never tighter than STEP_ABS, of the tensor's largest
+   change.
 5. The main path: PSPNet-50 in bf16 at full width, 513 px key frames,
    n = 25, 32x32 block grids, through make_cached_flow_predict_fn, with
    bench.py's protocol (8 timed windows, median of 5 passes). The launch
@@ -116,8 +144,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 12b. The crop route in float32 on the card against the CPU at 128x192,
    64 px crops, n = 5: probabilities within 1e-4, maps equal away from
    near-ties.
-13. A JSON line {"kernels": [...]}, then the nvidia-smi line, then the last
-   line {"ok": true, "device": {...}}.
+14. Flow-supervised training at full width through run_flow_fit: a
+   1072x1920 tree of 100 frames from the port's writer, the repository's
+   flow config (PSPNet-50 with its aux head, float32 with TF32 off, batch
+   2, 433 px crops, n = 25, SGD with the head group at 10x, OHEM 0.7 /
+   100000), 14 interpolated steps (2 warm-up, 10 timed with a synchronise
+   after each, the last 2 under torch.profiler) and a validation pass over
+   3 frames. The loader alone first (ms a batch on 8 threads). Prints ms a
+   step and samples/s, the step's wait for its batch, device busy, the idle
+   share and ms a step by kernel family, peak memory. Checks: K1 48 and
+   K1-bwd 48 launches every step (and K1 48 a validation frame), K2 and K3
+   none; a finite loss; every BN's running mean moved but the aux head's
+   (flow training never runs it); after the first step each aux parameter
+   equals p0 - 10 lr wd p0 (a zero gradient, decayed and moved).
+13. Last (after phase 14): a JSON line {"kernels": [...]} (each kernel's
+   max_abs_err is its largest over every check; max_abs_err_by_dtype gives
+   the largest in float32 and in bf16 apart), then the nvidia-smi line, then the last line {"ok": true, "device": {...}}.
 """
 
 import copy
@@ -143,6 +185,7 @@ from floodseg_tpu_torch.data import (
     DataLoader,
     FlowDataset,
     build_test_transform,
+    build_train_transform,
     collate,
     device_put,
     generate_synthetic_dataset,
@@ -154,22 +197,35 @@ from floodseg_tpu_torch.data import (
 from floodseg_tpu_torch.data.image import decode_jpeg, encode_jpeg, imread
 from floodseg_tpu_torch.models import build_model, init_from_generator_
 from floodseg_tpu_torch.ops import build, launch_counts, quant, reset_launch_counts
-from floodseg_tpu_torch.ops.grid_sample import grid_sample, tap_indices_weights
+from floodseg_tpu_torch.ops.grid_sample import (
+    grid_sample,
+    grid_sample_backward,
+    tap_indices_weights,
+)
 from floodseg_tpu_torch.ops.resize_kernels import (
     resize_quantize_int8_cuda,
     resize_quantize_int8_plain,
 )
 from floodseg_tpu_torch.ops.warp_kernels import (
     _chain_geometry,
+    grid_sample_backward_cuda,
     grid_sample_cuda,
     warp_chain_cuda,
     warp_chain_plain,
 )
 from floodseg_tpu_torch.train import (
+    FitConfig,
+    TrainState,
     crop_offsets,
     flow_sliding_window_predict,
+    flow_transforms,
     make_cached_flow_predict_fn,
+    make_flow_eval_step,
     make_flow_predict_crop_fn,
+    make_flow_train_step,
+    make_loss_fn,
+    make_optimizer,
+    run_flow_fit,
     run_flow_predict,
 )
 from floodseg_tpu_torch.train.flow import _predict_decode, decode_split_ok
@@ -232,6 +288,14 @@ def compare(name, got, ref, dtype) -> float:
     return err
 
 
+def note_err(errs: dict, kname: str, dtype: torch.dtype, err: float) -> None:
+    """Keep the largest error of ``kname`` in ``dtype``: errs[kname][dtype
+    name] (the kernels line reports each dtype's and the largest)."""
+    by_dtype = errs.setdefault(kname, {})
+    tag = str(dtype).replace("torch.", "")
+    by_dtype[tag] = max(by_dtype.get(tag, 0.0), err)
+
+
 def kernel_cases(device, dtype, k1_shape=(1, 65, 65, 4096), grid_hw=(32, 32),
                  chain_steps=FRAME_DELTA - 2, wide_grid=(67, 120), wide_c=256,
                  seed=0):
@@ -261,18 +325,18 @@ def main_path_grids(device, n=FRAME_DELTA, frame_hw=(512, 512), seed=0):
 def check_kernels(device, **shapes) -> dict:
     """Phase 3a: both kernels against their plain versions, f32 and bf16, on
     random grids (every border case) and on the main path's own grids."""
-    errs = {"grid_sample_cuda": 0.0, "warp_chain_cuda": 0.0}
+    errs = {}
     mvs, dg = main_path_grids(device)
     for dtype in (torch.float32, torch.bfloat16):
         x, grid, y0, grids, y0w, gridsw = kernel_cases(device, dtype, **shapes)
         tag = str(dtype).replace("torch.", "")
         for g, align, what in ((grid, False, "random"), (grid, True, "random"),
                                (mvs[0], False, "main-path"), (dg, True, "identity")):
-            errs["grid_sample_cuda"] = max(errs["grid_sample_cuda"], compare(
+            note_err(errs, "grid_sample_cuda", dtype, compare(
                 f"K1 {tag} x{tuple(x.shape)} {what} grid{tuple(g.shape)} align={align}",
                 grid_sample_cuda(x, g, align), grid_sample(x, g, align), dtype))
-        errs["warp_chain_cuda"] = max(errs["warp_chain_cuda"],
-                                      check_k2(x, y0, grids, y0w, gridsw, mvs, dg))
+        note_err(errs, "warp_chain_cuda", dtype,
+                 check_k2(x, y0, grids, y0w, gridsw, mvs, dg))
     return errs
 
 
@@ -475,7 +539,7 @@ def finite_bf16_values(device) -> torch.Tensor:
     return v.reshape(1, 1, -1, 16).to(device)
 
 
-def check_k3(stack, scale, seed=0, feat_hw=FEAT_HW, every=True) -> float:
+def check_k3(stack, scale, seed=0, feat_hw=FEAT_HW, every=True) -> dict:
     """Phase 3a for K3, float32 and bf16: the main path's first-window stack
     at its own scale, random data in both align modes at the same shape and
     at an odd shape with C = 37 (one channel a thread), every case again at
@@ -483,9 +547,10 @@ def check_k3(stack, scale, seed=0, feat_hw=FEAT_HW, every=True) -> float:
     value through an identity resize (out_hw equal to the input's), at the
     stack's scale, a fiftieth of it, FLT_MIN and 2**-7 (many values on
     half-integers), so each value's quantize is checked on its own
-    (``every``; the values do not depend on the stack's shape)."""
+    (``every``; the values do not depend on the stack's shape). Returns the
+    largest error by input dtype."""
     g = torch.Generator().manual_seed(seed)
-    err = 0.0
+    errs = {}
     every_value = finite_bf16_values(stack.device)
     tiny = torch.tensor(torch.finfo(torch.float32).tiny, device=stack.device)
     for dtype in (torch.float32, torch.bfloat16):
@@ -497,7 +562,7 @@ def check_k3(stack, scale, seed=0, feat_hw=FEAT_HW, every=True) -> float:
             cases += [("random", x, s, hw, align) for align in (True, False)]
         for what, x, s, hw, align in cases:
             for sc, sat in ((s, ""), (s / 50, ", saturating")):
-                err = max(err, k3_compare(
+                note_err(errs, "K3", dtype, k3_compare(
                     f"K3 {tag} {what} x{tuple(x.shape)} -> {hw} align={align}{sat}",
                     resize_quantize_int8_cuda(x, sc, hw, align),
                     resize_quantize_int8_plain(x, sc, hw, align)))
@@ -507,11 +572,11 @@ def check_k3(stack, scale, seed=0, feat_hw=FEAT_HW, every=True) -> float:
         hw = tuple(x.shape[1:3])
         for sc, what in ((scale, "the stack's scale"), (scale / 50, "a fiftieth of it"),
                          (tiny, "FLT_MIN"), (torch.full_like(tiny, 2.0 ** -7), "2**-7")):
-            err = max(err, k3_compare(
+            note_err(errs, "K3", dtype, k3_compare(
                 f"K3 {tag} every finite bf16 value x{tuple(x.shape)} -> {hw} (identity), "
                 f"scale {what}", resize_quantize_int8_cuda(x, sc, hw, True),
                 resize_quantize_int8_plain(x, sc, hw, True)))
-    return err
+    return errs["K3"]
 
 
 def time_k3(stack, scale, feat_hw=FEAT_HW) -> dict:
@@ -667,12 +732,13 @@ def check_int8_deeplab_decode_card_vs_cpu(model, shape=(2, 33, 33, 2048), seed=2
 
 # ------------------------------------------------------------- the slice
 
-def random_model(arch, dtype, seed=0, image_size=DL_SIZE):
-    """PSPNet-50 or DeepLabV3-50 (no aux head), or ViT-B/32 for
-    ``image_size`` px frames, with weights from one torch.Generator seed,
-    every BN's statistics and every LayerNorm perturbed."""
+def random_model(arch, dtype, seed=0, image_size=DL_SIZE, with_aux=False):
+    """PSPNet-50 or DeepLabV3-50 (with the aux head if ``with_aux``), or
+    ViT-B/32 for ``image_size`` px frames, with weights from one
+    torch.Generator seed, every BN's statistics and every LayerNorm
+    perturbed."""
     model = build_model(arch, classes=CLASSES, layers=50, image_size=image_size,
-                        with_aux=False, dtype=dtype)
+                        with_aux=with_aux, dtype=dtype)
     return init_from_generator_(model, torch.Generator().manual_seed(seed))
 
 
@@ -915,7 +981,7 @@ def run_main_path(model, wins, int8, tag, dev=torch.device("cuda"), n=FRAME_DELT
     counts = launch_counts()
     windows = state["windows"]
     log(f"  launches over {windows} windows: {counts}")
-    per_window = {"grid_sample_cuda": 3, "warp_chain_cuda": 2,
+    per_window = {"grid_sample_cuda": 3, "grid_sample_backward_cuda": 0, "warp_chain_cuda": 2,
                   "resize_quantize_int8_cuda": 1 if int8 else 0}
     expected = {k: v * windows if dev.type == "cuda" else 0 for k, v in per_window.items()}
     if counts != expected:
@@ -946,6 +1012,7 @@ def run_main_path(model, wins, int8, tag, dev=torch.device("cuda"), n=FRAME_DELT
 PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "profile")
 KERNEL_NAMES = {"grid_sample_cuda": "grid_sample_kernel",
+                "grid_sample_backward_cuda": "grid_sample_backward_kernel",
                 "warp_chain_cuda": "warp_chain_",  # either design
                 "resize_quantize_int8_cuda": "resize_quantize_kernel"}
 # a window's device time by family of kernel names; the first family whose
@@ -1137,7 +1204,7 @@ def check_crop_kernels(model, dev) -> tuple:
         f"{'ping-pong' if geo.table_points else 'single-buffer'} design, "
         f"{geo.c_tile}-channel tile, {geo.table_points} table point(s) a thread, "
         f"{c // geo.c_tile} blocks of {geo.threads} threads, {geo.smem} B shared memory")
-    errs = {"grid_sample_cuda": 0.0, "warp_chain_cuda": 0.0}
+    errs = {}
     g = torch.Generator().manual_seed(0)
     xs = torch.randn((1,) + feat_hw + (c,), generator=g)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1145,11 +1212,11 @@ def check_crop_kernels(model, dev) -> tuple:
         x = xs.to(dev, dtype)
         for grid, align, what in ((ml[0], False, "crop chain head"),
                                   (dg, True, "full-frame identity")):
-            errs["grid_sample_cuda"] = max(errs["grid_sample_cuda"], compare(
+            note_err(errs, "grid_sample_cuda", dtype, compare(
                 f"K1 {tag} x{tuple(x.shape)} {what} grid{tuple(grid.shape)} align={align}",
                 grid_sample_cuda(x, grid, align), grid_sample(x, grid, align), dtype))
         y0 = grid_sample(x, ml[0], False)
-        errs["warp_chain_cuda"] = max(errs["warp_chain_cuda"], compare(
+        note_err(errs, "warp_chain_cuda", dtype, compare(
             f"K2 {tag} y0{tuple(y0.shape)} crop grids T={ml.shape[0] - 1} ({k2_design(y0)})",
             warp_chain_cuda(y0, ml[1:]), warp_chain_plain(y0, ml[1:]), dtype))
     flush, cpm = L2Flush(dev), sleep_cycles_per_ms()
@@ -1286,8 +1353,8 @@ def files_phase(model, dev, n=FRAME_DELTA, size=SIZE) -> dict:
         f"{len(batches) - 1} windows after the first arrived")
     counts = launch_counts()
     windows = state["windows"]
-    expected = {"grid_sample_cuda": 3 * windows, "warp_chain_cuda": 2 * windows,
-                "resize_quantize_int8_cuda": 0}
+    expected = {"grid_sample_cuda": 3 * windows, "grid_sample_backward_cuda": 0,
+                "warp_chain_cuda": 2 * windows, "resize_quantize_int8_cuda": 0}
     log(f"  launches over {windows} windows: {counts}")
     if counts != expected:
         raise AssertionError(f"the cached route from files launched {counts}, "
@@ -1387,8 +1454,8 @@ def crop_route_phase(model, dev, n=FRAME_DELTA) -> dict:
     dt = device_time(trace, windows)
     log(f"  summary: { {k: (round(v, 4) if isinstance(v, float) else v) for k, v in summary.items() if k != 'predict_miou1_epoch_classes'} }")
     # per crop: K1 for both chain heads and the key resample, K2 for both chains
-    expected = {"grid_sample_cuda": 3 * crops * windows, "warp_chain_cuda": 2 * crops * windows,
-                "resize_quantize_int8_cuda": 0}
+    expected = {"grid_sample_cuda": 3 * crops * windows, "grid_sample_backward_cuda": 0,
+                "warp_chain_cuda": 2 * crops * windows, "resize_quantize_int8_cuda": 0}
     log(f"  launches over {windows} windows: {counts} (expected {expected})")
     if windows != 2 or counts != expected:
         raise AssertionError(f"the crop route launched {counts} over {windows} windows")
@@ -1457,6 +1524,448 @@ def crop_card_vs_cpu(n=5, frame_hw=(128, 192), crop=64, seed=1) -> None:
         f"away from near-ties ({clear.mean():.4f} of pixels clear)")
     if (~same & clear).any():
         raise AssertionError("card and CPU crop-route maps differ away from near-ties")
+
+
+# ------------------------------------------------ training: 3t, 4t and 14
+
+# phase 4t's hold on what a step changed: per tensor, the card's change
+# against the CPU's within STEP_FLOOR_FACTOR times the CPU float32 change's
+# own distance to the float64 change (its noise floor), and never held
+# tighter than STEP_ABS; both relative to the tensor's largest change. The
+# card's float32 change sat up to 11.2 times farther from the float64 one
+# than the CPU's (layer4.2.conv1.weight, an H100 80GB HBM3): rounding that
+# BN's backward amplifies differs by tensor, so the factor is about three
+# times that
+STEP_FLOOR_FACTOR = 32.0
+STEP_ABS = 1e-3
+TRAIN_FEAT = (2, 55, 55, 4096)  # PSPNet-50's encoding of a 433 px crop, batch 2
+TRAIN_GRID_HW = (27, 27)        # the crop's block grid
+# a training step's device time by family of kernel names (the first family
+# whose pattern a name contains takes it)
+TRAIN_FAMILIES = (
+    ("K1", ("grid_sample_kernel",)),
+    ("K1-bwd", ("grid_sample_backward_kernel", "cast_kernel")),
+    ("conv backward", ("dgrad", "wgrad", "bprop", "backward_data", "backward_filter")),
+    ("conv forward", ("fprop", "conv", "cudnn", "xmma", "implicit")),
+    ("matrix products", ("gemm", "nvjet", "cutlass")),
+    ("OHEM sort", ("sort", "Sort", "radix", "Radix")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("reductions (BN statistics)", ("reduce_kernel",)),
+    ("copies and casts", ("copy", "CatArray")),
+    ("other elementwise (BN, ReLU, blend, losses)", ("",)),
+)
+
+
+def train_crop_grids(seed=0, n=FRAME_DELTA, frame_hw=FRAME_HW, crop=CROP) -> torch.Tensor:
+    """The training batch's own grids: two samples' left chains of a
+    synthetic 1072x1920 clip through the train transform (random scale,
+    flip and 433 px crop, as FlowDataset items take it), (n-1, 2, 27, 27, 2)
+    float32 on the CPU."""
+    clip = synthetic_clip(2 * n + 1, size=frame_hw, frame_ids=(), seed=seed)
+    tf = build_train_transform(crop, crop, resize=frame_hw, crop_padding=None,
+                               normalize=False)
+    chains = []
+    for b in range(2):
+        sample = {"label": np.zeros(frame_hw, np.uint8),
+                  "mvs_left": list(clip["grids"][1 + b * n:(b + 1) * n])}
+        chains.append(np.stack(tf(sample, np.random.default_rng((seed, b)))["mvs_left"]))
+    return torch.as_tensor(np.stack(chains, axis=1)).contiguous()
+
+
+def train_grids(dev, seed=0) -> dict:
+    """Phase 3t's grids (2, 27, 27, 2): random in [-1.1, 1.1], the training
+    batch's first and second crop grids (a chain's head and a chain step),
+    the identity (block centres of the crop, align_corners=False) and one
+    that clamps every point to the top-left corner (all of a point's taps,
+    and so all atomics, on one source pixel)."""
+    g = torch.Generator().manual_seed(seed)
+    chain = train_crop_grids(seed)
+    ident = torch.as_tensor(default_grid(432, 432))[None].expand(2, -1, -1, -1)
+    grids = {"random": torch.rand((2,) + TRAIN_GRID_HW + (2,), generator=g) * 2.2 - 1.1,
+             "train-crop": chain[0], "train-crop step": chain[1], "identity": ident,
+             "corner": torch.full((2,) + TRAIN_GRID_HW + (2,), -1.5)}
+    return {k: v.to(dev).contiguous() for k, v in grids.items()}
+
+
+def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
+    """Each element's bf16 ulp."""
+    mag = ref.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_k1_bwd(name, got, ref, dtype) -> float:
+    """K1-bwd against its float32-summed plain version: float32 within 1e-5
+    of the plain result's largest magnitude (atomics add in another order);
+    bf16 within 1 bf16 ulp of each element plus that same 1e-5 (the bf16
+    result rounds a float32 sum taken in another order, and where the sum
+    cancels to near zero the order's error is many ulps of the result)."""
+    diff = (got.float() - ref.float()).abs()
+    err = float(diff.max())
+    scale = float(ref.float().abs().max())
+    if dtype == torch.float32:
+        ok = err <= 1e-5 * scale
+        detail = f"max_abs_err {err:.3e} (tol 1e-5 x {scale:.3e})"
+    else:
+        beyond = float((diff - bf16_ulp(ref)).clamp_min(0).max())
+        ok = beyond <= 1e-5 * scale
+        detail = (f"max_abs_err {err:.3e}, beyond 1 bf16 ulp {beyond:.3e} "
+                  f"(tol 1e-5 x {scale:.3e})")
+    log(f"  {name}: {detail} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version: {detail}")
+    return err
+
+
+def time_k1_bwd(g_out, grid, x_shape, flush, cpm) -> dict:
+    """K1-bwd's time beside its bound (grad_out and the grid read once,
+    grad_x written once; 4 multiplies and 4 adds per element of grad_out),
+    its plain version's and the library's: aten.grid_sampler_2d_backward on
+    NCHW, the input's gradient only."""
+    out = grid_sample_backward_cuda(g_out, grid, x_shape, False)
+    b = bound(nbytes(g_out, grid, out), 8 * g_out.numel())
+    gn = g_out.permute(0, 3, 1, 2).contiguous()
+    xn = torch.zeros((x_shape[0], x_shape[3], x_shape[1], x_shape[2]), dtype=g_out.dtype,
+                     device=g_out.device)
+    grid_l = grid.to(g_out.dtype)
+    return {
+        "ms": time_ms(lambda: grid_sample_backward_cuda(g_out, grid, x_shape, False), flush, cpm),
+        "plain_ms": time_ms(lambda: grid_sample_backward(g_out, grid, x_shape, False), flush,
+                            cpm, reps=5),
+        "library_ms": time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            gn, xn, grid_l, 0, 1, False, [True, False]), flush, cpm),
+        "bound_ms": b[0], "bound_by": b[1],
+    }
+
+
+def check_train_kernels(dev) -> tuple:
+    """Phase 3t: K1 and K1-bwd at the training shapes, (2, 55, 55, 4096) ->
+    27x27 (a chain's head) and (2, 27, 27, 4096) -> 27x27 (its steps), in
+    float32 and bf16, on phase 3t's grids: K1 bit-equal to its plain
+    version, K1-bwd within check_k1_bwd's tolerance, and the largest
+    difference between two runs of K1-bwd on one input (atomics). Then both
+    timed in float32 (the training dtype) on the training batch's grids,
+    and K1-bwd in bf16."""
+    grids = train_grids(dev)
+    g = torch.Generator().manual_seed(1)
+    xs = {hw: torch.randn(TRAIN_FEAT[:1] + hw + TRAIN_FEAT[3:], generator=g)
+          for hw in ((55, 55), TRAIN_GRID_HW)}
+    g_out = torch.randn(TRAIN_FEAT[:1] + TRAIN_GRID_HW + TRAIN_FEAT[3:], generator=g)
+    errs = {}
+    rerun = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        go = g_out.to(dev, dtype)
+        for hw, x0 in xs.items():
+            x = x0.to(dev, dtype)
+            for what, grid in grids.items():
+                out, ref = grid_sample_cuda(x, grid, False), grid_sample(x, grid, False)
+                if dtype == torch.float32 and not torch.equal(out, ref):
+                    raise AssertionError(f"K1 float32 B=2 {what} is not bit-equal to its "
+                                         f"plain version")
+                note_err(errs, "grid_sample_cuda", dtype, compare(
+                    f"K1 {tag} x{tuple(x.shape)} {what}", out, ref, dtype))
+                got = grid_sample_backward_cuda(go, grid, x.shape, False)
+                note_err(errs, "grid_sample_backward_cuda", dtype, check_k1_bwd(
+                    f"K1-bwd {tag} grad_x{tuple(x.shape)} {what}", got,
+                    grid_sample_backward(go, grid, x.shape, False), dtype))
+                again = grid_sample_backward_cuda(go, grid, x.shape, False)
+                rerun = max(rerun, float((again.float() - got.float()).abs().max()))
+    log(f"  K1-bwd run to run (atomics): largest difference {rerun:.3e}")
+    flush, cpm = L2Flush(dev), sleep_cycles_per_ms()
+    res = {}
+    go = g_out.to(dev)
+    for hw, label, grid in (((55, 55), "head", grids["train-crop"]),
+                            (TRAIN_GRID_HW, "step", grids["train-crop step"])):
+        x = xs[hw].to(dev)
+        shape = tuple(x.shape)
+        res[f"grid_sample_cuda (train {label}, float32)"] = time_k1(
+            x, x.permute(0, 3, 1, 2).contiguous(), grid, grid, False, flush, cpm)
+        res[f"grid_sample_backward_cuda (train {label}, float32)"] = time_k1_bwd(
+            go, grid, shape, flush, cpm)
+    res["grid_sample_backward_cuda (train head, bf16)"] = time_k1_bwd(
+        go.to(torch.bfloat16), grids["train-crop"], (2, 55, 55, 4096), flush, cpm)
+    for name, r in res.items():
+        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) -> "
+            f"{r['bound_ms'] / r['ms']:.1%} of bound")
+    return errs, res, rerun
+
+
+def train_batch(seed=3, size=65, n=5, device="cpu") -> dict:
+    """A flow training batch of two samples: normalised-range frames
+    (size px), chains of n - 1 grids (size // 16 blocks, float32, the
+    second sample's left chain 3 long), labels with 5% ignored."""
+    rng = np.random.default_rng(seed)
+    gh = size // 16
+    base = np.stack(np.meshgrid(np.linspace(-0.9, 0.9, gh), np.linspace(-0.9, 0.9, gh)), -1)
+
+    def chain():
+        return torch.as_tensor((base[None, None] + rng.uniform(
+            -0.1, 0.1, (n - 1, 2, gh, gh, 2))).astype(np.float32), device=device).contiguous()
+
+    labels = rng.integers(0, CLASSES, (2, size, size))
+    labels = np.where(rng.random(labels.shape) < 0.05, 255, labels).astype(np.int32)
+    frames = {k: torch.as_tensor(rng.standard_normal((2, size, size, 3)).astype(np.float32),
+                                 device=device)
+              for k in ("frame_prev", "frame_next", "frame_current")}
+    return {**frames, "mvs_left": chain(), "mvs_right": chain(),
+            "left_index": np.array([1, 3], np.int32),
+            "right_index": np.array([n - 1, n - 3], np.int32),
+            "label": torch.as_tensor(labels, device=device)}
+
+
+def train_steps(model, batch, masks, dev, dtype=torch.float32) -> dict:
+    """An interpolated step, a plain step and an eval step of ``model`` on
+    ``dev`` in ``dtype``, each from ``model``'s own state (the flow config's
+    SGD: lr 1e-4, the heads at 10x; OHEM with its min_kept, which skips
+    mining at this size), the dropout keep masks injected. Returns each
+    step's loss and the state_dict after it (float64 on the CPU), and the
+    eval counts."""
+    batch = {k: (v.to(dev, dtype) if torch.is_tensor(v) and k.startswith("frame")
+                 else v.to(dev) if torch.is_tensor(v) else v) for k, v in batch.items()}
+
+    def fresh():
+        m = copy.deepcopy(model).to(dev, dtype)
+        for mod in m.modules():
+            if hasattr(mod, "compute_dtype"):
+                mod.compute_dtype = dtype
+        if dev.type == "cuda":
+            m.to(memory_format=torch.channels_last)
+        return m
+
+    out = {}
+    loss_fn = make_loss_fn("ohem", 0.0, 255, 0.7, 100000)
+    for name in ("interp", "plain"):
+        m = fresh()
+        opt, sched = make_optimizer(m, FitConfig.lr, 10)
+        interp, plain = make_flow_train_step(m, loss_fn, CLASSES, 255)
+        m.cls[3].keep = masks[name].to(dev)
+        _, metrics = (interp if name == "interp" else plain)(TrainState(0, m, opt, sched),
+                                                               batch, None)
+        out[name] = (float(metrics["loss"]), {k: v.detach().double().cpu().clone()
+                                              for k, v in m.state_dict().items()})
+    m = fresh()
+    ev = make_flow_eval_step(m, CLASSES, 255)(None, batch)
+    out["eval"] = {k: v.cpu() for k, v in ev.items()}
+    return out
+
+
+def step_rel(a: dict, b: dict, p0: dict) -> dict:
+    """Per tensor that ``b``'s step moved: max|a - b| / max|b - p0|, how far
+    ``a``'s change (a - p0) is from ``b``'s relative to the largest
+    change."""
+    out = {}
+    for k, ref in b.items():
+        scale = float((ref - p0[k]).abs().max()) if ref.numel() else 0.0
+        if scale > 0.0:
+            out[k] = float((a[k] - ref).abs().max()) / scale
+    return out
+
+
+def check_train_step_card_vs_cpu(size=65, n=5) -> None:
+    """Phase 4t: one interpolated, one plain and one eval step of PSPNet-50
+    (aux head included) at 65 px crops, batch 2, frame_delta 5, float32 with
+    TF32 off (the steps run under full_precision_f32), on the card against
+    the CPU, each step from the same initial state with the same dropout
+    keep masks (the config's SGD, lr 1e-4): losses within rtol 1e-4; every
+    parameter and BN statistic within 1e-4 of its tensor's largest
+    magnitude; the same tensors moved; and what the step changed (p1 - p0,
+    the gradient through the warps' K1-bwd, the momentum and the weight
+    decay, or the BN statistics' update) within the tensor's float32 noise
+    floor (STEP_FLOOR_FACTOR, STEP_ABS) of the CPU's change; eval counts
+    within 1% of the pixels. The same steps in float64 on the CPU give that
+    floor."""
+    model = random_model("pspnet", torch.float32, seed=4, with_aux=True)
+    p0 = {k: v.detach().double().clone() for k, v in model.state_dict().items()}
+    g = torch.Generator().manual_seed(5)
+    masks = {k: (torch.rand((2, 512, 1, 1), generator=g) < 0.9) for k in ("interp", "plain")}
+    t0 = time.perf_counter()
+    card = train_steps(model, train_batch(size=size, n=n), masks, torch.device("cuda"))
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = train_steps(model, train_batch(size=size, n=n), masks, torch.device("cpu"))
+    f64 = train_steps(model, train_batch(size=size, n=n), masks, torch.device("cpu"),
+                      torch.float64)
+    log(f"  card {t_card:.1f} s, CPU {time.perf_counter() - t0:.1f} s (float32 and float64) "
+        f"for the three steps")
+
+    def rel_diffs(a, b):
+        out = {}
+        for k, ref in b.items():
+            scale = float(ref.abs().max()) if ref.numel() else 0.0
+            if scale > 0.0:
+                out[k] = float((a[k] - ref).abs().max()) / scale
+        return out
+
+    for name in ("interp", "plain"):
+        (lc, sc), (lh, sh), (l64, s64) = card[name], cpu[name], f64[name]
+        d = rel_diffs(sc, sh)
+        key = max(d, key=d.get)
+        ok = abs(lc - lh) <= 1e-4 * abs(lh) and d[key] <= 1e-4
+        log(f"  {name} step: loss card {lc:.7f} CPU {lh:.7f} float64 {l64:.7f} (card vs "
+            f"CPU rel {abs(lc - lh) / abs(lh):.2e}, tol 1e-4); largest parameter or BN "
+            f"statistic difference {d[key]:.2e} of its tensor's largest magnitude ({key}; "
+            f"tol 1e-4) -> {'ok' if ok else 'FAIL'}")
+        # what the step changed: card vs CPU, against the CPU float32 floor
+        moved = {k for k in sh if not torch.equal(sh[k], p0[k])}
+        moved_card = {k for k in sc if not torch.equal(sc[k], p0[k])}
+        e, floor = step_rel(sc, sh, p0), step_rel(sh, s64, p0)
+        card_floor = step_rel(sc, s64, p0)
+        limit = {k: max(STEP_ABS, STEP_FLOOR_FACTOR * floor.get(k, 0.0)) for k in e}
+        worst = sorted(e, key=lambda k: e[k] / limit[k], reverse=True)[:5]
+        step_ok = moved == moved_card and all(e[k] <= limit[k] for k in e)
+        log(f"    the step's change, {len(e)} tensors moved ({len(moved_card)} on the card): "
+            f"card vs CPU median {statistics.median(e.values()):.2e} of the tensor's largest "
+            f"change; the float32 floor (CPU vs float64) median "
+            f"{statistics.median(floor.values()):.2e}, card vs float64 median "
+            f"{statistics.median(card_floor.values()):.2e}; card over CPU distance to float64 "
+            f"at most {max(card_floor[k] / max(floor[k], 1e-30) for k in floor):.2f}x -> "
+            f"{'ok' if step_ok else 'FAIL'}")
+        log("    closest to the limit, card vs CPU | limit | CPU vs float64 | card vs float64: "
+            + "; ".join(f"{k} {e[k]:.2e} | {limit[k]:.2e} | {floor.get(k, 0.0):.2e} | "
+                        f"{card_floor.get(k, 0.0):.2e}" for k in worst))
+        if not (ok and step_ok):
+            raise AssertionError(f"the {name} train step on the card disagrees with the CPU")
+    pixels = float(cpu["eval"]["target"].sum())
+    diff = {k: float((card["eval"][k] - cpu["eval"][k]).abs().sum()) for k in cpu["eval"]}
+    log(f"  eval counts card vs CPU: summed differences {diff} of {pixels:.0f} pixels")
+    if diff["target"] != 0 or max(diff.values()) > 0.01 * pixels:
+        raise AssertionError(f"eval counts card vs CPU differ: {diff}")
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train_phase(dev, n=FRAME_DELTA, frame_hw=FRAME_HW, crop=CROP, frames=100, labeled=40,
+                steps=14, warmup=2, profiled=2, val_batches=3) -> dict:
+    """Phase 14: flow-supervised training at full width through run_flow_fit:
+    a 1072x1920 tree of 100 frames from the port's writer (28 train items),
+    the repository's flow config (PSPNet-50 with its aux head, float32,
+    batch 2, 433 px crops, n = 25, SGD, OHEM), ``steps`` interpolated steps
+    (``warmup`` untimed, the last ``profiled`` under torch.profiler) and a
+    validation pass over ``val_batches`` frames. (Smaller arguments rehearse
+    it on the CPU.)"""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    root = os.path.join(DATA_DIR, "train_tree")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(root, num_frames=frames, size=frame_hw, frame_delta=n,
+                               num_labeled=labeled)
+    cfg = FitConfig(train_h=crop, train_w=crop, resize_h=frame_hw[0], resize_w=frame_hw[1],
+                    frame_delta=n, max_epochs=1, limit_train_batches=steps,
+                    limit_val_batches=val_batches)
+    log(f"  tree: {frames} frames of {frame_hw[0]}x{frame_hw[1]} written in "
+        f"{time.perf_counter() - t0:.1f} s; TF32 off (the steps run under "
+        f"full_precision_f32); {cfg}")
+    # the loader alone: host ms a batch (8 threads), before any training
+    ds = FlowDataset("train", root, os.path.join(root, "list", "all", "train.txt"),
+                     transform=flow_transforms(cfg)["train"], frame_delta=n)
+    loader = DataLoader(ds, batch_size=cfg.batch_size, shuffle=True, num_workers=cfg.workers,
+                        seed=cfg.seed, drop_last=True)
+    t0, stamps = time.perf_counter(), []
+    for b in loader:
+        stamps.append(time.perf_counter())
+    loader_ms = 1e3 * (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+    log(f"  the loader alone: {len(stamps)} batches, first after "
+        f"{stamps[0] - t0:.2f} s, then {loader_ms:.1f} ms a batch (8 threads)")
+
+    model = random_model("pspnet", torch.float32, seed=7, with_aux=True)
+    aux0 = {k: v.detach().clone() for k, v in model.named_parameters() if k.startswith("aux.")}
+    bn0 = {k: v.clone() for k, v in model.state_dict().items() if k.endswith("running_mean")}
+    counts_by_step, prev = [], {}
+    tp = tprofile(activities=[ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+    aux_err = []
+
+    def on_step(step, state, metrics):
+        now = launch_counts()
+        counts_by_step.append({k: v - prev.get(k, 0) for k, v in now.items()})
+        prev.update(now)
+        if step == 0:
+            lr = state.schedule(0) * 10
+            for k, p0 in aux0.items():
+                p1 = dict(model.named_parameters())[k].detach().cpu()
+                want = p0 - lr * (1e-4 * p0)
+                aux_err.append(float((p1 - want).abs().max() / want.abs().max().clamp_min(1e-30)))
+        if step == steps - profiled - 1:
+            _sync(dev)
+            tp.start()
+        if step == steps - 1:
+            _sync(dev)
+            tp.stop()
+
+    prof = PhaseProfiler(sync=lambda: _sync(dev))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = run_flow_fit(model, root, cfg, profiler=prof, on_step=on_step, device=dev)
+    total = time.perf_counter() - t0
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    step_s = prof.recorded_durations["train_step"]
+    load_s = prof.recorded_durations["train_load"]
+    timed = slice(warmup, steps - profiled)
+    step_ms = 1e3 * statistics.median(step_s[timed])
+    wait_ms = 1e3 * statistics.median(load_s[timed])
+    epoch = summary["epochs"][0]
+    log(f"  {summary['steps']} steps in {total:.1f} s with validation; ms a step (median of "
+        f"{len(step_s[timed])}, synchronised): {step_ms:.1f} -> "
+        f"{1e3 * cfg.batch_size / step_ms:.2f} samples/s; the step's wait for its batch "
+        f"{wait_ms:.1f} ms (median); every step's ms {[round(1e3 * s, 1) for s in step_s]}")
+    log(f"  train loss {epoch['train_loss']:.5f}, val mIoU {epoch['val_miou']:.4f} over "
+        f"{val_batches} frames; peak memory {peak_gb:.2f} GB")
+    if not np.isfinite(epoch["train_loss"]):
+        raise AssertionError(f"the training loss is not finite: {epoch['train_loss']}")
+    warps = 2 * (n - 1) if dev.type == "cuda" else 0  # two chains of n - 1 warps
+    per_step = {"grid_sample_cuda": warps, "grid_sample_backward_cuda": warps,
+                "warp_chain_cuda": 0, "resize_quantize_int8_cuda": 0}
+    bad = [(i, c) for i, c in enumerate(counts_by_step) if c != per_step]
+    expected = {"grid_sample_cuda": warps * (steps + val_batches),
+                "grid_sample_backward_cuda": warps * steps, "warp_chain_cuda": 0,
+                "resize_quantize_int8_cuda": 0}
+    log(f"  launches: {counts} (expected {expected}); every step {per_step}: "
+        f"{'yes' if not bad else bad}")
+    if bad or counts != expected:
+        raise AssertionError(f"the training path launched {counts}, steps {bad}")
+    log(f"  aux head after the first step: largest |p1 - (p0 - 10 lr wd p0)| "
+        f"{max(aux_err):.2e} of its tensor's largest magnitude (tol 1e-6)")
+    if not aux_err or max(aux_err) > 1e-6:
+        raise AssertionError(f"the aux head did not take the zero-gradient update: {aux_err}")
+    after = model.state_dict()
+    moved = {k: not torch.equal(v, after[k].cpu()) for k, v in bn0.items()}
+    stuck = [k for k, m in moved.items() if not m and not k.startswith("aux.")]
+    aux_moved = [k for k, m in moved.items() if m and k.startswith("aux.")]
+    log(f"  BN running means moved: {sum(moved.values())} of {len(moved)} (the aux head's "
+        f"{len([k for k in moved if k.startswith('aux.')])} are not run by flow training)")
+    if stuck or aux_moved:
+        raise AssertionError(f"BN statistics: not moved {stuck}, aux moved {aux_moved}")
+
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    trace = os.path.join(PROFILE_DIR, "pspnet_f32_train_trace.json")
+    tp.export_chrome_trace(trace)
+    with open(os.path.join(PROFILE_DIR, "pspnet_f32_train_profile.txt"), "w") as f:
+        f.write(tp.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+    with open(trace) as f:
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    dt = device_time(trace, profiled)
+    span = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)) / 1e3 \
+        if kernels else float("nan")
+    families = {name: 0.0 for name, _ in TRAIN_FAMILIES}
+    for e in kernels:
+        fam = next(name for name, pats in TRAIN_FAMILIES if any(p in e["name"] for p in pats))
+        families[fam] += e["dur"] / (1e3 * profiled)
+    log(f"  profiler over {profiled} steps: device busy {dt['busy_ms']:.1f} ms a step of "
+        f"{span / profiled:.1f} (idle share {1 - dt['busy_ms'] * profiled / span:.1%}); "
+        f"{dt['kernels']:.0f} kernels a step; ms a step by family "
+        f"{ {k: round(v, 3) for k, v in families.items()} }")
+    log(tp.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+    return {"launches": counts, "step_ms": step_ms, "wait_ms": wait_ms, "loader_ms": loader_ms,
+            "peak_gb": peak_gb, "busy_ms": dt["busy_ms"], "span_ms": span / profiled,
+            "family_ms": families, "train_loss": epoch["train_loss"]}
 
 
 # ------------------------------------------------------------------ main
@@ -1604,6 +2113,21 @@ def k3_alone(seed=0) -> int:
     return 0
 
 
+def train_alone() -> int:
+    """--train: build csrc/warp.cu and the codec, then phases 3t, 4t and 14."""
+    log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}")
+    build_kernels(["warp", "jpeg"])
+    dev = torch.device("cuda")
+    log("[3t] K1 and K1-bwd at the training shapes")
+    check_train_kernels(dev)
+    log("[4t] one train step on the card against the CPU")
+    check_train_step_card_vs_cpu()
+    log("[14] flow-supervised training at full width through run_flow_fit")
+    train_phase(dev)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -1613,6 +2137,8 @@ def main() -> int:
         return k2_alone()
     if sys.argv[1:] == ["--k3"]:
         return k3_alone()
+    if sys.argv[1:] == ["--train"]:
+        return train_alone()
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
@@ -1666,6 +2192,8 @@ def main() -> int:
 
     log("[3c] K1 and K2 at the crop route's shapes (PSPNet-50, 433 px crops, C = 4096)")
     crop_errs, crop_timing = check_crop_kernels(model, dev)
+    log("[3t] K1 and K1-bwd at the training shapes (batch 2, 433 px crops, C = 4096)")
+    train_errs, train_timing, _ = check_train_kernels(dev)
 
     log("[4] slice on the card against the slice on the CPU (float32)")
     check_slice_card_vs_cpu()
@@ -1680,6 +2208,8 @@ def main() -> int:
     log("[4v] ViT-B/32 slice on the card against the CPU (float32, then bf16)")
     check_slice_card_vs_cpu("vit", size=128)
     check_slice_card_vs_cpu("vit", size=128, dtype=torch.bfloat16)
+    log("[4t] one train step on the card against the CPU (PSPNet-50, 65 px, float32)")
+    check_train_step_card_vs_cpu()
 
     vit_model = random_model("vit", torch.bfloat16, seed=0)
     models = {"pspnet": model, "deeplabv3": dl_model, "vit": vit_model}
@@ -1733,35 +2263,56 @@ def main() -> int:
     log("[12b] the crop route card vs CPU (float32, 128x192 frames, 64 px crops, n = 5)")
     crop_card_vs_cpu()
     log(f"  phases 10-12: {time.perf_counter() - t_files:.1f} s")
+    t_train = time.perf_counter()
+    log(f"[14] flow-supervised training at full width through run_flow_fit: PSPNet-50 "
+        f"float32, batch 2, {CROP} px crops of {FRAME_HW[0]}x{FRAME_HW[1]} frames, "
+        f"n = {FRAME_DELTA}")
+    paths["pspnet_f32_train"] = train = train_phase(dev)
+    log(f"  phase 14: {time.perf_counter() - t_train:.1f} s")
 
     sources = {"grid_sample_cuda": ("floodseg_tpu/ops/pallas_warp.py:70", "warp.cu"),
+               "grid_sample_backward_cuda": (
+                   "none: XLA's autodiff of floodseg_tpu/ops/grid_sample.py:79", "warp.cu"),
                "warp_chain_cuda": ("floodseg_tpu/ops/pallas_warp.py:139", "warp.cu"),
                "resize_quantize_int8_cuda": ("floodseg_tpu/ops/pallas_resize.py:135",
                                              "resize.cu")}
-    crop_rows = {"grid_sample_cuda": {
+    # K1-bwd's main numbers are at the shape of 46 of a step's 48 launches
+    timing["grid_sample_backward_cuda"] = train_timing[
+        "grid_sample_backward_cuda (train step, float32)"]
+    extra_rows = {"grid_sample_cuda": {
         "crop": crop_timing["grid_sample_cuda (crop -> 27x27)"],
         "crop_key_resample": crop_timing[
-            "grid_sample_cuda (crop -> 67x120 identity, align_corners=True)"]},
+            "grid_sample_cuda (crop -> 67x120 identity, align_corners=True)"],
+        "train_head_f32": train_timing["grid_sample_cuda (train head, float32)"],
+        "train_step_f32": train_timing["grid_sample_cuda (train step, float32)"]},
+        "grid_sample_backward_cuda": {
+            "train_head_f32": train_timing["grid_sample_backward_cuda (train head, float32)"],
+            "train_head_bf16": train_timing["grid_sample_backward_cuda (train head, bf16)"]},
         "warp_chain_cuda": {"crop": crop_timing["warp_chain_cuda (27x27, 23 steps)"]}}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for kname, (replaces, src) in sources.items():
         t = timing[kname]
         by_path = {p: r["launches"][kname] for p, r in paths.items()}
+        by_dtype = {}
+        for e in (errs, dl_errs, vit_errs, crop_errs, train_errs):
+            for tag, v in e.get(kname, {}).items():
+                by_dtype[tag] = max(by_dtype.get(tag, 0.0), v)
         kernels.append({
             "name": kname, "route": "cuda", "source": f"floodseg_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(errs[kname], dl_errs[kname], vit_errs.get(kname, 0.0),
-                               crop_errs.get(kname, 0.0)),
+            "max_abs_err": max(by_dtype.values()), "max_abs_err_by_dtype": by_dtype,
             **{k: t[k] for k in keys},
-            "deeplabv3": {k: dl_timing[kname][k] for k in keys},
+            **({"deeplabv3": {k: dl_timing[kname][k] for k in keys}} if kname in dl_timing
+               else {}),
             **({"vit": {k: vit_timing[kname][k] for k in keys}} if kname in vit_timing
                else {}),
-            **{shape: {k: r[k] for k in keys} for shape, r in crop_rows.get(kname, {}).items()},
+            **{shape: {k: r[k] for k in keys} for shape, r in extra_rows.get(kname, {}).items()},
             "passed": True})
     log(f"  codec {json.dumps({k: round(v, 3) for k, v in codec.items()})}; crop route "
-        f"{crop['seconds']['predict_interference']:.3f} s a window")
+        f"{crop['seconds']['predict_interference']:.3f} s a window; training "
+        f"{train['step_ms']:.1f} ms a step")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,4 +1,4 @@
-// Bilinear block-MV warps for Hopper (sm_90a): kernels K1 and K2.
+// Bilinear block-MV warps for Hopper (sm_90a): kernels K1, K1-bwd and K2.
 //
 // K1 grid_sample_kernel
 //   Replaces floodseg_tpu/ops/pallas_warp.py::grid_sample_pallas
@@ -73,6 +73,31 @@
 //   bf16 pair), take warp_chain_single_kernel: one carry, the taps per
 //   item, and a step that writes out[s + 1], then after a barrier copies
 //   each thread's items of it back into the carry, and a second barrier.
+//
+// K1-bwd grid_sample_backward_kernel
+//   The gradient of K1 with respect to x, for training. No TPU kernel has
+//   it: the JAX package trains through floodseg_tpu/ops/grid_sample.py::
+//   grid_sample (the XLA gather) and lets XLA differentiate it, which
+//   scatters each output point's gradient back to its four taps. Here:
+//   grad_x (B, H, W, C) = sum over output points p and taps k of
+//   w_k(p) * grad_out[p], added at the tap's source pixel; the grid gets no
+//   gradient. The taps are K1's (make_taps), so the kernel and its plain
+//   version (ops/grid_sample.py::grid_sample_backward) scatter the same
+//   products; only the order of the float32 sums differs.
+//   Bound on an H100 SXM (3.35 TB/s): bytes. At the training shape
+//   (grad_out 2x27x27x4096 float32 = 23.9 MB in, grad_x 2x55x55x4096
+//   float32 = 99.1 MB out) about 37 us; at 27x27 -> 27x27 (47.8 MB) about
+//   14 us. The arithmetic (4 multiplies and 4 adds per element of grad_out)
+//   is negligible.
+//   Design (simple first): one thread per (output point, 16-byte channel
+//   vector of grad_out), taps computed as in K1, and the four weighted
+//   vectors added into a float32 accumulator with vector atomics (float4,
+//   sm_90), after a cudaMemsetAsync of the accumulator. The accumulator is
+//   grad_x itself in float32; in bf16 a float32 scratch buffer, rounded
+//   into grad_x by one more pass (cast_kernel). The atomics make the order
+//   of the sums, and so the last bits of float32 results, change from run
+//   to run; a deterministic design (gather by source pixel over an
+//   inverted tap list) is a later redesign.
 //
 // C interface for ctypes. Every entry returns cudaGetLastError() after its
 // launch, as an int; 0 is success. Launches go on the caller's stream and
@@ -205,6 +230,94 @@ cudaError_t launch_grid_sample(const void* x, const void* grid, void* out,
   grid_sample_kernel<T, V><<<(unsigned)blocks, kSampleThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(grid),
       static_cast<T*>(out), h, w, c, points, total, align);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- K1-bwd
+
+// acc[0..V) += s[0..V) in device memory: float4 atomics where the vector
+// allows them (16-byte aligned by the caller's vec rule), else one float.
+template <int V>
+__device__ __forceinline__ void atomic_add_vec(float* acc, const float (&s)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < V; e += 4) {
+      atomicAdd(reinterpret_cast<float4*>(acc + e),
+                make_float4(s[e], s[e + 1], s[e + 2], s[e + 3]));
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) atomicAdd(acc + e, s[e]);
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kSampleThreads)
+grid_sample_backward_kernel(const T* __restrict__ grad_out,
+                            const float* __restrict__ grid,
+                            float* __restrict__ acc, int h, int w, int c,
+                            int points, long long total, bool align) {
+  using VT = Vec<T, V>;
+  const long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (item >= total) return;
+  const int nv = c / V;
+  const long long bp = item / nv;  // b * points + p
+  const int v = (int)(item - bp * nv);
+  const int b = (int)(bp / points);
+  const Taps t = make_taps(grid[2 * bp], grid[2 * bp + 1], h, w, align);
+  const VT g = *reinterpret_cast<const VT*>(grad_out + bp * c + (size_t)v * V);
+  float* dst = acc + (size_t)b * h * w * c + (size_t)v * V;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float s[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) s[e] = __fmul_rn(Num<T>::load(g.v[e]), t.w[k]);
+    atomic_add_vec<V>(dst + (size_t)t.idx[k] * c, s);
+  }
+}
+
+// out[i] = round(acc[i]) to T, V elements a thread.
+template <typename T, int V>
+__global__ void __launch_bounds__(kSampleThreads)
+cast_kernel(const float* __restrict__ acc, T* __restrict__ out, long long n) {
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (i >= n) return;
+  const Vec<float, V> a = *reinterpret_cast<const Vec<float, V>*>(acc + i);
+  Vec<T, V> r;
+#pragma unroll
+  for (int e = 0; e < V; ++e) r.v[e] = Num<T>::store(a.v[e]);
+  *reinterpret_cast<Vec<T, V>*>(out + i) = r;
+}
+
+// acc: grad_x itself for float32, a float32 scratch buffer of grad_x's
+// size for bf16 (then rounded into grad_x).
+template <typename T, int V>
+cudaError_t launch_grid_sample_backward(const void* grad_out, const void* grid,
+                                        void* grad_x, void* scratch, int b,
+                                        int h, int w, int c, int gh, int gw,
+                                        bool align, cudaStream_t stream) {
+  const bool direct = sizeof(T) == sizeof(float);
+  float* acc = static_cast<float*>(direct ? grad_x : scratch);
+  const long long n = (long long)b * h * w * c;
+  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)n * sizeof(float), stream);
+  if (e != cudaSuccess) return e;
+  const int points = gh * gw;
+  const long long total = (long long)b * points * (c / V);
+  if (total > 0) {
+    const long long blocks = (total + kSampleThreads - 1) / kSampleThreads;
+    grid_sample_backward_kernel<T, V><<<(unsigned)blocks, kSampleThreads, 0, stream>>>(
+        static_cast<const T*>(grad_out), static_cast<const float*>(grid), acc,
+        h, w, c, points, total, align);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (!direct) {
+    constexpr int CV = V == 1 ? 1 : 4;  // vec: C is a multiple of 8
+    const long long threads = n / CV;
+    const long long blocks = (threads + kSampleThreads - 1) / kSampleThreads;
+    cast_kernel<T, CV><<<(unsigned)blocks, kSampleThreads, 0, stream>>>(
+        acc, static_cast<T*>(grad_x), n);
+  }
   return cudaGetLastError();
 }
 
@@ -457,6 +570,17 @@ cudaError_t sample_vec(int vec, const void* x, const void* grid, void* out,
                                         align, stream);
 }
 
+template <typename T>
+cudaError_t sample_backward_vec(int vec, const void* grad_out, const void* grid,
+                                void* grad_x, void* scratch, int b, int h, int w,
+                                int c, int gh, int gw, bool align,
+                                cudaStream_t stream) {
+  return vec ? launch_grid_sample_backward<T, static_cast<int>(16 / sizeof(T))>(
+                   grad_out, grid, grad_x, scratch, b, h, w, c, gh, gw, align, stream)
+             : launch_grid_sample_backward<T, 1>(grad_out, grid, grad_x, scratch, b,
+                                                 h, w, c, gh, gw, align, stream);
+}
+
 }  // namespace
 
 extern "C" int floodseg_grid_sample(const void* x, const void* grid, void* out,
@@ -483,6 +607,25 @@ extern "C" int floodseg_warp_chain(const void* y0, const void* grids,
   switch (dtype) {
     case 0: return (int)chain_vec<float>(vec, table_points, a);
     case 1: return (int)chain_vec<__nv_bfloat16>(vec, table_points, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K1-bwd. scratch: a float32 buffer of grad_x's size for bf16 (dtype 1),
+// unused (may be null) for float32.
+extern "C" int floodseg_grid_sample_backward(const void* grad_out,
+                                             const void* grid, void* grad_x,
+                                             void* scratch, int b, int h, int w,
+                                             int c, int gh, int gw, int align,
+                                             int dtype, int vec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return (int)sample_backward_vec<float>(vec, grad_out, grid, grad_x,
+                                                   scratch, b, h, w, c, gh, gw,
+                                                   align != 0, s);
+    case 1: return (int)sample_backward_vec<__nv_bfloat16>(
+                vec, grad_out, grid, grad_x, scratch, b, h, w, c, gh, gw,
+                align != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,16 +11,24 @@ from floodseg_tpu_torch.data.transforms import (
     MEAN,
     STD,
     Compose,
+    Crop,
     IgnoreClasses,
     Normalize,
+    RandomGaussianBlur,
+    RandomHorizontalFlip,
+    RandScale,
     Resize,
+    ScaleBlurFlipCrop,
     ToFloat,
     build_test_transform,
+    build_train_transform,
+    build_val_transform,
     resize_frames,
 )
 
-__all__ = ["MEAN", "STD", "Compose", "ConcatDataset", "DataLoader", "FlowDataset",
-           "IgnoreClasses", "MJPGWriter", "Normalize", "Resize", "ToFloat",
-           "build_test_transform", "collate", "device_put", "generate_synthetic_dataset",
+__all__ = ["MEAN", "STD", "Compose", "ConcatDataset", "Crop", "DataLoader", "FlowDataset",
+           "IgnoreClasses", "MJPGWriter", "Normalize", "RandScale", "RandomGaussianBlur",
+           "RandomHorizontalFlip", "Resize", "ScaleBlurFlipCrop", "ToFloat",
+           "build_test_transform", "build_train_transform", "build_val_transform", "collate", "device_put", "generate_synthetic_dataset",
            "imread", "parse_list", "predict_windows", "read_mjpg_avi", "resize_frames",
            "synthetic_clip", "write_jpeg", "write_png"]

@@ -1,24 +1,37 @@
-"""The predict path's host transforms and the frame resize.
+"""The host transforms and the frame resize.
 
-Counterpart of the predict path's part of floodseg_tpu/data/transforms.py:
-transforms take and return a sample dict carrying any of frame_current,
-frame_prev, frame_next, mvs_left, mvs_right and label, in numpy on the
-host, with an ``np.random.Generator`` (unused by these). The train
-transforms come with training.
+Counterpart of floodseg_tpu/data/transforms.py: transforms take and return
+a sample dict carrying any of frame_current, frame_prev, frame_next,
+mvs_left, mvs_right and label, in numpy on the host, with an
+``np.random.Generator``, from which each transform draws what the JAX
+package's draws, in the same order.
 
-The JAX package resizes with cv2; the machine with the card has neither
-cv2 nor PIL, so ``resize_frames`` is the port's own half-pixel bilinear
-(ops/resize.py with align_corners=False, cv2.INTER_LINEAR's convention),
-within 1 grey level of cv2 on uint8 frames and equal at a frame's own
-size; labels resize by cv2.INTER_NEAREST's index rule.
+The JAX package resizes, blurs and pads with cv2; the machine with the card
+has neither cv2 nor PIL. ``resize_frames`` (the predict path's ``Resize``)
+is the port's own half-pixel bilinear (ops/resize.py with
+align_corners=False, cv2.INTER_LINEAR's convention), within 1 grey level
+of cv2 on uint8 frames and equal at a frame's own size. The train
+transforms reproduce cv2's arithmetic instead (ops/cv2_compat.py):
+cv2.resize(None, fx, fy) sizes the output with round(w * fx) and maps with
+1 / fx; GaussianBlur((5, 5), 0) is the fixed [1, 4, 6, 4, 1] / 16 table;
+labels resize by INTER_NEAREST's floor(x / fx) rule. ``RandRotate`` (cv2.warpAffine) runs only on the
+single-frame and ``no_warp`` pipelines and is not ported yet.
 """
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from floodseg_tpu_torch.ops.cv2_compat import (
+    blur_5_valid,
+    reflect101,
+    cv2_gaussian_blur_5,
+    cv2_resize_linear,
+    cv2_resize_nearest,
+)
 from floodseg_tpu_torch.ops.resize import resize_bilinear
+from floodseg_tpu_torch.video.grid import crop_motion_vectors_np, flip_grid_np
 
 # ImageNet mean/std scaled by 255
 MEAN = [0.485 * 255, 0.456 * 255, 0.406 * 255]
@@ -26,8 +39,7 @@ STD = [0.229 * 255, 0.224 * 255, 0.225 * 255]
 
 Sample = Dict[str, object]
 _FRAMES = ("frame_current", "frame_prev", "frame_next")
-
-
+_GRIDS = ("mvs_left", "mvs_right")
 def resize_frames(frames, size) -> torch.Tensor:
     """Resize frames (..., H, W, 3) to ``size=(h, w)``: half-pixel bilinear
     in float32. uint8 frames come back as uint8, rounded and clipped as cv2
@@ -44,6 +56,13 @@ def _map_frames(sample: Sample, fn) -> Sample:
     for k in _FRAMES:
         if sample.get(k) is not None:
             sample[k] = fn(sample[k])
+    return sample
+
+
+def _map_grids(sample: Sample, fn) -> Sample:
+    for k in _GRIDS:
+        if sample.get(k) is not None:
+            sample[k] = [fn(m) for m in sample[k]]
     return sample
 
 
@@ -103,6 +122,213 @@ class Resize:
         return sample
 
 
+def _scaled_hw(shape, fy: float, fx: float) -> Tuple[int, int]:
+    """cv2's output size for fx, fy: saturate_cast<int>, round half to even."""
+    return int(np.rint(shape[0] * fy)), int(np.rint(shape[1] * fx))
+
+
+class RandScale:
+    """Scale frames and label by s drawn from the generator: frames
+    bilinear, the label nearest; grids are untouched. (The JAX transform's
+    aspect_ratio, which no pipeline sets, is not ported.)"""
+
+    def __init__(self, scale):
+        if not 0 < scale[0] <= scale[1]:
+            raise ValueError(f"RandScale needs 0 < min <= max, got {scale}")
+        self.scale = scale
+
+    def draw(self, rng) -> Tuple[float, float]:
+        """(fy, fx), drawn as the JAX transform draws them."""
+        s = self.scale[0] + (self.scale[1] - self.scale[0]) * rng.random()
+        return s, s
+
+    @staticmethod
+    def apply(sample, fy: float, fx: float):
+        _map_frames(sample, lambda im: cv2_resize_linear(
+            im, _scaled_hw(im.shape, fy, fx), (fy, fx)))
+        label = sample.get("label")
+        if label is not None:
+            label = np.asarray(label)
+            sample["label"] = cv2_resize_nearest(label, _scaled_hw(label.shape, fy, fx),
+                                                 (fy, fx))
+        return sample
+
+    def __call__(self, sample, rng):
+        return self.apply(sample, *self.draw(rng))
+
+
+class RandomGaussianBlur:
+    """With probability 1/2, blur every frame with the 5x5 kernel of sigma 0."""
+
+    def __init__(self, radius=5):
+        if radius != 5:
+            raise ValueError("only cv2's fixed 5x5 kernel (radius 5) is ported")
+        self.radius = radius
+
+    @staticmethod
+    def draw(rng) -> bool:
+        return rng.random() < 0.5
+
+    def __call__(self, sample, rng):
+        if self.draw(rng):
+            _map_frames(sample, cv2_gaussian_blur_5)
+        return sample
+
+
+class RandomHorizontalFlip:
+    """With probability ``p``, mirror frames and label left to right and
+    flip the grids (``flip_grid_np``)."""
+
+    def __init__(self, p=0.5):
+        self.p = p
+
+    def draw(self, rng) -> bool:
+        return not rng.random() >= self.p
+
+    @staticmethod
+    def apply(sample):
+        _map_frames(sample, lambda im: np.ascontiguousarray(im[:, ::-1]))
+        _map_grids(sample, flip_grid_np)
+        if sample.get("label") is not None:
+            sample["label"] = np.ascontiguousarray(np.asarray(sample["label"])[:, ::-1])
+        return sample
+
+    def __call__(self, sample, rng):
+        return self.apply(sample) if self.draw(rng) else sample
+
+
+def _pad_constant(im: np.ndarray, t: int, b: int, l: int, r: int, value) -> np.ndarray:
+    """cv2.copyMakeBorder(BORDER_CONSTANT): ``value`` per channel (a scalar
+    or a sequence), rounded and saturated to uint8 for uint8 images."""
+    v = np.broadcast_to(np.asarray(value, np.float64), (im.shape[2],) if im.ndim == 3 else ())
+    if im.dtype == np.uint8:
+        v = np.clip(np.rint(v), 0, 255)
+    out = np.empty((im.shape[0] + t + b, im.shape[1] + l + r) + im.shape[2:], im.dtype)
+    out[...] = v.astype(im.dtype)
+    out[t:t + im.shape[0], l:l + im.shape[1]] = im
+    return out
+
+
+class Crop:
+    """rand or center crop, padding first when the input is smaller than
+    the crop (frames with ``padding``, the label with ``ignore_label``;
+    no padding value configured raises). Grids are renormalised to the crop
+    window (``crop_motion_vectors_np``)."""
+
+    def __init__(self, size, crop_type="center", padding=None, ignore_label=255):
+        self.crop_h, self.crop_w = (size, size) if isinstance(size, int) else size
+        if crop_type not in ("rand", "center"):
+            raise ValueError(f"crop_type must be rand or center, got {crop_type!r}")
+        self.crop_type = crop_type
+        self.padding = padding
+        self.ignore_label = ignore_label
+
+    @staticmethod
+    def _ref(sample):
+        if sample.get("label") is not None:
+            return sample["label"]
+        return next(sample[k] for k in _FRAMES if sample.get(k) is not None)
+
+    def __call__(self, sample, rng):
+        h, w = self._ref(sample).shape[:2]
+        pad_h, pad_w = max(self.crop_h - h, 0), max(self.crop_w - w, 0)
+        if pad_h > 0 or pad_w > 0:
+            if self.padding is None:
+                raise RuntimeError(
+                    f"Crop to {self.crop_h}x{self.crop_w} requires padding a "
+                    f"{h}x{w} input, but no padding value was configured")
+            t, b_ = pad_h // 2, pad_h - pad_h // 2
+            l, r = pad_w // 2, pad_w - pad_w // 2
+            _map_frames(sample, lambda im: _pad_constant(im, t, b_, l, r, self.padding))
+            if sample.get("label") is not None:
+                sample["label"] = _pad_constant(np.asarray(sample["label"]), t, b_, l, r,
+                                                self.ignore_label)
+            h, w = self._ref(sample).shape[:2]
+
+        if self.crop_type == "rand":
+            h_off = int(rng.integers(0, h - self.crop_h + 1))
+            w_off = int(rng.integers(0, w - self.crop_w + 1))
+        else:
+            h_off = (h - self.crop_h) // 2
+            w_off = (w - self.crop_w) // 2
+
+        def crop(im):
+            return np.ascontiguousarray(im[h_off:h_off + self.crop_h,
+                                           w_off:w_off + self.crop_w])
+
+        _map_frames(sample, crop)
+        if sample.get("label") is not None:
+            sample["label"] = crop(np.asarray(sample["label"]))
+        for k in _GRIDS:
+            if sample.get(k) is not None:
+                sample[k] = crop_motion_vectors_np(sample[k], h, w, self.crop_h,
+                                                   self.crop_w, h_off, w_off)
+        return sample
+
+
+class ScaleBlurFlipCrop:
+    """RandScale, RandomGaussianBlur, RandomHorizontalFlip and a rand Crop
+    in one transform: the same draws in the same order and the same pixels,
+    computed on the crop window only.
+
+    The scale is separable and pointwise in its output indices, the blur
+    reads a 2-pixel halo (reflected at the scaled frame's border) and
+    commutes with the flip (a symmetric kernel and border), so each frame's
+    window comes from the scaled pixels at the window's rows and columns
+    plus the halo, in flipped order when flipped. A scaled frame smaller
+    than the crop takes the unfused path (full frames, then Crop's padding).
+    Grids are flipped, then cropped, as the unfused transforms do.
+    """
+
+    def __init__(self, scale, size, padding=None, ignore_label=255):
+        self.scale = RandScale(scale)
+        self.blur = RandomGaussianBlur()
+        self.flip = RandomHorizontalFlip()
+        self.crop = Crop(size, crop_type="rand", padding=padding, ignore_label=ignore_label)
+
+    def __call__(self, sample, rng):
+        fy, fx = self.scale.draw(rng)
+        blur = self.blur.draw(rng)
+        flip = self.flip.draw(rng)
+        ref = np.asarray(Crop._ref(sample))
+        h0, w0 = ref.shape[:2]
+        h, w = _scaled_hw(ref.shape, fy, fx)
+        ch, cw = self.crop.crop_h, self.crop.crop_w
+        same = all(np.asarray(sample[k]).shape[:2] == (h0, w0)
+                   for k in _FRAMES + ("label",) if sample.get(k) is not None)
+        if h < ch or w < cw or not same:
+            self.scale.apply(sample, fy, fx)
+            if blur:
+                _map_frames(sample, cv2_gaussian_blur_5)
+            if flip:
+                self.flip.apply(sample)
+            return self.crop(sample, rng)
+
+        h_off = int(rng.integers(0, h - ch + 1))
+        w_off = int(rng.integers(0, w - cw + 1))
+        halo = 2 if blur else 0
+        rows = reflect101(np.arange(h_off - halo, h_off + ch + halo), h)
+        cols = reflect101(np.arange(w_off - halo, w_off + cw + halo), w)
+        if flip:
+            cols = w - 1 - cols
+
+        def window(im):
+            p = cv2_resize_linear(im, (h, w), (fy, fx), rows=rows, cols=cols)
+            return np.ascontiguousarray(blur_5_valid(p) if blur else p)
+
+        _map_frames(sample, window)
+        if sample.get("label") is not None:
+            sample["label"] = np.ascontiguousarray(cv2_resize_nearest(
+                np.asarray(sample["label"]), (h, w), (fy, fx),
+                rows=rows[halo:halo + ch], cols=cols[halo:halo + cw]))
+        if flip:
+            _map_grids(sample, flip_grid_np)
+        for k in _GRIDS:
+            if sample.get(k) is not None:
+                sample[k] = crop_motion_vectors_np(sample[k], h, w, ch, cw, h_off, w_off)
+        return sample
+
+
 class Normalize:
     """float32 conversion + (x - mean) / std on frames (std optional)."""
 
@@ -137,4 +363,39 @@ def build_test_transform(classes_ignore=None, resize=(1072, 1920),
         IgnoreClasses(classes_ignore),
         Resize(resize),
         Normalize() if normalize else ToFloat(),
+    ])
+
+
+def build_train_transform(train_h: int, train_w: int, classes_ignore=None,
+                          scale_min: float = 0.5, scale_max: float = 2.0,
+                          resize=(1072, 1920), with_rotate: bool = False,
+                          crop_padding=MEAN, ignore_index: int = 255,
+                          normalize: bool = True) -> Compose:
+    """Ignore classes, resize, random scale, random blur, random flip,
+    random crop (the four as ``ScaleBlurFlipCrop``), then normalize (or
+    only float32). The flow pipeline's form (``with_rotate=False``, grids
+    cannot rotate); RandRotate is not ported yet, so ``with_rotate=True``
+    raises."""
+    if with_rotate:
+        raise NotImplementedError("RandRotate (the single-frame and no_warp pipelines) "
+                                  "is not ported yet")
+    return Compose([
+        IgnoreClasses(classes_ignore),
+        Resize(resize),
+        ScaleBlurFlipCrop([scale_min, scale_max], [train_h, train_w], padding=crop_padding,
+                          ignore_label=ignore_index),
+        Normalize() if normalize else ToFloat(),
+    ])
+
+
+def build_val_transform(train_h: int, train_w: int, classes_ignore=None,
+                        resize=(1072, 1920), crop: bool = True, crop_padding=MEAN,
+                        ignore_index: int = 255) -> Compose:
+    """Ignore classes, resize, center crop (``crop``), normalize."""
+    return Compose([
+        IgnoreClasses(classes_ignore),
+        Resize(resize),
+        Crop([train_h, train_w], crop_type="center", padding=crop_padding,
+             ignore_label=ignore_index) if crop else None,
+        Normalize(),
     ])

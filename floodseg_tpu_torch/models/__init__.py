@@ -1,8 +1,9 @@
 """Model factory (counterpart of floodseg_tpu/models/__init__.py).
 
-The port has the three flow-predict architectures, eval only: PSPNet and
-DeepLabV3 (ResNet-50/101/152 trunks) and the Segmenter ViT (ViT-B/32 with
-the MaskTransformer decoder).
+The port has the three flow-predict architectures: PSPNet and DeepLabV3
+(ResNet-50/101/152 trunks) and the Segmenter ViT (ViT-B/32 with the
+MaskTransformer decoder). PSPNet also trains (training-mode BN, its
+channel dropout, the aux head); DeepLabV3 and the ViT are eval only.
 """
 
 import torch

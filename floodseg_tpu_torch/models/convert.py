@@ -105,6 +105,28 @@ def _trunk(out: dict, bp: Mapping, bs: Mapping, stem: Mapping[str, str],
                      f"{key}.downsample.0", f"{key}.downsample.1")
 
 
+# The top-level key of the JAX variable tree that each state_dict key comes
+# from, by the key's first component, as the bridge below names them:
+# PSPNet's trunk (layer0 the stem, layer1-4) is the JAX ``backbone``, the
+# DeepLabV3 trunk keeps ``backbone.``, the ViT's parts keep their names.
+JAX_TOP_LEVEL = {
+    "pspnet": {**{f"layer{i}": "backbone" for i in range(5)},
+               "ppm": "ppm", "cls": "cls", "aux": "aux"},
+    "deeplabv3": {"backbone": "backbone", "classifier": "classifier",
+                  "aux_classifier": "aux_classifier"},
+    "vit": {"encoder": "encoder", "decoder": "decoder"},
+}
+
+
+def jax_top_level(arch: str, key: str) -> str:
+    """The JAX tree's top-level key of the port's state_dict ``key``."""
+    first = key.split(".", 1)[0]
+    try:
+        return JAX_TOP_LEVEL[arch][first]
+    except KeyError:
+        raise KeyError(f"{key!r} has no counterpart in the JAX {arch} tree") from None
+
+
 _PSP_STEM = {"conv1": "layer0.0", "bn1": "layer0.1", "conv2": "layer0.3",
              "bn2": "layer0.4", "conv3": "layer0.6", "bn3": "layer0.7"}
 _TV_STEM = {"conv1": "conv1", "bn1": "bn1"}

@@ -14,7 +14,8 @@ The module tree carries torchvision's ``deeplabv3_resnet50`` key names
 (``backbone.{conv1,bn1,layerX.Y.*}``, ``classifier.0.convs.{0..4}``,
 ``classifier.0.project``, ``classifier.{1,2,4}``, ``aux_classifier.{0,1,4}``),
 so ``models/convert.py``'s output strict-loads into it. Dropout is the
-identity in eval.
+identity in eval. Inference only: the ASPP's and the heads' dropout come
+with DeepLabV3's training slice, and a model in training mode raises.
 
 Public methods take and return NHWC tensors, as the JAX package does.
 """
@@ -114,14 +115,22 @@ class DeepLabV3(nn.Module):
         if with_aux:
             self.aux_classifier = fcn_head(1024, classes, dtype=dtype)
 
+    def _eval_only(self) -> None:
+        if self.training:
+            raise NotImplementedError(
+                "DeepLabV3 in training mode (the ASPP's and the heads' dropout) "
+                "belongs to its training slice of the port; call .eval() first")
+
     def encode(self, x: torch.Tensor):
         """Trunk: NHWC images -> (NHWC 2048-channel c4 at stride 8, the
         trunk's NHWC {"c2", "c3", "c4"})."""
+        self._eval_only()
         feats = self.backbone.features(_nchw(x))
         return _nhwc(feats["c4"]).contiguous(), {k: _nhwc(v) for k, v in feats.items()}
 
     def decode(self, f: torch.Tensor) -> torch.Tensor:
         """DeepLabHead only (the flow path's decoder), NHWC; no upsampling."""
+        self._eval_only()
         return _nhwc(self.classifier(_nchw(f))).contiguous()
 
     def forward(self, x: torch.Tensor) -> dict:

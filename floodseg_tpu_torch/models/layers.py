@@ -10,7 +10,9 @@ permute to the NHWC layout of the public functions costs nothing.
 ``Linear`` and ``LayerNorm`` (the ViT's) act on the last axis.
 """
 
+import contextlib
 import math
+from typing import Iterator, Optional
 
 import torch
 import torch.nn as nn
@@ -38,13 +40,17 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Eval BatchNorm as floodseg_tpu's ``TorchBatchNorm``: the running
-    statistics normalise, the affine runs in ``promote_types(dtype,
-    float32)``, and the result is cast to ``dtype``. eps is 1e-5.
+    """BatchNorm as floodseg_tpu's ``TorchBatchNorm``, eps 1e-5.
 
-    This slice is inference only; the training-mode update of the running
-    statistics (torch's unbiased running variance) comes with the training
-    slice, and a module in training mode raises.
+    Eval: the running statistics normalise, the affine runs in
+    ``promote_types(dtype, float32)``, and the result is cast to ``dtype``.
+
+    Training, in the JAX package's order rather than torch's two-pass
+    variance: the batch mean and E[x^2] over (N, H, W) at >= float32, the
+    variance max(E[x^2] - mean^2, 0), which normalises (biased); the running
+    statistics become 0.9 * running + 0.1 * batch statistic in place and
+    without a gradient, the variance's unbiased by n / (n - 1) with n the
+    elements a channel (torch's rule). ``num_batches_tracked`` is not used.
     """
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
@@ -52,17 +58,78 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm2d in training mode belongs to the training slice "
-                "of the port; call .eval() first")
         dt = torch.promote_types(self.compute_dtype, torch.float32)
         shape = (1, -1, 1, 1)
-        mean = self.running_mean.to(dt).view(shape)
-        inv = torch.rsqrt(self.running_var.to(dt) + self.eps).view(shape)
-        y = (x.to(dt) - mean) * inv
+        xc = x.to(dt)
+        if self.training:
+            mean = xc.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((xc * xc).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            n = x.numel() / x.shape[1]
+            with torch.no_grad():
+                m = 0.9
+                rm, rv = self.running_mean, self.running_var
+                rm.copy_(m * rm + (1.0 - m) * mean.detach().to(rm.dtype))
+                unbiased = var.detach() * (n / max(n - 1, 1))
+                rv.copy_(m * rv + (1.0 - m) * unbiased.to(rv.dtype))
+        else:
+            mean = self.running_mean.to(dt)
+            var = self.running_var.to(dt)
+        y = (xc - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
         y = y * self.weight.to(dt).view(shape) + self.bias.to(dt).view(shape)
         return y.to(self.compute_dtype)
+
+
+class ChannelDropout(nn.Module):
+    """Channel dropout on NCHW maps, as flax's ``nn.Dropout(rate,
+    broadcast_dims=(1, 2))`` on NHWC (the JAX SegHead's, the reference's
+    ``nn.Dropout2d``): in training each (sample, channel) map is kept with
+    probability 1 - rate, ``where(keep, x / keep_prob, 0)``; in eval the
+    identity.
+
+    The keep mask is ``keep`` when a caller has set it (a (B, C, 1, 1)
+    bool tensor; the tests inject flax's mask), else drawn with
+    ``torch.rand(..., generator=generator) < keep_prob`` on x's device. The
+    training steps set ``generator`` for each call (``dropout_generator``);
+    without either, training mode raises: the port never draws from
+    torch's global generator.
+    """
+
+    def __init__(self, rate: float = 0.1):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+        self.keep: Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep_prob = 1.0 - self.rate
+        keep = self.keep
+        if keep is None:
+            if self.generator is None:
+                raise RuntimeError("ChannelDropout in training mode needs a keep mask "
+                                   "or a generator (dropout_generator)")
+            keep = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=self.generator,
+                              device=x.device) < keep_prob
+        return torch.where(keep.to(x.device), x / keep_prob, torch.zeros_like(x))
+
+
+@contextlib.contextmanager
+def dropout_generator(module: nn.Module,
+                      generator: Optional[torch.Generator]) -> Iterator[None]:
+    """Every ``ChannelDropout`` in ``module`` draws from ``generator`` inside
+    the block; the previous generators are restored after it."""
+    drops = [m for m in module.modules() if isinstance(m, ChannelDropout)]
+    prev = [m.generator for m in drops]
+    for m in drops:
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m, g in zip(drops, prev):
+            m.generator = g
 
 
 class Linear(nn.Linear):

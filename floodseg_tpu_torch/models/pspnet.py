@@ -1,10 +1,14 @@
-"""PSPNet (deep-base ResNet + pyramid pooling), eval.
+"""PSPNet (deep-base ResNet + pyramid pooling).
 
 Counterpart of floodseg_tpu/models/pspnet.py: PPM bins (1, 2, 3, 6) with
 2048 -> 512 1x1 conv branches upsampled with align_corners=True; cls head
 3x3 4096 -> 512, BN, ReLU, dropout, 1x1 -> classes; optional aux head on
 layer3 (1024 -> 256 -> classes). ``encode`` returns the 4096-channel map at
-stride 8 and ``decode`` runs the cls head, the flow path's split.
+stride 8 and ``decode`` runs the cls head, the flow path's split. In
+training mode ``forward`` also returns the aux head's logits on layer3, as
+the JAX module's ``__call__(train=True)`` does; the heads' dropout is the
+port's ``ChannelDropout`` (flax's channel dropout), which draws only from
+an explicit generator.
 
 The module tree carries the reference's torch key names (``layer0.{0,1,3,
 4,6,7}``, ``layerX.Y.*``, ``ppm.features.i.{1,2}``, ``cls.{0,1,4}``,
@@ -19,7 +23,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from floodseg_tpu_torch.models.layers import BatchNorm2d, Conv2d
+from floodseg_tpu_torch.models.layers import BatchNorm2d, ChannelDropout, Conv2d
 from floodseg_tpu_torch.models.resnet import ResNetFeatures
 from floodseg_tpu_torch.ops.pool import adaptive_avg_pool
 from floodseg_tpu_torch.ops.resize import resize_bilinear
@@ -67,12 +71,13 @@ class PPM(nn.Module):
 
 def seg_head(in_dim: int, mid: int, out: int, dropout: float = 0.1,
              dtype: torch.dtype = torch.float32) -> nn.Sequential:
-    """conv3x3 -> BN -> ReLU -> Dropout2d -> conv1x1 (Sequential 0/1/4)."""
+    """conv3x3 -> BN -> ReLU -> channel dropout -> conv1x1 (Sequential
+    0/1/2/3/4; the reference's keys 0, 1 and 4)."""
     return nn.Sequential(
         Conv2d(in_dim, mid, 3, padding=1, bias=False, dtype=dtype),
         BatchNorm2d(mid, dtype),
         nn.ReLU(inplace=True),
-        nn.Dropout2d(dropout),
+        ChannelDropout(dropout),
         Conv2d(mid, out, 1, dtype=dtype))
 
 
@@ -106,7 +111,14 @@ class PSPNet(ResNetFeatures):
         h, w = x.shape[1], x.shape[2]
         if (h - 1) % 8 or (w - 1) % 8:
             raise ValueError(f"PSPNet input must be 8k+1, got {(h, w)}")
-        pred = self.decode(self.encode(x)[0])
+        f, feats = self.encode(x)
+        pred = self.decode(f)
         if self.zoom_factor != 1:
             pred = resize_bilinear(pred, (h, w), align_corners=True)
-        return {"pred": pred}
+        out = {"pred": pred}
+        if self.training and hasattr(self, "aux"):
+            aux = _nhwc(self.aux(_nchw(feats["c3"])))
+            if self.zoom_factor != 1:
+                aux = resize_bilinear(aux, (h, w), align_corners=True)
+            out["aux"] = aux
+        return out

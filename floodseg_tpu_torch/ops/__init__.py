@@ -1,5 +1,5 @@
 from floodseg_tpu_torch.ops import resize_kernels, warp_kernels
-from floodseg_tpu_torch.ops.grid_sample import grid_sample
+from floodseg_tpu_torch.ops.grid_sample import grid_sample, grid_sample_backward
 from floodseg_tpu_torch.ops.pool import adaptive_avg_pool, global_avg_pool, max_pool
 from floodseg_tpu_torch.ops.quant import (
     conv_int8,
@@ -18,6 +18,8 @@ from floodseg_tpu_torch.ops.resize_kernels import (
     resize_quantize_int8_plain,
 )
 from floodseg_tpu_torch.ops.warp_kernels import (
+    grid_sample_autograd,
+    grid_sample_backward_cuda,
     grid_sample_cuda,
     warp_chain_cuda,
     warp_chain_plain,
@@ -40,6 +42,9 @@ __all__ = [
     "fold_bn",
     "global_avg_pool",
     "grid_sample",
+    "grid_sample_autograd",
+    "grid_sample_backward",
+    "grid_sample_backward_cuda",
     "grid_sample_cuda",
     "int8_deeplab_decode",
     "int8_seghead_decode",

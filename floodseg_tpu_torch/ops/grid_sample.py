@@ -1,7 +1,8 @@
 """Bilinear grid sampling with border padding: the plain PyTorch warp.
 
 Counterpart of floodseg_tpu/ops/grid_sample.py, and the plain version of
-the warp kernel K1 (csrc/warp.cu, wrapped by ops/warp_kernels.py). It
+the warp kernel K1 (csrc/warp.cu, wrapped by ops/warp_kernels.py);
+``grid_sample_backward`` is the plain version of its backward, K1-bwd. It
 computes what floodseg_tpu/ops/pallas_warp.py::grid_sample_pallas computes:
 four bilinear taps per output point with float32 weights, float32
 accumulation, and one rounding to the input dtype at the end. Equivalent to
@@ -41,10 +42,16 @@ def tap_coords(h: int, w: int, grid: torch.Tensor, align_corners: bool):
     return x0, x1, y0, y1, wx, wy
 
 
-def tap_indices_weights(h: int, w: int, grid: torch.Tensor, align_corners: bool):
+def tap_indices_weights(h: int, w: int, grid: torch.Tensor, align_corners: bool,
+                        dtype: torch.dtype = torch.float32):
     """Flat tap indices (..., 4) into the (H*W) plane and their weights
-    (..., 4), in the order (y0,x0), (y0,x1), (y1,x0), (y1,x1)."""
+    (..., 4), in the order (y0,x0), (y0,x1), (y1,x0), (y1,x1). The weights
+    are formed at ``promote_types(dtype, coordinate dtype)``: float32 for
+    float32 and bf16 data (K1's arithmetic), float64 for float64 data (the
+    JAX package's float64 warp weighs with wx and wy cast to float64)."""
     x0, x1, y0, y1, wx, wy = tap_coords(h, w, grid, align_corners)
+    wdt = torch.promote_types(dtype, wx.dtype)
+    wx, wy = wx.to(wdt), wy.to(wdt)
     idx = torch.stack([y0 * w + x0, y0 * w + x1, y1 * w + x0, y1 * w + x1], dim=-1)
     wgt = torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy),
                        (1 - wx) * wy, wx * wy], dim=-1)
@@ -72,10 +79,39 @@ def grid_sample(x: torch.Tensor, grid: torch.Tensor,
     gb, gh, gw, _ = grid.shape
     if gb != b:
         raise ValueError(f"batch mismatch: x has {b}, grid has {gb}")
-    idx, wgt = tap_indices_weights(h, w, grid.reshape(b, gh * gw, 2), align_corners)
     cdt = torch.promote_types(x.dtype, torch.float32)
+    idx, wgt = tap_indices_weights(h, w, grid.reshape(b, gh * gw, 2), align_corners, cdt)
     flat = x.reshape(b, h * w, c)
     bi = torch.arange(b, device=x.device)[:, None, None]
     vals = flat[bi, idx].to(cdt)                     # (B, P, 4, C)
     out = blend_taps(vals, wgt.to(cdt))
     return out.to(x.dtype).reshape(b, gh, gw, c)
+
+
+def grid_sample_backward(grad_out: torch.Tensor, grid: torch.Tensor, x_shape,
+                         align_corners: bool = False) -> torch.Tensor:
+    """The gradient of ``grid_sample`` with respect to x: ``grad_out``
+    (B, gh, gw, C) scattered back to x's shape ``x_shape`` = (B, H, W, C).
+
+    Each output point adds w_k * grad_out to the source pixel of its tap k,
+    the transpose of the four-tap gather; the grid gets no gradient (the
+    JAX package never differentiates grids, which are batch data). The
+    taps are ``tap_indices_weights``'s; the sums run in
+    ``promote_types(dtype, float32)``, tap 0, 1, 2 and 3 in that order, each
+    over the points in order, and the result is cast to grad_out's dtype.
+    """
+    b, h, w, c = (int(s) for s in x_shape)
+    gb, gh, gw, _ = grid.shape
+    if gb != b or tuple(grad_out.shape) != (b, gh, gw, c):
+        raise ValueError(f"grid_sample_backward: grad_out {tuple(grad_out.shape)} and "
+                         f"grid {tuple(grid.shape)} do not match x {(b, h, w, c)}")
+    cdt = torch.promote_types(grad_out.dtype, torch.float32)
+    idx, wgt = tap_indices_weights(h, w, grid.reshape(b, gh * gw, 2), align_corners, cdt)
+    g = grad_out.reshape(b, gh * gw, c).to(cdt)
+    wgt = wgt.to(cdt)
+    rows = idx + (torch.arange(b, device=idx.device) * (h * w))[:, None, None]
+    acc = torch.zeros((b * h * w, c), dtype=cdt, device=grad_out.device)
+    for k in range(4):
+        acc.index_add_(0, rows[..., k].reshape(-1),
+                       (g * wgt[..., k, None]).reshape(-1, c))
+    return acc.reshape(b, h, w, c).to(grad_out.dtype)

@@ -22,10 +22,17 @@ def intersection_and_union(pred: torch.Tensor, target: torch.Tensor, num_classes
     pred_v = torch.where(valid, pred, overflow)
     target_v = torch.where(valid, target, overflow)
     inter_v = torch.where(valid & (pred == target), pred, overflow)
+    # a fixed-size histogram by scatter_add_ (bincount on the card reads the
+    # input's max back to size its output, which would stop the host);
+    # values past the classes go to the dropped bin, as bincount's would
     n = num_classes + 1
-    area_inter = torch.bincount(inter_v, minlength=n)[:num_classes]
-    area_pred = torch.bincount(pred_v, minlength=n)[:num_classes]
-    area_target = torch.bincount(target_v, minlength=n)[:num_classes]
+    ones = torch.ones_like(pred)
+
+    def hist(idx):
+        return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+            0, idx.clamp_max(num_classes), ones)[:num_classes]
+
+    area_inter, area_pred, area_target = hist(inter_v), hist(pred_v), hist(target_v)
     area_union = area_pred + area_target - area_inter
     return (area_inter.to(torch.float32), area_union.to(torch.float32),
             area_target.to(torch.float32))

@@ -28,9 +28,11 @@ def _adaptive_avg_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 @lru_cache(maxsize=128)
 def _adaptive_avg_tensor(in_size, out_size, dtype, device):
-    # cached on the device (see ops/resize.py::_interp_tensor)
-    return torch.as_tensor(_adaptive_avg_matrix(in_size, out_size),
-                           dtype=dtype, device=device)
+    # cached on the device, made outside inference mode (see
+    # ops/resize.py::_interp_tensor)
+    with torch.inference_mode(False):
+        return torch.as_tensor(_adaptive_avg_matrix(in_size, out_size),
+                               dtype=dtype, device=device)
 
 
 def adaptive_avg_pool(x: torch.Tensor, output_size) -> torch.Tensor:

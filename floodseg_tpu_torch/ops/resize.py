@@ -58,9 +58,12 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
 @lru_cache(maxsize=256)
 def _interp_tensor(in_size, out_size, align_corners, dtype, device):
     # cached on the device: a fresh host-to-device copy of pageable memory
-    # on every call would wait for the stream and stall the launch queue
-    return torch.as_tensor(_interp_matrix(in_size, out_size, align_corners),
-                           dtype=dtype, device=device)
+    # on every call would wait for the stream and stall the launch queue.
+    # Made outside inference mode, so that a cache first filled by a
+    # predict call also serves a training step, which saves it for backward
+    with torch.inference_mode(False):
+        return torch.as_tensor(_interp_matrix(in_size, out_size, align_corners),
+                               dtype=dtype, device=device)
 
 
 def _matrices(h_in, w_in, h_out, w_out, align_corners, dtype, device):
@@ -97,8 +100,9 @@ def tap_tensors(in_size, out_size, align_corners, dtype, device):
     """``interp_taps`` on ``device``: int32 indices and weights in the
     compute dtype (float32 for bf16 and float32; what csrc/resize.cu reads)."""
     idx, w = interp_taps(in_size, out_size, align_corners, dtype)
-    return (torch.as_tensor(idx, dtype=torch.int32, device=device).contiguous(),
-            torch.as_tensor(w, dtype=_compute_dtype(dtype), device=device).contiguous())
+    with torch.inference_mode(False):  # see _interp_tensor
+        return (torch.as_tensor(idx, dtype=torch.int32, device=device).contiguous(),
+                torch.as_tensor(w, dtype=_compute_dtype(dtype), device=device).contiguous())
 
 
 def _taps_axis(y: torch.Tensor, axis: int, idx: torch.Tensor,

@@ -1,4 +1,5 @@
-"""The warp kernels K1 and K2: wrappers, plain versions, launch counts.
+"""The warp kernels K1, K1-bwd and K2: wrappers, plain versions, launch
+counts, and the differentiable warp of the training path.
 
 Counterpart of floodseg_tpu/ops/pallas_warp.py. The kernels are CUDA C++
 for sm_90a in ``csrc/warp.cu`` (their notes there give the Pallas kernel
@@ -6,6 +7,12 @@ each replaces, its bound on the card and what the design does about it):
 
 - K1 ``grid_sample_cuda(x, grid, align_corners)`` replaces
   ``grid_sample_pallas``; its plain version is ``ops.grid_sample.grid_sample``.
+- K1-bwd ``grid_sample_backward_cuda(grad_out, grid, x_shape,
+  align_corners)`` is K1's gradient with respect to x, which the JAX
+  package leaves to XLA's autodiff of ``ops/grid_sample.py::grid_sample``;
+  its plain version is ``ops.grid_sample.grid_sample_backward``.
+  ``grid_sample_autograd`` is the ``torch.autograd.Function`` that runs K1
+  forward and K1-bwd backward; grids get no gradient.
 - K2 ``warp_chain_cuda(y0, grids)`` replaces ``warp_chain_pallas``; its
   plain version is ``warp_chain_plain`` below.
 
@@ -27,6 +34,7 @@ from floodseg_tpu_torch.ops import build
 from floodseg_tpu_torch.ops.grid_sample import (
     blend_taps,
     grid_sample,
+    grid_sample_backward,
     tap_indices_weights,
 )
 
@@ -47,6 +55,9 @@ def _library():
         lib.floodseg_grid_sample.restype = i
         lib.floodseg_warp_chain.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.floodseg_warp_chain.restype = i
+        lib.floodseg_grid_sample_backward.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                                      i, i, p]
+        lib.floodseg_grid_sample_backward.restype = i
         lib._floodseg_bound = True
     return lib
 
@@ -107,6 +118,81 @@ def grid_sample_cuda(x: torch.Tensor, grid: torch.Tensor,
 
 
 grid_sample_cuda.launches = 0
+
+
+def grid_sample_backward_cuda(grad_out: torch.Tensor, grid: torch.Tensor, x_shape,
+                              align_corners: bool = False) -> torch.Tensor:
+    """K1-bwd: the gradient of K1 with respect to x. grad_out (B, gh, gw, C),
+    grid (B, gh, gw, 2) float32 -> grad_x of shape ``x_shape`` = (B, H, W, C)
+    in grad_out.dtype, summed in float32."""
+    x_shape = tuple(int(s) for s in x_shape)
+    if grad_out.dim() != 4 or grid.dim() != 4 or grid.shape[-1] != 2 or len(x_shape) != 4:
+        raise ValueError(f"grid_sample_backward_cuda: grad_out must be (B, gh, gw, C), "
+                         f"grid (B, gh, gw, 2) and x_shape (B, H, W, C); got "
+                         f"{tuple(grad_out.shape)}, {tuple(grid.shape)} and {x_shape}")
+    b, h, w, c = x_shape
+    if tuple(grad_out.shape) != (b,) + tuple(grid.shape[1:3]) + (c,) or grid.shape[0] != b:
+        raise ValueError(f"grid_sample_backward_cuda: grad_out {tuple(grad_out.shape)} "
+                         f"and grid {tuple(grid.shape)} do not match x {x_shape}")
+    if _check_pair(grad_out, grid, "grid_sample_backward_cuda"):
+        return grid_sample_backward(grad_out, grid, x_shape, align_corners)
+    out = torch.empty(x_shape, dtype=grad_out.dtype, device=grad_out.device)
+    if out.numel() == 0:
+        return out
+    scratch = (None if grad_out.dtype == torch.float32 else
+               torch.empty(x_shape, dtype=torch.float32, device=grad_out.device))
+    vec = _vectorized(c, grad_out, out, *([] if scratch is None else [scratch]))
+    gh, gw = grid.shape[1], grid.shape[2]
+    with torch.cuda.device(grad_out.device):
+        err = _library().floodseg_grid_sample_backward(
+            grad_out.data_ptr(), grid.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, h, w, c, gh, gw,
+            int(bool(align_corners)), _DTYPE_CODES[grad_out.dtype], int(vec),
+            torch.cuda.current_stream(grad_out.device).cuda_stream)
+    _raise_on(err, "grid_sample_backward_cuda")
+    grid_sample_backward_cuda.launches += 1
+    return out
+
+
+grid_sample_backward_cuda.launches = 0
+
+
+class _GridSample(torch.autograd.Function):
+    """K1 forward, K1-bwd backward; no gradient to the grid. CPU tensors
+    take the plain versions in any float dtype (float64 for the oracle
+    tests)."""
+
+    @staticmethod
+    def forward(ctx, x, grid, align_corners):
+        ctx.save_for_backward(grid)
+        ctx.x_shape = tuple(x.shape)
+        ctx.align_corners = align_corners
+        if x.device.type == "cpu" and grid.device.type == "cpu":
+            return grid_sample(x, grid, align_corners)
+        return grid_sample_cuda(x, grid, align_corners)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        (grid,) = ctx.saved_tensors
+        if grad_out.device.type == "cpu" and grid.device.type == "cpu":
+            grad_x = grid_sample_backward(grad_out, grid, ctx.x_shape, ctx.align_corners)
+        else:
+            grad_x = grid_sample_backward_cuda(grad_out.contiguous(), grid, ctx.x_shape,
+                                               ctx.align_corners)
+        return grad_x, None, None
+
+
+def grid_sample_autograd(x: torch.Tensor, grid: torch.Tensor,
+                         align_corners: bool = False) -> torch.Tensor:
+    """The training path's warp: ``grid_sample_cuda`` with
+    ``grid_sample_backward_cuda`` as its gradient with respect to x (their
+    plain versions for CPU tensors). Grids are batch data: a grid that
+    requires a gradient raises."""
+    if grid.requires_grad:
+        raise ValueError("grid_sample_autograd: the grid gets no gradient; pass a "
+                         "grid that does not require one")
+    return _GridSample.apply(x, grid, align_corners)
 
 
 def _merged_weights(idx: torch.Tensor, wgt: torch.Tensor, dtype) -> torch.Tensor:
@@ -221,9 +307,11 @@ warp_chain_cuda.launches = 0
 
 def reset_launch_counts() -> None:
     grid_sample_cuda.launches = 0
+    grid_sample_backward_cuda.launches = 0
     warp_chain_cuda.launches = 0
 
 
 def launch_counts() -> dict:
     return {"grid_sample_cuda": grid_sample_cuda.launches,
+            "grid_sample_backward_cuda": grid_sample_backward_cuda.launches,
             "warp_chain_cuda": warp_chain_cuda.launches}

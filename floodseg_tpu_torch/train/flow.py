@@ -1,5 +1,17 @@
-"""Flow-predict program builders (counterpart of the predict builders in
-floodseg_tpu/train/flow.py).
+"""Flow train and eval steps, and the flow-predict program builders
+(counterpart of floodseg_tpu/train/flow.py).
+
+Training (``flow_train_forward``, ``plain_train_forward``,
+``make_flow_train_step``, ``make_flow_eval_step``): the JAX steps' math on
+the model's own parameters, updated in place (train/supervised.py says how
+a step is called). BN statistics update at each BN call, so they thread
+through encode(prev), encode(next) and decode in that order, as the JAX
+package threads them. The step's dropout generator splits into three
+seeds, as JAX's ``r1, r2, r3``: encode(prev), encode(next), decode (both
+decodes of the logit-warping mode use the third). The warps are K1 with
+K1-bwd as their gradient (video/flow_model.py).
+
+Predict:
 
 ``make_flow_predict_fn``, ``make_cached_flow_predict_fn`` and
 ``make_flow_predict_crop_fn`` keep the JAX package's signatures and return
@@ -19,7 +31,7 @@ caller's flags restored after), so a float32 model computes in float32 and
 a bf16 one rounds each product once, as the JAX package's do.
 """
 
-from typing import Callable, Mapping, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +42,115 @@ from floodseg_tpu_torch.core.device import DeviceLike, full_precision_f32, resol
 from floodseg_tpu_torch.data.transforms import MEAN, STD
 from floodseg_tpu_torch.models.deeplabv3 import ASPP
 from floodseg_tpu_torch.ops.quant import int8_deeplab_decode, int8_seghead_decode
+from floodseg_tpu_torch.ops.resize import resize_bilinear
+from floodseg_tpu_torch.train.state import TrainState
+from floodseg_tpu_torch.train.supervised import (
+    backward_and_update,
+    dropout_seed,
+    split_seeds,
+    step_metrics,
+)
 from floodseg_tpu_torch.video.flow_model import FlowInterpolator
+
+
+# ---------------------------------------------------------------- training
+
+def _index(batch: Dict, key: str, device: torch.device) -> torch.Tensor:
+    """A batch's per-sample chain lengths as a tensor on ``device`` (the
+    loader keeps ids host-side). To the card through pinned memory without
+    blocking: a pageable copy would wait for the card to finish the queued
+    work, and the step would stop the host from running ahead."""
+    index = torch.as_tensor(np.asarray(batch[key]))
+    if device.type != "cuda":
+        return index.to(device)
+    return index.pin_memory().to(device, non_blocking=True)
+
+
+def flow_train_forward(model: nn.Module, batch: Dict, rng: Optional[torch.Generator],
+                       train: bool, feature_based: bool = True,
+                       no_warp: bool = False) -> torch.Tensor:
+    """Interpolated forward at the current frame: ``FlowInterpolator.
+    train_forward`` over the model's encode and decode (both key frames
+    encoded, each sample's maps warped through its own chain, blended by
+    (n - index) / n and decoded, or decoded, then the logits warped),
+    resized to the frame size with align_corners=True. Returns the logits;
+    with ``train`` the model runs in training mode (batch statistics, BN
+    running statistics updated, dropout from ``rng``: encode(prev) draws
+    from the first seed, encode(next) from the second, every decode from
+    the third)."""
+    fp = batch["frame_prev"]
+    li, ri = _index(batch, "left_index", fp.device), _index(batch, "right_index", fp.device)
+    s1, s2, s3 = split_seeds(rng, 3)
+    enc_seeds = iter((s1, s2))
+    model.train(train)
+
+    def encode(x):
+        with dropout_seed(model, next(enc_seeds), x.device):
+            return model.encode(x)[0]
+
+    def decode(f):
+        with dropout_seed(model, s3, f.device):
+            return model.decode(f)
+
+    interp = FlowInterpolator(encode=encode, decode=decode, feature_based=feature_based,
+                              no_warp=no_warp)
+    return interp.train_forward(fp, batch["frame_next"], batch["mvs_left"],
+                                batch["mvs_right"], li, ri)
+
+
+def plain_train_forward(model: nn.Module, images: torch.Tensor,
+                        rng: Optional[torch.Generator], train: bool) -> torch.Tensor:
+    """Single-frame encode -> decode (the no-interpolation branch), resized
+    to the frame size; the generator splits into two seeds."""
+    h, w = images.shape[1], images.shape[2]
+    s1, s2 = split_seeds(rng, 2)
+    model.train(train)
+    with dropout_seed(model, s1, images.device):
+        f = model.encode(images)[0]
+    with dropout_seed(model, s2, images.device):
+        logits = model.decode(f)
+    if tuple(logits.shape[1:3]) != (h, w):
+        logits = resize_bilinear(logits, (h, w), align_corners=True)
+    return logits
+
+
+def make_flow_train_step(model: nn.Module, loss_fn: Callable, num_classes: int,
+                         ignore_index: int = 255, feature_based: bool = True,
+                         no_warp: bool = False) -> Tuple[Callable, Callable]:
+    """(interp_step, plain_step), each step(state, batch, rng) -> (state,
+    metrics) with the loss and the counts of the argmax against the labels
+    (computed before the update). The caller flips the
+    no_interpolation_percentage coin on the host."""
+    def _step(state: TrainState, batch: Dict, rng: Optional[torch.Generator], plain: bool):
+        labels = batch["label"]
+        with full_precision_f32():
+            if plain:
+                logits = plain_train_forward(model, batch["frame_current"], rng, True)
+            else:
+                logits = flow_train_forward(model, batch, rng, True, feature_based,
+                                            no_warp)
+            loss = loss_fn({"pred": logits}, labels)
+            backward_and_update(state, loss)
+        return state, {"loss": loss.detach(),
+                       **step_metrics(logits, labels, num_classes, ignore_index)}
+
+    return (lambda state, batch, rng: _step(state, batch, rng, False),
+            lambda state, batch, rng: _step(state, batch, rng, True))
+
+
+def make_flow_eval_step(model: nn.Module, num_classes: int, ignore_index: int = 255,
+                        feature_based: bool = True, no_warp: bool = False) -> Callable:
+    """eval_step(state, batch) -> metrics: the interpolated forward in eval
+    mode, without gradients (whole-frame validation)."""
+    def eval_step(state: TrainState, batch: Dict):
+        with torch.no_grad(), full_precision_f32():
+            logits = flow_train_forward(model, batch, None, False, feature_based, no_warp)
+        return step_metrics(logits, batch["label"], num_classes, ignore_index)
+
+    return eval_step
+
+
+# ------------------------------------------------------------------ predict
 
 
 def _predict_encode(model: nn.Module, int8_encode: bool) -> Callable:

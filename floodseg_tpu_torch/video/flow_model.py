@@ -1,4 +1,4 @@
-"""Keyframe-warp interpolation, inference (counterpart of
+"""Keyframe-warp interpolation (counterpart of
 floodseg_tpu/video/flow_model.py).
 
 Encode the two key frames only, warp the feature (or logit) maps along the
@@ -18,6 +18,13 @@ resolution to feature resolution and to int8 at that bound's scale in one
 K3 launch (``resize_quantize_int8_cuda``), and the key map is quantized at
 the same scale, so the decoder receives int8 maps.
 
+Training (``warp_chain_masked``, ``interp_weight``,
+``FlowInterpolator.train_forward``) warps each sample through its own
+number of grids: every warp is K1 through ``grid_sample_autograd``, whose
+gradient is K1-bwd, and a ``j < index`` select keeps a sample's carry past
+its chain's length. K2 neither masks nor has a gradient, so training does
+not use it.
+
 The contract is the JAX package's outputs, not its TPU schedule.
 """
 
@@ -30,12 +37,45 @@ import torch
 from floodseg_tpu_torch.ops.quant import quantize_with_scale, scale_from_absmax
 from floodseg_tpu_torch.ops.resize import resize_argmax, resize_bilinear
 from floodseg_tpu_torch.ops.resize_kernels import resize_quantize_int8_cuda
-from floodseg_tpu_torch.ops.warp_kernels import grid_sample_cuda, warp_chain_cuda
+from floodseg_tpu_torch.ops.warp_kernels import (
+    grid_sample_autograd,
+    grid_sample_cuda,
+    warp_chain_cuda,
+)
 
 
 def warp(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """One block-MV warp (bilinear, border, align_corners=False)."""
     return grid_sample_cuda(x, grid, align_corners=False)
+
+
+def warp_chain_masked(f: torch.Tensor, grids: torch.Tensor,
+                      index: torch.Tensor) -> torch.Tensor:
+    """Warp each sample through its first ``index`` grids (the training path).
+
+    f: (B, H, W, C) maps; grids: (T, B, gh, gw, 2) padded chains, float32
+    and contiguous; index: (B,) integers >= 1 on f's device. The first warp
+    runs always and changes the shape to the grid's; each later step j
+    warps the carry and keeps the result where ``j < index``. The chain is
+    resized back to (H, W) with align_corners=True.
+    """
+    b, h, w, _ = f.shape
+    y = grid_sample_autograd(f, grids[0])
+    keep_shape = (b, 1, 1, 1)
+    for j in range(1, grids.shape[0]):
+        nxt = grid_sample_autograd(y, grids[j])
+        y = torch.where((j < index).view(keep_shape), nxt, y)
+    if _hw(y) != (h, w):
+        y = resize_bilinear(y, (h, w), align_corners=True)
+    return y
+
+
+def interp_weight(index: torch.Tensor, n: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(n - index) / n as (B, 1, 1, 1) in ``dtype``, computed at
+    ``promote_types(dtype, float32)``."""
+    wdt = torch.promote_types(dtype, torch.float32)
+    s = (n.to(wdt) - index.to(wdt)) / n.to(wdt)
+    return s.view(-1, 1, 1, 1).to(dtype)
 
 
 def _hw(x: torch.Tensor):
@@ -63,6 +103,42 @@ class FlowInterpolator:
     no_warp: bool = False
     decode_wants_absmax: bool = False
     decode_split: bool = False
+
+    def train_forward(self, frame_prev: torch.Tensor, frame_next: torch.Tensor,
+                      mvs_left: torch.Tensor, mvs_right: torch.Tensor,
+                      left_index: torch.Tensor, right_index: torch.Tensor,
+                      out_size: Optional[tuple] = None) -> torch.Tensor:
+        """Interpolated prediction at the current frame, differentiable.
+
+        frame_*: (B, H, W, 3); mvs_*: (T, B, gh, gw, 2) padded chains;
+        *_index: (B,) chain lengths. Returns logits at ``out_size``
+        (default: the frame size), resized with align_corners=True.
+        ``encode`` runs on frame_prev, then on frame_next, before any
+        ``decode`` (a training model's BN statistics thread in that order).
+        """
+        h, w = _hw(frame_prev)
+        out_size = tuple(out_size or (h, w))
+        n = left_index + right_index
+
+        def blend(mp, mn):
+            return (mp * interp_weight(left_index, n, mp.dtype)
+                    + mn * interp_weight(right_index, n, mn.dtype))
+
+        f_prev, f_next = self.encode(frame_prev), self.encode(frame_next)
+        if self.feature_based:
+            if not self.no_warp:
+                f_prev = warp_chain_masked(f_prev, mvs_left, left_index)
+                f_next = warp_chain_masked(f_next, mvs_right, right_index)
+            out = self.decode(blend(f_prev, f_next))
+        else:
+            o_prev, o_next = self.decode(f_prev), self.decode(f_next)
+            if not self.no_warp:
+                o_prev = warp_chain_masked(o_prev, mvs_left, left_index)
+                o_next = warp_chain_masked(o_next, mvs_right, right_index)
+            out = blend(o_prev, o_next)
+        if _hw(out) != out_size:
+            out = resize_bilinear(out, out_size, align_corners=True)
+        return out
 
     @staticmethod
     def _predict_chain(f: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:

@@ -5,14 +5,17 @@ sampling coordinates, one per 16 px macroblock, consumed by the bilinear
 warps. This is the port's own copy of the predict path's part of
 floodseg_tpu/video/grid.py, with the crop renormalisation of the
 sliding-window predict and the flip. Where the JAX package resizes a grid
-with cv2.INTER_LINEAR, the port uses the same half-pixel bilinear as a
-matrix (ops/resize.py's interpolation matrix, align_corners=False).
+with cv2.INTER_LINEAR (``crop_motion_vectors_np``, the train crop), the
+port repeats cv2's float32 arithmetic; where it resizes a stacked chain
+with a matrix (``crop_motion_vectors_stack_np``, the sliding window), the
+port uses the same half-pixel matrix (ops/resize.py's, align_corners=False).
 """
 
 from functools import lru_cache
 
 import numpy as np
 
+from floodseg_tpu_torch.ops.cv2_compat import cv2_resize_linear
 from floodseg_tpu_torch.ops.resize import _interp_matrix
 
 BLOCK_SIZE = 16
@@ -78,11 +81,21 @@ def crop_motion_vectors_np(grids, height: int, width: int, crop_h: int, crop_w: 
     """Renormalize a list of grids to a crop window: crop each grid to the
     blocks covering the window, remap the coordinates from full-frame
     [-1, 1] to crop-window [-1, 1], and resize to (crop_h//16, crop_w//16)
-    blocks with the half-pixel bilinear."""
+    blocks as the JAX package's cv2.INTER_LINEAR does, to the bit."""
     if not grids:
         return grids
-    return list(crop_motion_vectors_stack_np(np.stack(grids), height, width, crop_h,
-                                             crop_w, h_off, w_off))
+    fin_bh, fin_bw = crop_h // BLOCK_SIZE, crop_w // BLOCK_SIZE
+    ppb_h, ppb_w = height / grids[0].shape[-3], width / grids[0].shape[-2]
+    bh_off, bw_off = round(h_off / ppb_h), round(w_off / ppb_w)
+    bh = round((h_off + crop_h) / ppb_h) - bh_off
+    bw = round((w_off + crop_w) / ppb_w) - bw_off
+    out = []
+    for g in grids:
+        m = np.array(g[bh_off:bh_off + bh, bw_off:bw_off + bw], dtype=np.float32)
+        m[..., 0] = ((((m[..., 0] + 1) / 2) * width - w_off) / (bw * ppb_w)) * 2 - 1
+        m[..., 1] = ((((m[..., 1] + 1) / 2) * height - h_off) / (bh * ppb_h)) * 2 - 1
+        out.append(cv2_resize_linear(m, (fin_bh, fin_bw)))
+    return out
 
 
 @lru_cache(maxsize=64)

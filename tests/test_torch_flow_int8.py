@@ -41,8 +41,8 @@ from torch_port_fixtures import (
 
 LOGIT_ATOL = 5e-3
 LANE_SHARE = 1e-4
-NO_LAUNCHES = {"grid_sample_cuda": 0, "warp_chain_cuda": 0,
-               "resize_quantize_int8_cuda": 0}
+NO_LAUNCHES = {"grid_sample_cuda": 0, "grid_sample_backward_cuda": 0,
+               "warp_chain_cuda": 0, "resize_quantize_int8_cuda": 0}
 
 
 @pytest.fixture(scope="module")

@@ -33,8 +33,8 @@ from floodseg_tpu_torch.video import FlowInterpolator, default_grid
 from torch_port_fixtures import builder_windows, jnorm, run_port_builders, smooth_grids, vit_pair
 
 SHARE = 1e-4
-NO_LAUNCHES = {"grid_sample_cuda": 0, "warp_chain_cuda": 0,
-               "resize_quantize_int8_cuda": 0}
+NO_LAUNCHES = {"grid_sample_cuda": 0, "grid_sample_backward_cuda": 0,
+               "warp_chain_cuda": 0, "resize_quantize_int8_cuda": 0}
 N, SIZE, OUT_SIZE = 5, 64, (72, 80)
 PATCHES = [32, 8]
 

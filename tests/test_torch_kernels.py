@@ -19,6 +19,9 @@ import torch
 
 from floodseg_tpu_torch.ops import (
     grid_sample,
+    grid_sample_autograd,
+    grid_sample_backward,
+    grid_sample_backward_cuda,
     grid_sample_cuda,
     launch_counts,
     quantize_with_scale,
@@ -61,8 +64,8 @@ def test_wrappers_route_cpu_tensors_to_plain():
     np.testing.assert_array_equal(warp_chain_cuda(y0, grids).float().numpy(),
                                   warp_chain_plain(y0, grids).float().numpy())
     # the plain route is not a kernel launch
-    assert launch_counts() == {"grid_sample_cuda": 0, "warp_chain_cuda": 0,
-                               "resize_quantize_int8_cuda": 0}
+    assert launch_counts() == {"grid_sample_cuda": 0, "grid_sample_backward_cuda": 0,
+                               "warp_chain_cuda": 0, "resize_quantize_int8_cuda": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -162,8 +165,40 @@ def test_kernels_match_plain_on_card(dtype):
     np.testing.assert_allclose(warp_chain_cuda(y0, grids).float().cpu(),
                                warp_chain_plain(y0, grids).float().cpu(), **tol)
     torch.cuda.synchronize()
-    assert launch_counts() == {"grid_sample_cuda": 2, "warp_chain_cuda": 1,
-                               "resize_quantize_int8_cuda": 0}
+    assert launch_counts() == {"grid_sample_cuda": 2, "grid_sample_backward_cuda": 0,
+                               "warp_chain_cuda": 1, "resize_quantize_int8_cuda": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_backward_matches_plain_on_card(dtype):
+    """K1-bwd against its plain version (float32 sums, then rounded): float32
+    within 1e-5 of the largest magnitude (atomics add in another order),
+    bf16 within one bf16 ulp plus that 1e-5; random, corner-clamped (every point's taps on
+    one pixel) and unaligned (C = 5) cases; the autograd wrapper launches
+    K1 forward and K1-bwd backward once each."""
+    dev = _card()
+    rng = np.random.default_rng(17)
+    for c, grid in ((72, rng.uniform(-1.2, 1.2, (2, 5, 6, 2))),
+                    (72, np.full((2, 5, 6, 2), -1.5)), (5, rng.uniform(-1, 1, (2, 5, 6, 2)))):
+        g = torch.from_numpy(rng.standard_normal((2, 5, 6, c)).astype(np.float32)).to(dev, dtype)
+        grid = torch.from_numpy(grid.astype(np.float32)).to(dev)
+        for align in (False, True):
+            got = grid_sample_backward_cuda(g, grid, (2, 13, 17, c), align).float().cpu()
+            ref = grid_sample_backward(g.float(), grid, (2, 13, 17, c), align).cpu()
+            if dtype == torch.bfloat16:  # one bf16 ulp, plus the float32 order
+                np.testing.assert_allclose(got, ref.to(torch.bfloat16).float(),
+                                           rtol=2 ** -7, atol=1e-5 * float(ref.abs().max()))
+            else:
+                np.testing.assert_allclose(got, ref, rtol=0,
+                                           atol=1e-5 * float(ref.abs().max()))
+    x = torch.from_numpy(rng.standard_normal((2, 13, 17, 72)).astype(np.float32)).to(dev, dtype)
+    x.requires_grad_(True)
+    reset_launch_counts()
+    grid_sample_autograd(x, grid[..., :1, :].contiguous()).float().sum().backward()
+    torch.cuda.synchronize()
+    assert launch_counts()["grid_sample_cuda"] == 1
+    assert launch_counts()["grid_sample_backward_cuda"] == 1
 
 
 @pytest.mark.cuda

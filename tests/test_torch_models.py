@@ -118,6 +118,20 @@ def test_init_from_generator_is_reproducible():
 
 
 def test_training_mode_raises():
-    m = build_model("pspnet", layers=50, with_aux=False).train()
+    """Training mode raises where the port has no training yet: the ViT's
+    Dropout and DropPath, DeepLabV3's ASPP and head dropout. PSPNet trains since the training slice (its
+    BatchNorm and dropout are held to the JAX package in
+    tests/test_torch_train_ops.py): its encode runs in training mode and
+    moves the BN running statistics."""
+    vit = build_model("vit", image_size=64).train()
     with pytest.raises(NotImplementedError, match="training slice"):
-        m.encode(torch.zeros(1, 33, 33, 3))
+        vit.encode(torch.zeros(1, 64, 64, 3))
+    dl = build_model("deeplabv3", layers=50, with_aux=False).train()
+    with pytest.raises(NotImplementedError, match="training slice"):
+        dl.encode(torch.zeros(1, 33, 33, 3))
+    with pytest.raises(NotImplementedError, match="training slice"):
+        dl.decode(torch.zeros(1, 5, 5, 2048))
+    m = build_model("pspnet", layers=50, with_aux=False).train()
+    before = m.layer1[0].bn1.running_mean.clone()
+    m.encode(torch.randn(2, 33, 33, 3, generator=torch.Generator().manual_seed(0)))
+    assert not torch.equal(before, m.layer1[0].bn1.running_mean)

@@ -19,7 +19,7 @@ from floodseg_tpu.data.transforms import MEAN as JAX_MEAN, STD as JAX_STD
 from floodseg_tpu.models import build_model as jax_build_model
 from floodseg_tpu.models.vit import SegmenterViT as JaxSegmenterViT
 from floodseg_tpu_torch.data import predict_windows, resize_frames, synthetic_clip
-from floodseg_tpu_torch.models import SegmenterViT, build_model, load_jax_variables
+from floodseg_tpu_torch.models import SegmenterViT, build_model, convert, load_jax_variables
 from floodseg_tpu_torch.train import make_cached_flow_predict_fn, make_flow_predict_fn
 from floodseg_tpu_torch.video import default_grid
 
@@ -37,6 +37,19 @@ def _perturb_bn(params, stats, rng):
             stats[name]["var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
         else:
             _perturb_bn(sub, stats.get(name, {}), rng)
+
+
+def port_state(variables):
+    """The weight bridge's state_dict of a JAX variable tree with each
+    array's own dtype kept (the bridge writes float32; the float64 training
+    comparisons need float64), as torch tensors."""
+    f32 = convert._f32
+    convert._f32 = np.asarray
+    try:
+        out = convert.from_jax_variables(jax.device_get(variables))
+    finally:
+        convert._f32 = f32
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
 def _to_dict(tree):
