@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # every phase, as below
     python3 chip_smoke.py --k2     # K2 alone: build, check, time (about 20 s)
     python3 chip_smoke.py --k3     # K3 alone: build, check, time (about 20 s)
-    python3 chip_smoke.py --train  # the training phases alone: 3t, 4t and 14
+    python3 chip_smoke.py --train  # the training phases alone: 3t, 4t and 14-17
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -51,19 +51,6 @@ Phases, in order; any failure raises and the script exits non-zero:
    onto the 67x120 full-frame identity grid (the key-map resample, an
    up-sample); K2 23 steps on (1, 27, 27, 4096) (its geometry logged). The
    same tolerances, each timed beside its bound and F.grid_sample.
-3t. K1 and K1-bwd (K1's backward, csrc/warp.cu) at the training shapes:
-   (2, 55, 55, 4096) -> 27x27 (a chain's head) and (2, 27, 27, 4096) ->
-   27x27 (its steps), float32 and bf16, on random grids, the training
-   batch's own crop grids (a synthetic 1072x1920 clip's chains through the
-   train transform), the identity grid and a grid that clamps every point to
-   one corner (every atomic on one pixel). K1 must be bit-equal to its
-   plain version in float32 at batch 2; K1-bwd within 1e-5 of the plain
-   version's largest magnitude in float32, and in bf16 within 1 bf16 ulp of
-   its float32-summed plain version plus that 1e-5 (the sums' order, where
-   they cancel); the largest difference between two runs
-   of K1-bwd on one input is logged (atomics). Both timed in float32 beside
-   the bytes bound, the plain version and the library (F.grid_sample, and
-   aten.grid_sampler_2d_backward on NCHW for K1-bwd); K1-bwd in bf16 too.
 4. The flow-predict slice in float32 (TF32 off) on the card against the
    same slice on the CPU: PSPNet-50 at 129 px key frames from a clip of
    128 px frames (SLICE_FRAME_HW, every slice check), n = 5, with each
@@ -83,20 +70,6 @@ Phases, in order; any failure raises and the script exits non-zero:
    float32 on the card, as the builders run them), logits and encodings
    within SLICE_TOL and ENC_TOL; the bf16 logits are read once more with
    PyTorch's default reduced-precision reduction, for the record.
-4t. One interpolated, one plain and one eval train step of PSPNet-50 (its
-   aux head included) at 65 px, batch 2, frame_delta 5, float32 with TF32
-   off and the flow config's SGD (lr 1e-4, heads 10x), each from the same
-   initial state, on the card against the CPU with the same dropout keep
-   masks: losses within rtol
-   1e-4, every parameter and BN statistic within 1e-4 of its tensor's
-   largest magnitude, eval counts within 1% of the pixels (OHEM's min_kept
-   of 100000 exceeds the pixels: no mining). What each step changed
-   (p1 - p0: the gradient through K1-bwd, momentum and decay, the BN
-   statistics' update) is held tensor by tensor: the same tensors move,
-   and the card's change is within STEP_FLOOR_FACTOR times the CPU float32
-   change's distance to the float64 change (the same steps in float64 on
-   the CPU), and never tighter than STEP_ABS, of the tensor's largest
-   change.
 5. The main path: PSPNet-50 in bf16 at full width, 513 px key frames,
    n = 25, 32x32 block grids, through make_cached_flow_predict_fn, with
    bench.py's protocol (8 timed windows, median of 5 passes). The launch
@@ -144,20 +117,63 @@ Phases, in order; any failure raises and the script exits non-zero:
 12b. The crop route in float32 on the card against the CPU at 128x192,
    64 px crops, n = 5: probabilities within 1e-4, maps equal away from
    near-ties.
-14. Flow-supervised training at full width through run_flow_fit: a
-   1072x1920 tree of 100 frames from the port's writer, the repository's
-   flow config (PSPNet-50 with its aux head, float32 with TF32 off, batch
-   2, 433 px crops, n = 25, SGD with the head group at 10x, OHEM 0.7 /
-   100000), 14 interpolated steps (2 warm-up, 10 timed with a synchronise
-   after each, the last 2 under torch.profiler) and a validation pass over
-   3 frames. The loader alone first (ms a batch on 8 threads). Prints ms a
-   step and samples/s, the step's wait for its batch, device busy, the idle
-   share and ms a step by kernel family, peak memory. Checks: K1 48 and
-   K1-bwd 48 launches every step (and K1 48 a validation frame), K2 and K3
-   none; a finite loss; every BN's running mean moved but the aux head's
-   (flow training never runs it); after the first step each aux parameter
-   equals p0 - 10 lr wd p0 (a zero gradient, decayed and moved).
-13. Last (after phase 14): a JSON line {"kernels": [...]} (each kernel's
+Then the training phases, last, each model alone on the card:
+3t. K1 and K1-bwd (K1's backward, csrc/warp.cu) at each architecture's
+   training shapes (batch 2): PSPNet-50's (2, 55, 55, 4096) -> 27x27 (a
+   chain's head, from a 433 px crop) and (2, 27, 27, 4096) -> 27x27 (its
+   steps) in float32 and bf16; DeepLabV3's (2, 55, 55, 2048) and (2, 27,
+   27, 2048) -> 27x27 and the ViT's (2, 13, 13, 768) -> 26x26 (an
+   up-sample of the token map of a 416 px crop: about 16 output points
+   scatter onto each source pixel) and (2, 26, 26, 768) -> 26x26, in
+   float32. Each on random grids, the training batch's own crop grids (a
+   synthetic 1072x1920 clip's chains through the flow train transform at
+   the architecture's crop), the identity grid and a grid that clamps
+   every point to one corner (every atomic on one pixel). K1 must be
+   bit-equal to its plain version in float32; K1-bwd within 1e-5 of the
+   plain version's largest magnitude in float32, and in bf16 within 1 bf16
+   ulp of its float32-summed plain version plus that 1e-5 (the sums'
+   order, where they cancel); the largest difference between two runs of
+   K1-bwd on one input is logged (atomics). Both timed in float32 beside
+   the bytes bound, the plain version and the library (F.grid_sample, and
+   aten.grid_sampler_2d_backward on NCHW for K1-bwd); PSPNet's K1-bwd in
+   bf16 too.
+4t. Train steps on the card against the CPU, float32 with TF32 off and
+   the flow config's SGD (lr 1e-4, heads 10x), each from the same initial
+   state, every dropout with the same keep masks (one per module, drawn on
+   the CPU): one interpolated, one plain and one eval step of PSPNet-50
+   and DeepLabV3-50 with their aux heads at 65 px and of ViT-B/32 at
+   128 px (4x4 tokens on 8x8 grids), and one supervised step of PSPNet-50
+   with the aux loss at 0.4; batch 2, frame_delta 5. Losses within rtol
+   1e-4, every parameter and BN statistic within 1e-4 of its tensor's
+   largest magnitude, eval counts within 1% of the pixels (OHEM's
+   min_kept of 100000 exceeds the pixels: no mining). What each step
+   changed (p1 - p0: the gradient through K1-bwd, momentum and decay, the
+   BN statistics' update) is held tensor by tensor: the same tensors move,
+   and the card's change is within STEP_FLOOR_FACTOR times the CPU float32
+   change's distance to the float64 change (the same steps in float64 on
+   the CPU), and never tighter than STEP_ABS, of the tensor's largest
+   change.
+14-17. Training at full width on a 1072x1920 tree of 100 frames from the
+   port's writer, the repository's configurations (float32 with TF32 off,
+   batch 2, SGD 1e-4 with the heads at 10x, OHEM 0.7 / 100000, random
+   weights): 14 flow-supervised PSPNet-50 with its aux head, 433 px crops,
+   n = 25, through run_flow_fit (14 steps: 2 warm-up, 10 timed with a
+   synchronise after each, the last 2 under torch.profiler; 3 validation
+   frames); 15 flow-supervised DeepLabV3-101 with its aux head (433 px),
+   16 flow-supervised ViT-B/32 (416 px crops, round_train of 433; 13x13
+   tokens), each 8 steps (2 warm-up, 4 timed, 2 profiled) and 2
+   validation frames; 17 the single-frame supervised method through
+   run_fit and SemDataset: PSPNet-50 with the aux loss at 0.4, 873 px
+   crops, the rotating train transform padded with MEAN, 8 steps, 2
+   validation crops. Each: the loader alone first (ms a batch on 8
+   threads); ms a step and samples/s, the step's wait for its batch,
+   device busy, the idle share and ms a step by kernel family, peak
+   memory. Checks: K1 48 and K1-bwd 48 launches every flow step (and K1 48
+   a validation frame), K2 and K3 none, and no launch at all in phase 17;
+   a finite loss; every BN's running mean moved but the aux head's in flow
+   training (which never runs it); after the first flow step each aux
+   parameter equals p0 - 10 lr wd p0 (a zero gradient, decayed and moved).
+13. Last (after phase 17): a JSON line {"kernels": [...]} (each kernel's
    max_abs_err is its largest over every check; max_abs_err_by_dtype gives
    the largest in float32 and in bf16 apart), then the nvidia-smi line, then the last line {"ok": true, "device": {...}}.
 """
@@ -171,6 +187,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -184,6 +201,7 @@ from floodseg_tpu_torch.data import (
     STD,
     DataLoader,
     FlowDataset,
+    SemDataset,
     build_test_transform,
     build_train_transform,
     collate,
@@ -196,6 +214,7 @@ from floodseg_tpu_torch.data import (
 )
 from floodseg_tpu_torch.data.image import decode_jpeg, encode_jpeg, imread
 from floodseg_tpu_torch.models import build_model, init_from_generator_
+from floodseg_tpu_torch.models.layers import Dropout
 from floodseg_tpu_torch.ops import build, launch_counts, quant, reset_launch_counts
 from floodseg_tpu_torch.ops.grid_sample import (
     grid_sample,
@@ -225,8 +244,12 @@ from floodseg_tpu_torch.train import (
     make_flow_train_step,
     make_loss_fn,
     make_optimizer,
+    make_train_step,
+    round_train,
+    run_fit,
     run_flow_fit,
     run_flow_predict,
+    sem_transforms,
 )
 from floodseg_tpu_torch.train.flow import _predict_decode, decode_split_ok
 from floodseg_tpu_torch.video import FlowInterpolator, default_grid, flow_model
@@ -732,12 +755,12 @@ def check_int8_deeplab_decode_card_vs_cpu(model, shape=(2, 33, 33, 2048), seed=2
 
 # ------------------------------------------------------------- the slice
 
-def random_model(arch, dtype, seed=0, image_size=DL_SIZE, with_aux=False):
-    """PSPNet-50 or DeepLabV3-50 (with the aux head if ``with_aux``), or
-    ViT-B/32 for ``image_size`` px frames, with weights from one
-    torch.Generator seed, every BN's statistics and every LayerNorm
-    perturbed."""
-    model = build_model(arch, classes=CLASSES, layers=50, image_size=image_size,
+def random_model(arch, dtype, seed=0, image_size=DL_SIZE, with_aux=False, layers=50):
+    """PSPNet or DeepLabV3 with a ResNet-``layers`` trunk (with the aux head
+    if ``with_aux``), or ViT-B/32 for ``image_size`` px frames, with weights
+    from one torch.Generator seed, every BN's statistics and every
+    LayerNorm perturbed."""
+    model = build_model(arch, classes=CLASSES, layers=layers, image_size=image_size,
                         with_aux=with_aux, dtype=dtype)
     return init_from_generator_(model, torch.Generator().manual_seed(seed))
 
@@ -1526,7 +1549,7 @@ def crop_card_vs_cpu(n=5, frame_hw=(128, 192), crop=64, seed=1) -> None:
         raise AssertionError("card and CPU crop-route maps differ away from near-ties")
 
 
-# ------------------------------------------------ training: 3t, 4t and 14
+# ------------------------------------------- training: 3t, 4t and 14-17
 
 # phase 4t's hold on what a step changed: per tensor, the card's change
 # against the CPU's within STEP_FLOOR_FACTOR times the CPU float32 change's
@@ -1538,32 +1561,38 @@ def crop_card_vs_cpu(n=5, frame_hw=(128, 192), crop=64, seed=1) -> None:
 # times that
 STEP_FLOOR_FACTOR = 32.0
 STEP_ABS = 1e-3
-TRAIN_FEAT = (2, 55, 55, 4096)  # PSPNet-50's encoding of a 433 px crop, batch 2
-TRAIN_GRID_HW = (27, 27)        # the crop's block grid
+# each architecture's warps in a training step of the repository's flow
+# config (batch 2, the 433 px crop through round_train): the encoding's
+# channels and size, the crop's block grid, the crop
+TRAIN_SHAPES = {"pspnet": (4096, (55, 55), (27, 27), 433),
+                "deeplabv3": (2048, (55, 55), (27, 27), 433),
+                "vit": (768, (13, 13), (26, 26), 416)}
 # a training step's device time by family of kernel names (the first family
-# whose pattern a name contains takes it)
+# whose pattern a name contains takes it; cuBLAS's "xmma_gemm" products before
+# cuDNN's "xmma_fprop_implicit_gemm" convolutions)
 TRAIN_FAMILIES = (
     ("K1", ("grid_sample_kernel",)),
     ("K1-bwd", ("grid_sample_backward_kernel", "cast_kernel")),
     ("conv backward", ("dgrad", "wgrad", "bprop", "backward_data", "backward_filter")),
-    ("conv forward", ("fprop", "conv", "cudnn", "xmma", "implicit")),
+    ("conv forward", ("fprop", "conv", "cudnn", "implicit")),
     ("matrix products", ("gemm", "nvjet", "cutlass")),
     ("OHEM sort", ("sort", "Sort", "radix", "Radix")),
     ("optimizer", ("multi_tensor_apply",)),
-    ("reductions (BN statistics)", ("reduce_kernel",)),
+    ("softmax", ("softmax", "Softmax")),
+    ("reductions (BN and LayerNorm statistics)", ("reduce_kernel",)),
     ("copies and casts", ("copy", "CatArray")),
-    ("other elementwise (BN, ReLU, blend, losses)", ("",)),
+    ("other elementwise (BN, ReLU, dropout, blend, losses)", ("",)),
 )
 
 
 def train_crop_grids(seed=0, n=FRAME_DELTA, frame_hw=FRAME_HW, crop=CROP) -> torch.Tensor:
     """The training batch's own grids: two samples' left chains of a
-    synthetic 1072x1920 clip through the train transform (random scale,
-    flip and 433 px crop, as FlowDataset items take it), (n-1, 2, 27, 27, 2)
-    float32 on the CPU."""
+    synthetic 1072x1920 clip through the flow train transform (random
+    scale, flip and the ``crop`` px crop, as FlowDataset items take it),
+    (n-1, 2, crop // 16, crop // 16, 2) float32 on the CPU."""
     clip = synthetic_clip(2 * n + 1, size=frame_hw, frame_ids=(), seed=seed)
-    tf = build_train_transform(crop, crop, resize=frame_hw, crop_padding=None,
-                               normalize=False)
+    tf = build_train_transform(crop, crop, resize=frame_hw, with_rotate=False,
+                               crop_padding=None, normalize=False)
     chains = []
     for b in range(2):
         sample = {"label": np.zeros(frame_hw, np.uint8),
@@ -1572,18 +1601,20 @@ def train_crop_grids(seed=0, n=FRAME_DELTA, frame_hw=FRAME_HW, crop=CROP) -> tor
     return torch.as_tensor(np.stack(chains, axis=1)).contiguous()
 
 
-def train_grids(dev, seed=0) -> dict:
-    """Phase 3t's grids (2, 27, 27, 2): random in [-1.1, 1.1], the training
-    batch's first and second crop grids (a chain's head and a chain step),
-    the identity (block centres of the crop, align_corners=False) and one
-    that clamps every point to the top-left corner (all of a point's taps,
-    and so all atomics, on one source pixel)."""
+def train_grids(dev, seed=0, crop=CROP) -> dict:
+    """Phase 3t's grids (2, gh, gw, 2) for a ``crop`` px crop: random in
+    [-1.1, 1.1], the training batch's first and second crop grids (a chain's
+    head and a chain step), the identity (block centres of the crop,
+    align_corners=False) and one that clamps every point to the top-left
+    corner (all of a point's taps, and so all atomics, on one source
+    pixel)."""
     g = torch.Generator().manual_seed(seed)
-    chain = train_crop_grids(seed)
-    ident = torch.as_tensor(default_grid(432, 432))[None].expand(2, -1, -1, -1)
-    grids = {"random": torch.rand((2,) + TRAIN_GRID_HW + (2,), generator=g) * 2.2 - 1.1,
+    chain = train_crop_grids(seed, crop=crop)
+    hw = (crop // 16, crop // 16)
+    ident = torch.as_tensor(default_grid(hw[0] * 16, hw[1] * 16))[None].expand(2, -1, -1, -1)
+    grids = {"random": torch.rand((2,) + hw + (2,), generator=g) * 2.2 - 1.1,
              "train-crop": chain[0], "train-crop step": chain[1], "identity": ident,
-             "corner": torch.full((2,) + TRAIN_GRID_HW + (2,), -1.5)}
+             "corner": torch.full((2,) + hw + (2,), -1.5)}
     return {k: v.to(dev).contiguous() for k, v in grids.items()}
 
 
@@ -1637,22 +1668,24 @@ def time_k1_bwd(g_out, grid, x_shape, flush, cpm) -> dict:
     }
 
 
-def check_train_kernels(dev) -> tuple:
-    """Phase 3t: K1 and K1-bwd at the training shapes, (2, 55, 55, 4096) ->
-    27x27 (a chain's head) and (2, 27, 27, 4096) -> 27x27 (its steps), in
-    float32 and bf16, on phase 3t's grids: K1 bit-equal to its plain
-    version, K1-bwd within check_k1_bwd's tolerance, and the largest
-    difference between two runs of K1-bwd on one input (atomics). Then both
-    timed in float32 (the training dtype) on the training batch's grids,
-    and K1-bwd in bf16."""
-    grids = train_grids(dev)
+def check_train_kernels(dev, arch="pspnet", dtypes=(torch.float32, torch.bfloat16)) -> tuple:
+    """Phase 3t for one architecture's training shapes (TRAIN_SHAPES): K1
+    and K1-bwd at (2, head, C) -> grid (a chain's head; for the ViT an
+    up-sample of the token map) and (2, grid, C) -> grid (its steps), in
+    ``dtypes``, on phase 3t's grids for its crop: K1 bit-equal to its plain
+    version in float32, K1-bwd within check_k1_bwd's tolerance, and the
+    largest difference between two runs of K1-bwd on one input (atomics).
+    Then both timed in float32 (the training dtype) on the training
+    batch's grids, and K1-bwd in bf16 where bf16 is checked. Timing keys
+    carry the architecture but PSPNet's."""
+    c, head_hw, grid_hw, crop = TRAIN_SHAPES[arch]
+    grids = train_grids(dev, crop=crop)
     g = torch.Generator().manual_seed(1)
-    xs = {hw: torch.randn(TRAIN_FEAT[:1] + hw + TRAIN_FEAT[3:], generator=g)
-          for hw in ((55, 55), TRAIN_GRID_HW)}
-    g_out = torch.randn(TRAIN_FEAT[:1] + TRAIN_GRID_HW + TRAIN_FEAT[3:], generator=g)
+    xs = {hw: torch.randn((2,) + hw + (c,), generator=g) for hw in (head_hw, grid_hw)}
+    g_out = torch.randn((2,) + grid_hw + (c,), generator=g)
     errs = {}
     rerun = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         tag = str(dtype).replace("torch.", "")
         go = g_out.to(dev, dtype)
         for hw, x0 in xs.items():
@@ -1660,8 +1693,8 @@ def check_train_kernels(dev) -> tuple:
             for what, grid in grids.items():
                 out, ref = grid_sample_cuda(x, grid, False), grid_sample(x, grid, False)
                 if dtype == torch.float32 and not torch.equal(out, ref):
-                    raise AssertionError(f"K1 float32 B=2 {what} is not bit-equal to its "
-                                         f"plain version")
+                    raise AssertionError(f"K1 float32 B=2 {arch} {what} is not bit-equal to "
+                                         f"its plain version")
                 note_err(errs, "grid_sample_cuda", dtype, compare(
                     f"K1 {tag} x{tuple(x.shape)} {what}", out, ref, dtype))
                 got = grid_sample_backward_cuda(go, grid, x.shape, False)
@@ -1674,21 +1707,23 @@ def check_train_kernels(dev) -> tuple:
     flush, cpm = L2Flush(dev), sleep_cycles_per_ms()
     res = {}
     go = g_out.to(dev)
-    for hw, label, grid in (((55, 55), "head", grids["train-crop"]),
-                            (TRAIN_GRID_HW, "step", grids["train-crop step"])):
+    label = "" if arch == "pspnet" else f"{arch} "
+    for hw, part, grid in ((head_hw, "head", grids["train-crop"]),
+                           (grid_hw, "step", grids["train-crop step"])):
         x = xs[hw].to(dev)
         shape = tuple(x.shape)
-        res[f"grid_sample_cuda (train {label}, float32)"] = time_k1(
+        res[f"grid_sample_cuda ({label}train {part}, float32)"] = time_k1(
             x, x.permute(0, 3, 1, 2).contiguous(), grid, grid, False, flush, cpm)
-        res[f"grid_sample_backward_cuda (train {label}, float32)"] = time_k1_bwd(
+        res[f"grid_sample_backward_cuda ({label}train {part}, float32)"] = time_k1_bwd(
             go, grid, shape, flush, cpm)
-    res["grid_sample_backward_cuda (train head, bf16)"] = time_k1_bwd(
-        go.to(torch.bfloat16), grids["train-crop"], (2, 55, 55, 4096), flush, cpm)
+    if torch.bfloat16 in dtypes:
+        res[f"grid_sample_backward_cuda ({label}train head, bf16)"] = time_k1_bwd(
+            go.to(torch.bfloat16), grids["train-crop"], (2,) + head_hw + (c,), flush, cpm)
     for name, r in res.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) -> "
             f"{r['bound_ms'] / r['ms']:.1%} of bound")
-    return errs, res, rerun
+    return errs, res
 
 
 def train_batch(seed=3, size=65, n=5, device="cpu") -> dict:
@@ -1714,13 +1749,36 @@ def train_batch(seed=3, size=65, n=5, device="cpu") -> dict:
             "label": torch.as_tensor(labels, device=device)}
 
 
-def train_steps(model, batch, masks, dev, dtype=torch.float32) -> dict:
-    """An interpolated step, a plain step and an eval step of ``model`` on
-    ``dev`` in ``dtype``, each from ``model``'s own state (the flow config's
-    SGD: lr 1e-4, the heads at 10x; OHEM with its min_kept, which skips
-    mining at this size), the dropout keep masks injected. Returns each
-    step's loss and the state_dict after it (float64 on the CPU), and the
-    eval counts."""
+def fixed_keep_masks(model, store: dict, seed=5) -> list:
+    """Every Dropout of ``model`` takes one keep mask per module name, drawn
+    on the CPU (from ``seed`` and the name) at its first call and kept in
+    ``store``: runs on the card and on the CPU that share ``store`` drop
+    the same elements. Returns the hooks' handles."""
+    handles = []
+    for name, mod in model.named_modules():
+        if not isinstance(mod, Dropout):
+            continue
+
+        def hook(mod, args, name=name):
+            x = args[0]
+            if name not in store:
+                g = torch.Generator().manual_seed(seed + zlib.crc32(name.encode()))
+                shape = [1 if d in mod.broadcast_dims else s for d, s in enumerate(x.shape)]
+                store[name] = torch.rand(shape, generator=g) < 1.0 - mod.rate
+            mod.keep = store[name].to(x.device)
+        handles.append(mod.register_forward_pre_hook(hook))
+    return handles
+
+
+def train_steps(model, batch, masks, dev, dtype=torch.float32,
+                steps=("interp", "plain", "eval")) -> dict:
+    """``steps`` of ``model`` on ``dev`` in ``dtype``, each from ``model``'s
+    own state (the flow config's SGD: lr 1e-4, the heads at 10x; OHEM with
+    its min_kept, which skips mining at this size): interpolated, plain,
+    "supervised" (single frame, the aux loss at 0.4) and "eval" (the flow
+    eval step); every dropout takes the masks of ``masks`` (a store shared
+    with the other runs, fixed_keep_masks). Returns each train step's loss
+    and the state_dict after it (float64 on the CPU), and the eval counts."""
     batch = {k: (v.to(dev, dtype) if torch.is_tensor(v) and k.startswith("frame")
                  else v.to(dev) if torch.is_tensor(v) else v) for k, v in batch.items()}
 
@@ -1731,22 +1789,26 @@ def train_steps(model, batch, masks, dev, dtype=torch.float32) -> dict:
                 mod.compute_dtype = dtype
         if dev.type == "cuda":
             m.to(memory_format=torch.channels_last)
+        fixed_keep_masks(m, masks)
         return m
 
     out = {}
-    loss_fn = make_loss_fn("ohem", 0.0, 255, 0.7, 100000)
-    for name in ("interp", "plain"):
+    for name in steps:
         m = fresh()
+        if name == "eval":
+            ev = make_flow_eval_step(m, CLASSES, 255)(None, batch)
+            out["eval"] = {k: v.cpu() for k, v in ev.items()}
+            continue
         opt, sched = make_optimizer(m, FitConfig.lr, 10)
-        interp, plain = make_flow_train_step(m, loss_fn, CLASSES, 255)
-        m.cls[3].keep = masks[name].to(dev)
-        _, metrics = (interp if name == "interp" else plain)(TrainState(0, m, opt, sched),
-                                                               batch, None)
+        if name == "supervised":
+            step = make_train_step(m, make_loss_fn("ohem", 0.4, 255, 0.7, 100000), CLASSES, 255)
+        else:
+            interp, plain = make_flow_train_step(m, make_loss_fn("ohem", 0.0, 255, 0.7, 100000),
+                                                 CLASSES, 255)
+            step = interp if name == "interp" else plain
+        _, metrics = step(TrainState(0, m, opt, sched), batch, None)
         out[name] = (float(metrics["loss"]), {k: v.detach().double().cpu().clone()
                                               for k, v in m.state_dict().items()})
-    m = fresh()
-    ev = make_flow_eval_step(m, CLASSES, 255)(None, batch)
-    out["eval"] = {k: v.cpu() for k, v in ev.items()}
     return out
 
 
@@ -1762,32 +1824,43 @@ def step_rel(a: dict, b: dict, p0: dict) -> dict:
     return out
 
 
-def check_train_step_card_vs_cpu(size=65, n=5) -> None:
-    """Phase 4t: one interpolated, one plain and one eval step of PSPNet-50
-    (aux head included) at 65 px crops, batch 2, frame_delta 5, float32 with
-    TF32 off (the steps run under full_precision_f32), on the card against
-    the CPU, each step from the same initial state with the same dropout
-    keep masks (the config's SGD, lr 1e-4): losses within rtol 1e-4; every
-    parameter and BN statistic within 1e-4 of its tensor's largest
-    magnitude; the same tensors moved; and what the step changed (p1 - p0,
-    the gradient through the warps' K1-bwd, the momentum and the weight
-    decay, or the BN statistics' update) within the tensor's float32 noise
-    floor (STEP_FLOOR_FACTOR, STEP_ABS) of the CPU's change; eval counts
-    within 1% of the pixels. The same steps in float64 on the CPU give that
-    floor."""
-    model = random_model("pspnet", torch.float32, seed=4, with_aux=True)
+# phase 4t's models: (name, arch, frame size, train steps)
+STEP_CHECKS = (("PSPNet-50", "pspnet", 65, ("interp", "plain", "supervised", "eval")),
+               ("DeepLabV3-50", "deeplabv3", 65, ("interp", "plain", "eval")),
+               ("ViT-B/32", "vit", 128, ("interp", "plain", "eval")))
+
+
+def check_train_step_card_vs_cpu(arch="pspnet", size=65, n=5,
+                                 steps=("interp", "plain", "eval")) -> None:
+    """Phase 4t for one model: its ``steps`` (PSPNet-50 and DeepLabV3-50
+    with their aux heads at 65 px; ViT-B/32 at 128 px, 4x4 tokens on 8x8
+    grids, so each chain's head up-samples), batch 2, frame_delta 5,
+    float32 with TF32 off (the steps run under full_precision_f32), on the
+    card against the CPU, each step from the same initial state with the
+    same dropout keep masks (the config's SGD, lr 1e-4): losses within rtol
+    1e-4; every parameter and BN statistic within 1e-4 of its tensor's
+    largest magnitude; the same tensors moved; and what the step changed
+    (p1 - p0, the gradient through the warps' K1-bwd, the momentum and the
+    weight decay, or the BN statistics' update) within the tensor's float32
+    noise floor (STEP_FLOOR_FACTOR, STEP_ABS) of the CPU's change; eval
+    counts within 1% of the pixels. The same steps in float64 on the CPU
+    give that floor."""
+    model = random_model(arch, torch.float32, seed=4, image_size=size, with_aux=True)
     p0 = {k: v.detach().double().clone() for k, v in model.state_dict().items()}
-    g = torch.Generator().manual_seed(5)
-    masks = {k: (torch.rand((2, 512, 1, 1), generator=g) < 0.9) for k in ("interp", "plain")}
+    masks = {}
     t0 = time.perf_counter()
-    card = train_steps(model, train_batch(size=size, n=n), masks, torch.device("cuda"))
+    card = train_steps(model, train_batch(size=size, n=n), masks, torch.device("cuda"),
+                       steps=steps)
     t_card = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cpu = train_steps(model, train_batch(size=size, n=n), masks, torch.device("cpu"))
+    cpu = train_steps(model, train_batch(size=size, n=n), masks, torch.device("cpu"),
+                      steps=steps)
     f64 = train_steps(model, train_batch(size=size, n=n), masks, torch.device("cpu"),
-                      torch.float64)
+                      torch.float64, steps=steps)
+    kept = torch.cat([m.reshape(-1).float() for m in masks.values()])
     log(f"  card {t_card:.1f} s, CPU {time.perf_counter() - t0:.1f} s (float32 and float64) "
-        f"for the three steps")
+        f"for the {len(steps)} steps; {len(masks)} dropout masks, keeping "
+        f"{float(kept.mean()):.3f} of {kept.numel()} elements")
 
     def rel_diffs(a, b):
         out = {}
@@ -1797,7 +1870,7 @@ def check_train_step_card_vs_cpu(size=65, n=5) -> None:
                 out[k] = float((a[k] - ref).abs().max()) / scale
         return out
 
-    for name in ("interp", "plain"):
+    for name in (s for s in steps if s != "eval"):
         (lc, sc), (lh, sh), (l64, s64) = card[name], cpu[name], f64[name]
         d = rel_diffs(sc, sh)
         key = max(d, key=d.get)
@@ -1825,7 +1898,8 @@ def check_train_step_card_vs_cpu(size=65, n=5) -> None:
             + "; ".join(f"{k} {e[k]:.2e} | {limit[k]:.2e} | {floor.get(k, 0.0):.2e} | "
                         f"{card_floor.get(k, 0.0):.2e}" for k in worst))
         if not (ok and step_ok):
-            raise AssertionError(f"the {name} train step on the card disagrees with the CPU")
+            raise AssertionError(f"the {arch} {name} train step on the card disagrees with "
+                                 f"the CPU")
     pixels = float(cpu["eval"]["target"].sum())
     diff = {k: float((card["eval"][k] - cpu["eval"][k]).abs().sum()) for k in cpu["eval"]}
     log(f"  eval counts card vs CPU: summed differences {diff} of {pixels:.0f} pixels")
@@ -1838,41 +1912,76 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def train_phase(dev, n=FRAME_DELTA, frame_hw=FRAME_HW, crop=CROP, frames=100, labeled=40,
-                steps=14, warmup=2, profiled=2, val_batches=3) -> dict:
-    """Phase 14: flow-supervised training at full width through run_flow_fit:
-    a 1072x1920 tree of 100 frames from the port's writer (28 train items),
-    the repository's flow config (PSPNet-50 with its aux head, float32,
-    batch 2, 433 px crops, n = 25, SGD, OHEM), ``steps`` interpolated steps
-    (``warmup`` untimed, the last ``profiled`` under torch.profiler) and a
-    validation pass over ``val_batches`` frames. (Smaller arguments rehearse
-    it on the CPU.)"""
-    from torch.profiler import ProfilerActivity, profile as tprofile
+def train_tree(n=FRAME_DELTA, frame_hw=FRAME_HW, frames=100, labeled=40) -> str:
+    """The training phases' tree: ``frames`` frames of 1072x1920 from the
+    port's writer under build/data/train_tree, ``labeled`` of them with
+    labels (28 train items, 6 val)."""
     root = os.path.join(DATA_DIR, "train_tree")
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
     generate_synthetic_dataset(root, num_frames=frames, size=frame_hw, frame_delta=n,
                                num_labeled=labeled)
+    log(f"  tree: {frames} frames of {frame_hw[0]}x{frame_hw[1]} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return root
+
+
+# phases 14-17: (phase, tag, arch, trunk depth, method, crop, steps, warm-up,
+# validation frames); the crop goes through round_train
+TRAIN_PHASES = (
+    ("14", "pspnet_f32_train", "pspnet", 50, "flow_supervised", CROP, 14, 2, 3),
+    ("15", "deeplabv3_f32_train", "deeplabv3", 101, "flow_supervised", CROP, 8, 2, 2),
+    ("16", "vit_f32_train", "vit", 0, "flow_supervised", CROP, 8, 2, 2),
+    ("17", "pspnet_f32_supervised", "pspnet", 50, "supervised", 873, 8, 2, 2),
+)
+
+
+def train_phase(dev, root, tag, arch="pspnet", layers=50, method="flow_supervised",
+                crop=CROP, steps=14, warmup=2, val_batches=3, profiled=2,
+                n=FRAME_DELTA, frame_hw=FRAME_HW) -> dict:
+    """Phases 14-17: training at full width through run_flow_fit
+    (``flow_supervised``) or run_fit (``supervised``) on the tree at
+    ``root``: the repository's configuration for the method (float32,
+    batch 2, the crop through round_train, n = 25, SGD with the heads at
+    10x, OHEM 0.7 / 100000; the single-frame method's rotating transform
+    with MEAN padding and the aux loss at 0.4), ``steps`` steps
+    (``warmup`` untimed, the last ``profiled`` under torch.profiler) and a
+    validation pass over ``val_batches`` frames. The loader alone first.
+    Checks: a finite loss; K1 48 and K1-bwd 48 launches every flow step
+    (and K1 48 a validation frame), K2 and K3 none, and no launch at all in
+    the single-frame method; every BN's running mean moved but, in flow
+    training (which never runs it), the aux head's; after the first flow
+    step each aux parameter equals p0 - 10 lr wd p0. (Smaller arguments
+    rehearse it on the CPU.)"""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    flow = method == "flow_supervised"
+    model = random_model(arch, torch.float32, seed=7, image_size=round_train(crop, arch),
+                         with_aux=True, layers=layers)
     cfg = FitConfig(train_h=crop, train_w=crop, resize_h=frame_hw[0], resize_w=frame_hw[1],
                     frame_delta=n, max_epochs=1, limit_train_batches=steps,
                     limit_val_batches=val_batches)
-    log(f"  tree: {frames} frames of {frame_hw[0]}x{frame_hw[1]} written in "
-        f"{time.perf_counter() - t0:.1f} s; TF32 off (the steps run under "
-        f"full_precision_f32); {cfg}")
+    size = round_train(crop, arch)
+    log(f"  {arch} ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters), "
+        f"{method}, {size} px crops; TF32 off (the steps run under full_precision_f32); {cfg}")
     # the loader alone: host ms a batch (8 threads), before any training
-    ds = FlowDataset("train", root, os.path.join(root, "list", "all", "train.txt"),
-                     transform=flow_transforms(cfg)["train"], frame_delta=n)
+    lst = os.path.join(root, "list", "all", "train.txt")
+    if flow:
+        ds = FlowDataset("train", root, lst, transform=flow_transforms(cfg, arch)["train"],
+                         frame_delta=n)
+    else:
+        ds = SemDataset("train", root, lst, sem_transforms(cfg, arch)["train"])
     loader = DataLoader(ds, batch_size=cfg.batch_size, shuffle=True, num_workers=cfg.workers,
                         seed=cfg.seed, drop_last=True)
     t0, stamps = time.perf_counter(), []
     for b in loader:
         stamps.append(time.perf_counter())
     loader_ms = 1e3 * (stamps[-1] - stamps[0]) / (len(stamps) - 1)
-    log(f"  the loader alone: {len(stamps)} batches, first after "
-        f"{stamps[0] - t0:.2f} s, then {loader_ms:.1f} ms a batch (8 threads)")
+    log(f"  the loader alone: {len(stamps)} batches of {tuple(b['frame_current'].shape)}, "
+        f"first after {stamps[0] - t0:.2f} s, then {loader_ms:.1f} ms a batch (8 threads)")
 
-    model = random_model("pspnet", torch.float32, seed=7, with_aux=True)
-    aux0 = {k: v.detach().clone() for k, v in model.named_parameters() if k.startswith("aux.")}
+    aux_prefix = {"pspnet": "aux.", "deeplabv3": "aux_classifier."}.get(arch)
+    aux0 = {k: v.detach().clone() for k, v in model.named_parameters()
+            if aux_prefix and k.startswith(aux_prefix)}
     bn0 = {k: v.clone() for k, v in model.state_dict().items() if k.endswith("running_mean")}
     counts_by_step, prev = [], {}
     tp = tprofile(activities=[ProfilerActivity.CPU] + (
@@ -1883,7 +1992,7 @@ def train_phase(dev, n=FRAME_DELTA, frame_hw=FRAME_HW, crop=CROP, frames=100, la
         now = launch_counts()
         counts_by_step.append({k: v - prev.get(k, 0) for k, v in now.items()})
         prev.update(now)
-        if step == 0:
+        if step == 0 and flow:
             lr = state.schedule(0) * 10
             for k, p0 in aux0.items():
                 p1 = dict(model.named_parameters())[k].detach().cpu()
@@ -1901,7 +2010,8 @@ def train_phase(dev, n=FRAME_DELTA, frame_hw=FRAME_HW, crop=CROP, frames=100, la
         torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
-    summary = run_flow_fit(model, root, cfg, profiler=prof, on_step=on_step, device=dev)
+    run = run_flow_fit if flow else run_fit
+    summary = run(model, root, cfg, profiler=prof, on_step=on_step, device=dev)
     total = time.perf_counter() - t0
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
@@ -1919,7 +2029,7 @@ def train_phase(dev, n=FRAME_DELTA, frame_hw=FRAME_HW, crop=CROP, frames=100, la
         f"{val_batches} frames; peak memory {peak_gb:.2f} GB")
     if not np.isfinite(epoch["train_loss"]):
         raise AssertionError(f"the training loss is not finite: {epoch['train_loss']}")
-    warps = 2 * (n - 1) if dev.type == "cuda" else 0  # two chains of n - 1 warps
+    warps = 2 * (n - 1) if dev.type == "cuda" and flow else 0  # two chains of n - 1 warps
     per_step = {"grid_sample_cuda": warps, "grid_sample_backward_cuda": warps,
                 "warp_chain_cuda": 0, "resize_quantize_int8_cuda": 0}
     bad = [(i, c) for i, c in enumerate(counts_by_step) if c != per_step]
@@ -1930,23 +2040,27 @@ def train_phase(dev, n=FRAME_DELTA, frame_hw=FRAME_HW, crop=CROP, frames=100, la
         f"{'yes' if not bad else bad}")
     if bad or counts != expected:
         raise AssertionError(f"the training path launched {counts}, steps {bad}")
-    log(f"  aux head after the first step: largest |p1 - (p0 - 10 lr wd p0)| "
-        f"{max(aux_err):.2e} of its tensor's largest magnitude (tol 1e-6)")
-    if not aux_err or max(aux_err) > 1e-6:
-        raise AssertionError(f"the aux head did not take the zero-gradient update: {aux_err}")
+    if flow and aux0:
+        log(f"  aux head after the first step: largest |p1 - (p0 - 10 lr wd p0)| "
+            f"{max(aux_err):.2e} of its tensor's largest magnitude (tol 1e-6)")
+        if not aux_err or max(aux_err) > 1e-6:
+            raise AssertionError(f"the aux head did not take the zero-gradient update: "
+                                 f"{aux_err}")
     after = model.state_dict()
     moved = {k: not torch.equal(v, after[k].cpu()) for k, v in bn0.items()}
-    stuck = [k for k, m in moved.items() if not m and not k.startswith("aux.")]
-    aux_moved = [k for k, m in moved.items() if m and k.startswith("aux.")]
-    log(f"  BN running means moved: {sum(moved.values())} of {len(moved)} (the aux head's "
-        f"{len([k for k in moved if k.startswith('aux.')])} are not run by flow training)")
+    in_aux = {k for k in moved if aux_prefix and k.startswith(aux_prefix)}
+    stuck = [k for k, m in moved.items() if not m and not (flow and k in in_aux)]
+    aux_moved = [k for k in in_aux if flow and moved[k]]
+    log(f"  BN running means moved: {sum(moved.values())} of {len(moved)}"
+        + (f" (the aux head's {len(in_aux)} are not run by flow training)" if flow and in_aux
+           else "" if moved else " (the ViT has no BN)"))
     if stuck or aux_moved:
         raise AssertionError(f"BN statistics: not moved {stuck}, aux moved {aux_moved}")
 
     os.makedirs(PROFILE_DIR, exist_ok=True)
-    trace = os.path.join(PROFILE_DIR, "pspnet_f32_train_trace.json")
+    trace = os.path.join(PROFILE_DIR, f"{tag}_trace.json")
     tp.export_chrome_trace(trace)
-    with open(os.path.join(PROFILE_DIR, "pspnet_f32_train_profile.txt"), "w") as f:
+    with open(os.path.join(PROFILE_DIR, f"{tag}_profile.txt"), "w") as f:
         f.write(tp.key_averages().table(sort_by="cuda_time_total", row_limit=40))
     with open(trace) as f:
         kernels = [e for e in json.load(f)["traceEvents"]
@@ -1966,6 +2080,39 @@ def train_phase(dev, n=FRAME_DELTA, frame_hw=FRAME_HW, crop=CROP, frames=100, la
     return {"launches": counts, "step_ms": step_ms, "wait_ms": wait_ms, "loader_ms": loader_ms,
             "peak_gb": peak_gb, "busy_ms": dt["busy_ms"], "span_ms": span / profiled,
             "family_ms": families, "train_loss": epoch["train_loss"]}
+
+
+def training_phases(dev) -> tuple:
+    """Phases 3t, 4t and 14-17 in order; returns (3t's errors, 3t's timing,
+    each phase's result by tag)."""
+    log("[3t] K1 and K1-bwd at the training shapes (batch 2, 433 px crops, C = 4096; "
+        "DeepLabV3 C = 2048; the ViT's 416 px crops, C = 768)")
+    errs, timing = {}, {}
+    for arch, dtypes in (("pspnet", (torch.float32, torch.bfloat16)),
+                         ("deeplabv3", (torch.float32,)), ("vit", (torch.float32,))):
+        e, t = check_train_kernels(dev, arch, dtypes)
+        timing.update(t)
+        for kname, by in e.items():
+            for tag, v in by.items():
+                errs.setdefault(kname, {})[tag] = max(errs.get(kname, {}).get(tag, 0.0), v)
+    for name, arch, size, steps in STEP_CHECKS:
+        log(f"[4t] train steps on the card against the CPU ({name}, {size} px, float32: "
+            f"{', '.join(steps)})")
+        check_train_step_card_vs_cpu(arch, size=size, steps=steps)
+    log("[14-17] training at full width")
+    root = train_tree()
+    results = {}
+    names = {"pspnet": "PSPNet-50", "deeplabv3": "DeepLabV3-101", "vit": "ViT-B/32"}
+    for phase, tag, arch, layers, method, crop, steps, warmup, val in TRAIN_PHASES:
+        t0 = time.perf_counter()
+        log(f"[{phase}] {method} through {'run_flow_fit' if method != 'supervised' else 'run_fit'}"
+            f": {names[arch]} float32, batch 2, {round_train(crop, arch)} px crops of "
+            f"{FRAME_HW[0]}x{FRAME_HW[1]} frames" + (f", n = {FRAME_DELTA}"
+                                                      if method != "supervised" else ""))
+        results[tag] = train_phase(dev, root, tag, arch, layers, method, crop, steps, warmup,
+                                   val)
+        log(f"  phase {phase}: {time.perf_counter() - t0:.1f} s")
+    return errs, timing, results
 
 
 # ------------------------------------------------------------------ main
@@ -2114,17 +2261,11 @@ def k3_alone(seed=0) -> int:
 
 
 def train_alone() -> int:
-    """--train: build csrc/warp.cu and the codec, then phases 3t, 4t and 14."""
+    """--train: build csrc/warp.cu and the codec, then phases 3t, 4t and 14-17."""
     log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda}")
     build_kernels(["warp", "jpeg"])
-    dev = torch.device("cuda")
-    log("[3t] K1 and K1-bwd at the training shapes")
-    check_train_kernels(dev)
-    log("[4t] one train step on the card against the CPU")
-    check_train_step_card_vs_cpu()
-    log("[14] flow-supervised training at full width through run_flow_fit")
-    train_phase(dev)
+    training_phases(torch.device("cuda"))
     return 0
 
 
@@ -2192,9 +2333,6 @@ def main() -> int:
 
     log("[3c] K1 and K2 at the crop route's shapes (PSPNet-50, 433 px crops, C = 4096)")
     crop_errs, crop_timing = check_crop_kernels(model, dev)
-    log("[3t] K1 and K1-bwd at the training shapes (batch 2, 433 px crops, C = 4096)")
-    train_errs, train_timing, _ = check_train_kernels(dev)
-
     log("[4] slice on the card against the slice on the CPU (float32)")
     check_slice_card_vs_cpu()
     check_slice_card_vs_cpu(int8=True)
@@ -2208,9 +2346,6 @@ def main() -> int:
     log("[4v] ViT-B/32 slice on the card against the CPU (float32, then bf16)")
     check_slice_card_vs_cpu("vit", size=128)
     check_slice_card_vs_cpu("vit", size=128, dtype=torch.bfloat16)
-    log("[4t] one train step on the card against the CPU (PSPNet-50, 65 px, float32)")
-    check_train_step_card_vs_cpu()
-
     vit_model = random_model("vit", torch.bfloat16, seed=0)
     models = {"pspnet": model, "deeplabv3": dl_model, "vit": vit_model}
     names = {"pspnet": "PSPNet-50", "deeplabv3": "DeepLabV3-50", "vit": "ViT-B/32"}
@@ -2264,11 +2399,9 @@ def main() -> int:
     crop_card_vs_cpu()
     log(f"  phases 10-12: {time.perf_counter() - t_files:.1f} s")
     t_train = time.perf_counter()
-    log(f"[14] flow-supervised training at full width through run_flow_fit: PSPNet-50 "
-        f"float32, batch 2, {CROP} px crops of {FRAME_HW[0]}x{FRAME_HW[1]} frames, "
-        f"n = {FRAME_DELTA}")
-    paths["pspnet_f32_train"] = train = train_phase(dev)
-    log(f"  phase 14: {time.perf_counter() - t_train:.1f} s")
+    train_errs, train_timing, train_paths = training_phases(dev)
+    paths.update(train_paths)
+    log(f"  phases 3t, 4t, 14-17: {time.perf_counter() - t_train:.1f} s")
 
     sources = {"grid_sample_cuda": ("floodseg_tpu/ops/pallas_warp.py:70", "warp.cu"),
                "grid_sample_backward_cuda": (
@@ -2282,13 +2415,19 @@ def main() -> int:
     extra_rows = {"grid_sample_cuda": {
         "crop": crop_timing["grid_sample_cuda (crop -> 27x27)"],
         "crop_key_resample": crop_timing[
-            "grid_sample_cuda (crop -> 67x120 identity, align_corners=True)"],
-        "train_head_f32": train_timing["grid_sample_cuda (train head, float32)"],
-        "train_step_f32": train_timing["grid_sample_cuda (train step, float32)"]},
+            "grid_sample_cuda (crop -> 67x120 identity, align_corners=True)"]},
         "grid_sample_backward_cuda": {
-            "train_head_f32": train_timing["grid_sample_backward_cuda (train head, float32)"],
             "train_head_bf16": train_timing["grid_sample_backward_cuda (train head, bf16)"]},
         "warp_chain_cuda": {"crop": crop_timing["warp_chain_cuda (27x27, 23 steps)"]}}
+    # the training rows, "train_{head,step}_f32[_arch]" (K1-bwd's PSPNet step
+    # row is its main timing above)
+    for arch in TRAIN_SHAPES:
+        label, suffix = ("", "") if arch == "pspnet" else (f"{arch} ", f"_{arch}")
+        for kname in ("grid_sample_cuda", "grid_sample_backward_cuda"):
+            for part in ("head", "step"):
+                if (kname, arch, part) != ("grid_sample_backward_cuda", "pspnet", "step"):
+                    extra_rows[kname][f"train_{part}_f32{suffix}"] = train_timing[
+                        f"{kname} ({label}train {part}, float32)"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for kname, (replaces, src) in sources.items():
@@ -2311,8 +2450,8 @@ def main() -> int:
             **{shape: {k: r[k] for k in keys} for shape, r in extra_rows.get(kname, {}).items()},
             "passed": True})
     log(f"  codec {json.dumps({k: round(v, 3) for k, v in codec.items()})}; crop route "
-        f"{crop['seconds']['predict_interference']:.3f} s a window; training "
-        f"{train['step_ms']:.1f} ms a step")
+        f"{crop['seconds']['predict_interference']:.3f} s a window; training ms a step "
+        f"{ {tag: round(r['step_ms'], 1) for tag, r in train_paths.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -17,16 +17,17 @@ Layout:
            quantization of the decoders, the losses, segmentation metrics,
            the kernels' wrappers (warp_kernels: K1, K1-bwd and the
            differentiable warp, K2; resize_kernels: K3)
-  models/  PSPNet (which trains), DeepLabV3 and the Segmenter ViT (eval)
-           with the reference's torch key names, and the weight bridge
+  models/  PSPNet, DeepLabV3 and the Segmenter ViT, each in eval and
+           training mode, with the reference's torch key names, and the
+           weight bridge
   video/   block-MV grid algebra (with the crop renormalisation) and the
            keyframe-warp interpolator, predict and training
   train/   flow-predict program builders (whole windows, cached, crops), the
            sliding-window predict, run_predict and run_flow_predict; the
            optimizers, the train state, the supervised and flow train and
-           eval steps, and run_flow_fit
+           eval steps, run_fit and run_flow_fit
   data/    JPEG/PNG codec and MJPG AVI, the predict and train transforms
-           (cv2's arithmetic without cv2), FlowDataset, collate, the
+           (cv2's arithmetic without cv2), SemDataset, FlowDataset, collate, the
            prefetching DataLoader and device_put, synthetic clips in memory
            and as a dataset tree
 """

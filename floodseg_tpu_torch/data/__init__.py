@@ -1,5 +1,11 @@
 from floodseg_tpu_torch.data.avi import MJPGWriter, read_mjpg_avi
-from floodseg_tpu_torch.data.dataset import ConcatDataset, FlowDataset, collate, parse_list
+from floodseg_tpu_torch.data.dataset import (
+    ConcatDataset,
+    FlowDataset,
+    SemDataset,
+    collate,
+    parse_list,
+)
 from floodseg_tpu_torch.data.image import imread, write_jpeg, write_png
 from floodseg_tpu_torch.data.loader import DataLoader, device_put
 from floodseg_tpu_torch.data.synthetic import (
@@ -16,6 +22,7 @@ from floodseg_tpu_torch.data.transforms import (
     Normalize,
     RandomGaussianBlur,
     RandomHorizontalFlip,
+    RandRotate,
     RandScale,
     Resize,
     ScaleBlurFlipCrop,
@@ -27,8 +34,9 @@ from floodseg_tpu_torch.data.transforms import (
 )
 
 __all__ = ["MEAN", "STD", "Compose", "ConcatDataset", "Crop", "DataLoader", "FlowDataset",
-           "IgnoreClasses", "MJPGWriter", "Normalize", "RandScale", "RandomGaussianBlur",
-           "RandomHorizontalFlip", "Resize", "ScaleBlurFlipCrop", "ToFloat",
-           "build_test_transform", "build_train_transform", "build_val_transform", "collate", "device_put", "generate_synthetic_dataset",
+           "IgnoreClasses", "MJPGWriter", "Normalize", "RandRotate", "RandScale",
+           "RandomGaussianBlur", "RandomHorizontalFlip", "Resize", "ScaleBlurFlipCrop",
+           "SemDataset", "ToFloat", "build_test_transform", "build_train_transform",
+           "build_val_transform", "collate", "device_put", "generate_synthetic_dataset",
            "imread", "parse_list", "predict_windows", "read_mjpg_avi", "resize_frames",
            "synthetic_clip", "write_jpeg", "write_png"]

@@ -1,5 +1,5 @@
 """Datasets over the reference's on-disk layout (counterpart of
-floodseg_tpu/data/dataset.py; ``SemDataset`` comes with training).
+floodseg_tpu/data/dataset.py).
 
 Layout:
   <root>/frames/<video>/images/<frame_id>.jpg
@@ -36,6 +36,41 @@ def parse_list(list_path: str, min_frame_id: Optional[int] = None) -> List[Tuple
                 continue
             items.append((label_name, video_id, frame_id))
     return items
+
+
+class SemDataset:
+    """Single-frame dataset (reference util/dataset.py SemData).
+
+    split:
+      train/val: image + label
+      test:      image + an all-zero uint8 label (the unlabeled streams)
+    """
+
+    def __init__(self, split: str, data_root: str, list_path: str,
+                 transform: Optional[Callable] = None):
+        self.split = split
+        self.data_root = data_root
+        self.items = parse_list(list_path)
+        self.transform = transform
+
+    def __len__(self):
+        return len(self.items)
+
+    def frame_path(self, video_id: str, frame_id: int) -> str:
+        return os.path.join(self.data_root, "frames", video_id, "images", f"{frame_id}.jpg")
+
+    def get(self, index: int, rng: np.random.Generator) -> Dict:
+        label_name, video_id, frame_id = self.items[index]
+        image = imread(self.frame_path(video_id, frame_id))
+        if self.split == "test":
+            label = np.zeros(image.shape[:2], dtype=np.uint8)
+        else:
+            label = imread(os.path.join(self.data_root, label_name))
+        sample = {"frame_current": image, "label": label}
+        if self.transform is not None:
+            sample = self.transform(sample, rng)
+        sample["label"] = np.asarray(sample["label"], dtype=np.int32)
+        return sample
 
 
 class FlowDataset:

@@ -14,11 +14,13 @@ of cv2 on uint8 frames and equal at a frame's own size. The train
 transforms reproduce cv2's arithmetic instead (ops/cv2_compat.py):
 cv2.resize(None, fx, fy) sizes the output with round(w * fx) and maps with
 1 / fx; GaussianBlur((5, 5), 0) is the fixed [1, 4, 6, 4, 1] / 16 table;
-labels resize by INTER_NEAREST's floor(x / fx) rule. ``RandRotate`` (cv2.warpAffine) runs only on the
-single-frame and ``no_warp`` pipelines and is not ported yet.
+labels resize by INTER_NEAREST's floor(x / fx) rule; ``RandRotate``
+(getRotationMatrix2D and warpAffine, frames bilinear and labels nearest,
+constant borders) runs only on the single-frame and ``no_warp``
+pipelines, since grids cannot rotate.
 """
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +31,8 @@ from floodseg_tpu_torch.ops.cv2_compat import (
     cv2_gaussian_blur_5,
     cv2_resize_linear,
     cv2_resize_nearest,
+    rotation_matrix_2d,
+    warp_affine,
 )
 from floodseg_tpu_torch.ops.resize import resize_bilinear
 from floodseg_tpu_torch.video.grid import crop_motion_vectors_np, flip_grid_np
@@ -157,6 +161,49 @@ class RandScale:
         return self.apply(sample, *self.draw(rng))
 
 
+class RandRotate:
+    """With probability ``p``, rotate frames and label by an angle drawn
+    uniformly from ``rotate`` (degrees) about the centre of the label (or
+    of frame_current), keeping their size: frames bilinear with the
+    ``padding`` border, the label nearest with ``ignore_label``. Grids are
+    untouched: the pipelines that rotate carry none, or ignore them."""
+
+    def __init__(self, rotate, padding, ignore_label=255, p=0.5):
+        self.rotate = rotate
+        self.padding = padding
+        self.ignore_label = ignore_label
+        self.p = p
+
+    def draw(self, rng) -> Optional[float]:
+        """The angle, or None when the coin says no rotation (the JAX
+        transform's draws: the coin, then the angle)."""
+        if rng.random() >= self.p:
+            return None
+        return self.rotate[0] + (self.rotate[1] - self.rotate[0]) * rng.random()
+
+    @staticmethod
+    def matrix(hw, angle: float) -> np.ndarray:
+        h, w = hw
+        return rotation_matrix_2d((w / 2, h / 2), angle, 1)
+
+    def apply(self, sample, angle: float):
+        ref = sample.get("label")
+        if ref is None:
+            ref = sample["frame_current"]
+        h, w = np.asarray(ref).shape[:2]
+        m = self.matrix((h, w), angle)
+        _map_frames(sample, lambda im: warp_affine(np.asarray(im), m, (w, h),
+                                                   border_value=self.padding))
+        if sample.get("label") is not None:
+            sample["label"] = warp_affine(np.asarray(sample["label"]), m, (w, h),
+                                          nearest=True, border_value=self.ignore_label)
+        return sample
+
+    def __call__(self, sample, rng):
+        angle = self.draw(rng)
+        return sample if angle is None else self.apply(sample, angle)
+
+
 class RandomGaussianBlur:
     """With probability 1/2, blur every frame with the 5x5 kernel of sigma 0."""
 
@@ -267,27 +314,34 @@ class Crop:
 
 
 class ScaleBlurFlipCrop:
-    """RandScale, RandomGaussianBlur, RandomHorizontalFlip and a rand Crop
-    in one transform: the same draws in the same order and the same pixels,
-    computed on the crop window only.
+    """RandScale, RandRotate (when ``rotate`` is given), RandomGaussianBlur,
+    RandomHorizontalFlip and a rand Crop in one transform: the same draws
+    in the same order and the same pixels, computed on the crop window
+    only.
 
-    The scale is separable and pointwise in its output indices, the blur
-    reads a 2-pixel halo (reflected at the scaled frame's border) and
-    commutes with the flip (a symmetric kernel and border), so each frame's
-    window comes from the scaled pixels at the window's rows and columns
-    plus the halo, in flipped order when flipped. A scaled frame smaller
-    than the crop takes the unfused path (full frames, then Crop's padding).
-    Grids are flipped, then cropped, as the unfused transforms do.
+    The scale is separable and pointwise in its output indices, the
+    rotation pointwise in its output pixel (its source coordinates depend
+    on that pixel's row and column alone), the blur reads a 2-pixel halo
+    (reflected at the frame's border) and commutes with the flip (a
+    symmetric kernel and border), so each frame's window comes from the
+    rotated pixels at the window's rows and columns plus the halo, in
+    flipped order when flipped, and those from the scaled pixels of the
+    block their taps read. A scaled frame smaller than the crop takes the
+    unfused path (full frames, then Crop's padding). Grids are flipped,
+    then cropped, as the unfused transforms do.
     """
 
-    def __init__(self, scale, size, padding=None, ignore_label=255):
+    def __init__(self, scale, size, padding=None, ignore_label=255,
+                 rotate: Optional[RandRotate] = None):
         self.scale = RandScale(scale)
+        self.rotate = rotate
         self.blur = RandomGaussianBlur()
         self.flip = RandomHorizontalFlip()
         self.crop = Crop(size, crop_type="rand", padding=padding, ignore_label=ignore_label)
 
     def __call__(self, sample, rng):
         fy, fx = self.scale.draw(rng)
+        angle = self.rotate.draw(rng) if self.rotate is not None else None
         blur = self.blur.draw(rng)
         flip = self.flip.draw(rng)
         ref = np.asarray(Crop._ref(sample))
@@ -298,6 +352,8 @@ class ScaleBlurFlipCrop:
                    for k in _FRAMES + ("label",) if sample.get(k) is not None)
         if h < ch or w < cw or not same:
             self.scale.apply(sample, fy, fx)
+            if angle is not None:
+                self.rotate.apply(sample, angle)
             if blur:
                 _map_frames(sample, cv2_gaussian_blur_5)
             if flip:
@@ -311,16 +367,29 @@ class ScaleBlurFlipCrop:
         cols = reflect101(np.arange(w_off - halo, w_off + cw + halo), w)
         if flip:
             cols = w - 1 - cols
+        m = None if angle is None else RandRotate.matrix((h, w), angle)
 
         def window(im):
-            p = cv2_resize_linear(im, (h, w), (fy, fx), rows=rows, cols=cols)
+            if m is None:
+                p = cv2_resize_linear(im, (h, w), (fy, fx), rows=rows, cols=cols)
+            else:
+                p = warp_affine(((h, w), lambda r, c: cv2_resize_linear(
+                    im, (h, w), (fy, fx), rows=r, cols=c)), m, (w, h),
+                    border_value=self.rotate.padding, rows=rows, cols=cols)
             return np.ascontiguousarray(blur_5_valid(p) if blur else p)
 
         _map_frames(sample, window)
-        if sample.get("label") is not None:
-            sample["label"] = np.ascontiguousarray(cv2_resize_nearest(
-                np.asarray(sample["label"]), (h, w), (fy, fx),
-                rows=rows[halo:halo + ch], cols=cols[halo:halo + cw]))
+        label = sample.get("label")
+        if label is not None:
+            label = np.asarray(label)
+            lr, lc = rows[halo:halo + ch], cols[halo:halo + cw]
+            if m is None:
+                out = cv2_resize_nearest(label, (h, w), (fy, fx), rows=lr, cols=lc)
+            else:
+                out = warp_affine(((h, w), lambda r, c: cv2_resize_nearest(
+                    label, (h, w), (fy, fx), rows=r, cols=c)), m, (w, h), nearest=True,
+                    border_value=self.rotate.ignore_label, rows=lr, cols=lc)
+            sample["label"] = np.ascontiguousarray(out)
         if flip:
             _map_grids(sample, flip_grid_np)
         for k in _GRIDS:
@@ -368,22 +437,21 @@ def build_test_transform(classes_ignore=None, resize=(1072, 1920),
 
 def build_train_transform(train_h: int, train_w: int, classes_ignore=None,
                           scale_min: float = 0.5, scale_max: float = 2.0,
-                          resize=(1072, 1920), with_rotate: bool = False,
+                          resize=(1072, 1920), with_rotate: bool = True,
                           crop_padding=MEAN, ignore_index: int = 255,
                           normalize: bool = True) -> Compose:
-    """Ignore classes, resize, random scale, random blur, random flip,
-    random crop (the four as ``ScaleBlurFlipCrop``), then normalize (or
-    only float32). The flow pipeline's form (``with_rotate=False``, grids
-    cannot rotate); RandRotate is not ported yet, so ``with_rotate=True``
-    raises."""
-    if with_rotate:
-        raise NotImplementedError("RandRotate (the single-frame and no_warp pipelines) "
-                                  "is not ported yet")
+    """Ignore classes, resize, random scale, random rotation in [-10, 10]
+    degrees (``with_rotate``: the single-frame pipeline and the flow
+    ``no_warp`` one, where there are no grids to rotate; padded with MEAN),
+    random blur, random flip, random crop (all as ``ScaleBlurFlipCrop``),
+    then normalize (or only float32)."""
+    rotate = (RandRotate([-10, 10], padding=MEAN, ignore_label=ignore_index)
+              if with_rotate else None)
     return Compose([
         IgnoreClasses(classes_ignore),
         Resize(resize),
         ScaleBlurFlipCrop([scale_min, scale_max], [train_h, train_w], padding=crop_padding,
-                          ignore_label=ignore_index),
+                          ignore_label=ignore_index, rotate=rotate),
         Normalize() if normalize else ToFloat(),
     ])
 

@@ -2,8 +2,8 @@
 
 The port has the three flow-predict architectures: PSPNet and DeepLabV3
 (ResNet-50/101/152 trunks) and the Segmenter ViT (ViT-B/32 with the
-MaskTransformer decoder). PSPNet also trains (training-mode BN, its
-channel dropout, the aux head); DeepLabV3 and the ViT are eval only.
+MaskTransformer decoder). All three train: training-mode BN, each one's
+dropout (models/layers.py::Dropout), the CNNs' aux heads.
 """
 
 import torch

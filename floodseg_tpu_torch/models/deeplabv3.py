@@ -1,21 +1,23 @@
-"""DeepLabV3 (ResNet + ASPP), eval.
+"""DeepLabV3 (ResNet + ASPP).
 
 Counterpart of floodseg_tpu/models/deeplabv3.py: the torchvision-style
 trunk (7x7 stem, layer3 and layer4 dilated torchvision's way, stride 8),
 the DeepLabHead (ASPP with rates 12, 24, 36 and an image-pooling branch,
 projected 1280 -> 256, then a 3x3 256 -> 256, BN, ReLU and a 1x1 to the
 classes) and, with ``with_aux``, the FCNHead on layer3 (1024 -> 256 ->
-classes; training only, built so that a full checkpoint strict-loads).
-``encode`` returns the trunk's 2048-channel c4 and ``decode`` runs the
-DeepLabHead, the flow path's split; ``forward`` upsamples with
-align_corners=False, as torchvision does.
+classes). ``encode`` returns the trunk's 2048-channel c4 and ``decode``
+runs the DeepLabHead, the flow path's split; ``forward`` upsamples with
+align_corners=False, as torchvision does, and in training mode also
+returns the FCNHead's logits on layer3 (``aux``), resized the same way, as
+the JAX module's ``__call__(train=True)`` does.
 
 The module tree carries torchvision's ``deeplabv3_resnet50`` key names
 (``backbone.{conv1,bn1,layerX.Y.*}``, ``classifier.0.convs.{0..4}``,
 ``classifier.0.project``, ``classifier.{1,2,4}``, ``aux_classifier.{0,1,4}``),
-so ``models/convert.py``'s output strict-loads into it. Dropout is the
-identity in eval. Inference only: the ASPP's and the heads' dropout come
-with DeepLabV3's training slice, and a model in training mode raises.
+so ``models/convert.py``'s output strict-loads into it. The ASPP
+projection's dropout (0.5) and the FCNHead's (0.1) are the port's element
+``Dropout`` (flax's ``nn.Dropout`` without broadcast dims), which draws
+only from an explicit generator; the identity in eval.
 
 Public methods take and return NHWC tensors, as the JAX package does.
 """
@@ -25,7 +27,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from floodseg_tpu_torch.models.layers import BatchNorm2d, Conv2d
+from floodseg_tpu_torch.models.layers import BatchNorm2d, Conv2d, Dropout
 from floodseg_tpu_torch.models.pspnet import _nchw, _nhwc
 from floodseg_tpu_torch.models.resnet import ResNetFeatures
 from floodseg_tpu_torch.ops.pool import global_avg_pool
@@ -76,7 +78,7 @@ class ASPP(nn.Module):
             + [ASPPPooling(in_ch, out_ch, dtype)])
         self.project = nn.Sequential(
             Conv2d((len(rates) + 2) * out_ch, out_ch, 1, bias=False, dtype=dtype),
-            BatchNorm2d(out_ch, dtype), nn.ReLU(inplace=True), nn.Dropout(dropout))
+            BatchNorm2d(out_ch, dtype), nn.ReLU(inplace=True), Dropout(dropout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.project(torch.cat([branch(x) for branch in self.convs], dim=1))
@@ -98,7 +100,7 @@ def fcn_head(in_ch: int, classes: int, dropout: float = 0.1,
     mid = in_ch // 4
     return nn.Sequential(
         Conv2d(in_ch, mid, 3, padding=1, bias=False, dtype=dtype),
-        BatchNorm2d(mid, dtype), nn.ReLU(inplace=True), nn.Dropout(dropout),
+        BatchNorm2d(mid, dtype), nn.ReLU(inplace=True), Dropout(dropout),
         Conv2d(mid, classes, 1, dtype=dtype))
 
 
@@ -115,25 +117,21 @@ class DeepLabV3(nn.Module):
         if with_aux:
             self.aux_classifier = fcn_head(1024, classes, dtype=dtype)
 
-    def _eval_only(self) -> None:
-        if self.training:
-            raise NotImplementedError(
-                "DeepLabV3 in training mode (the ASPP's and the heads' dropout) "
-                "belongs to its training slice of the port; call .eval() first")
-
     def encode(self, x: torch.Tensor):
         """Trunk: NHWC images -> (NHWC 2048-channel c4 at stride 8, the
         trunk's NHWC {"c2", "c3", "c4"})."""
-        self._eval_only()
         feats = self.backbone.features(_nchw(x))
         return _nhwc(feats["c4"]).contiguous(), {k: _nhwc(v) for k, v in feats.items()}
 
     def decode(self, f: torch.Tensor) -> torch.Tensor:
         """DeepLabHead only (the flow path's decoder), NHWC; no upsampling."""
-        self._eval_only()
         return _nhwc(self.classifier(_nchw(f))).contiguous()
 
     def forward(self, x: torch.Tensor) -> dict:
         h, w = x.shape[1], x.shape[2]
-        pred = self.decode(self.encode(x)[0])
-        return {"pred": resize_bilinear(pred, (h, w), align_corners=False)}
+        f, feats = self.encode(x)
+        out = {"pred": resize_bilinear(self.decode(f), (h, w), align_corners=False)}
+        if self.training and hasattr(self, "aux_classifier"):
+            aux = _nhwc(self.aux_classifier(_nchw(feats["c3"])))
+            out["aux"] = resize_bilinear(aux, (h, w), align_corners=False)
+        return out

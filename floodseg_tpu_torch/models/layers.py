@@ -12,7 +12,7 @@ permute to the NHWC layout of the public functions costs nothing.
 
 import contextlib
 import math
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -79,26 +79,34 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y.to(self.compute_dtype)
 
 
-class ChannelDropout(nn.Module):
-    """Channel dropout on NCHW maps, as flax's ``nn.Dropout(rate,
-    broadcast_dims=(1, 2))`` on NHWC (the JAX SegHead's, the reference's
-    ``nn.Dropout2d``): in training each (sample, channel) map is kept with
-    probability 1 - rate, ``where(keep, x / keep_prob, 0)``; in eval the
-    identity.
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout(rate, broadcast_dims)``: in training each element
+    (each slice along the axes not in ``broadcast_dims``) is kept with
+    probability 1 - rate, ``where(keep, x / keep_prob, 0)`` with keep_prob
+    rounded to x's dtype first, as flax divides by a weakly typed scalar
+    (torch's ``x * mask / keep_prob`` rounds otherwise); in eval the
+    identity. ``broadcast_dims`` are axes of the tensor the module is given:
+    (2, 3) on an NCHW map is flax's channel dropout over NHWC's (1, 2) (the
+    PSPNet SegHead's, the reference's ``nn.Dropout2d``); () is element
+    dropout (DeepLabV3's heads, the ViT).
 
-    The keep mask is ``keep`` when a caller has set it (a (B, C, 1, 1)
-    bool tensor; the tests inject flax's mask), else drawn with
-    ``torch.rand(..., generator=generator) < keep_prob`` on x's device. The
-    training steps set ``generator`` for each call (``dropout_generator``);
-    without either, training mode raises: the port never draws from
-    torch's global generator.
+    The keep mask is ``keep`` when a caller has set it (a bool tensor that
+    broadcasts to x; the tests inject flax's masks), else drawn with
+    ``torch.rand(shape, generator=generator) < keep_prob`` on x's device.
+    The training steps set ``generator`` for each call
+    (``dropout_generator``); without either, training mode raises: the port
+    never draws from torch's global generator.
     """
 
-    def __init__(self, rate: float = 0.1):
+    def __init__(self, rate: float = 0.1, broadcast_dims: Sequence[int] = ()):
         super().__init__()
         self.rate = rate
+        self.broadcast_dims = tuple(broadcast_dims)
         self.generator: Optional[torch.Generator] = None
         self.keep: Optional[torch.Tensor] = None
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}, broadcast_dims={self.broadcast_dims}"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -109,19 +117,20 @@ class ChannelDropout(nn.Module):
         keep = self.keep
         if keep is None:
             if self.generator is None:
-                raise RuntimeError("ChannelDropout in training mode needs a keep mask "
+                raise RuntimeError("Dropout in training mode needs a keep mask "
                                    "or a generator (dropout_generator)")
-            keep = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=self.generator,
-                              device=x.device) < keep_prob
-        return torch.where(keep.to(x.device), x / keep_prob, torch.zeros_like(x))
+            shape = [1 if d in self.broadcast_dims else n for d, n in enumerate(x.shape)]
+            keep = torch.rand(shape, generator=self.generator, device=x.device) < keep_prob
+        scale = float(torch.tensor(keep_prob, dtype=x.dtype))
+        return torch.where(keep.to(x.device), x / scale, torch.zeros_like(x))
 
 
 @contextlib.contextmanager
 def dropout_generator(module: nn.Module,
                       generator: Optional[torch.Generator]) -> Iterator[None]:
-    """Every ``ChannelDropout`` in ``module`` draws from ``generator`` inside
-    the block; the previous generators are restored after it."""
-    drops = [m for m in module.modules() if isinstance(m, ChannelDropout)]
+    """Every ``Dropout`` in ``module`` draws from ``generator`` inside the
+    block; the previous generators are restored after it."""
+    drops = [m for m in module.modules() if isinstance(m, Dropout)]
     prev = [m.generator for m in drops]
     for m in drops:
         m.generator = generator

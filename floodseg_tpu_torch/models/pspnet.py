@@ -7,8 +7,8 @@ layer3 (1024 -> 256 -> classes). ``encode`` returns the 4096-channel map at
 stride 8 and ``decode`` runs the cls head, the flow path's split. In
 training mode ``forward`` also returns the aux head's logits on layer3, as
 the JAX module's ``__call__(train=True)`` does; the heads' dropout is the
-port's ``ChannelDropout`` (flax's channel dropout), which draws only from
-an explicit generator.
+port's ``Dropout`` broadcast over H and W (flax's channel dropout), which
+draws only from an explicit generator.
 
 The module tree carries the reference's torch key names (``layer0.{0,1,3,
 4,6,7}``, ``layerX.Y.*``, ``ppm.features.i.{1,2}``, ``cls.{0,1,4}``,
@@ -23,7 +23,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from floodseg_tpu_torch.models.layers import BatchNorm2d, ChannelDropout, Conv2d
+from floodseg_tpu_torch.models.layers import BatchNorm2d, Conv2d, Dropout
 from floodseg_tpu_torch.models.resnet import ResNetFeatures
 from floodseg_tpu_torch.ops.pool import adaptive_avg_pool
 from floodseg_tpu_torch.ops.resize import resize_bilinear
@@ -77,7 +77,7 @@ def seg_head(in_dim: int, mid: int, out: int, dropout: float = 0.1,
         Conv2d(in_dim, mid, 3, padding=1, bias=False, dtype=dtype),
         BatchNorm2d(mid, dtype),
         nn.ReLU(inplace=True),
-        ChannelDropout(dropout),
+        Dropout(dropout, broadcast_dims=(2, 3)),
         Conv2d(mid, out, 1, dtype=dtype))
 
 

@@ -1,5 +1,4 @@
-"""Segmenter ViT (eval): the patch-embed encoder and the MaskTransformer
-decoder.
+"""Segmenter ViT: the patch-embed encoder and the MaskTransformer decoder.
 
 Counterpart of floodseg_tpu/models/vit.py: by default ViT-B/32 (d = 768,
 12 layers, 12 heads, MLP 3072) and a 2-layer MaskTransformer, or the linear
@@ -28,9 +27,17 @@ keeps the reference's stride-P conv weight (D, 3, P, P) and computes
 patchify and a product with it laid out as the JAX package's (P*P*3, D)
 kernel, rows in (py, px, c) order.
 
-Inference only: Dropout and DropPath come with the training slice, and a
-module in training mode raises. The U2PL rep head (``with_rep``) and
-``ViTClassifier`` are not ported yet. Public methods take and return NHWC.
+Training mode runs the JAX package's dropout (rate ``dropout``, 0.1 by
+default) at flax's sites and in flax's order: on the attention
+probabilities after the float32 softmax and its cast (``attn_drop``), after
+the attention's ``proj`` (``proj_drop``), after each of the FeedForward's
+two Linear layers (``drop1``, ``drop2``), on the tokens after the position
+embedding (``pos_drop``), and in every MaskTransformer block. Each is the
+port's element ``Dropout``, which holds no parameters and draws only from
+an explicit generator. DropPath is not ported: ``SegmenterViT`` never sets
+a drop-path rate, so every DropPath of the JAX package runs at rate 0. The
+U2PL rep head (``with_rep``) and ``ViTClassifier`` are not ported yet.
+Public methods take and return NHWC.
 """
 
 from typing import Optional, Tuple
@@ -39,15 +46,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from floodseg_tpu_torch.models.layers import LayerNorm, Linear
+from floodseg_tpu_torch.models.layers import Dropout, LayerNorm, Linear
 from floodseg_tpu_torch.ops.resize import resize_bilinear
-
-
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} in training mode (Dropout, DropPath) "
-            "belongs to the training slice of the port; call .eval() first")
 
 
 def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
@@ -76,48 +76,53 @@ class PatchEmbed(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, d_model: int, heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, d_model: int, heads: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.heads = heads
         self.qkv = Linear(d_model, 3 * d_model, dtype=dtype)
+        self.attn_drop = Dropout(dropout)
         self.proj = Linear(d_model, d_model, dtype=dtype)
+        self.proj_drop = Dropout(dropout)
         # the JAX package multiplies dtype-valued scores by hd**-0.5, a
         # weakly typed scalar that is first rounded to dtype
         self.scale = float(torch.tensor((d_model // heads) ** -0.5, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
         b, n, d = x.shape
         qkv = self.qkv(x).reshape(b, n, 3, self.heads, d // self.heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
         attn = torch.matmul(q, k.transpose(-2, -1)) * self.scale
         sdt = torch.promote_types(x.dtype, torch.float32)
-        attn = torch.softmax(attn.to(sdt), dim=-1).to(x.dtype)
+        attn = self.attn_drop(torch.softmax(attn.to(sdt), dim=-1).to(x.dtype))
         y = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, d)
-        return self.proj(y)
+        return self.proj_drop(self.proj(y))
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, hidden: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, d_model: int, hidden: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.fc1 = Linear(d_model, hidden, dtype=dtype)
+        self.drop1 = Dropout(dropout)
         self.fc2 = Linear(hidden, d_model, dtype=dtype)
+        self.drop2 = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        x = self.drop1(F.gelu(self.fc1(x), approximate="none"))
+        return self.drop2(self.fc2(x))
 
 
 class Block(nn.Module):
     """Pre-norm residual block: x + attn(norm1(x)), then + mlp(norm2(x))."""
 
     def __init__(self, d_model: int, heads: int, mlp_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(d_model, dtype)
-        self.attn = Attention(d_model, heads, dtype)
+        self.attn = Attention(d_model, heads, dtype, dropout)
         self.norm2 = LayerNorm(d_model, dtype)
-        self.mlp = FeedForward(d_model, mlp_dim, dtype)
+        self.mlp = FeedForward(d_model, mlp_dim, dtype, dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
@@ -137,20 +142,21 @@ def resize_pos_embed(pos_embed: torch.Tensor, grid_old: Tuple[int, int],
 
 class VisionTransformer(nn.Module):
     def __init__(self, image_size: int = 768, patch_size: int = 32, n_layers: int = 12,
-                 d_model: int = 768, n_heads: int = 12, dtype: torch.dtype = torch.float32):
+                 d_model: int = 768, n_heads: int = 12, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.1):
         super().__init__()
         self.image_size, self.patch_size = image_size, patch_size
         grid0 = image_size // patch_size
         self.patch_embed = PatchEmbed(patch_size, d_model, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d_model))
         self.pos_embed = nn.Parameter(torch.zeros(1, grid0 * grid0 + 1, d_model))
+        self.pos_drop = Dropout(dropout)
         self.blocks = nn.ModuleList(
-            [Block(d_model, n_heads, 4 * d_model, dtype) for _ in range(n_layers)])
+            [Block(d_model, n_heads, 4 * d_model, dtype, dropout) for _ in range(n_layers)])
         self.norm = LayerNorm(d_model, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC image (H, W divisible by the patch) -> (B, 1 + h*w, D)."""
-        _eval_only(self)
         b, h, w, _ = x.shape
         ps = self.patch_size
         grid0 = self.image_size // ps
@@ -160,7 +166,7 @@ class VisionTransformer(nn.Module):
         pos = self.pos_embed
         if tokens.shape[1] != pos.shape[1]:
             pos = resize_pos_embed(pos, (grid0, grid0), (h // ps, w // ps))
-        tokens = tokens + pos.to(tokens.dtype)
+        tokens = self.pos_drop(tokens + pos.to(tokens.dtype))
         for block in self.blocks:
             tokens = block(tokens)
         return self.norm(tokens)
@@ -175,13 +181,14 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
 
 class MaskTransformer(nn.Module):
     def __init__(self, n_cls: int, patch_size: int = 32, d_model: int = 768,
-                 n_layers: int = 2, n_heads: int = 12, dtype: torch.dtype = torch.float32):
+                 n_layers: int = 2, n_heads: int = 12, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.1):
         super().__init__()
         self.n_cls, self.patch_size = n_cls, patch_size
         self.proj_dec = Linear(d_model, d_model, dtype=dtype)
         self.cls_emb = nn.Parameter(torch.zeros(1, n_cls, d_model))
         self.blocks = nn.ModuleList(
-            [Block(d_model, n_heads, 4 * d_model, dtype) for _ in range(n_layers)])
+            [Block(d_model, n_heads, 4 * d_model, dtype, dropout) for _ in range(n_layers)])
         self.decoder_norm = LayerNorm(d_model, dtype)
         self.proj_patch = nn.Parameter(torch.zeros(d_model, d_model))
         self.proj_classes = nn.Parameter(torch.zeros(d_model, d_model))
@@ -229,17 +236,17 @@ class SegmenterViT(nn.Module):
     def __init__(self, classes: int = 5, image_size: int = 768, patch_size: int = 32,
                  d_model: int = 768, n_layers: int = 12, dec_layers: int = 2,
                  n_heads: Optional[int] = None, decoder_type: str = "mask_transformer",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.1):
         super().__init__()
         heads = n_heads or d_model // 64
         self.patch_size = patch_size
         self.encoder = VisionTransformer(image_size, patch_size, n_layers, d_model,
-                                         heads, dtype)
+                                         heads, dtype, dropout)
         if decoder_type == "linear":
             self.decoder = DecoderLinear(classes, patch_size, d_model, dtype)
         else:
             self.decoder = MaskTransformer(classes, patch_size, d_model, dec_layers,
-                                           heads, dtype)
+                                           heads, dtype, dropout)
 
     def _pad(self, x: torch.Tensor) -> torch.Tensor:
         ps = self.patch_size

@@ -1,24 +1,27 @@
-"""Flow-supervised training from files on one device (counterpart of the
+"""Training from files on one device (counterpart of the ``supervised`` and
 ``flow_supervised`` wiring of the JAX package's ``Runner.fit``,
 floodseg_tpu/cli/runner.py).
 
-``run_flow_fit`` builds what ``Runner.fit`` builds for that method
-without the config layer, the logger and the checkpoints: the flow
-transforms with their sizing rules, the train FlowDataset behind an
-infinite, shuffled, ``drop_last`` loader that copies each batch to the
-device, the optimizer and poly schedule over the trunk and head groups,
-the interpolated and plain train steps with the host-side
-``no_interpolation_percentage`` coin, validation every
+``run_fit`` (single-frame ``supervised``) and ``run_flow_fit``
+(``flow_supervised``) build what ``Runner.fit`` builds for their method
+without the config layer, the logger and the checkpoints: the method's
+transforms with their sizing rules, the train dataset (``SemDataset`` or
+``FlowDataset``) behind an infinite, shuffled, ``drop_last`` loader that
+copies each batch to the device, the optimizer and poly schedule over the
+trunk and head groups, and the method's train and eval steps. Both run one
+loop (``_fit_loop``): the epochs' steps, validation every
 ``check_val_every_n_epoch`` epochs through the eval step, and the early
 stopping counter. Step metrics stay on the device and are read back once
 an epoch. ``FitConfig`` holds the settings, with the defaults of the
-repository's flow training config (configs/train_flow_supervised.yaml
-over pspnet.yaml, train_base.yaml and dataset_flow.yaml).
+repository's training configs (configs/train_flow_supervised.yaml, or
+train_supervised.yaml, over pspnet.yaml, train_base.yaml and
+dataset_flow.yaml); the crop size is linked to the architecture as the
+JAX config's ``apply_links`` links it (``round_train``).
 """
 
 import os
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,24 +29,28 @@ import torch.nn as nn
 
 from floodseg_tpu_torch.core.device import DeviceLike, resolve_device
 from floodseg_tpu_torch.core.profiler import PhaseProfiler
-from floodseg_tpu_torch.data.dataset import FlowDataset
+from floodseg_tpu_torch.data.dataset import FlowDataset, SemDataset
 from floodseg_tpu_torch.data.loader import DataLoader, device_put
 from floodseg_tpu_torch.data.transforms import (
+    MEAN,
     Compose,
     build_train_transform,
     build_val_transform,
 )
 from floodseg_tpu_torch.ops.metrics import MetricMeter
 from floodseg_tpu_torch.train.flow import make_flow_eval_step, make_flow_train_step
-from floodseg_tpu_torch.train.optim import make_optimizer
+from floodseg_tpu_torch.train.optim import make_optimizer, model_arch
 from floodseg_tpu_torch.train.state import TrainState, create_train_state
-from floodseg_tpu_torch.train.supervised import make_loss_fn
+from floodseg_tpu_torch.train.supervised import make_eval_step, make_loss_fn, make_train_step
 
 
 @dataclass
 class FitConfig:
-    """The flow_supervised settings ``run_flow_fit`` reads, named as in the
-    JAX package's config (model.*, data.*, trainer.*)."""
+    """The settings ``run_fit`` and ``run_flow_fit`` read, named as in the
+    JAX package's config (model.*, data.*, trainer.*). ``train_h`` and
+    ``train_w`` are the crop before ``round_train``, which the run applies
+    for the model's architecture as ``apply_links`` does. ``aux_weight`` is
+    the single-frame method's (0 turns the aux loss off)."""
     data_variant: Optional[str] = "all"
     classes: int = 5
     ignore_index: int = 255
@@ -61,6 +68,7 @@ class FitConfig:
     feature_based: bool = True
     no_warp: bool = False
     no_interpolation_percentage: float = 0.0
+    aux_weight: float = 0.4
     batch_size: int = 2
     batch_size_val: int = 1
     workers: int = 8
@@ -81,14 +89,47 @@ class FitConfig:
     limit_val_batches: Optional[int] = None
 
 
-def flow_transforms(cfg: FitConfig) -> Dict[str, Compose]:
+def round_train(x: int, arch: str) -> int:
+    """The crop size an architecture takes: 8k + 1 for the CNNs, a
+    multiple of 32 (the patch) for the ViT (the JAX config's rule)."""
+    if arch == "vit":
+        return x // 32 * 32
+    return (x - 1) // 8 * 8 + 1
+
+
+def crop_size(cfg: FitConfig, arch: str) -> Tuple[int, int]:
+    """The train crop (h, w) for ``arch``: each side through ``round_train``
+    (``apply_links`` also sets train_h from train_w; the configs' crops are
+    square)."""
+    return round_train(cfg.train_h, arch), round_train(cfg.train_w, arch)
+
+
+def sem_transforms(cfg: FitConfig, arch: str) -> Dict[str, Compose]:
+    """The single-frame train and val transforms of ``Runner._transforms``:
+    both resize to the frame size; train rotates, and pads a crop larger
+    than the scaled frame with MEAN (labels with the ignore index); val is
+    center-cropped."""
+    th, tw = crop_size(cfg, arch)
+    resize = (cfg.resize_h, cfg.resize_w)
+    classes_ignore = list(cfg.classes_ignore)
+    return {
+        "train": build_train_transform(th, tw, classes_ignore, cfg.scale_min,
+                                       cfg.scale_max, resize, with_rotate=True,
+                                       crop_padding=MEAN, ignore_index=cfg.ignore_index),
+        "val": build_val_transform(th, tw, classes_ignore, resize, crop_padding=MEAN,
+                                   ignore_index=cfg.ignore_index),
+    }
+
+
+def flow_transforms(cfg: FitConfig, arch: str = "pspnet") -> Dict[str, Compose]:
     """The train and val transforms with the flow sizing rules of
     ``Runner._transforms``: with ``no_cropping`` the train frames are
     resized to 1.5x the crop and scaled down into it, and val is resized
     to the crop; otherwise both resize to the frame size times
     ``resize_factor`` and val is center-cropped. The train crop pads with
-    nothing (a scaled frame smaller than the crop raises)."""
-    th, tw = cfg.train_h, cfg.train_w
+    nothing (a scaled frame smaller than the crop raises); ``no_warp``
+    also rotates."""
+    th, tw = crop_size(cfg, arch)
     scale_min, scale_max = cfg.scale_min, cfg.scale_max
     if cfg.resize_factor != 1.0:
         scale_min = 1.0
@@ -129,60 +170,46 @@ def _prepare(model: nn.Module, dev: torch.device) -> nn.Module:
     return model
 
 
-def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
-                 pretrained: Optional[Mapping[str, torch.Tensor]] = None,
-                 profiler: Optional[PhaseProfiler] = None,
-                 on_step: Optional[Callable[[int, TrainState, Dict], None]] = None,
-                 device: DeviceLike = None) -> Dict:
-    """Train ``model`` (the port's PSPNet) on the tree at ``data_root`` as
-    the JAX package's ``Runner.fit`` does for ``flow_supervised`` on one
-    device, and return a summary: per epoch the mean train loss, the train
-    mIoU and, on validation epochs, the validation mIoU, mAcc, accuracy and
-    counts; the best validation mIoU and its epoch; the steps taken; the
-    final ``TrainState``.
-
-    ``pretrained``: state_dict entries overlaid first (shape-checked).
-    ``profiler`` records each step's wait for its batch (``train_load``)
-    and the step (``train_step``; give the profiler a sync to time the
-    device); ``on_step(global_step, state, metrics)`` runs after each step.
-    """
-    cfg = cfg or FitConfig()
-    dev = resolve_device(device)
-    _prepare(model, dev)
-    tf = flow_transforms(cfg)
-    put = (lambda b: device_put(b, dev))
-    train_ds = FlowDataset("train", data_root, _list_path(data_root, cfg.data_variant,
-                                                          "train.txt"),
-                           type="l", transform=tf["train"], frame_delta=cfg.frame_delta,
-                           no_warp=cfg.no_warp, no_random_frame_delta=cfg.no_random_frame_delta)
+def _loaders(cfg: FitConfig, train_ds, val_ds, dev: torch.device):
+    """(the infinite shuffled train loader, the val loader, steps an epoch)."""
     if len(train_ds) < cfg.batch_size:
         raise ValueError(f"batch {cfg.batch_size} exceeds the train set ({len(train_ds)})")
+    put = (lambda b: device_put(b, dev))
     loader = DataLoader(train_ds, batch_size=cfg.batch_size, shuffle=True,
                         num_workers=cfg.workers, seed=cfg.seed, infinite=True,
                         drop_last=True, device_put=put)
+    val_loader = DataLoader(val_ds, batch_size=cfg.batch_size_val, num_workers=cfg.workers,
+                            seed=cfg.seed, device_put=put)
     steps_per_epoch = max(1, len(train_ds) // cfg.batch_size)
     if cfg.limit_train_batches is not None:
         steps_per_epoch = min(steps_per_epoch, cfg.limit_train_batches)
-    val_ds = FlowDataset("val", data_root, _list_path(data_root, cfg.data_variant, "val.txt"),
-                         type="l", transform=tf["val"], frame_delta=cfg.frame_delta,
-                         no_warp=cfg.no_warp, no_random_frame_delta=cfg.no_random_frame_delta)
-    val_loader = DataLoader(val_ds, batch_size=cfg.batch_size_val, num_workers=cfg.workers,
-                            seed=cfg.seed, device_put=put)
+    return loader, val_loader, steps_per_epoch
 
+
+def _state(model: nn.Module, cfg: FitConfig, steps_per_epoch: int,
+           pretrained: Optional[Mapping[str, torch.Tensor]]) -> TrainState:
     max_iter = max(1, steps_per_epoch * cfg.max_epochs)
     opt, schedule = make_optimizer(model, cfg.lr, max_iter, cfg.optimizer.lower(),
                                    cfg.momentum, cfg.weight_decay, cfg.power)
-    state = create_train_state(model, opt, schedule, pretrained)
-    loss_fn = make_loss_fn(cfg.loss, 0.0, cfg.ignore_index, cfg.ohem_thresh,
-                           cfg.ohem_min_kept)
-    interp_step, plain_step = make_flow_train_step(model, loss_fn, cfg.classes,
-                                                   cfg.ignore_index, cfg.feature_based,
-                                                   cfg.no_warp)
-    eval_step = make_flow_eval_step(model, cfg.classes, cfg.ignore_index,
-                                    cfg.feature_based, cfg.no_warp)
-    coin = np.random.default_rng(cfg.seed)
-    profiler = profiler or PhaseProfiler()
+    return create_train_state(model, opt, schedule, pretrained)
 
+
+def _fit_loop(cfg: FitConfig, state: TrainState, train_fn: Callable, eval_fn: Callable,
+              loader: DataLoader, val_loader: DataLoader, steps_per_epoch: int,
+              profiler: Optional[PhaseProfiler],
+              on_step: Optional[Callable[[int, TrainState, Dict], None]]) -> Dict:
+    """The epochs: ``train_fn(state, batch, generator)`` for each step,
+    metrics read back once an epoch, validation through ``eval_fn(state,
+    batch)`` and early stopping on the validation mIoU.
+
+    Returns a summary: per epoch the mean train loss, the train mIoU and,
+    on validation epochs, the validation mIoU, mAcc, accuracy and counts;
+    the best validation mIoU and its epoch; the steps taken; the final
+    ``TrainState``. ``profiler`` records each step's wait for its batch
+    (``train_load``) and the step (``train_step``; give the profiler a sync
+    to time the device); ``on_step(global_step, state, metrics)`` runs
+    after each step."""
+    profiler = profiler or PhaseProfiler()
     epochs: List[Dict] = []
     best_metric, best_epoch, wait_count = -np.inf, -1, 0
     val_every = max(1, cfg.check_val_every_n_epoch)
@@ -194,11 +221,9 @@ def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = No
             for _ in range(steps_per_epoch):
                 with profiler.profile("train_load"):
                     batch = next(it)
-                plain = (cfg.no_interpolation_percentage > 0
-                         and coin.random() < cfg.no_interpolation_percentage)
                 with profiler.profile("train_step"):
-                    state, metrics = (plain_step if plain else interp_step)(
-                        state, batch, step_generator(cfg.seed, global_step))
+                    state, metrics = train_fn(state, batch,
+                                              step_generator(cfg.seed, global_step))
                 step_metrics.append(metrics)
                 if on_step is not None:
                     on_step(global_step, state, metrics)
@@ -217,7 +242,7 @@ def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = No
                 for bi, vb in enumerate(val_loader):
                     if cfg.limit_val_batches is not None and bi >= cfg.limit_val_batches:
                         break
-                    m = eval_step(state, vb)
+                    m = eval_fn(state, vb)
                     val_meter.update(*(m[k].cpu().numpy()
                                        for k in ("intersection", "union", "target")))
                 vs = val_meter.summary()
@@ -238,3 +263,77 @@ def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = No
     return {"epochs": epochs, "steps": global_step, "steps_per_epoch": steps_per_epoch,
             "best_val_miou": float(best_metric) if np.isfinite(best_metric) else None,
             "best_epoch": best_epoch, "state": state}
+
+
+def run_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
+            pretrained: Optional[Mapping[str, torch.Tensor]] = None,
+            profiler: Optional[PhaseProfiler] = None,
+            on_step: Optional[Callable[[int, TrainState, Dict], None]] = None,
+            device: DeviceLike = None) -> Dict:
+    """Train ``model`` (any of the port's three architectures) on the tree
+    at ``data_root`` as the JAX package's ``Runner.fit`` does for
+    ``supervised`` on one device: single frames through ``SemDataset``,
+    the whole model in training mode, OHEM (or CE) on ``pred`` plus
+    ``aux_weight`` times that on ``aux``, validation on center crops.
+    ``pretrained``: state_dict entries overlaid first (shape-checked);
+    returns ``_fit_loop``'s summary, with its ``profiler`` and ``on_step``
+    hooks."""
+    cfg = cfg or FitConfig()
+    dev = resolve_device(device)
+    _prepare(model, dev)
+    tf = sem_transforms(cfg, model_arch(model))
+    train_ds = SemDataset("train", data_root,
+                          _list_path(data_root, cfg.data_variant, "train.txt"), tf["train"])
+    val_ds = SemDataset("val", data_root, _list_path(data_root, cfg.data_variant, "val.txt"),
+                        tf["val"])
+    loader, val_loader, steps_per_epoch = _loaders(cfg, train_ds, val_ds, dev)
+    state = _state(model, cfg, steps_per_epoch, pretrained)
+    loss_fn = make_loss_fn(cfg.loss, cfg.aux_weight, cfg.ignore_index, cfg.ohem_thresh,
+                           cfg.ohem_min_kept)
+    train_step = make_train_step(model, loss_fn, cfg.classes, cfg.ignore_index)
+    eval_step = make_eval_step(model, cfg.classes, cfg.ignore_index)
+    return _fit_loop(cfg, state, train_step, eval_step, loader, val_loader,
+                     steps_per_epoch, profiler, on_step)
+
+
+def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
+                 pretrained: Optional[Mapping[str, torch.Tensor]] = None,
+                 profiler: Optional[PhaseProfiler] = None,
+                 on_step: Optional[Callable[[int, TrainState, Dict], None]] = None,
+                 device: DeviceLike = None) -> Dict:
+    """Train ``model`` (any of the port's three architectures) on the tree
+    at ``data_root`` as the JAX package's ``Runner.fit`` does for
+    ``flow_supervised`` on one device: FlowDataset items, the interpolated
+    and plain train steps with the host-side ``no_interpolation_percentage``
+    coin, whole-frame validation through the interpolated eval step.
+    ``pretrained``, the hooks and the summary as in ``run_fit``."""
+    cfg = cfg or FitConfig()
+    dev = resolve_device(device)
+    _prepare(model, dev)
+    tf = flow_transforms(cfg, model_arch(model))
+    common = dict(type="l", frame_delta=cfg.frame_delta, no_warp=cfg.no_warp,
+                  no_random_frame_delta=cfg.no_random_frame_delta)
+    train_ds = FlowDataset("train", data_root,
+                           _list_path(data_root, cfg.data_variant, "train.txt"),
+                           transform=tf["train"], **common)
+    val_ds = FlowDataset("val", data_root, _list_path(data_root, cfg.data_variant, "val.txt"),
+                         transform=tf["val"], **common)
+    loader, val_loader, steps_per_epoch = _loaders(cfg, train_ds, val_ds, dev)
+    state = _state(model, cfg, steps_per_epoch, pretrained)
+    loss_fn = make_loss_fn(cfg.loss, 0.0, cfg.ignore_index, cfg.ohem_thresh,
+                           cfg.ohem_min_kept)
+    interp_step, plain_step = make_flow_train_step(model, loss_fn, cfg.classes,
+                                                   cfg.ignore_index, cfg.feature_based,
+                                                   cfg.no_warp)
+    eval_step = make_flow_eval_step(model, cfg.classes, cfg.ignore_index,
+                                    cfg.feature_based, cfg.no_warp)
+    coin = np.random.default_rng(cfg.seed)
+
+    def train_fn(state, batch, rng):
+        plain = (cfg.no_interpolation_percentage > 0
+                 and coin.random() < cfg.no_interpolation_percentage)
+        return (plain_step if plain else interp_step)(state, batch, rng)
+
+    return _fit_loop(cfg, state, train_fn, eval_step, loader, val_loader,
+                     steps_per_epoch, profiler, on_step)
+

@@ -13,6 +13,7 @@ import torch
 
 from floodseg_tpu.models.lightning_export import export_pspnet_variables
 from floodseg_tpu_torch.models import build_model, from_jax_variables, init_from_generator_
+from floodseg_tpu_torch.models.layers import dropout_generator
 
 from torch_port_fixtures import pspnet50_pair
 
@@ -118,19 +119,29 @@ def test_init_from_generator_is_reproducible():
 
 
 def test_training_mode_raises():
-    """Training mode raises where the port has no training yet: the ViT's
-    Dropout and DropPath, DeepLabV3's ASPP and head dropout. PSPNet trains since the training slice (its
-    BatchNorm and dropout are held to the JAX package in
-    tests/test_torch_train_ops.py): its encode runs in training mode and
-    moves the BN running statistics."""
+    """Training mode raises only where a dropout has neither a generator nor
+    an injected keep mask: all three architectures train (PSPNet since the
+    first training slice; DeepLabV3's ASPP and FCNHead dropout and the
+    ViT's dropout since the second, held to the JAX package in
+    tests/test_torch_train_models.py). Each one's encode runs in training
+    mode; DeepLabV3's moves the BN running statistics, and its forward
+    returns the aux head's logits."""
     vit = build_model("vit", image_size=64).train()
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(RuntimeError, match="generator"):
         vit.encode(torch.zeros(1, 64, 64, 3))
-    dl = build_model("deeplabv3", layers=50, with_aux=False).train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        dl.encode(torch.zeros(1, 33, 33, 3))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with dropout_generator(vit, torch.Generator().manual_seed(0)):
+        f, _ = vit.encode(torch.zeros(1, 64, 64, 3))
+    assert f.shape == (1, 2, 2, 768)
+    dl = build_model("deeplabv3", layers=50, with_aux=True).train()
+    before = dl.backbone.layer1[0].bn1.running_mean.clone()
+    x = torch.randn(2, 33, 33, 3, generator=torch.Generator().manual_seed(0))
+    dl.encode(x)
+    assert not torch.equal(before, dl.backbone.layer1[0].bn1.running_mean)
+    with pytest.raises(RuntimeError, match="generator"):
         dl.decode(torch.zeros(1, 5, 5, 2048))
+    with dropout_generator(dl, torch.Generator().manual_seed(0)):
+        out = dl(x)
+    assert set(out) == {"pred", "aux"} and out["aux"].shape == (2, 33, 33, 5)
     m = build_model("pspnet", layers=50, with_aux=False).train()
     before = m.layer1[0].bn1.running_mean.clone()
     m.encode(torch.randn(2, 33, 33, 3, generator=torch.Generator().manual_seed(0)))

@@ -35,7 +35,7 @@ from floodseg_tpu.train import supervised as jax_sup
 from floodseg_tpu.train.supervised import make_loss_fn as jax_make_loss_fn
 
 from floodseg_tpu_torch.models import build_model
-from floodseg_tpu_torch.models.layers import ChannelDropout
+from floodseg_tpu_torch.models.layers import Dropout
 from floodseg_tpu_torch.ops import launch_counts, reset_launch_counts
 from floodseg_tpu_torch.train import (
     TrainState,
@@ -164,7 +164,7 @@ def trajectory(init):
                                              CLASSES, 255)
     tb = _torch_batch(batch)
     drop = port.cls[3]
-    assert isinstance(drop, ChannelDropout)
+    assert isinstance(drop, Dropout) and drop.broadcast_dims == (2, 3)
     reset_launch_counts()
     for name, step in (("interp", p_interp), ("plain", p_plain)):
         drop.keep = torch.from_numpy(masks[name].copy())[:, :, None, None]

@@ -28,8 +28,8 @@ from floodseg_tpu.train import optim as jax_optim
 from floodseg_tpu.train.supervised import make_loss_fn as jax_make_loss_fn
 from floodseg_tpu.video import flow_model as jfm
 
-from floodseg_tpu_torch.models import SegmenterViT, build_model, from_jax_variables
-from floodseg_tpu_torch.models.layers import BatchNorm2d, ChannelDropout, dropout_generator
+from floodseg_tpu_torch.models import SegmenterViT, build_model
+from floodseg_tpu_torch.models.layers import BatchNorm2d, Dropout, dropout_generator
 from floodseg_tpu_torch.ops import (
     grid_sample,
     grid_sample_autograd,
@@ -48,6 +48,8 @@ from floodseg_tpu_torch.train import (
 )
 from floodseg_tpu_torch.train.state import overlay
 from floodseg_tpu_torch.video import FlowInterpolator, interp_weight, warp_chain_masked
+
+from torch_port_fixtures import jax_head_mask_through_bridge
 
 F64 = dict(rtol=1e-7, atol=0.0)
 
@@ -278,7 +280,7 @@ def _flax_keep_mask(shape, key):
 
 
 def test_channel_dropout_matches_flax_given_its_mask():
-    """With flax's keep mask injected, ChannelDropout gives flax's output
+    """With flax's keep mask injected, the channel dropout gives flax's output
     to the bit (float32), and its gradient keeps the same channels."""
     rng = np.random.default_rng(8)
     x = rng.standard_normal((3, 4, 5, 64)).astype(np.float32)
@@ -287,7 +289,7 @@ def test_channel_dropout_matches_flax_given_its_mask():
     assert 0 < keep.mean() < 1
     ref = np.asarray(fnn.Dropout(0.1, broadcast_dims=(1, 2)).apply(
         {}, jnp.asarray(x), deterministic=False, rngs={"dropout": key}))
-    d = ChannelDropout(0.1).train()
+    d = Dropout(0.1, broadcast_dims=(2, 3)).train()
     d.keep = _t(keep)[:, :, None, None]
     xt = _t(x).permute(0, 3, 1, 2).requires_grad_(True)
     y = d(xt)
@@ -297,7 +299,7 @@ def test_channel_dropout_matches_flax_given_its_mask():
 
 
 def test_channel_dropout_draws_from_its_generator_only():
-    d = ChannelDropout(0.1).train()
+    d = Dropout(0.1, broadcast_dims=(2, 3)).train()
     x = torch.ones((8, 512, 2, 2))
     with pytest.raises(RuntimeError, match="generator"):
         d(x)
@@ -314,10 +316,10 @@ def test_channel_dropout_draws_from_its_generator_only():
 
 def test_pspnet_train_mode_returns_aux_and_seg_head_keys_stay():
     m = build_model("pspnet", with_aux=True)
-    assert isinstance(m.cls[3], ChannelDropout) and "cls.4.weight" in m.state_dict()
+    assert isinstance(m.cls[3], Dropout) and "cls.4.weight" in m.state_dict()
     m.train()
     for mod in m.modules():
-        if isinstance(mod, ChannelDropout):
+        if isinstance(mod, Dropout):
             mod.rate = 0.0
     out = m(torch.zeros((1, 17, 17, 3)))
     assert set(out) == {"pred", "aux"} and out["aux"].shape == (1, 17, 17, 5)
@@ -451,20 +453,6 @@ def test_poly_schedule_matches_jax():
     assert ours(0) == float(np.float32(1e-4))
 
 
-def _mask_through_bridge(variables):
-    """JAX's head_mask of a variable tree carried through the weight bridge:
-    state_dict key -> bool, for the keys that are parameters."""
-    mask = jax_optim.head_mask(variables["params"])
-    as_arrays = {
-        "params": jax.tree.map(lambda m, v: np.full(v.shape, float(m), np.float32),
-                               mask, variables["params"]),
-        "batch_stats": jax.tree.map(lambda v: np.zeros(v.shape, np.float32),
-                                    variables.get("batch_stats", {})),
-    }
-    return {k: bool(v.reshape(-1)[0]) if np.size(v) else None
-            for k, v in from_jax_variables(as_arrays).items()}
-
-
 @pytest.mark.parametrize("arch", ["pspnet", "deeplabv3", "vit"])
 def test_head_mask_equals_jax_through_the_bridge(arch):
     """The set of parameters at 10x LR equals JAX's head_mask carried
@@ -482,7 +470,7 @@ def test_head_mask_equals_jax_through_the_bridge(arch):
     shapes = jax.eval_shape(lambda: jm.init({"params": key, "dropout": key},
                                             jnp.zeros((1, size, size, 3)), train=True))
     variables = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), dict(shapes))
-    want = _mask_through_bridge(variables)
+    want = jax_head_mask_through_bridge(variables)
     ours = head_mask(port)
     assert set(ours) <= set(want)
     assert ours == {k: want[k] for k in ours}

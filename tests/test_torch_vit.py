@@ -40,7 +40,7 @@ from floodseg_tpu_torch.models import (
     load_jax_variables,
 )
 from floodseg_tpu_torch.models import vit
-from floodseg_tpu_torch.models.layers import LayerNorm, Linear
+from floodseg_tpu_torch.models.layers import LayerNorm, Linear, dropout_generator
 from floodseg_tpu_torch.train.flow import decode_split_ok
 
 from torch_port_fixtures import vit_pair
@@ -364,12 +364,18 @@ def test_encode_raises_on_frames_off_the_patch_grid():
 
 
 def test_modules_raise_in_training_mode():
-    """Dropout and DropPath belong to the training slice."""
-    port = SegmenterViT(image_size=64, d_model=64, n_layers=1, dec_layers=1, n_heads=1)
+    """In training mode the ViT's dropout needs a generator or an injected
+    keep mask and raises without one: the port never draws from torch's
+    global generator. With a generator the model and each module run."""
+    port = init_from_generator_(
+        SegmenterViT(image_size=64, d_model=64, n_layers=1, dec_layers=1, n_heads=1),
+        torch.Generator().manual_seed(0))
     x = torch.zeros((1, 64, 64, 3))
     for module, arg in ((port.train(), x), (port.encoder.blocks[0].mlp, torch.zeros(1, 2, 64))):
-        with pytest.raises(NotImplementedError, match="training slice"):
+        with pytest.raises(RuntimeError, match="generator"):
             module(arg)
+        with dropout_generator(module, torch.Generator().manual_seed(0)):
+            assert torch.isfinite(module(arg)["pred"] if module is port else module(arg)).all()
 
 
 def test_bridge_equals_lightning_export_and_strict_loads(pair):

@@ -7,9 +7,14 @@ a JAX SegmenterViT whose LayerNorms, biases and cls token are replaced the
 same way (flax initialises them to the identity and zeros), carried into
 the port through the weight bridge (floodseg_tpu_torch/models/convert.py);
 and the flow tests' inputs: block grids, two windows of a synthetic clip,
-and the port's predict builders driven over them.
+and the port's predict builders driven over them; and for the training
+tests, flax's dropout keep masks recorded by module path and injected into
+the port's Dropout modules by name.
 """
 
+import contextlib
+
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +23,7 @@ import torch
 from floodseg_tpu.data.transforms import MEAN as JAX_MEAN, STD as JAX_STD
 from floodseg_tpu.models import build_model as jax_build_model
 from floodseg_tpu.models.vit import SegmenterViT as JaxSegmenterViT
+from floodseg_tpu.train.optim import head_mask as jax_head_mask
 from floodseg_tpu_torch.data import predict_windows, resize_frames, synthetic_clip
 from floodseg_tpu_torch.models import SegmenterViT, build_model, convert, load_jax_variables
 from floodseg_tpu_torch.train import make_cached_flow_predict_fn, make_flow_predict_fn
@@ -161,3 +167,181 @@ def run_port_builders(model, variables, ref, **kw):
                                   device="cpu", **kw)(
         variables, frames[0], frames[1], wins[0]["mvs_left"], wins[0]["mvs_right"])
     return (p0, p1), (penc0, penc1), single
+
+
+def flax_keep_masks(model, variables, key, x, method=None):
+    """{flax module path "a/b/Dropout_0": keep mask} of every flax Dropout
+    in one training ``apply`` of ``model`` (``method``) with dropout key
+    ``key`` on an input shaped like ``x``: each Dropout's input is replaced
+    by ones inside the call, so its output is nonzero where it keeps. A
+    mask depends on the key, the module path and the shape only, so it is
+    the one the JAX step draws in the call it makes with that key."""
+    masks = {}
+
+    def interceptor(next_fun, args, kwargs, context):
+        if isinstance(context.module, fnn.Dropout) and context.method_name == "__call__":
+            out = next_fun(jnp.ones_like(args[0]), *args[1:], **kwargs)
+            masks["/".join(context.module.path)] = np.asarray(out != 0)
+            return out
+        return next_fun(*args, **kwargs)
+
+    with fnn.intercept_methods(interceptor):
+        model.apply(variables, jnp.zeros(np.shape(x), jnp.asarray(x).dtype), train=True,
+                    method=method, rngs={"dropout": key}, mutable=["batch_stats"])
+    return masks
+
+
+def inject_keep_masks(port, masks, names, nchw=()):
+    """Set each port Dropout's ``keep`` from flax's masks: ``names`` maps a
+    flax module path to the port module's name; the masks of the paths in
+    ``nchw`` are NHWC maps, transposed to the port's NCHW. A port Dropout
+    that runs in training mode without a mask raises (no generator), so a
+    call the masks do not cover fails."""
+    assert set(masks) <= set(names), sorted(set(masks) - set(names))
+    for path, mask in masks.items():
+        m = mask.transpose(0, 3, 1, 2) if path in nchw else mask
+        port.get_submodule(names[path]).keep = torch.from_numpy(np.array(m))
+
+
+def clear_keep_masks(port):
+    from floodseg_tpu_torch.models.layers import Dropout
+    for mod in port.modules():
+        if isinstance(mod, Dropout):
+            mod.keep = None
+
+
+@contextlib.contextmanager
+def masks_per_call(port, calls, names, nchw=()):
+    """Inside the block, each call of ``port.encode`` / ``port.decode``
+    first injects the next masks of ``calls[method]`` (a list of flax mask
+    dicts in call order): the JAX flow step draws each call's masks from
+    its own key. Every listed call must happen."""
+    queues = {k: list(v) for k, v in calls.items()}
+    orig = {k: getattr(port, k) for k in calls}
+
+    def wrap(method):
+        def call(*args, **kwargs):
+            clear_keep_masks(port)
+            inject_keep_masks(port, queues[method].pop(0), names, nchw)
+            return orig[method](*args, **kwargs)
+        return call
+
+    for k in calls:
+        setattr(port, k, wrap(k))
+    try:
+        yield
+    finally:
+        for k in calls:
+            delattr(port, k)
+        clear_keep_masks(port)
+    assert all(not q for q in queues.values()), {k: len(q) for k, q in queues.items()}
+
+
+def vit_mask_names(n_layers, dec_layers):
+    """flax module path -> port module name of every ViT Dropout."""
+    sites = {"attn/Dropout_0": "attn.attn_drop", "attn/Dropout_1": "attn.proj_drop",
+             "mlp/Dropout_0": "mlp.drop1", "mlp/Dropout_1": "mlp.drop2"}
+    names = {"encoder/Dropout_0": "encoder.pos_drop"}
+    for part, n in (("encoder", n_layers), ("decoder", dec_layers)):
+        for i in range(n):
+            for site, port_site in sites.items():
+                names[f"{part}/block{i}/{site}"] = f"{part}.blocks.{i}.{port_site}"
+    return names
+
+
+def jax_head_mask_through_bridge(variables):
+    """JAX's head_mask of a variable tree carried through the weight bridge:
+    state_dict key -> bool, for the keys that are parameters."""
+    mask = jax_head_mask(variables["params"])
+    as_arrays = {
+        "params": jax.tree.map(lambda m, v: np.full(v.shape, float(m), np.float32),
+                               mask, variables["params"]),
+        "batch_stats": jax.tree.map(lambda v: np.zeros(v.shape, np.float32),
+                                    variables.get("batch_stats", {})),
+    }
+    return {k: bool(v.reshape(-1)[0]) if np.size(v) else None
+            for k, v in convert.from_jax_variables(as_arrays).items()}
+
+
+def round_grids(sample, rng=None):
+    """A transform that puts a sample's grids on multiples of 2**-10, where
+    float32 tap arithmetic is exact whether or not XLA fuses it."""
+    for k in ("mvs_left", "mvs_right"):
+        if sample.get(k) is not None:
+            sample[k] = [(np.round(g * 1024) / 1024).astype(np.float32) for g in sample[k]]
+    return sample
+
+
+def jax_fit(tree, jm, variables, cfg, method, crop, extra=None):
+    """The JAX package's ``Runner.fit`` loop on one device for ``method``
+    ("supervised" or "flow_supervised"), without logger or checkpoints:
+    ``Runner._transforms``' transforms at the ``crop`` size (``extra``
+    appended to the train and val ones), its datasets and loaders, the
+    optimizer, the steps with ``fold_in(rng, step)`` keys, one epoch of
+    ``cfg.limit_train_batches`` steps, then validation through the eval
+    step. Returns (the mean train loss, the validation MetricMeter, the
+    steps taken). ``cfg`` is the port's FitConfig."""
+    from floodseg_tpu.data import transforms as jax_tf
+    from floodseg_tpu.data.dataset import FlowDataset as JaxFlowDataset
+    from floodseg_tpu.data.dataset import SemDataset as JaxSemDataset
+    from floodseg_tpu.data.loader import DataLoader as JaxLoader
+    from floodseg_tpu.ops.metrics import MetricMeter as JaxMeter
+    from floodseg_tpu.train import flow as jflow
+    from floodseg_tpu.train import supervised as jax_sup
+    from floodseg_tpu.train.optim import make_optimizer as jax_make_optimizer
+    from floodseg_tpu.train.state import TrainState as JaxTrainState
+
+    resize = (cfg.resize_h, cfg.resize_w)
+    ignore = list(cfg.classes_ignore)
+    lists = f"{tree}/list/{cfg.data_variant}"
+    if method == "flow_supervised":
+        train = jax_tf.build_train_transform(crop, crop, ignore, cfg.scale_min, cfg.scale_max,
+                                             resize, with_rotate=False, crop_padding=None)
+        val = jax_tf.build_val_transform(crop, crop, ignore, resize, crop=True,
+                                         crop_padding=None)
+        ds = JaxFlowDataset("train", tree, f"{lists}/train.txt", type="l", transform=train,
+                            frame_delta=cfg.frame_delta)
+        vds = JaxFlowDataset("val", tree, f"{lists}/val.txt", type="l", transform=val,
+                             frame_delta=cfg.frame_delta)
+        loss_fn = jax_sup.make_loss_fn(cfg.loss, 0.0, 255, cfg.ohem_thresh, cfg.ohem_min_kept)
+        step, _ = jflow.make_flow_train_step(jm, loss_fn, cfg.classes, 255)
+        ev = jflow.make_flow_eval_step(jm, cfg.classes, 255)
+    else:
+        train = jax_tf.build_train_transform(crop, crop, ignore, cfg.scale_min, cfg.scale_max,
+                                             resize)
+        val = jax_tf.build_val_transform(crop, crop, ignore, resize)
+        ds = JaxSemDataset("train", tree, f"{lists}/train.txt", train)
+        vds = JaxSemDataset("val", tree, f"{lists}/val.txt", val)
+        loss_fn = jax_sup.make_loss_fn(cfg.loss, cfg.aux_weight, 255, cfg.ohem_thresh,
+                                       cfg.ohem_min_kept)
+        step = jax_sup.make_train_step(jm, loss_fn, cfg.classes, 255)
+        ev = jax_sup.make_eval_step(jm, cfg.classes, 255)
+    if extra is not None:
+        train.transforms.append(extra)
+        val.transforms.append(extra)
+    loader = JaxLoader(ds, batch_size=cfg.batch_size, shuffle=True, num_workers=cfg.workers,
+                       seed=cfg.seed, infinite=True, drop_last=True)
+    vloader = JaxLoader(vds, batch_size=cfg.batch_size_val, num_workers=cfg.workers,
+                        seed=cfg.seed)
+    steps = min(len(ds) // cfg.batch_size, cfg.limit_train_batches)
+    tx = jax_make_optimizer(cfg.lr, steps * cfg.max_epochs, "sgd", cfg.momentum,
+                            cfg.weight_decay, power=cfg.power)
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                          batch_stats=jax.tree.map(jnp.asarray,
+                                                   variables.get("batch_stats", {})),
+                          opt_state=tx.init(params), tx=tx)
+    step, ev = jax.jit(step), jax.jit(ev)
+
+    rng = jax.random.PRNGKey(cfg.seed)
+    it = iter(loader)
+    losses = []
+    for i in range(steps):
+        batch = {k: jnp.asarray(v) for k, v in next(it).items()}
+        state, m = step(state, batch, jax.random.fold_in(rng, i))
+        losses.append(float(m["loss"]))
+    meter = JaxMeter(cfg.classes)
+    for vb in vloader:
+        m = ev(state, {k: jnp.asarray(v) for k, v in vb.items()})
+        meter.update(m["intersection"], m["union"], m["target"])
+    return float(np.mean(losses)), meter, steps
