@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k2     # K2 alone: build, check, time (about 20 s)
     python3 chip_smoke.py --k3     # K3 alone: build, check, time (about 20 s)
     python3 chip_smoke.py --train  # the training phases alone: 3t, 4t and 14-17
+    python3 chip_smoke.py --k1-bwd # phase 3t alone: K1 and K1-bwd at the training shapes
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -12,7 +13,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA versions. No CUDA device -> exit 1 before anything else.
 2. Build the hand-written kernels from csrc/ with nvcc (sm_90a) and the
    image codec with the host C++ compiler, one compiler for each source,
-   all at once: warp.cu (K1, K2), resize.cu (K3) and jpeg.cpp; ptxas's
+   all at once: warp.cu (K1, K1-bwd, K2), resize.cu (K3) and jpeg.cpp; ptxas's
    registers and spills for each kernel instantiation; for K2 and K3,
    cuobjdump's count of slow-pipe instructions inside each instantiation's
    loops.
@@ -119,24 +120,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    near-ties.
 Then the training phases, last, each model alone on the card:
 3t. K1 and K1-bwd (K1's backward, csrc/warp.cu) at each architecture's
-   training shapes (batch 2): PSPNet-50's (2, 55, 55, 4096) -> 27x27 (a
-   chain's head, from a 433 px crop) and (2, 27, 27, 4096) -> 27x27 (its
-   steps) in float32 and bf16; DeepLabV3's (2, 55, 55, 2048) and (2, 27,
+   training shapes (batch 2), in float32 and bf16: PSPNet-50's (2, 55, 55,
+   4096) -> 27x27 (a chain's head, from a 433 px crop) and (2, 27, 27,
+   4096) -> 27x27 (its steps); DeepLabV3's (2, 55, 55, 2048) and (2, 27,
    27, 2048) -> 27x27 and the ViT's (2, 13, 13, 768) -> 26x26 (an
    up-sample of the token map of a 416 px crop: about 16 output points
-   scatter onto each source pixel) and (2, 26, 26, 768) -> 26x26, in
-   float32. Each on random grids, the training batch's own crop grids (a
-   synthetic 1072x1920 clip's chains through the flow train transform at
-   the architecture's crop), the identity grid and a grid that clamps
-   every point to one corner (every atomic on one pixel). K1 must be
-   bit-equal to its plain version in float32; K1-bwd within 1e-5 of the
-   plain version's largest magnitude in float32, and in bf16 within 1 bf16
-   ulp of its float32-summed plain version plus that 1e-5 (the sums'
-   order, where they cancel); the largest difference between two runs of
-   K1-bwd on one input is logged (atomics). Both timed in float32 beside
-   the bytes bound, the plain version and the library (F.grid_sample, and
-   aten.grid_sampler_2d_backward on NCHW for K1-bwd); PSPNet's K1-bwd in
-   bf16 too.
+   scatter onto each source pixel) and (2, 26, 26, 768) -> 26x26. Each on
+   random grids, the training batch's own crop grids (a synthetic
+   1072x1920 clip's chains through the flow train transform at the
+   architecture's crop), the identity grid and a grid that clamps
+   every point to one corner (every tap on one pixel). K1 must be
+   bit-equal to its plain version in float32; K1-bwd bit-equal (by integer
+   view) to its plain version computed on the CPU, whose index_add_ sums
+   in the order the kernel keeps (on the card index_add_ is atomic), in
+   float32 and bf16, and two launches on one input bit-equal. K1-bwd also
+   where its index build's working arrays take a device workspace, a (1,
+   67, 120) grid onto (1, 134, 240, 256), random, identity and corner
+   grids, and with C = 5 on grad_out at an odd element offset, both
+   dtypes. Both timed in
+   float32 beside the bytes bound, the plain version and the library
+   (F.grid_sample, and aten.grid_sampler_2d_backward on NCHW for K1-bwd);
+   K1-bwd at each head shape in bf16 too, and the workspace route in
+   float32.
 4t. Train steps on the card against the CPU, float32 with TF32 off and
    the flow config's SGD (lr 1e-4, heads 10x), each from the same initial
    state, every dropout with the same keep masks (one per module, drawn on
@@ -227,6 +232,7 @@ from floodseg_tpu_torch.ops.resize_kernels import (
 )
 from floodseg_tpu_torch.ops.warp_kernels import (
     _chain_geometry,
+    _library as warp_library,
     grid_sample_backward_cuda,
     grid_sample_cuda,
     warp_chain_cuda,
@@ -505,11 +511,13 @@ def time_k1(x, xn, g, g_l, align, flush, cpm) -> dict:
     }
 
 
-def log_timing(res: dict) -> None:
+def log_timing(res: dict, library="F.grid_sample") -> None:
     for name, r in res.items():
+        split = ", ".join(f"{k} {v:.2f}" for k, v in r.get("split_us", {}).items())
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"F.grid_sample {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}) -> {r['bound_ms'] / r['ms']:.1%} of bound")
+            f"{library} {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) -> {r['bound_ms'] / r['ms']:.1%} of bound"
+            + (f"; device us a call by kernel {split}" if split else ""))
 
 
 def time_k2(y0, grids, flush, cpm, full=True) -> dict:
@@ -1035,7 +1043,7 @@ def run_main_path(model, wins, int8, tag, dev=torch.device("cuda"), n=FRAME_DELT
 PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "profile")
 KERNEL_NAMES = {"grid_sample_cuda": "grid_sample_kernel",
-                "grid_sample_backward_cuda": "grid_sample_backward_kernel",
+                "grid_sample_backward_cuda": "grid_sample_backward_",  # index and gather
                 "warp_chain_cuda": "warp_chain_",  # either design
                 "resize_quantize_int8_cuda": "resize_quantize_kernel"}
 # a window's device time by family of kernel names; the first family whose
@@ -1082,14 +1090,7 @@ def profile(run, timed, tag) -> dict:
         kernels = [e for e in json.load(f)["traceEvents"]
                    if e.get("ph") == "X" and e.get("cat") == "kernel"]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
-    busy, cur = 0.0, None
-    for s, e in spans:  # union of kernel intervals
-        if cur is None or s > cur[1]:
-            busy += 0.0 if cur is None else cur[1] - cur[0]
-            cur = [s, e]
-        else:
-            cur[1] = max(cur[1], e)
-    busy += cur[1] - cur[0]
+    busy = union_us(spans)
     span = max(e for _, e in spans) - spans[0][0]
     per_kernel = {k: sum(e["dur"] for e in kernels if v in e["name"]) / 2e3
                   for k, v in KERNEL_NAMES.items()}
@@ -1417,20 +1418,25 @@ def files_phase(model, dev, n=FRAME_DELTA, size=SIZE) -> dict:
             "breakdown": bd, "launches": counts, "windows": windows}
 
 
+def union_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, cur = 0.0, None
+    for s0, e0 in sorted(spans):
+        if cur is None or s0 > cur[1]:
+            total += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [s0, e0]
+        else:
+            cur[1] = max(cur[1], e0)
+    return total + (0.0 if cur is None else cur[1] - cur[0])
+
+
 def device_time(trace_path, windows) -> dict:
     """Device busy ms (the union of kernel intervals) and device-to-host
     copy ms a window from a chrome trace."""
     with open(trace_path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel")
-    busy, cur = 0.0, None
-    for s0, e0 in kernels:
-        if cur is None or s0 > cur[1]:
-            busy += 0.0 if cur is None else cur[1] - cur[0]
-            cur = [s0, e0]
-        else:
-            cur[1] = max(cur[1], e0)
-    busy += 0.0 if cur is None else cur[1] - cur[0]
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel"]
+    busy = union_us(kernels)
     d2h = sum(e["dur"] for e in events if e.get("cat") == "gpu_memcpy"
               and "DtoH" in e.get("name", ""))
     return {"busy_ms": busy / 1e3 / windows, "d2h_ms": d2h / 1e3 / windows,
@@ -1572,7 +1578,7 @@ TRAIN_SHAPES = {"pspnet": (4096, (55, 55), (27, 27), 433),
 # cuDNN's "xmma_fprop_implicit_gemm" convolutions)
 TRAIN_FAMILIES = (
     ("K1", ("grid_sample_kernel",)),
-    ("K1-bwd", ("grid_sample_backward_kernel", "cast_kernel")),
+    ("K1-bwd", ("grid_sample_backward_",)),
     ("conv backward", ("dgrad", "wgrad", "bprop", "backward_data", "backward_filter")),
     ("conv forward", ("fprop", "conv", "cudnn", "implicit")),
     ("matrix products", ("gemm", "nvjet", "cutlass")),
@@ -1618,33 +1624,46 @@ def train_grids(dev, seed=0, crop=CROP) -> dict:
     return {k: v.to(dev).contiguous() for k, v in grids.items()}
 
 
-def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
-    """Each element's bf16 ulp."""
-    mag = ref.float().abs().clamp_min(2.0 ** -126)
-    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
-
-
-def check_k1_bwd(name, got, ref, dtype) -> float:
-    """K1-bwd against its float32-summed plain version: float32 within 1e-5
-    of the plain result's largest magnitude (atomics add in another order);
-    bf16 within 1 bf16 ulp of each element plus that same 1e-5 (the bf16
-    result rounds a float32 sum taken in another order, and where the sum
-    cancels to near zero the order's error is many ulps of the result)."""
-    diff = (got.float() - ref.float()).abs()
-    err = float(diff.max())
-    scale = float(ref.float().abs().max())
-    if dtype == torch.float32:
-        ok = err <= 1e-5 * scale
-        detail = f"max_abs_err {err:.3e} (tol 1e-5 x {scale:.3e})"
-    else:
-        beyond = float((diff - bf16_ulp(ref)).clamp_min(0).max())
-        ok = beyond <= 1e-5 * scale
-        detail = (f"max_abs_err {err:.3e}, beyond 1 bf16 ulp {beyond:.3e} "
-                  f"(tol 1e-5 x {scale:.3e})")
-    log(f"  {name}: {detail} -> {'ok' if ok else 'FAIL'}")
+def check_k1_bwd(name, go, grid, x_shape) -> float:
+    """K1-bwd bit-equal, by integer view, to its plain version computed on
+    the CPU from the same inputs (the CPU's index_add_ adds in the order the
+    kernel keeps; on the card it is atomic), and two launches on one input
+    bit-equal. Returns the max abs error, 0."""
+    got = grid_sample_backward_cuda(go, grid, x_shape, False)
+    again = grid_sample_backward_cuda(go, grid, x_shape, False)
+    ref = grid_sample_backward(go.cpu(), grid.cpu(), x_shape, False)
+    bits = torch.int32 if go.dtype == torch.float32 else torch.int16
+    got, again = got.cpu(), again.cpu()
+    differ = int((got.view(bits) != ref.view(bits)).sum())
+    rerun = int((again.view(bits) != got.view(bits)).sum())
+    err = float((got.float() - ref.float()).abs().max())
+    ok = differ == 0 and rerun == 0
+    log(f"  {name}: {differ} elements differ from the CPU's plain version, {rerun} between "
+        f"two runs, max_abs_err {err:.3e} -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{name} disagrees with its plain version: {detail}")
+        raise AssertionError(f"{name} is not bit-equal to its plain version on the CPU "
+                             f"({differ} elements) or to itself ({rerun})")
     return err
+
+
+def kernel_split_us(fn, flush, pattern, reps=10) -> dict:
+    """Device us a call of fn() by kernel, for the kernels whose names
+    contain ``pattern`` (torch.profiler over ``reps`` calls, the L2 flushed
+    before each): where a launch sequence spends its time."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if pattern in e.key:
+            name = re.sub(r"^(void )?(\(anonymous namespace\)::)?", "", e.key).split("(")[0]
+            split[name] = split.get(name, 0.0) + e.device_time_total / reps
+    return split
 
 
 def time_k1_bwd(g_out, grid, x_shape, flush, cpm) -> dict:
@@ -1665,6 +1684,9 @@ def time_k1_bwd(g_out, grid, x_shape, flush, cpm) -> dict:
         "library_ms": time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
             gn, xn, grid_l, 0, 1, False, [True, False]), flush, cpm),
         "bound_ms": b[0], "bound_by": b[1],
+        "split_us": kernel_split_us(lambda: grid_sample_backward_cuda(g_out, grid, x_shape,
+                                                                      False),
+                                    flush, "grid_sample_backward_"),
     }
 
 
@@ -1673,18 +1695,17 @@ def check_train_kernels(dev, arch="pspnet", dtypes=(torch.float32, torch.bfloat1
     and K1-bwd at (2, head, C) -> grid (a chain's head; for the ViT an
     up-sample of the token map) and (2, grid, C) -> grid (its steps), in
     ``dtypes``, on phase 3t's grids for its crop: K1 bit-equal to its plain
-    version in float32, K1-bwd within check_k1_bwd's tolerance, and the
-    largest difference between two runs of K1-bwd on one input (atomics).
-    Then both timed in float32 (the training dtype) on the training
-    batch's grids, and K1-bwd in bf16 where bf16 is checked. Timing keys
-    carry the architecture but PSPNet's."""
+    version in float32, K1-bwd bit-equal to its plain version on the CPU
+    and to itself from run to run (check_k1_bwd). Then both timed in
+    float32 (the training dtype) on the training batch's grids, and K1-bwd
+    in bf16 where bf16 is checked. Timing keys carry the architecture but
+    PSPNet's."""
     c, head_hw, grid_hw, crop = TRAIN_SHAPES[arch]
     grids = train_grids(dev, crop=crop)
     g = torch.Generator().manual_seed(1)
     xs = {hw: torch.randn((2,) + hw + (c,), generator=g) for hw in (head_hw, grid_hw)}
     g_out = torch.randn((2,) + grid_hw + (c,), generator=g)
     errs = {}
-    rerun = 0.0
     for dtype in dtypes:
         tag = str(dtype).replace("torch.", "")
         go = g_out.to(dev, dtype)
@@ -1697,13 +1718,8 @@ def check_train_kernels(dev, arch="pspnet", dtypes=(torch.float32, torch.bfloat1
                                          f"its plain version")
                 note_err(errs, "grid_sample_cuda", dtype, compare(
                     f"K1 {tag} x{tuple(x.shape)} {what}", out, ref, dtype))
-                got = grid_sample_backward_cuda(go, grid, x.shape, False)
                 note_err(errs, "grid_sample_backward_cuda", dtype, check_k1_bwd(
-                    f"K1-bwd {tag} grad_x{tuple(x.shape)} {what}", got,
-                    grid_sample_backward(go, grid, x.shape, False), dtype))
-                again = grid_sample_backward_cuda(go, grid, x.shape, False)
-                rerun = max(rerun, float((again.float() - got.float()).abs().max()))
-    log(f"  K1-bwd run to run (atomics): largest difference {rerun:.3e}")
+                    f"K1-bwd {tag} grad_x{tuple(x.shape)} {what}", go, grid, tuple(x.shape)))
     flush, cpm = L2Flush(dev), sleep_cycles_per_ms()
     res = {}
     go = g_out.to(dev)
@@ -1719,11 +1735,67 @@ def check_train_kernels(dev, arch="pspnet", dtypes=(torch.float32, torch.bfloat1
     if torch.bfloat16 in dtypes:
         res[f"grid_sample_backward_cuda ({label}train head, bf16)"] = time_k1_bwd(
             go.to(torch.bfloat16), grids["train-crop"], (2,) + head_hw + (c,), flush, cpm)
-    for name, r in res.items():
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) -> "
-            f"{r['bound_ms'] / r['ms']:.1%} of bound")
+    log_timing(res, "library")
     return errs, res
+
+
+# the reference's full-frame block grid, whose K1-bwd index build does not fit
+# one block's shared memory
+WIDE_GRID = (67, 120)
+
+
+def check_k1_bwd_workspace(dev, c=256, seed=2) -> tuple:
+    """Phase 3t's K1-bwd where its index build keeps its working arrays in
+    a device workspace: a (1, 67, 120) grid onto (1, 134, 240, c), on
+    random grids, the block centres (the identity, align_corners=False) and
+    the corner grid (all 32160 entries on one pixel), float32 and bf16, each
+    bit-equal to its plain version on the CPU and from run to run; then
+    timed in float32 on the random grid. Returns (errors, timing)."""
+    gh, gw = WIDE_GRID
+    x_shape = (1, 2 * gh, 2 * gw, c)
+    if not warp_library().floodseg_grid_sample_backward_workspace(1, x_shape[1], x_shape[2],
+                                                                  gh, gw):
+        raise AssertionError(f"K1-bwd at {x_shape} would build its index in shared memory")
+    g = torch.Generator().manual_seed(seed)
+    go = torch.randn((1, gh, gw, c), generator=g)
+    grids = {"random": torch.rand((1, gh, gw, 2), generator=g) * 2.2 - 1.1,
+             "identity": torch.as_tensor(default_grid(gh * 16, gw * 16))[None],
+             "corner": torch.full((1, gh, gw, 2), -1.5)}
+    grids = {k: v.to(dev).contiguous() for k, v in grids.items()}
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        for what, grid in grids.items():
+            note_err(errs, "grid_sample_backward_cuda", dtype, check_k1_bwd(
+                f"K1-bwd {tag} grad_x{x_shape} {what} (workspace route)", go.to(dev, dtype),
+                grid, x_shape))
+    res = {"grid_sample_backward_cuda (workspace route, float32)": time_k1_bwd(
+        go.to(dev), grids["random"], x_shape, L2Flush(dev), sleep_cycles_per_ms())}
+    log_timing(res, "library")
+    return errs, res
+
+
+def check_k1_bwd_unaligned(dev, seed=4) -> tuple:
+    """Phase 3t's K1-bwd on grad_out that is a contiguous view at an odd
+    element offset, C = 5 (the one-element route, as the backward of a
+    stack or an unbind may hand it over): the PSPNet head shape's grids and
+    the workspace route's, float32 and bf16, bit-equal to the plain version
+    on the CPU and from run to run. Returns (errors, {})."""
+    g = torch.Generator().manual_seed(seed)
+    errs = {}
+    for grid_hw, x_hw in (((27, 27), (55, 55)), (WIDE_GRID, (134, 240))):
+        b = 2 if grid_hw != WIDE_GRID else 1
+        x_shape = (b,) + x_hw + (5,)
+        grid = (torch.rand((b,) + grid_hw + (2,), generator=g) * 2.2 - 1.1).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            flat = torch.randn(1 + b * grid_hw[0] * grid_hw[1] * 5, generator=g)
+            go = flat.to(dev, dtype)[1:].view((b,) + grid_hw + (5,))
+            assert go.is_contiguous() and go.data_ptr() % 16 != 0
+            tag = str(dtype).replace("torch.", "")
+            note_err(errs, "grid_sample_backward_cuda", dtype, check_k1_bwd(
+                f"K1-bwd {tag} grad_x{x_shape} random, grad_out at an odd offset", go, grid,
+                x_shape))
+    return errs, {}
 
 
 def train_batch(seed=3, size=65, n=5, device="cpu") -> dict:
@@ -2068,10 +2140,13 @@ def train_phase(dev, root, tag, arch="pspnet", layers=50, method="flow_supervise
     dt = device_time(trace, profiled)
     span = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)) / 1e3 \
         if kernels else float("nan")
-    families = {name: 0.0 for name, _ in TRAIN_FAMILIES}
+    # each family's kernels as the union of their spans: K1-bwd's gather is
+    # resident, waiting, while its index build runs
+    spans = {name: [] for name, _ in TRAIN_FAMILIES}
     for e in kernels:
         fam = next(name for name, pats in TRAIN_FAMILIES if any(p in e["name"] for p in pats))
-        families[fam] += e["dur"] / (1e3 * profiled)
+        spans[fam].append((e["ts"], e["ts"] + e["dur"]))
+    families = {name: union_us(v) / (1e3 * profiled) for name, v in spans.items()}
     log(f"  profiler over {profiled} steps: device busy {dt['busy_ms']:.1f} ms a step of "
         f"{span / profiled:.1f} (idle share {1 - dt['busy_ms'] * profiled / span:.1%}); "
         f"{dt['kernels']:.0f} kernels a step; ms a step by family "
@@ -2088,9 +2163,9 @@ def training_phases(dev) -> tuple:
     log("[3t] K1 and K1-bwd at the training shapes (batch 2, 433 px crops, C = 4096; "
         "DeepLabV3 C = 2048; the ViT's 416 px crops, C = 768)")
     errs, timing = {}, {}
-    for arch, dtypes in (("pspnet", (torch.float32, torch.bfloat16)),
-                         ("deeplabv3", (torch.float32,)), ("vit", (torch.float32,))):
-        e, t = check_train_kernels(dev, arch, dtypes)
+    checked = [check_train_kernels(dev, arch) for arch in TRAIN_SHAPES]
+    checked += [check_k1_bwd_workspace(dev), check_k1_bwd_unaligned(dev)]
+    for e, t in checked:
         timing.update(t)
         for kname, by in e.items():
             for tag, v in by.items():
@@ -2260,6 +2335,20 @@ def k3_alone(seed=0) -> int:
     return 0
 
 
+def k1_bwd_alone() -> int:
+    """--k1-bwd: build csrc/warp.cu, then phase 3t's checks and timings of
+    K1 and K1-bwd at every architecture's training shapes, and K1-bwd's
+    workspace route and grad_out at an odd offset."""
+    log(f"[k1-bwd] {nvidia_smi_line()} | torch {torch.__version__} CUDA {torch.version.cuda}")
+    build_kernels(["warp"])
+    dev = torch.device("cuda")
+    for arch in TRAIN_SHAPES:
+        check_train_kernels(dev, arch)
+    check_k1_bwd_workspace(dev)
+    check_k1_bwd_unaligned(dev)
+    return 0
+
+
 def train_alone() -> int:
     """--train: build csrc/warp.cu and the codec, then phases 3t, 4t and 14-17."""
     log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
@@ -2280,6 +2369,8 @@ def main() -> int:
         return k3_alone()
     if sys.argv[1:] == ["--train"]:
         return train_alone()
+    if sys.argv[1:] == ["--k1-bwd"]:
+        return k1_bwd_alone()
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
@@ -2417,7 +2508,8 @@ def main() -> int:
         "crop_key_resample": crop_timing[
             "grid_sample_cuda (crop -> 67x120 identity, align_corners=True)"]},
         "grid_sample_backward_cuda": {
-            "train_head_bf16": train_timing["grid_sample_backward_cuda (train head, bf16)"]},
+            "workspace_f32": train_timing[
+                "grid_sample_backward_cuda (workspace route, float32)"]},
         "warp_chain_cuda": {"crop": crop_timing["warp_chain_cuda (27x27, 23 steps)"]}}
     # the training rows, "train_{head,step}_f32[_arch]" (K1-bwd's PSPNet step
     # row is its main timing above)
@@ -2428,6 +2520,8 @@ def main() -> int:
                 if (kname, arch, part) != ("grid_sample_backward_cuda", "pspnet", "step"):
                     extra_rows[kname][f"train_{part}_f32{suffix}"] = train_timing[
                         f"{kname} ({label}train {part}, float32)"]
+        extra_rows["grid_sample_backward_cuda"][f"train_head_bf16{suffix}"] = train_timing[
+            f"grid_sample_backward_cuda ({label}train head, bf16)"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for kname, (replaces, src) in sources.items():

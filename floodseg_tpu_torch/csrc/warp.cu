@@ -74,30 +74,77 @@
 //   item, and a step that writes out[s + 1], then after a barrier copies
 //   each thread's items of it back into the carry, and a second barrier.
 //
-// K1-bwd grid_sample_backward_kernel
+// K1-bwd grid_sample_backward_index_kernel + grid_sample_backward_gather_kernel
 //   The gradient of K1 with respect to x, for training. No TPU kernel has
 //   it: the JAX package trains through floodseg_tpu/ops/grid_sample.py::
 //   grid_sample (the XLA gather) and lets XLA differentiate it, which
 //   scatters each output point's gradient back to its four taps. Here:
 //   grad_x (B, H, W, C) = sum over output points p and taps k of
 //   w_k(p) * grad_out[p], added at the tap's source pixel; the grid gets no
-//   gradient. The taps are K1's (make_taps), so the kernel and its plain
-//   version (ops/grid_sample.py::grid_sample_backward) scatter the same
-//   products; only the order of the float32 sums differs.
-//   Bound on an H100 SXM (3.35 TB/s): bytes. At the training shape
-//   (grad_out 2x27x27x4096 float32 = 23.9 MB in, grad_x 2x55x55x4096
-//   float32 = 99.1 MB out) about 37 us; at 27x27 -> 27x27 (47.8 MB) about
-//   14 us. The arithmetic (4 multiplies and 4 adds per element of grad_out)
-//   is negligible.
-//   Design (simple first): one thread per (output point, 16-byte channel
-//   vector of grad_out), taps computed as in K1, and the four weighted
-//   vectors added into a float32 accumulator with vector atomics (float4,
-//   sm_90), after a cudaMemsetAsync of the accumulator. The accumulator is
-//   grad_x itself in float32; in bf16 a float32 scratch buffer, rounded
-//   into grad_x by one more pass (cast_kernel). The atomics make the order
-//   of the sums, and so the last bits of float32 results, change from run
-//   to run; a deterministic design (gather by source pixel over an
-//   inverted tap list) is a later redesign.
+//   gradient. The taps are K1's (make_taps).
+//   Contract: bit-equal to the plain version (ops/grid_sample.py::
+//   grid_sample_backward, index_add_ on the CPU), and so the same from run
+//   to run. The plain version adds tap 0, 1, 2 and 3 in turn, each over
+//   the points in order: for a source pixel, its entries e = k * P + p
+//   (P points an image) in ascending order, each product w * g rounded
+//   once, summed from +0.0 with one rounding an add (from +0.0, not from
+//   the first product: index_add_ into zeros turns a -0.0 product into
+//   +0.0), in float32; bf16 rounds the float32 sum once.
+//   Bound on an H100 SXM (3.35 TB/s): bytes. grad_out read once, grad_x
+//   written once, the grid read once: at the training head shape (grad_out
+//   2x27x27x4096 float32 = 23.9 MB, grad_x 2x55x55x4096 = 99.1 MB) 36.7 us;
+//   at 27x27 -> 27x27 (47.8 MB) 14.3 us. The arithmetic (a multiply and an
+//   add for each of the four taps of an element of grad_out) is far below
+//   the float32 rate.
+//   Design: a gather by source pixel over an inverted tap list.
+//   1. Index build, work in O(P) and nothing that scales with C. Each
+//      point's taps (make_taps) give its four entries e = k * P + p, each
+//      with its source pixel s and weight w_k(p). They are ordered by
+//      (s, e) by a counting sort: a count per source pixel, an exclusive
+//      scan into CSR offsets (H * W + 1 an image), each entry placed in its
+//      pixel's bucket through an integer cursor, and then its rank inside
+//      the bucket computed without atomics, as the number of the bucket's
+//      entries with a smaller e. The cursors' order of placement changes
+//      from run to run; the ranks, and so the list of (p, w) the gather
+//      reads, do not. One block an image does all of it
+//      (grid_sample_backward_index_kernel) with 7 barriers, its working
+//      arrays in shared memory where they fit (up to 227 KB, some 4300
+//      points onto 3000 pixels, every training shape of the repository),
+//      else in a device workspace of the same layout, one slot an image:
+//      the same steps, so also deterministic, and never atomics on the
+//      gradient, the plain version or a raise.
+//   2. Gather (grid_sample_backward_gather_kernel): one thread for each
+//      16-byte vector of channels of a few consecutive pixels, neighbouring
+//      threads on neighbouring channels, so loads and stores coalesce, and
+//      the pixels in raster order, so the four taps of a point read its
+//      grad_out row while it is in L2. A thread loads its pixels' offsets,
+//      then the first entries of all its pixels and their gradient vectors
+//      at once (the entries are the same for every thread of a pixel:
+//      broadcast loads), before it adds any; then it sums each pixel's
+//      entries in order, __fmul_rn(g[p], w) and __fadd_rn from +0.0f, and
+//      stores float32, or __float2bfloat16_rn of the float32 sum, once. An
+//      empty bucket stores zeros, so nothing is cleared first.
+//   3. The gather is launched as a programmatic dependent of the index
+//      build (cudaLaunchKernelEx, griddepcontrol): it is resident while the
+//      build runs, its first 2 blocks an SM bring grad_out into L2 with one
+//      bulk prefetch each (cp.async.bulk.prefetch.L2; only where grad_out
+//      is 16-byte aligned, as the bulk copy needs), and every block waits
+//      (griddepcontrol.wait) until the build's writes are visible. This
+//      hides the launch gap between the two kernels, and grad_out's first
+//      read from device memory, behind the build: 0.8-1.2 us a call for
+//      the dependent launch, up to 1.9 us for the prefetch (PERF.md).
+//   What still holds it back (PERF.md): the index build, 5 us of latency
+//   on one SM an image whatever the channel count, which is most of the
+//   ViT's time; and at the steps (4 entries a pixel) the gather reads
+//   each grad_out row four times, from L2, with a chain of three loads
+//   (offsets, entries, grad_out) before its first add.
+//   The first design scattered each weighted vector with float4
+//   atomics into a float32 accumulator cleared by cudaMemsetAsync; bf16
+//   took a float32 scratch buffer and one more pass to round it. At the
+//   head shape the accumulator is twice the L2, so it moved the memset's
+//   99 MB, a read and a write of the accumulator for its atomics and
+//   grad_out: about 321 MB against the bound's 123 MB, 0.1261 ms against
+//   36.7 us. Its sums' order changed from run to run.
 //
 // C interface for ctypes. Every entry returns cudaGetLastError() after its
 // launch, as an int; 0 is success. Launches go on the caller's stream and
@@ -105,6 +152,7 @@
 // vectors (C * itemsize a multiple of 16, pointers 16-byte aligned),
 // 0 = one element at a time.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -235,89 +283,323 @@ cudaError_t launch_grid_sample(const void* x, const void* grid, void* out,
 
 // ---------------------------------------------------------------- K1-bwd
 
-// acc[0..V) += s[0..V) in device memory: float4 atomics where the vector
-// allows them (16-byte aligned by the caller's vec rule), else one float.
-template <int V>
-__device__ __forceinline__ void atomic_add_vec(float* acc, const float (&s)[V]) {
-  if constexpr (V % 4 == 0) {
+constexpr int kIndexThreads = 1024;
+constexpr int kGatherThreads = 256;
+
+// One entry of the inverted tap list: an output point and its tap's weight.
+struct alignas(8) BwdEntry {
+  int p;
+  float w;
+};
+
+// The index the gather reads. offsets: (B, S + 1) CSR offsets into
+// entries: (B, 4P), ordered by (source pixel, e).
+struct BwdIndex {
+  int* offsets;
+  BwdEntry* entries;
+};
+
+// The index build's working arrays for one image of S pixels and P
+// points, in this order: source[4P], weight[4P], placed[4P] (ints and
+// floats), cnt[S] (counts, then cursors), off[S + 1]. They lie in shared
+// memory where they fit one block, else in a device workspace, one
+// 16-byte aligned slot of this size an image.
+size_t backward_layout_bytes(int points, int pixels) {
+  return ((size_t)12 * 4 * points + (size_t)8 * pixels + 4 + 15) / 16 * 16;
+}
+
+// The build's scan sums: static shared memory beside the layout.
+constexpr int kScanSums = 32;
+
+// The device workspace an image for an image of S pixels and P points on
+// the current device: 0 where the layout fits one block's shared memory.
+size_t backward_workspace_bytes(int points, int pixels) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess) {
+    optin = 0;
+  }
+  const size_t bytes = backward_layout_bytes(points, pixels);
+  return bytes + kScanSums * sizeof(int) <= (size_t)optin ? 0 : bytes;
+}
+
+// off[i] = cnt[0] + ... + cnt[i - 1] for i in [0, n], in place if off is
+// cnt. Every thread of the block calls it (blockDim.x a multiple of 32);
+// sums: 32 ints of shared memory. Ends with a barrier.
+__device__ void block_exclusive_scan(const int* cnt, int* off, int n, int* sums) {
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  int own = 0;
+  for (int i = lo; i < hi; ++i) own += cnt[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = own;
 #pragma unroll
-    for (int e = 0; e < V; e += 4) {
-      atomicAdd(reinterpret_cast<float4*>(acc + e),
-                make_float4(s[e], s[e + 1], s[e + 2], s[e + 3]));
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += y;
+  }
+  if (lane == 31) sums[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int warps = blockDim.x >> 5;
+    int v = lane < warps ? sums[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v += y;
     }
-  } else {
+    if (lane < warps) sums[lane] = v;
+  }
+  __syncthreads();
+  int run = inc - own + (warp ? sums[warp - 1] : 0);
+  for (int i = lo; i < hi; ++i) {  // off may be cnt
+    const int t = cnt[i];
+    off[i] = run;
+    run += t;
+  }
+  if (threadIdx.x == blockDim.x - 1) off[n] = run;  // its chunk ends at n
+  __syncthreads();
+}
+
+// Entry e's rank inside its bucket placed[lo, hi): the number of the
+// bucket's entries with a smaller e. Its place in the ordered list is lo
+// plus its rank, whatever order the cursor placed the bucket in.
+__device__ __forceinline__ int bucket_rank(const int* placed, int lo, int hi, int e) {
+  int r = 0;
+#pragma unroll 4
+  for (int i = lo; i < hi; ++i) r += placed[i] < e;
+  return r;
+}
+
+// Block b builds image b's index in its working arrays
+// (backward_layout_bytes): in dynamic shared memory (kShared), or in its
+// slot of the device workspace. A barrier makes either visible to the
+// whole block.
+template <bool kShared>
+__global__ void __launch_bounds__(kIndexThreads)
+grid_sample_backward_index_kernel(const float* __restrict__ grid, int h, int w, int points,
+                                  bool align, BwdIndex index, unsigned char* workspace,
+                                  size_t slot) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int sums[kScanSums];
+  asm volatile("griddepcontrol.launch_dependents;");  // the gather may launch
+  const int S = h * w, E = 4 * points;
+  unsigned char* base = kShared ? smem : workspace + blockIdx.x * slot;
+  int* source = reinterpret_cast<int*>(base);
+  float* weight = reinterpret_cast<float*>(source + E);
+  int* placed = reinterpret_cast<int*>(weight + E);
+  int* cnt = placed + E;
+  int* off = cnt + S;
+  const float* g = grid + (size_t)blockIdx.x * points * 2;
+  for (int s = threadIdx.x; s < S; s += blockDim.x) cnt[s] = 0;
+  for (int p = threadIdx.x; p < points; p += blockDim.x) {
+    const Taps t = make_taps(g[2 * p], g[2 * p + 1], h, w, align);
 #pragma unroll
-    for (int e = 0; e < V; ++e) atomicAdd(acc + e, s[e]);
+    for (int k = 0; k < 4; ++k) {
+      source[k * points + p] = t.idx[k];
+      weight[k * points + p] = t.w[k];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < E; e += blockDim.x) atomicAdd(&cnt[source[e]], 1);
+  __syncthreads();
+  block_exclusive_scan(cnt, off, S, sums);
+  int* goff = index.offsets + (size_t)blockIdx.x * (S + 1);
+  for (int s = threadIdx.x; s <= S; s += blockDim.x) {
+    goff[s] = off[s];
+    if (s < S) cnt[s] = off[s];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    placed[atomicAdd(&cnt[source[e]], 1)] = e;
+  }
+  __syncthreads();
+  BwdEntry* out = index.entries + (size_t)blockIdx.x * E;
+  for (int q = threadIdx.x; q < E; q += blockDim.x) {
+    const int e = placed[q];
+    const int s = source[e];
+    out[off[s] + bucket_rank(placed, off[s], off[s + 1], e)] = BwdEntry{e % points, weight[e]};
   }
 }
 
-template <typename T, int V>
-__global__ void __launch_bounds__(kSampleThreads)
-grid_sample_backward_kernel(const T* __restrict__ grad_out,
-                            const float* __restrict__ grid,
-                            float* __restrict__ acc, int h, int w, int c,
-                            int points, long long total, bool align) {
+// The gather. A thread owns one 16-byte vector of channels of PPT
+// consecutive pixels of an image; it loads the first D entries of each of
+// them, and their gradient vectors, before it adds any (PPT * D loads in
+// flight a thread), then sums each pixel in entry order and stores it.
+// Launched as a programmatic dependent of the index build: until the
+// build's writes are visible (griddepcontrol.wait), the first prefetchers
+// blocks bring grad_out into L2, where its address is 16-byte aligned, as
+// a bulk prefetch needs (the one-element route's grad_out may not be).
+template <typename T, int V, int PPT, int D>
+__global__ void __launch_bounds__(kGatherThreads)
+grid_sample_backward_gather_kernel(const T* __restrict__ grad_out,
+                                   const int* __restrict__ offsets,
+                                   const BwdEntry* __restrict__ entries,
+                                   T* __restrict__ grad_x, int pixels, int c,
+                                   int points, int groups, long long total,
+                                   int prefetchers, unsigned prefetch_bytes,
+                                   long long grad_out_bytes) {
   using VT = Vec<T, V>;
+  const bool aligned = (reinterpret_cast<uintptr_t>(grad_out) & 15) == 0;
+  if (aligned && (int)blockIdx.x < prefetchers) {
+    const long long at = (long long)blockIdx.x * prefetch_bytes;  // a multiple of 16
+    const unsigned n = (unsigned)min((long long)prefetch_bytes, grad_out_bytes - at) & ~15u;
+    if (threadIdx.x == 0 && at < grad_out_bytes && n > 0) {
+      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
+                   :: "l"(reinterpret_cast<const char*>(grad_out) + at), "r"(n) : "memory");
+    }
+  }
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   const long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (item >= total) return;
   const int nv = c / V;
-  const long long bp = item / nv;  // b * points + p
-  const int v = (int)(item - bp * nv);
-  const int b = (int)(bp / points);
-  const Taps t = make_taps(grid[2 * bp], grid[2 * bp + 1], h, w, align);
-  const VT g = *reinterpret_cast<const VT*>(grad_out + bp * c + (size_t)v * V);
-  float* dst = acc + (size_t)b * h * w * c + (size_t)v * V;
+  const long long bg = item / nv;  // b * groups + group
+  const int v = (int)(item - bg * nv);
+  const long long b = bg / groups;
+  const int s0 = (int)(bg - b * groups) * PPT;
+  const int n = min(PPT, pixels - s0);
+  const int* off = offsets + b * (pixels + 1) + s0;
+  int bound[PPT + 1];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    float s[V];
+  for (int j = 0; j <= PPT; ++j) bound[j] = __ldg(off + min(j, n));
+  const BwdEntry* ent = entries + b * 4 * points;
+  const T* g = grad_out + b * points * c + (size_t)v * V;
+  T* dst = grad_x + (b * pixels + s0) * c + (size_t)v * V;
+  int2 pw[PPT][D];
+  VT x[PPT][D];
 #pragma unroll
-    for (int e = 0; e < V; ++e) s[e] = __fmul_rn(Num<T>::load(g.v[e]), t.w[k]);
-    atomic_add_vec<V>(dst + (size_t)t.idx[k] * c, s);
+  for (int j = 0; j < PPT; ++j) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if (bound[j] + d < bound[j + 1]) {
+        pw[j][d] = __ldg(reinterpret_cast<const int2*>(ent + bound[j] + d));
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < PPT; ++j) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if (bound[j] + d < bound[j + 1]) {
+        x[j][d] = *reinterpret_cast<const VT*>(g + (size_t)pw[j][d].x * c);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < PPT; ++j) {
+    if (j < n) {
+      float acc[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = 0.0f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        if (bound[j] + d < bound[j + 1]) {
+          const float wt = __int_as_float(pw[j][d].y);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            acc[e] = __fadd_rn(acc[e], __fmul_rn(Num<T>::load(x[j][d].v[e]), wt));
+          }
+        }
+      }
+#pragma unroll 4
+      for (int i = bound[j] + D; i < bound[j + 1]; ++i) {
+        const int2 q = __ldg(reinterpret_cast<const int2*>(ent + i));
+        const float wt = __int_as_float(q.y);
+        const VT y = *reinterpret_cast<const VT*>(g + (size_t)q.x * c);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(Num<T>::load(y.v[e]), wt));
+      }
+      VT r;
+#pragma unroll
+      for (int e = 0; e < V; ++e) r.v[e] = Num<T>::store(acc[e]);
+      *reinterpret_cast<VT*>(dst + (size_t)j * c) = r;
+    }
   }
 }
 
-// out[i] = round(acc[i]) to T, V elements a thread.
-template <typename T, int V>
-__global__ void __launch_bounds__(kSampleThreads)
-cast_kernel(const float* __restrict__ acc, T* __restrict__ out, long long n) {
-  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
-  if (i >= n) return;
-  const Vec<float, V> a = *reinterpret_cast<const Vec<float, V>*>(acc + i);
-  Vec<T, V> r;
-#pragma unroll
-  for (int e = 0; e < V; ++e) r.v[e] = Num<T>::store(a.v[e]);
-  *reinterpret_cast<Vec<T, V>*>(out + i) = r;
-}
-
-// acc: grad_x itself for float32, a float32 scratch buffer of grad_x's
-// size for bf16 (then rounded into grad_x).
-template <typename T, int V>
-cudaError_t launch_grid_sample_backward(const void* grad_out, const void* grid,
-                                        void* grad_x, void* scratch, int b,
-                                        int h, int w, int c, int gh, int gw,
-                                        bool align, cudaStream_t stream) {
-  const bool direct = sizeof(T) == sizeof(float);
-  float* acc = static_cast<float*>(direct ? grad_x : scratch);
-  const long long n = (long long)b * h * w * c;
-  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)n * sizeof(float), stream);
-  if (e != cudaSuccess) return e;
-  const int points = gh * gw;
-  const long long total = (long long)b * points * (c / V);
-  if (total > 0) {
-    const long long blocks = (total + kSampleThreads - 1) / kSampleThreads;
-    grid_sample_backward_kernel<T, V><<<(unsigned)blocks, kSampleThreads, 0, stream>>>(
-        static_cast<const T*>(grad_out), static_cast<const float*>(grid), acc,
-        h, w, c, points, total, align);
-    e = cudaGetLastError();
+// One block an image; the working arrays in shared memory, or, where
+// backward_workspace_bytes is not 0, in workspace (that many bytes an
+// image).
+cudaError_t build_backward_index(const float* grid, int b, int h, int w, int points,
+                                 bool align, const BwdIndex& index, void* workspace,
+                                 cudaStream_t stream) {
+  const size_t slot = backward_workspace_bytes(points, h * w);
+  if (slot > 0) {
+    if (workspace == nullptr) return cudaErrorInvalidValue;
+    grid_sample_backward_index_kernel<false><<<b, kIndexThreads, 0, stream>>>(
+        grid, h, w, points, align, index, static_cast<unsigned char*>(workspace), slot);
+    return cudaGetLastError();
+  }
+  const size_t smem = backward_layout_bytes(points, h * w);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(grid_sample_backward_index_kernel<true>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
     if (e != cudaSuccess) return e;
   }
-  if (!direct) {
-    constexpr int CV = V == 1 ? 1 : 4;  // vec: C is a multiple of 8
-    const long long threads = n / CV;
-    const long long blocks = (threads + kSampleThreads - 1) / kSampleThreads;
-    cast_kernel<T, CV><<<(unsigned)blocks, kSampleThreads, 0, stream>>>(
-        acc, static_cast<T*>(grad_x), n);
+  grid_sample_backward_index_kernel<true><<<b, kIndexThreads, smem, stream>>>(
+      grid, h, w, points, align, index, nullptr, 0);
+  return cudaGetLastError();
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      count = 132;
+    }
   }
+  return count;
+}
+
+template <typename T, int V, int PPT, int D>
+cudaError_t launch_gather(const T* grad_out, const BwdIndex& index, T* grad_x, int b,
+                          int pixels, int c, int points, cudaStream_t stream) {
+  const int groups = (pixels + PPT - 1) / PPT;
+  const long long total = (long long)b * groups * (c / V);
+  const long long bytes = (long long)b * points * c * sizeof(T);
+  // two blocks an SM share the prefetch, each a multiple of 16 bytes
+  const int prefetchers = 2 * sm_count();
+  const unsigned chunk = (unsigned)(((bytes + prefetchers - 1) / prefetchers + 15) / 16 * 16);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((total + kGatherThreads - 1) / kGatherThreads));
+  cfg.blockDim = dim3(kGatherThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, grid_sample_backward_gather_kernel<T, V, PPT, D>, grad_out,
+                            (const int*)index.offsets, (const BwdEntry*)index.entries, grad_x,
+                            pixels, c, points, groups, total, prefetchers, chunk, bytes);
+}
+
+// The gather's pixels a thread, PPT, and entries of each loaded ahead, D,
+// from k, the entries a pixel on average (4P / S): 4 pixels, 1 entry each,
+// at the training heads (k about 1); 2 pixels, 1 entry each, at the steps
+// (k = 4; the rest in the loop: more registers a thread cost more
+// occupancy than they won on the card); 1 pixel, 4 entries, at the ViT's
+// up-sampling head (k = 16).
+template <typename T, int V>
+cudaError_t launch_grid_sample_backward(const void* grad_out, const void* grid,
+                                        void* grad_x, const BwdIndex& index,
+                                        void* workspace, int b, int h, int w, int c,
+                                        int gh, int gw, bool align, cudaStream_t stream) {
+  const int points = gh * gw, pixels = h * w;
+  const T* go = static_cast<const T*>(grad_out);
+  T* gx = static_cast<T*>(grad_x);
+  cudaError_t e = build_backward_index(static_cast<const float*>(grid), b, h, w, points,
+                                       align, index, workspace, stream);
+  if (e != cudaSuccess) return e;
+  const long long k = (4LL * points + pixels - 1) / pixels;
+  if (k <= 1) e = launch_gather<T, V, 4, 1>(go, index, gx, b, pixels, c, points, stream);
+  else if (k <= 4) e = launch_gather<T, V, 2, 1>(go, index, gx, b, pixels, c, points, stream);
+  else e = launch_gather<T, V, 1, 4>(go, index, gx, b, pixels, c, points, stream);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -572,13 +854,14 @@ cudaError_t sample_vec(int vec, const void* x, const void* grid, void* out,
 
 template <typename T>
 cudaError_t sample_backward_vec(int vec, const void* grad_out, const void* grid,
-                                void* grad_x, void* scratch, int b, int h, int w,
-                                int c, int gh, int gw, bool align,
+                                void* grad_x, const BwdIndex& index, void* workspace,
+                                int b, int h, int w, int c, int gh, int gw, bool align,
                                 cudaStream_t stream) {
   return vec ? launch_grid_sample_backward<T, static_cast<int>(16 / sizeof(T))>(
-                   grad_out, grid, grad_x, scratch, b, h, w, c, gh, gw, align, stream)
-             : launch_grid_sample_backward<T, 1>(grad_out, grid, grad_x, scratch, b,
-                                                 h, w, c, gh, gw, align, stream);
+                   grad_out, grid, grad_x, index, workspace, b, h, w, c, gh, gw, align,
+                   stream)
+             : launch_grid_sample_backward<T, 1>(grad_out, grid, grad_x, index, workspace,
+                                                 b, h, w, c, gh, gw, align, stream);
 }
 
 }  // namespace
@@ -611,20 +894,30 @@ extern "C" int floodseg_warp_chain(const void* y0, const void* grids,
   }
 }
 
-// K1-bwd. scratch: a float32 buffer of grad_x's size for bf16 (dtype 1),
-// unused (may be null) for float32.
-extern "C" int floodseg_grid_sample_backward(const void* grad_out,
-                                             const void* grid, void* grad_x,
-                                             void* scratch, int b, int h, int w,
-                                             int c, int gh, int gw, int align,
-                                             int dtype, int vec, void* stream) {
+// K1-bwd's device workspace in bytes for B images of H x W pixels and
+// gh x gw points: 0 where the index build's working arrays fit one
+// block's shared memory on the current device.
+extern "C" long long floodseg_grid_sample_backward_workspace(int b, int h, int w, int gh,
+                                                             int gw) {
+  return (long long)b * (long long)backward_workspace_bytes(gh * gw, h * w);
+}
+
+// K1-bwd. offsets: int32 (B, H * W + 1); entries: int32 (B, 4 * gh * gw, 2),
+// 8-byte aligned; workspace: floodseg_grid_sample_backward_workspace's
+// bytes, 16-byte aligned (null where that is 0).
+extern "C" int floodseg_grid_sample_backward(const void* grad_out, const void* grid,
+                                             void* grad_x, void* offsets, void* entries,
+                                             void* workspace, int b, int h, int w, int c,
+                                             int gh, int gw, int align, int dtype, int vec,
+                                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdIndex index{static_cast<int*>(offsets), static_cast<BwdEntry*>(entries)};
   switch (dtype) {
-    case 0: return (int)sample_backward_vec<float>(vec, grad_out, grid, grad_x,
-                                                   scratch, b, h, w, c, gh, gw,
+    case 0: return (int)sample_backward_vec<float>(vec, grad_out, grid, grad_x, index,
+                                                   workspace, b, h, w, c, gh, gw,
                                                    align != 0, s);
     case 1: return (int)sample_backward_vec<__nv_bfloat16>(
-                vec, grad_out, grid, grad_x, scratch, b, h, w, c, gh, gw,
+                vec, grad_out, grid, grad_x, index, workspace, b, h, w, c, gh, gw,
                 align != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -10,7 +10,25 @@ each replaces, its bound on the card and what the design does about it):
 - K1-bwd ``grid_sample_backward_cuda(grad_out, grid, x_shape,
   align_corners)`` is K1's gradient with respect to x, which the JAX
   package leaves to XLA's autodiff of ``ops/grid_sample.py::grid_sample``;
-  its plain version is ``ops.grid_sample.grid_sample_backward``.
+  its plain version is ``ops.grid_sample.grid_sample_backward``. It is a
+  deterministic gather by source pixel: an index build (each point's four
+  entries e = k * P + p ordered by (source pixel, e) into CSR offsets, one
+  block an image, its working arrays in shared memory or, for grids too
+  large for that, in a device workspace) and one pass that sums each
+  pixel's entries in that order and writes grad_x once. That is the order
+  in which the plain version's ``index_add_`` adds on the CPU, so the
+  kernel is bit-equal to the plain version computed there, and the same
+  from run to run. The wrapper allocates the index (CSR offsets and (p, w)
+  entries) and any workspace, whose size the library gives, with
+  ``torch.empty``; nothing is cleared and no float32 scratch is taken for
+  bf16. Its bound is bytes: grad_out read and grad_x written once, 123 MB
+  (36.7 us on an H100 SXM) at the training head shape (2, 27, 27, 4096)
+  -> (2, 55, 55, 4096) in float32 and 47.8 MB (14.3 us) at (2, 27, 27,
+  4096) -> (2, 27, 27, 4096). The first design scattered with float4
+  atomics into a float32 accumulator cleared by a memset (and rounded
+  into bf16 by one more pass): about 2.6 times those bytes at the head
+  shape, since the accumulator is twice the L2 and every atomic a read
+  and a write of it, and an order of sums that changed from run to run.
   ``grid_sample_autograd`` is the ``torch.autograd.Function`` that runs K1
   forward and K1-bwd backward; grids get no gradient.
 - K2 ``warp_chain_cuda(y0, grids)`` replaces ``warp_chain_pallas``; its
@@ -55,9 +73,11 @@ def _library():
         lib.floodseg_grid_sample.restype = i
         lib.floodseg_warp_chain.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.floodseg_warp_chain.restype = i
-        lib.floodseg_grid_sample_backward.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                                      i, i, p]
+        lib.floodseg_grid_sample_backward.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                                      i, i, i, i, p]
         lib.floodseg_grid_sample_backward.restype = i
+        lib.floodseg_grid_sample_backward_workspace.argtypes = [i, i, i, i, i]
+        lib.floodseg_grid_sample_backward_workspace.restype = ctypes.c_longlong
         lib._floodseg_bound = True
     return lib
 
@@ -124,7 +144,9 @@ def grid_sample_backward_cuda(grad_out: torch.Tensor, grid: torch.Tensor, x_shap
                               align_corners: bool = False) -> torch.Tensor:
     """K1-bwd: the gradient of K1 with respect to x. grad_out (B, gh, gw, C),
     grid (B, gh, gw, 2) float32 -> grad_x of shape ``x_shape`` = (B, H, W, C)
-    in grad_out.dtype, summed in float32."""
+    in grad_out.dtype, summed in float32 in the plain version's order, so
+    bit-equal to it. Two launches (the index build, then the gather) count
+    as one."""
     x_shape = tuple(int(s) for s in x_shape)
     if grad_out.dim() != 4 or grid.dim() != 4 or grid.shape[-1] != 2 or len(x_shape) != 4:
         raise ValueError(f"grid_sample_backward_cuda: grad_out must be (B, gh, gw, C), "
@@ -139,16 +161,20 @@ def grid_sample_backward_cuda(grad_out: torch.Tensor, grid: torch.Tensor, x_shap
     out = torch.empty(x_shape, dtype=grad_out.dtype, device=grad_out.device)
     if out.numel() == 0:
         return out
-    scratch = (None if grad_out.dtype == torch.float32 else
-               torch.empty(x_shape, dtype=torch.float32, device=grad_out.device))
-    vec = _vectorized(c, grad_out, out, *([] if scratch is None else [scratch]))
+    vec = _vectorized(c, grad_out, out)
     gh, gw = grid.shape[1], grid.shape[2]
-    with torch.cuda.device(grad_out.device):
-        err = _library().floodseg_grid_sample_backward(
-            grad_out.data_ptr(), grid.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), b, h, w, c, gh, gw,
-            int(bool(align_corners)), _DTYPE_CODES[grad_out.dtype], int(vec),
-            torch.cuda.current_stream(grad_out.device).cuda_stream)
+    dev = grad_out.device
+    with torch.cuda.device(dev):
+        lib = _library()
+        offsets = torch.empty((b, h * w + 1), dtype=torch.int32, device=dev)
+        entries = torch.empty((b, 4 * gh * gw, 2), dtype=torch.int32, device=dev)
+        size = lib.floodseg_grid_sample_backward_workspace(b, h, w, gh, gw)
+        work = torch.empty(size, dtype=torch.uint8, device=dev) if size else None
+        err = lib.floodseg_grid_sample_backward(
+            grad_out.data_ptr(), grid.data_ptr(), out.data_ptr(), offsets.data_ptr(),
+            entries.data_ptr(), None if work is None else work.data_ptr(), b, h, w, c, gh,
+            gw, int(bool(align_corners)), _DTYPE_CODES[grad_out.dtype], int(vec),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "grid_sample_backward_cuda")
     grid_sample_backward_cuda.launches += 1
     return out

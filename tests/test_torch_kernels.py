@@ -32,7 +32,7 @@ from floodseg_tpu_torch.ops import (
     warp_chain_plain,
 )
 from floodseg_tpu_torch.ops.resize_kernels import vector_path
-from floodseg_tpu_torch.ops.warp_kernels import ChainGeometry, _chain_geometry
+from floodseg_tpu_torch.ops.warp_kernels import ChainGeometry, _chain_geometry, _library
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # the kernels and the plain versions round the same float32 arithmetic in
@@ -169,36 +169,68 @@ def test_kernels_match_plain_on_card(dtype):
                                "warp_chain_cuda": 1, "resize_quantize_int8_cuda": 0}
 
 
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_backward_matches_plain_on_card(dtype):
-    """K1-bwd against its plain version (float32 sums, then rounded): float32
-    within 1e-5 of the largest magnitude (atomics add in another order),
-    bf16 within one bf16 ulp plus that 1e-5; random, corner-clamped (every point's taps on
-    one pixel) and unaligned (C = 5) cases; the autograd wrapper launches
-    K1 forward and K1-bwd backward once each."""
+    """K1-bwd bit-equal to its plain version computed on the CPU (whose
+    index_add_ sums in the order the kernel keeps; on the card it is
+    atomic), by integer view: random, corner-clamped (every point's taps on
+    one pixel) and unaligned (C = 5) cases in both align modes, and the
+    index build's workspace route at a (1, 67, 120) grid onto (1, 134, 240,
+    16); two launches on one input bit-equal; the autograd wrapper
+    launches K1 forward and K1-bwd backward once each."""
     dev = _card()
     rng = np.random.default_rng(17)
-    for c, grid in ((72, rng.uniform(-1.2, 1.2, (2, 5, 6, 2))),
-                    (72, np.full((2, 5, 6, 2), -1.5)), (5, rng.uniform(-1, 1, (2, 5, 6, 2)))):
-        g = torch.from_numpy(rng.standard_normal((2, 5, 6, c)).astype(np.float32)).to(dev, dtype)
-        grid = torch.from_numpy(grid.astype(np.float32)).to(dev)
+    cases = [((2, 13, 17, 72), rng.uniform(-1.2, 1.2, (2, 5, 6, 2))),
+             ((2, 13, 17, 72), np.full((2, 5, 6, 2), -1.5)),
+             ((2, 13, 17, 5), rng.uniform(-1, 1, (2, 5, 6, 2))),
+             ((1, 134, 240, 16), rng.uniform(-1.1, 1.1, (1, 67, 120, 2)))]
+    # the workspace route there, shared memory at the others
+    assert _library().floodseg_grid_sample_backward_workspace(1, 134, 240, 67, 120) > 0
+    assert _library().floodseg_grid_sample_backward_workspace(2, 55, 55, 27, 27) == 0
+    for x_shape, grid in cases:
+        g = rng.standard_normal(x_shape[:1] + grid.shape[1:3] + x_shape[3:])
+        g = torch.from_numpy(g.astype(np.float32)).to(dtype)
+        grid = torch.from_numpy(grid.astype(np.float32))
         for align in (False, True):
-            got = grid_sample_backward_cuda(g, grid, (2, 13, 17, c), align).float().cpu()
-            ref = grid_sample_backward(g.float(), grid, (2, 13, 17, c), align).cpu()
-            if dtype == torch.bfloat16:  # one bf16 ulp, plus the float32 order
-                np.testing.assert_allclose(got, ref.to(torch.bfloat16).float(),
-                                           rtol=2 ** -7, atol=1e-5 * float(ref.abs().max()))
-            else:
-                np.testing.assert_allclose(got, ref, rtol=0,
-                                           atol=1e-5 * float(ref.abs().max()))
+            want = grid_sample_backward(g, grid, x_shape, align)
+            got = grid_sample_backward_cuda(g.to(dev), grid.to(dev), x_shape, align)
+            again = grid_sample_backward_cuda(g.to(dev), grid.to(dev), x_shape, align)
+            assert torch.equal(_bits(got.cpu()), _bits(want)), (x_shape, align)
+            assert torch.equal(_bits(again.cpu()), _bits(got.cpu())), (x_shape, align)
     x = torch.from_numpy(rng.standard_normal((2, 13, 17, 72)).astype(np.float32)).to(dev, dtype)
     x.requires_grad_(True)
     reset_launch_counts()
-    grid_sample_autograd(x, grid[..., :1, :].contiguous()).float().sum().backward()
+    grid = torch.from_numpy(rng.uniform(-1, 1, (2, 5, 1, 2)).astype(np.float32)).to(dev)
+    grid_sample_autograd(x, grid).float().sum().backward()
     torch.cuda.synchronize()
     assert launch_counts()["grid_sample_cuda"] == 1
     assert launch_counts()["grid_sample_backward_cuda"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_backward_takes_grad_out_at_an_odd_offset_on_card(dtype):
+    """K1-bwd on a C = 5 grad_out that is a contiguous view at an odd
+    element offset (as the backward of a stack or an unbind may hand it
+    over; not 16-byte aligned), on both index routes: bit-equal to its
+    plain version on the CPU."""
+    dev = _card()
+    rng = np.random.default_rng(18)
+    for x_shape, gh, gw in (((2, 13, 17, 5), 5, 6), ((1, 134, 240, 5), 67, 120)):
+        b = x_shape[0]
+        flat = torch.from_numpy(rng.standard_normal(1 + b * gh * gw * 5).astype(np.float32))
+        g = flat.to(dev, dtype)[1:].view(b, gh, gw, 5)
+        assert g.is_contiguous() and g.data_ptr() % 16 != 0
+        grid = torch.from_numpy(rng.uniform(-1.1, 1.1, (b, gh, gw, 2)).astype(np.float32))
+        for align in (False, True):
+            want = grid_sample_backward(g.cpu(), grid, x_shape, align)
+            got = grid_sample_backward_cuda(g, grid.to(dev), x_shape, align)
+            assert torch.equal(_bits(got.cpu()), _bits(want)), (x_shape, align)
 
 
 @pytest.mark.cuda

@@ -272,24 +272,17 @@ def round_grids(sample, rng=None):
     return sample
 
 
-def jax_fit(tree, jm, variables, cfg, method, crop, extra=None):
-    """The JAX package's ``Runner.fit`` loop on one device for ``method``
-    ("supervised" or "flow_supervised"), without logger or checkpoints:
-    ``Runner._transforms``' transforms at the ``crop`` size (``extra``
-    appended to the train and val ones), its datasets and loaders, the
-    optimizer, the steps with ``fold_in(rng, step)`` keys, one epoch of
-    ``cfg.limit_train_batches`` steps, then validation through the eval
-    step. Returns (the mean train loss, the validation MetricMeter, the
-    steps taken). ``cfg`` is the port's FitConfig."""
+def jax_fit_data(tree, cfg, method, crop, extra=None):
+    """``Runner.fit``'s data for ``method`` ("supervised" or
+    "flow_supervised") at the ``crop`` size: ``Runner._transforms``'
+    transforms (``extra`` appended to the train and val ones), the
+    datasets, the infinite shuffled train loader and the val loader.
+    Returns (train loader, val loader, steps an epoch). ``cfg`` is the
+    port's FitConfig."""
     from floodseg_tpu.data import transforms as jax_tf
     from floodseg_tpu.data.dataset import FlowDataset as JaxFlowDataset
     from floodseg_tpu.data.dataset import SemDataset as JaxSemDataset
     from floodseg_tpu.data.loader import DataLoader as JaxLoader
-    from floodseg_tpu.ops.metrics import MetricMeter as JaxMeter
-    from floodseg_tpu.train import flow as jflow
-    from floodseg_tpu.train import supervised as jax_sup
-    from floodseg_tpu.train.optim import make_optimizer as jax_make_optimizer
-    from floodseg_tpu.train.state import TrainState as JaxTrainState
 
     resize = (cfg.resize_h, cfg.resize_w)
     ignore = list(cfg.classes_ignore)
@@ -303,19 +296,12 @@ def jax_fit(tree, jm, variables, cfg, method, crop, extra=None):
                             frame_delta=cfg.frame_delta)
         vds = JaxFlowDataset("val", tree, f"{lists}/val.txt", type="l", transform=val,
                              frame_delta=cfg.frame_delta)
-        loss_fn = jax_sup.make_loss_fn(cfg.loss, 0.0, 255, cfg.ohem_thresh, cfg.ohem_min_kept)
-        step, _ = jflow.make_flow_train_step(jm, loss_fn, cfg.classes, 255)
-        ev = jflow.make_flow_eval_step(jm, cfg.classes, 255)
     else:
         train = jax_tf.build_train_transform(crop, crop, ignore, cfg.scale_min, cfg.scale_max,
                                              resize)
         val = jax_tf.build_val_transform(crop, crop, ignore, resize)
         ds = JaxSemDataset("train", tree, f"{lists}/train.txt", train)
         vds = JaxSemDataset("val", tree, f"{lists}/val.txt", val)
-        loss_fn = jax_sup.make_loss_fn(cfg.loss, cfg.aux_weight, 255, cfg.ohem_thresh,
-                                       cfg.ohem_min_kept)
-        step = jax_sup.make_train_step(jm, loss_fn, cfg.classes, 255)
-        ev = jax_sup.make_eval_step(jm, cfg.classes, 255)
     if extra is not None:
         train.transforms.append(extra)
         val.transforms.append(extra)
@@ -323,14 +309,47 @@ def jax_fit(tree, jm, variables, cfg, method, crop, extra=None):
                        seed=cfg.seed, infinite=True, drop_last=True)
     vloader = JaxLoader(vds, batch_size=cfg.batch_size_val, num_workers=cfg.workers,
                         seed=cfg.seed)
-    steps = min(len(ds) // cfg.batch_size, cfg.limit_train_batches)
+    return loader, vloader, min(len(ds) // cfg.batch_size, cfg.limit_train_batches)
+
+
+def jax_fit_state(variables, cfg, steps):
+    """``Runner.fit``'s initial TrainState: ``variables`` under the SGD
+    optimizer and poly schedule of ``steps`` an epoch."""
+    from floodseg_tpu.train.optim import make_optimizer as jax_make_optimizer
+    from floodseg_tpu.train.state import TrainState as JaxTrainState
+
     tx = jax_make_optimizer(cfg.lr, steps * cfg.max_epochs, "sgd", cfg.momentum,
                             cfg.weight_decay, power=cfg.power)
     params = jax.tree.map(jnp.asarray, variables["params"])
-    state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
-                          batch_stats=jax.tree.map(jnp.asarray,
-                                                   variables.get("batch_stats", {})),
-                          opt_state=tx.init(params), tx=tx)
+    return JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                         batch_stats=jax.tree.map(jnp.asarray,
+                                                  variables.get("batch_stats", {})),
+                         opt_state=tx.init(params), tx=tx)
+
+
+def jax_fit(tree, jm, variables, cfg, method, crop, extra=None):
+    """The JAX package's ``Runner.fit`` loop on one device for ``method``
+    ("supervised" or "flow_supervised"), without logger or checkpoints:
+    ``jax_fit_data``'s loaders, the optimizer, the steps with
+    ``fold_in(rng, step)`` keys, one epoch of ``cfg.limit_train_batches``
+    steps, then validation through the eval step. Returns (the mean train
+    loss, the validation MetricMeter, the steps taken). ``cfg`` is the
+    port's FitConfig."""
+    from floodseg_tpu.ops.metrics import MetricMeter as JaxMeter
+    from floodseg_tpu.train import flow as jflow
+    from floodseg_tpu.train import supervised as jax_sup
+
+    loader, vloader, steps = jax_fit_data(tree, cfg, method, crop, extra)
+    if method == "flow_supervised":
+        loss_fn = jax_sup.make_loss_fn(cfg.loss, 0.0, 255, cfg.ohem_thresh, cfg.ohem_min_kept)
+        step, _ = jflow.make_flow_train_step(jm, loss_fn, cfg.classes, 255)
+        ev = jflow.make_flow_eval_step(jm, cfg.classes, 255)
+    else:
+        loss_fn = jax_sup.make_loss_fn(cfg.loss, cfg.aux_weight, 255, cfg.ohem_thresh,
+                                       cfg.ohem_min_kept)
+        step = jax_sup.make_train_step(jm, loss_fn, cfg.classes, 255)
+        ev = jax_sup.make_eval_step(jm, cfg.classes, 255)
+    state = jax_fit_state(variables, cfg, steps)
     step, ev = jax.jit(step), jax.jit(ev)
 
     rng = jax.random.PRNGKey(cfg.seed)
