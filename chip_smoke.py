@@ -2,6 +2,8 @@
 """Drive the PyTorch / CUDA port (floodseg_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py          # every phase, as below
+    python3 chip_smoke.py --k1 [PARENT]  # K1 alone: build, check, time (about 30 s);
+                                   # PARENT: a checkout whose K1 is timed in turns with this one
     python3 chip_smoke.py --k2     # K2 alone: build, check, time (about 20 s)
     python3 chip_smoke.py --k3     # K3 alone: build, check, time (about 20 s)
     python3 chip_smoke.py --train  # the training phases alone: 3t, 4t and 14-17
@@ -14,7 +16,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build the hand-written kernels from csrc/ with nvcc (sm_90a) and the
    image codec with the host C++ compiler, one compiler for each source,
    all at once: warp.cu (K1, K1-bwd, K2), resize.cu (K3) and jpeg.cpp; ptxas's
-   registers and spills for each kernel instantiation; for K2 and K3,
+   registers and spills for each kernel instantiation; for K1, K2 and K3,
    cuobjdump's count of slow-pipe instructions inside each instantiation's
    loops.
 3. Each kernel against its plain PyTorch version, on the card, at the
@@ -25,24 +27,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    stack the int8 main path feeds it in its first window (24x32x32x4096
    -> 65x65), on random data in both align modes, at an odd shape whose C
    is not a 16-channel vector, with values far past the clip range, and
-   on every finite bf16 value through an identity resize at four scales.
-   K1 and K2 agree to
-   the bit (tolerance float32 1e-5, bf16 1 ulp); K3's int8 outputs must be
-   equal. Then each kernel's time on the main path's inputs (CUDA events,
-   median, L2 flushed and the host's enqueue hidden behind a sleep kernel
-   before each launch) beside the plain version's, the least time the
+   on every finite bf16 value through an identity resize at four scales;
+   K1 also on a grid that clamps every point to one corner. K1 must be
+   bit-equal to its plain version (by integer view), K2 agree to the bit
+   (tolerance float32 1e-5, bf16 1 ulp); K3's int8 outputs must be equal.
+   Then each kernel's time on the main path's inputs (CUDA events, median,
+   L2 flushed and the host's enqueue hidden behind a sleep kernel before
+   each launch; K1 on the chain's head grid and on the identity grid of
+   the key-map resample) beside the plain version's, the least time the
    card could take (bound), and a PyTorch library yardstick (F.grid_sample
    for K1 and K2; for K3, F.interpolate then the torch quantize, a
    two-call composition, since no single call computes K3).
 3d. K1, K2 and K3 again at the DeepLabV3 path's shapes (C = 2048): K1
    (1, 64, 64, 2048) -> (1, 32, 32, 2048) on random grids, the main path's
-   grids and the identity grid; K2 23 steps on (1, 32, 32, 2048) (a 32-
+   grids, the identity and the corner grid; K2 23 steps on (1, 32, 32, 2048) (a 32-
    channel tile, so 64 blocks); K3 on the stack the DeepLabV3 int8 path
    feeds it (24x32x32x2048 -> 64x64). The same tolerances, and each timed
    beside its bound.
 3v. K1 and K2 at the ViT path's shapes (C = 768): K1 up-samples the
    (1, 16, 16, 768) token map to the 32x32 block grid (random grids, the
-   main path's grids, the identity grid); K2 23 steps on (1, 32, 32, 768)
+   main path's grids, the identity and the corner grid); K2 23 steps on (1, 32, 32, 768)
    (a 32-channel tile, so 24 blocks; the count is logged beside the
    card's SMs). The same tolerances, each timed beside its bound and
    F.grid_sample.
@@ -50,8 +54,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    433 px crop to (1, 55, 55, 4096) (read from the model); K1 warps it onto
    the first window's first crop grid (27x27) and, align_corners=True,
    onto the 67x120 full-frame identity grid (the key-map resample, an
-   up-sample); K2 23 steps on (1, 27, 27, 4096) (its geometry logged). The
-   same tolerances, each timed beside its bound and F.grid_sample.
+   up-sample) and a 67x120 grid clamped to one corner; K2 23 steps on (1,
+   27, 27, 4096) (its geometry logged). The same tolerances, each timed
+   beside its bound and F.grid_sample.
 4. The flow-predict slice in float32 (TF32 off) on the card against the
    same slice on the CPU: PSPNet-50 at 129 px key frames from a clip of
    128 px frames (SLICE_FRAME_HW, every slice check), n = 5, with each
@@ -130,7 +135,7 @@ Then the training phases, last, each model alone on the card:
    1072x1920 clip's chains through the flow train transform at the
    architecture's crop), the identity grid and a grid that clamps
    every point to one corner (every tap on one pixel). K1 must be
-   bit-equal to its plain version in float32; K1-bwd bit-equal (by integer
+   bit-equal to its plain version (by integer view); K1-bwd bit-equal (by integer
    view) to its plain version computed on the CPU, whose index_add_ sums
    in the order the kernel keeps (on the card index_add_ is atomic), in
    float32 and bf16, and two launches on one input bit-equal. K1-bwd also
@@ -184,6 +189,7 @@ Then the training phases, last, each model alone on the card:
 """
 
 import copy
+import ctypes
 import json
 import os
 import re
@@ -231,8 +237,11 @@ from floodseg_tpu_torch.ops.resize_kernels import (
     resize_quantize_int8_plain,
 )
 from floodseg_tpu_torch.ops.warp_kernels import (
+    SampleGeometry,
     _chain_geometry,
     _library as warp_library,
+    _sample_launch,
+    _sample_plan,
     grid_sample_backward_cuda,
     grid_sample_cuda,
     warp_chain_cuda,
@@ -317,6 +326,25 @@ def compare(name, got, ref, dtype) -> float:
     return err
 
 
+def bits_differ(got: torch.Tensor, ref: torch.Tensor) -> int:
+    """Elements whose bits differ (float32 or bf16, by integer view)."""
+    bits = torch.int32 if got.dtype == torch.float32 else torch.int16
+    return int((got.contiguous().view(bits) != ref.contiguous().view(bits)).sum())
+
+
+def check_k1(name, x, grid, align) -> float:
+    """K1 bit-equal, by integer view, to its plain version on the same
+    inputs on the card. Returns the max abs error, 0."""
+    got, ref = grid_sample_cuda(x, grid, align), grid_sample(x, grid, align)
+    differ = bits_differ(got, ref)
+    err = float((got.float() - ref.float()).abs().max())
+    log(f"  {name}: {differ} elements differ from the plain version, max_abs_err "
+        f"{err:.3e} -> {'ok' if differ == 0 else 'FAIL'}")
+    if differ:
+        raise AssertionError(f"{name} is not bit-equal to its plain version ({differ} elements)")
+    return err
+
+
 def note_err(errs: dict, kname: str, dtype: torch.dtype, err: float) -> None:
     """Keep the largest error of ``kname`` in ``dtype``: errs[kname][dtype
     name] (the kernels line reports each dtype's and the largest)."""
@@ -353,17 +381,20 @@ def main_path_grids(device, n=FRAME_DELTA, frame_hw=(512, 512), seed=0):
 
 def check_kernels(device, **shapes) -> dict:
     """Phase 3a: both kernels against their plain versions, f32 and bf16, on
-    random grids (every border case) and on the main path's own grids."""
+    random grids (every border case), on the main path's own grids and, for
+    K1, on a grid that clamps every point to one corner (a point's four taps
+    on one pixel)."""
     errs = {}
     mvs, dg = main_path_grids(device)
     for dtype in (torch.float32, torch.bfloat16):
         x, grid, y0, grids, y0w, gridsw = kernel_cases(device, dtype, **shapes)
         tag = str(dtype).replace("torch.", "")
         for g, align, what in ((grid, False, "random"), (grid, True, "random"),
-                               (mvs[0], False, "main-path"), (dg, True, "identity")):
-            note_err(errs, "grid_sample_cuda", dtype, compare(
+                               (mvs[0], False, "main-path"), (dg, True, "identity"),
+                               (torch.full_like(grid, -1.5), False, "corner")):
+            note_err(errs, "grid_sample_cuda", dtype, check_k1(
                 f"K1 {tag} x{tuple(x.shape)} {what} grid{tuple(g.shape)} align={align}",
-                grid_sample_cuda(x, g, align), grid_sample(x, g, align), dtype))
+                x, g, align))
         note_err(errs, "warp_chain_cuda", dtype,
                  check_k2(x, y0, grids, y0w, gridsw, mvs, dg))
     return errs
@@ -1217,9 +1248,10 @@ def crop_feature_hw(model, device, crop=CROP):
 def check_crop_kernels(model, dev) -> tuple:
     """Phase 3c: K1 (1, 55, 55, 4096) -> 27x27 on the crop route's own
     first-window grid, K1 -> the 67x120 full-frame identity grid
-    (align_corners=True, an up-sample), K2 23 steps on (1, 27, 27, 4096)
-    from K1's output; float32 and bf16 against the plain versions (phase 3's
-    tolerances), then bf16 timed beside bound and F.grid_sample."""
+    (align_corners=True, an up-sample) and onto a 67x120 grid clamped to one
+    corner, K2 23 steps on (1, 27, 27, 4096) from K1's output; float32 and
+    bf16 against the plain versions (K1 bit-equal, K2 phase 3's tolerance),
+    then bf16 timed beside bound and F.grid_sample."""
     feat_hw, c = crop_feature_hw(model, dev)
     log(f"  PSPNet-50 encodes a {CROP} px crop to {feat_hw + (c,)}")
     ml, dg = crop_route_grids(dev)
@@ -1235,10 +1267,11 @@ def check_crop_kernels(model, dev) -> tuple:
         tag = str(dtype).replace("torch.", "")
         x = xs.to(dev, dtype)
         for grid, align, what in ((ml[0], False, "crop chain head"),
-                                  (dg, True, "full-frame identity")):
-            note_err(errs, "grid_sample_cuda", dtype, compare(
+                                  (dg, True, "full-frame identity"),
+                                  (torch.full_like(dg, -1.5), True, "full-frame corner")):
+            note_err(errs, "grid_sample_cuda", dtype, check_k1(
                 f"K1 {tag} x{tuple(x.shape)} {what} grid{tuple(grid.shape)} align={align}",
-                grid_sample_cuda(x, grid, align), grid_sample(x, grid, align), dtype))
+                x, grid, align))
         y0 = grid_sample(x, ml[0], False)
         note_err(errs, "warp_chain_cuda", dtype, compare(
             f"K2 {tag} y0{tuple(y0.shape)} crop grids T={ml.shape[0] - 1} ({k2_design(y0)})",
@@ -1632,10 +1665,8 @@ def check_k1_bwd(name, go, grid, x_shape) -> float:
     got = grid_sample_backward_cuda(go, grid, x_shape, False)
     again = grid_sample_backward_cuda(go, grid, x_shape, False)
     ref = grid_sample_backward(go.cpu(), grid.cpu(), x_shape, False)
-    bits = torch.int32 if go.dtype == torch.float32 else torch.int16
     got, again = got.cpu(), again.cpu()
-    differ = int((got.view(bits) != ref.view(bits)).sum())
-    rerun = int((again.view(bits) != got.view(bits)).sum())
+    differ, rerun = bits_differ(got, ref), bits_differ(again, got)
     err = float((got.float() - ref.float()).abs().max())
     ok = differ == 0 and rerun == 0
     log(f"  {name}: {differ} elements differ from the CPU's plain version, {rerun} between "
@@ -1695,7 +1726,7 @@ def check_train_kernels(dev, arch="pspnet", dtypes=(torch.float32, torch.bfloat1
     and K1-bwd at (2, head, C) -> grid (a chain's head; for the ViT an
     up-sample of the token map) and (2, grid, C) -> grid (its steps), in
     ``dtypes``, on phase 3t's grids for its crop: K1 bit-equal to its plain
-    version in float32, K1-bwd bit-equal to its plain version on the CPU
+    version, K1-bwd bit-equal to its plain version on the CPU
     and to itself from run to run (check_k1_bwd). Then both timed in
     float32 (the training dtype) on the training batch's grids, and K1-bwd
     in bf16 where bf16 is checked. Timing keys carry the architecture but
@@ -1712,12 +1743,8 @@ def check_train_kernels(dev, arch="pspnet", dtypes=(torch.float32, torch.bfloat1
         for hw, x0 in xs.items():
             x = x0.to(dev, dtype)
             for what, grid in grids.items():
-                out, ref = grid_sample_cuda(x, grid, False), grid_sample(x, grid, False)
-                if dtype == torch.float32 and not torch.equal(out, ref):
-                    raise AssertionError(f"K1 float32 B=2 {arch} {what} is not bit-equal to "
-                                         f"its plain version")
-                note_err(errs, "grid_sample_cuda", dtype, compare(
-                    f"K1 {tag} x{tuple(x.shape)} {what}", out, ref, dtype))
+                note_err(errs, "grid_sample_cuda", dtype, check_k1(
+                    f"K1 {tag} x{tuple(x.shape)} {what}", x, grid, False))
                 note_err(errs, "grid_sample_backward_cuda", dtype, check_k1_bwd(
                     f"K1-bwd {tag} grad_x{tuple(x.shape)} {what}", go, grid, tuple(x.shape)))
     flush, cpm = L2Flush(dev), sleep_cycles_per_ms()
@@ -2239,7 +2266,7 @@ def ptxas_usage(log_text: str):
     return rows
 
 
-def sass_loops(lib, kernels) -> None:
+def sass_loops(lib, kernels, tag="") -> None:
     """For each instantiation of the named kernels in the built library: its
     instructions inside loops (from a backward branch's target to the
     branch, by ``cuobjdump -sass``) and the SLOW_PIPE ones among them."""
@@ -2263,12 +2290,12 @@ def sass_loops(lib, kernels) -> None:
         ops = [op for _, op in ins]
         slow_in = {o: inside.count(o) for o in SLOW_PIPE if o in inside}
         slow_all = {o: ops.count(o) for o in SLOW_PIPE if o in ops}
-        log(f"  SASS {label}: {len(ins)} instructions, {len(inside)} in "
+        log(f"  SASS {tag}{label}: {len(ins)} instructions, {len(inside)} in "
             f"loops; slow-pipe in loops {slow_in or 'none'}, in all {slow_all or 'none'}")
 
 
 # the kernels whose loops phase 2 counts, by source
-SASS_KERNELS = {"warp": ("warp_chain_kernel", "warp_chain_single_kernel"),
+SASS_KERNELS = {"warp": ("grid_sample_kernel", "warp_chain_kernel", "warp_chain_single_kernel"),
                 "resize": ("resize_quantize_kernel",)}
 
 
@@ -2287,6 +2314,207 @@ def build_kernels(sources) -> None:
             log(f"  ptxas {src}.cu {label}: {regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
         sass_loops(paths[src], SASS_KERNELS[src])
+
+
+# --------------------------------------------------------------- K1 alone
+
+# the crop route's encoding of a 433 px crop (phase 3c reads it from PSPNet-50)
+CROP_FEAT_HW = (55, 55)
+
+
+def k1_rows(dev) -> list:
+    """Every shape the paths give K1, with the grid each gives it: (label, x
+    shape, the path's dtype, grid, align_corners). Predict (bf16): each
+    arch's chain head on the main path's first-window grid and its key-map
+    resample on the identity grid (align_corners=True); the crop route's
+    chain head and its 67x120 key-map resample. Training (float32): each
+    arch's chain head and step on the training batch's crop grids."""
+    mvs, dg = main_path_grids(dev)
+    ml, dg_crop = crop_route_grids(dev)
+    rows = []
+    for arch, c, hw in (("PSPNet", 4096, FEAT_HW), ("DeepLabV3", 2048, DL_FEAT_HW),
+                        ("ViT", VIT_D, VIT_TOKENS_HW)):
+        rows.append((f"{arch} predict head", (1,) + hw + (c,), torch.bfloat16, mvs[0], False))
+        rows.append((f"{arch} predict key resample", (1,) + hw + (c,), torch.bfloat16, dg, True))
+    crop = (1,) + CROP_FEAT_HW + (4096,)
+    rows.append(("crop head", crop, torch.bfloat16, ml[0], False))
+    rows.append(("crop key resample 67x120", crop, torch.bfloat16, dg_crop, True))
+    by_crop = {}
+    for arch, (c, head_hw, grid_hw, size) in TRAIN_SHAPES.items():
+        grids = by_crop.setdefault(size, train_grids(dev, crop=size))
+        rows.append((f"{arch} train head", (2,) + head_hw + (c,), torch.float32,
+                     grids["train-crop"], False))
+        rows.append((f"{arch} train step", (2,) + grid_hw + (c,), torch.float32,
+                     grids["train-crop step"], False))
+    return rows
+
+
+def k1_edge_cases(dev, seed=3) -> list:
+    """(label, x, grid) where K1's tiles and chunks are ragged: C = 5 at an
+    odd element offset (the one-element route), C = 72 (chunks of 18 float32
+    or 9 bf16 vectors), a 13x13 grid onto (2, 26, 26, 768) (169 points an
+    image: tiles cross the first image's end), each on random and corner
+    grids; both dtypes, both align modes."""
+    g = torch.Generator().manual_seed(seed)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        flat = torch.randn(1 + 2 * 13 * 13 * 5, generator=g).to(dev, dtype)
+        odd = flat[1:].view(2, 13, 13, 5)
+        assert odd.is_contiguous() and odd.data_ptr() % 16 != 0
+        for x, hw in ((odd, (26, 26)),
+                      (torch.randn((2, 55, 55, 72), generator=g).to(dev, dtype), (27, 27)),
+                      (torch.randn((2, 26, 26, 768), generator=g).to(dev, dtype), (13, 13))):
+            rand = (torch.rand((2,) + hw + (2,), generator=g) * 2.4 - 1.2).to(dev)
+            for what, grid in (("random", rand), ("corner", torch.full_like(rand, -1.5))):
+                cases.append((f"K1 {tag} x{tuple(x.shape)} {what} grid{tuple(grid.shape)}",
+                              x, grid))
+    return cases
+
+
+def parent_k1(parent: str):
+    """Start building K1 of the checkout at ``parent``, whose
+    floodseg_grid_sample takes the thirteen arguments (x, grid, out, b, h, w,
+    c, gh, gw, align, dtype, vec, stream) of the one-item-a-thread design,
+    from its csrc/warp.cu with this checkout's nvcc flags. Returns a function
+    that waits for the build and gives K1 there as (x, grid, align) -> out."""
+    src = os.path.join(parent, "floodseg_tpu_torch", "csrc", "warp.cu")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = build.BUILD_DIR / "libwarp-parent.so"
+    proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path), src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{out}")
+        sass_loops(lib_path, ("grid_sample_kernel",), "the parent's ")
+        lib = ctypes.CDLL(str(lib_path))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.floodseg_grid_sample.argtypes = [p, p, p] + [i] * 9 + [p]
+        lib.floodseg_grid_sample.restype = i
+
+        def run(x, grid, align):
+            b, h, w, c = x.shape
+            o = torch.empty((b,) + tuple(grid.shape[1:3]) + (c,), dtype=x.dtype, device=x.device)
+            vec = (c * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
+            err = lib.floodseg_grid_sample(
+                x.data_ptr(), grid.data_ptr(), o.data_ptr(), b, h, w, c, grid.shape[1],
+                grid.shape[2], int(align), 0 if x.dtype == torch.float32 else 1, int(vec),
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"the parent's K1 failed to launch: error {err}")
+            return o
+        return run
+    return finish
+
+
+def k1_sweep(x, grid, align, flush, cpm) -> dict:
+    """K1's time (ms) at each geometry beside the one the wrapper takes:
+    blocks of 256, 512 and 1024 threads, and chunks of 128 vectors, with x
+    read evict-first or not."""
+    out = torch.empty((x.shape[0],) + tuple(grid.shape[1:3]) + (x.shape[3],), dtype=x.dtype,
+                      device=x.device)
+    vec, geo = _sample_plan(x, grid, out)
+    points = grid.shape[0] * grid.shape[1] * grid.shape[2]
+    nv = out.shape[3] // (16 // x.element_size() if vec else 1)
+    res = {}
+    for lanes, threads in ((geo.lanes, 256), (geo.lanes, 512), (geo.lanes, 1024),
+                           (min(nv, 128), 256)):
+        for stream in (False, True):
+            alt = SampleGeometry(lanes, threads // lanes * lanes, -(-nv // lanes),
+                                 -(-points // (threads // lanes)), stream)
+            res[f"{lanes}/{alt.threads}{' cs' if stream else ''}"
+                + (" (taken)" if alt == geo else "")] = time_ms(
+                lambda: _sample_launch(x, grid, out, align, vec, alt), flush, cpm)
+    return res
+
+
+class CleanFlush:
+    """Reads a buffer larger than the 50 MB L2 before each timed launch:
+    the L2 holds clean lines, so a kernel's reads evict nothing that must
+    be written back (L2Flush leaves 50 MB of dirty lines)."""
+
+    def __init__(self, device):
+        self.buf = torch.ones(16 << 20, dtype=torch.float32, device=device)
+
+    def __call__(self):
+        self.buf.sum()
+
+
+def k1_alone(parent=None, seed=0) -> int:
+    """--k1 [PARENT]: build csrc/warp.cu (ptxas's registers and spills for
+    each instantiation; the SASS slow-pipe count inside K1), then hold K1
+    bit-equal to its plain version in float32 and bf16 at every shape the
+    paths give it (k1_rows) on the path's own grid, random grids in both
+    align modes and the corner grid, and at the ragged edge cases
+    (k1_edge_cases). Then time each shape in its path's dtype beside its
+    bound, its plain version and F.grid_sample, and K1 at every other
+    geometry (k1_sweep). With PARENT, a checkout of the one-item-a-thread
+    design, its K1 too, in turns with this one (parent, this, this, parent),
+    and bit-equal to it."""
+    log(f"[k1] {nvidia_smi_line()} | torch {torch.__version__} CUDA {torch.version.cuda}")
+    finish = parent_k1(parent) if parent else None
+    build_kernels(["warp"])
+    old = finish() if finish else None
+    dev = torch.device("cuda")
+    rows = k1_rows(dev)
+    g = torch.Generator().manual_seed(seed)
+    for label, shape, _, grid, align in rows:
+        xs = torch.randn(shape, generator=g)
+        rand = (torch.rand(tuple(grid.shape), generator=g) * 2.2 - 1.1).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = xs.to(dev, dtype)
+            tag = str(dtype).replace("torch.", "")
+            for what, gr, al in (("path", grid, align), ("random", rand, False),
+                                 ("random", rand, True), ("corner", torch.full_like(grid, -1.5),
+                                                          align)):
+                check_k1(f"K1 {tag} {label} x{shape} {what} grid{tuple(gr.shape)} align={al}",
+                         x, gr, al)
+    for name, x, grid in k1_edge_cases(dev):
+        for align in (False, True):
+            check_k1(f"{name} align={align}", x, grid, align)
+    flush, clean_flush, cpm = L2Flush(dev), CleanFlush(dev), sleep_cycles_per_ms()
+    one_x = torch.randn((1, 1, 1, 8), generator=g).to(dev, torch.bfloat16)
+    one_grid = torch.zeros((1, 1, 1, 2), device=dev)
+    log("  fixed cost: an empty launch (torch.cuda._sleep(0)) "
+        f"{time_ms(lambda: torch.cuda._sleep(0), flush, cpm):.4f} ms; K1 at one point of 16 "
+        "bytes (a launch, the grid's and the taps' round trips) "
+        + ", ".join(f"{what} {time_ms(lambda: grid_sample_cuda(one_x, one_grid), f, cpm):.4f} ms"
+                    for what, f in (("L2Flush", flush), ("CleanFlush", clean_flush))))
+    for label, shape, dtype, grid, align in rows:
+        x = torch.randn(shape, generator=g).to(dev, dtype)
+        r = time_k1(x, x.permute(0, 3, 1, 2).contiguous(), grid, grid.to(dtype), align, flush,
+                    cpm)
+        line = (f"  {label} x{shape} {str(dtype).replace('torch.', '')} -> "
+                f"{tuple(grid.shape[1:3])} align={align}: ")
+        if old:
+            differ = bits_differ(old(x, grid, align), grid_sample_cuda(x, grid, align))
+            if differ:
+                raise AssertionError(f"{label}: the parent's K1 differs in {differ} elements")
+            turns = [time_ms(fn, flush, cpm) for fn in (
+                lambda: old(x, grid, align), lambda: grid_sample_cuda(x, grid, align),
+                lambda: grid_sample_cuda(x, grid, align), lambda: old(x, grid, align))]
+            r["ms"] = (turns[1] + turns[2]) / 2
+            line += (f"parent {turns[0]:.4f} / {turns[3]:.4f}, kernel {turns[1]:.4f} / "
+                     f"{turns[2]:.4f} ms (turns); ")
+        line += (f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ({r['bound_by']}) -> "
+                 f"{r['bound_ms'] / r['ms']:.1%} of bound; plain {r['plain_ms']:.4f}, "
+                 f"F.grid_sample {r['library_ms']:.4f}")
+        log(line)
+        if old:
+            clean = [time_ms(fn, clean_flush, cpm) for fn in (
+                lambda: old(x, grid, align), lambda: grid_sample_cuda(x, grid, align),
+                lambda: grid_sample_cuda(x, grid, align), lambda: old(x, grid, align))]
+            log(f"    L2 of clean lines (CleanFlush): parent {clean[0]:.4f} / {clean[3]:.4f}, "
+                f"kernel {clean[1]:.4f} / {clean[2]:.4f} ms (turns)")
+        else:
+            log(f"    L2 of clean lines (CleanFlush): kernel "
+                f"{time_ms(lambda: grid_sample_cuda(x, grid, align), clean_flush, cpm):.4f} ms")
+        sweep = k1_sweep(x, grid, align, flush, cpm)
+        log("    geometries (lanes/threads, cs: evict-first): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sweep.items()))
+    return 0
 
 
 def k2_alone(seed=0) -> int:
@@ -2371,6 +2599,8 @@ def main() -> int:
         return train_alone()
     if sys.argv[1:] == ["--k1-bwd"]:
         return k1_bwd_alone()
+    if sys.argv[1:2] == ["--k1"] and len(sys.argv) <= 3:
+        return k1_alone(*sys.argv[2:])
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
@@ -2503,7 +2733,10 @@ def main() -> int:
     # K1-bwd's main numbers are at the shape of 46 of a step's 48 launches
     timing["grid_sample_backward_cuda"] = train_timing[
         "grid_sample_backward_cuda (train step, float32)"]
+    key = "grid_sample_cuda (identity grid, align_corners=True)"
     extra_rows = {"grid_sample_cuda": {
+        "key_resample": timing[key], "deeplabv3_key_resample": dl_timing[key],
+        "vit_key_resample": vit_timing[key],
         "crop": crop_timing["grid_sample_cuda (crop -> 27x27)"],
         "crop_key_resample": crop_timing[
             "grid_sample_cuda (crop -> 67x120 identity, align_corners=True)"]},

@@ -5,19 +5,43 @@
 //   (kernel _warp_kernel, taps _taps). One bilinear warp with border
 //   padding in either align mode: x (B, H, W, C) sampled at grid
 //   (B, gh, gw, 2) -> (B, gh, gw, C). float32 weights, float32
-//   accumulation, one rounding to the output dtype.
+//   accumulation, one rounding to the output dtype; bit-equal to the plain
+//   version (ops/grid_sample.py::grid_sample).
 //   Bound on an H100 SXM (3.35 TB/s): bytes. At the flow-predict shape
 //   (x 1x65x65x4096 bf16 = 34.6 MB in, 1x32x32x4096 bf16 = 8.4 MB out)
 //   that is about 13 us; the arithmetic (4 multiply-adds per output
 //   element, 34 MFLOP) is negligible. The block-MV and identity grids of
 //   that path tap nearly every pixel of x; a sparser grid needs only the
 //   pixels its taps touch, and its bound is lower.
-//   Design: the TPU kernel builds a one-hot (P, H*W) matrix because the TPU
-//   gathers badly; a Hopper SM gathers well, so each thread computes its
-//   point's taps and makes four 16-byte channel-contiguous loads (8 bf16 or
-//   4 float32 channels), neighbouring threads on neighbouring channels, so
-//   every load and store of a warp is coalesced. Nothing is staged in
-//   shared memory: each source row is read by at most a few points.
+//   The TPU kernel builds a one-hot (P, H*W) matrix because the TPU gathers
+//   badly; a Hopper SM gathers well. The first design gave each thread one
+//   16-byte channel vector of one point: two 64-bit divisions to find them,
+//   the point's taps (make_taps) recomputed by each of its C / V threads,
+//   then four 16-byte loads. What held it back (chip_smoke.py --k1,
+//   PERF.md): at the 67x120 up-sampling identity (4.1M items, taps in L2)
+//   the instructions a thread; at the shapes that read x once, the DRAM,
+//   where reads that allocate x at the normal priority evict dirty lines
+//   that must be written back first.
+//   Design: a block of (lanes, rows) threads owns `rows` consecutive
+//   points (8 at 32 lanes; a tile may cross an image's end) and a chunk of
+//   `lanes` vectors (at most 32, so a warp reads 512 contiguous bytes of a
+//   tap row). The first rows threads load the tile's grid entries and write
+//   each point's four int32 source pixels and four float32 weights once,
+//   into a tap table in shared memory; after one barrier every thread reads
+//   its point's entry as a broadcast, makes its four loads and blends. The
+//   block's coordinates give tile, chunk, point and vector: no division but
+//   one 32-bit one a block and one a table entry. x is read evict-first
+//   (ld.global.cs) where the grid has no more points than x has pixels, so
+//   each pixel is read about once; up-sampling grids read it at the normal
+//   priority, since several points tap each pixel. Tried and no faster:
+//   chunks of 128 vectors and blocks of 512 or 1024 threads (the sweep of
+//   chip_smoke.py --k1); 2-8 points a thread with their loads issued ahead
+//   (more registers a thread, so fewer threads in flight) and a bulk L2
+//   prefetch of x (variants not kept, PERF.md).
+//   What still holds it back: a launch and two dependent round trips (the
+//   grid, then the taps), about 6 us at one point on an H100 80GB HBM3 at
+//   700 W (--k1), which is most of the ViT shapes' time and over two fifths
+//   of DeepLabV3's.
 //
 // K2 warp_chain_kernel
 //   Replaces floodseg_tpu/ops/pallas_warp.py::warp_chain_pallas
@@ -152,13 +176,14 @@
 // vectors (C * itemsize a multiple of 16, pointers 16-byte aligned),
 // 0 = one element at a time.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 namespace {
 
-constexpr int kSampleThreads = 256;
+constexpr int kSampleThreads = 1024;
 constexpr int kChainThreads = 1024;
 
 template <typename T>
@@ -246,38 +271,111 @@ __device__ __forceinline__ Vec<T, V> blend(const Vec<T, V> (&a)[4],
 
 // -------------------------------------------------------------------- K1
 
-template <typename T, int V>
-__global__ void __launch_bounds__(kSampleThreads)
-grid_sample_kernel(const T* __restrict__ x, const float* __restrict__ grid,
-                   T* __restrict__ out, int h, int w, int c, int points,
-                   long long total, bool align) {
-  using VT = Vec<T, V>;
-  const long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (item >= total) return;
-  const int nv = c / V;
-  const long long bp = item / nv;  // b * points + p
-  const int v = (int)(item - bp * nv);
-  const int b = (int)(bp / points);
-  const Taps t = make_taps(grid[2 * bp], grid[2 * bp + 1], h, w, align);
-  const T* src = x + (size_t)b * h * w * c + (size_t)v * V;
-  VT a[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    a[k] = *reinterpret_cast<const VT*>(src + (size_t)t.idx[k] * c);
+// What a K1 launch needs besides its pointers. A block of (lanes, rows)
+// threads owns a tile of `rows` consecutive points of the flat (B * gh * gw)
+// point list (a tile may cross an image's end) and a chunk of `lanes`
+// channel vectors of each: blockIdx.x = tile * chunks + chunk. Thread
+// (x, y) does vector x of the chunk of point y of the tile.
+struct SampleArgs {
+  int h, w, c;
+  int points;  // gh * gw, an image
+  int total;   // B * points
+  int chunks;  // channel chunks a point: ceil((C / V) / lanes)
+  int align;
+};
+
+// A load of x: ld.global, or with kStream ld.global.cs, which allocates the
+// line evict-first in L1 and L2, for data read about once.
+template <bool kStream, typename VT>
+__device__ __forceinline__ VT load_x(const VT* p) {
+  if constexpr (kStream) {
+    if constexpr (sizeof(VT) == 16) {
+      union { uint4 r; VT v; } u;
+      u.r = __ldcs(reinterpret_cast<const uint4*>(p));
+      return u.v;
+    } else if constexpr (sizeof(VT) == 4) {
+      union { unsigned r; VT v; } u;
+      u.r = __ldcs(reinterpret_cast<const unsigned*>(p));
+      return u.v;
+    } else {
+      union { unsigned short r; VT v; } u;
+      u.r = __ldcs(reinterpret_cast<const unsigned short*>(p));
+      return u.v;
+    }
+  } else {
+    return *p;
   }
-  *reinterpret_cast<VT*>(out + bp * c + (size_t)v * V) = blend<T, V>(a, t.w);
 }
 
+// Dynamic shared memory: the tile's tap table, rows int4 source pixels
+// (flat b * H * W + y * W + x) then rows float4 weights, in tap order.
+template <typename T, int V, bool kStream>
+__global__ void __launch_bounds__(kSampleThreads)
+grid_sample_kernel(const T* __restrict__ x, const float* __restrict__ grid,
+                   T* __restrict__ out, SampleArgs a) {
+  using VT = Vec<T, V>;
+  extern __shared__ int4 table[];
+  const int rows = blockDim.y;
+  int4* pix = table;
+  float4* wgt = reinterpret_cast<float4*>(table + rows);
+  const int tile = blockIdx.x / a.chunks;  // uniform over the block
+  const int chunk = blockIdx.x - tile * a.chunks;
+  const int q0 = tile * rows;  // the tile's first point
+  const int t = threadIdx.y * blockDim.x + threadIdx.x;
+  if (t < min(rows, a.total - q0)) {  // one thread a point
+    const int q = q0 + t;
+    const Taps taps = make_taps(__ldg(grid + 2 * (size_t)q),
+                                __ldg(grid + 2 * (size_t)q + 1), a.h, a.w, a.align != 0);
+    const int base = q / a.points * (a.h * a.w);
+    pix[t] = make_int4(base + taps.idx[0], base + taps.idx[1], base + taps.idx[2],
+                       base + taps.idx[3]);
+    wgt[t] = make_float4(taps.w[0], taps.w[1], taps.w[2], taps.w[3]);
+  }
+  __syncthreads();
+  const int row = threadIdx.y;
+  const int v = chunk * blockDim.x + threadIdx.x;
+  if (v >= a.c / V || row >= a.total - q0) return;
+  const int4 p = pix[row];  // a broadcast to the point's lanes
+  const T* src = x + (size_t)v * V;
+  VT val[4];
+  val[0] = load_x<kStream>(reinterpret_cast<const VT*>(src + (size_t)p.x * a.c));
+  val[1] = load_x<kStream>(reinterpret_cast<const VT*>(src + (size_t)p.y * a.c));
+  val[2] = load_x<kStream>(reinterpret_cast<const VT*>(src + (size_t)p.z * a.c));
+  val[3] = load_x<kStream>(reinterpret_cast<const VT*>(src + (size_t)p.w * a.c));
+  const float4 q = wgt[row];
+  const float wk[4] = {q.x, q.y, q.z, q.w};
+  *reinterpret_cast<VT*>(out + (size_t)(q0 + row) * a.c + (size_t)v * V) =
+      blend<T, V>(val, wk);
+}
+
+// lanes <= threads <= kSampleThreads, threads a multiple of lanes. The host
+// computes the geometry (ops/warp_kernels.py::_sample_geometry); this checks
+// it.
 template <typename T, int V>
-cudaError_t launch_grid_sample(const void* x, const void* grid, void* out,
-                               int b, int h, int w, int c, int gh, int gw,
-                               bool align, cudaStream_t stream) {
-  const int points = gh * gw;
-  const long long total = (long long)b * points * (c / V);
-  const long long blocks = (total + kSampleThreads - 1) / kSampleThreads;
-  grid_sample_kernel<T, V><<<(unsigned)blocks, kSampleThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(grid),
-      static_cast<T*>(out), h, w, c, points, total, align);
+cudaError_t launch_grid_sample(const void* x, const void* grid, void* out, int b, int h,
+                               int w, int c, int gh, int gw, bool align, int lanes,
+                               int threads, int stream_x, cudaStream_t stream) {
+  const long long nv = c / V, total = (long long)b * gh * gw;
+  if (lanes < 1 || threads < lanes || threads > kSampleThreads || threads % lanes != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const int rows = threads / lanes;
+  const long long chunks = (nv + lanes - 1) / lanes;
+  const long long blocks = (total + rows - 1) / rows * chunks;
+  if (total > INT_MAX || blocks > INT_MAX || (long long)b * h * w > INT_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  const SampleArgs a{h, w, c, gh * gw, (int)total, (int)chunks, align ? 1 : 0};
+  const dim3 block(lanes, rows);
+  const size_t smem = (size_t)rows * (sizeof(int4) + sizeof(float4));
+  const T* xp = static_cast<const T*>(x);
+  const float* gp = static_cast<const float*>(grid);
+  T* op = static_cast<T*>(out);
+  if (stream_x) {
+    grid_sample_kernel<T, V, true><<<(unsigned)blocks, block, smem, stream>>>(xp, gp, op, a);
+  } else {
+    grid_sample_kernel<T, V, false><<<(unsigned)blocks, block, smem, stream>>>(xp, gp, op, a);
+  }
   return cudaGetLastError();
 }
 
@@ -843,13 +941,13 @@ cudaError_t chain_vec(int vec, int table_points, const ChainArgs& a) {
 }
 
 template <typename T>
-cudaError_t sample_vec(int vec, const void* x, const void* grid, void* out,
-                       int b, int h, int w, int c, int gh, int gw, bool align,
-                       cudaStream_t stream) {
-  return vec ? launch_grid_sample<T, static_cast<int>(16 / sizeof(T))>(x, grid, out, b, h, w, c,
-                                                      gh, gw, align, stream)
-             : launch_grid_sample<T, 1>(x, grid, out, b, h, w, c, gh, gw,
-                                        align, stream);
+cudaError_t sample_vec(int vec, const void* x, const void* grid, void* out, int b, int h,
+                       int w, int c, int gh, int gw, bool align, int lanes, int threads,
+                       int stream_x, cudaStream_t stream) {
+  return vec ? launch_grid_sample<T, static_cast<int>(16 / sizeof(T))>(
+                   x, grid, out, b, h, w, c, gh, gw, align, lanes, threads, stream_x, stream)
+             : launch_grid_sample<T, 1>(x, grid, out, b, h, w, c, gh, gw, align, lanes,
+                                        threads, stream_x, stream);
 }
 
 template <typename T>
@@ -866,16 +964,18 @@ cudaError_t sample_backward_vec(int vec, const void* grad_out, const void* grid,
 
 }  // namespace
 
+// K1. lanes, threads: the launch geometry (SampleArgs); stream_x: 1 to read x
+// evict-first (ld.global.cs).
 extern "C" int floodseg_grid_sample(const void* x, const void* grid, void* out,
                                     int b, int h, int w, int c, int gh, int gw,
-                                    int align, int dtype, int vec,
-                                    void* stream) {
+                                    int align, int dtype, int vec, int lanes,
+                                    int threads, int stream_x, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)sample_vec<float>(vec, x, grid, out, b, h, w, c, gh,
-                                          gw, align != 0, s);
-    case 1: return (int)sample_vec<__nv_bfloat16>(vec, x, grid, out, b, h, w,
-                                                  c, gh, gw, align != 0, s);
+    case 0: return (int)sample_vec<float>(vec, x, grid, out, b, h, w, c, gh, gw, align != 0,
+                                          lanes, threads, stream_x, s);
+    case 1: return (int)sample_vec<__nv_bfloat16>(vec, x, grid, out, b, h, w, c, gh, gw,
+                                                  align != 0, lanes, threads, stream_x, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,7 +6,18 @@ for sm_90a in ``csrc/warp.cu`` (their notes there give the Pallas kernel
 each replaces, its bound on the card and what the design does about it):
 
 - K1 ``grid_sample_cuda(x, grid, align_corners)`` replaces
-  ``grid_sample_pallas``; its plain version is ``ops.grid_sample.grid_sample``.
+  ``grid_sample_pallas``; its plain version is ``ops.grid_sample.grid_sample``,
+  to which it is bit-equal. Its bound is bytes (x's tapped pixels read
+  once, the output written once: 12.5 us at PSPNet's predict shape on an
+  H100 SXM). A block owns a tile of consecutive points and a chunk of at
+  most 32 channel vectors; it builds the tile's taps once into a table in
+  shared memory (int32 source pixels, float32 weights), and each thread
+  blends one vector of one point from it, with x read evict-first where
+  each pixel is read about once. ``_sample_geometry`` works the launch out
+  here, so the CPU tests can replay it. The first design recomputed the
+  taps and did two 64-bit divisions a thread, which bound it at the
+  up-sampling 67x120 identity, and read x at the normal L2 priority, so
+  that its reads evicted dirty lines; PERF.md gives the measured split.
 - K1-bwd ``grid_sample_backward_cuda(grad_out, grid, x_shape,
   align_corners)`` is K1's gradient with respect to x, which the JAX
   package leaves to XLA's autodiff of ``ops/grid_sample.py::grid_sample``;
@@ -58,6 +69,9 @@ from floodseg_tpu_torch.ops.grid_sample import (
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_BYTES = 16            # one 16-byte load per thread and tap
+_SAMPLE_THREADS = 256      # a K1 block (csrc/warp.cu kSampleThreads: 1024 at most)
+_SAMPLE_LANES = 32         # a K1 block's channel vectors a point at most
+_INT_MAX = (1 << 31) - 1
 _CHAIN_THREADS = 1024      # csrc/warp.cu kChainThreads
 _CHAIN_TABLE_POINTS = (1, 2, 4, 8)  # tap-table points a thread, compiled
 _TAP_INDEX_BYTES = 8       # four uint16 source points a table entry
@@ -69,7 +83,7 @@ def _library():
     lib = build.load("warp")
     if not getattr(lib, "_floodseg_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.floodseg_grid_sample.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
+        lib.floodseg_grid_sample.argtypes = [p, p, p] + [i] * 12 + [p]
         lib.floodseg_grid_sample.restype = i
         lib.floodseg_warp_chain.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.floodseg_warp_chain.restype = i
@@ -110,6 +124,63 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
+class SampleGeometry(NamedTuple):
+    """How K1 runs. A block has ``threads`` threads and owns a tile of
+    threads // ``lanes`` consecutive points (of the flat B * gh * gw list) and
+    a chunk of ``lanes`` channel vectors of each; a thread does one vector of
+    one point. ``chunks`` x ``tiles`` blocks. ``stream``: x is read
+    evict-first (each source pixel about once)."""
+    lanes: int
+    threads: int
+    chunks: int
+    tiles: int
+    stream: bool
+
+
+def _sample_geometry(points: int, nv: int, pixels: int) -> SampleGeometry:
+    """K1's geometry for ``points`` output points (B * gh * gw) of ``nv``
+    channel vectors each, from x of ``pixels`` pixels (B * H * W): chunks
+    of at most ``_SAMPLE_LANES`` vectors, as even as they divide (a warp on
+    one point's 512 contiguous bytes in bf16 or float32 vectors), as many
+    points a block as fit ``_SAMPLE_THREADS``; x read
+    evict-first where the points are no more than its pixels, so that each
+    pixel is read about once."""
+    if points < 1 or nv < 1:
+        raise ValueError(f"grid_sample_cuda: nothing to sample ({points} points, {nv} vectors)")
+    chunks = -(-nv // _SAMPLE_LANES)
+    lanes = -(-nv // chunks)
+    rows = _SAMPLE_THREADS // lanes
+    tiles = -(-points // rows)
+    if points > _INT_MAX or pixels > _INT_MAX or tiles * chunks > _INT_MAX:
+        raise ValueError(f"grid_sample_cuda: {points} points of {nv} vectors from {pixels} "
+                         f"pixels need more than {_INT_MAX} blocks, points or pixels")
+    return SampleGeometry(lanes, rows * lanes, chunks, tiles, points <= pixels)
+
+
+def _sample_launch(x: torch.Tensor, grid: torch.Tensor, out: torch.Tensor,
+                   align_corners: bool, vec: bool, geo: SampleGeometry) -> None:
+    """Launch K1 with ``geo`` on the current stream (not counted: the
+    wrapper counts)."""
+    b, h, w, c = x.shape
+    _, gh, gw, _ = grid.shape
+    with torch.cuda.device(x.device):
+        err = _library().floodseg_grid_sample(
+            x.data_ptr(), grid.data_ptr(), out.data_ptr(), b, h, w, c, gh, gw,
+            int(bool(align_corners)), _DTYPE_CODES[x.dtype], int(vec), geo.lanes,
+            geo.threads, int(geo.stream),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "grid_sample_cuda")
+
+
+def _sample_plan(x: torch.Tensor, grid: torch.Tensor, out: torch.Tensor):
+    """(vec, geometry) the wrapper takes for x (B, H, W, C) on the card,
+    grid (B, gh, gw, 2) and out (B, gh, gw, C)."""
+    b, h, w, c = x.shape
+    vec = _vectorized(c, x, out)
+    v = _VEC_BYTES // x.element_size() if vec else 1
+    return vec, _sample_geometry(b * grid.shape[1] * grid.shape[2], c // v, b * h * w)
+
+
 def grid_sample_cuda(x: torch.Tensor, grid: torch.Tensor,
                      align_corners: bool = False) -> torch.Tensor:
     """K1: bilinear border-padded warp. x (B, H, W, C), grid (B, gh, gw, 2)
@@ -126,13 +197,8 @@ def grid_sample_cuda(x: torch.Tensor, grid: torch.Tensor,
     out = torch.empty((b, gh, gw, c), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    vec = _vectorized(c, x, out)
-    with torch.cuda.device(x.device):
-        err = _library().floodseg_grid_sample(
-            x.data_ptr(), grid.data_ptr(), out.data_ptr(), b, h, w, c, gh, gw,
-            int(bool(align_corners)), _DTYPE_CODES[x.dtype], int(vec),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "grid_sample_cuda")
+    vec, geo = _sample_plan(x, grid, out)
+    _sample_launch(x, grid, out, align_corners, vec, geo)
     grid_sample_cuda.launches += 1
     return out
 

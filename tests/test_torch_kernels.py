@@ -2,10 +2,12 @@
 ops/resize_kernels.py).
 
 On the CPU: the wrappers check what their kernels take and then compute
-the plain versions; K3's instantiation choice; and the identities K3's
-quantize rests on (csrc/resize.cu's note), replayed in exact arithmetic.
-On the card (``cuda`` marker; skipped without one): K1, K2 and K3 against
-their plain versions, K1 and K2 also at the ViT path's shapes. This file
+the plain versions; K1's and K2's launch geometry, K1's replayed block by
+block; K3's instantiation choice; and the identities K3's quantize rests
+on (csrc/resize.cu's note), replayed in exact arithmetic. On the card
+(``cuda`` marker; skipped without one): K1, K2 and K3 against their plain
+versions, K1 and K2 also at the ViT path's shapes, K1 at its ragged tile
+edges. This file
 imports no JAX, so the card-only tests run on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q -m cuda
@@ -32,7 +34,14 @@ from floodseg_tpu_torch.ops import (
     warp_chain_plain,
 )
 from floodseg_tpu_torch.ops.resize_kernels import vector_path
-from floodseg_tpu_torch.ops.warp_kernels import ChainGeometry, _chain_geometry, _library
+from floodseg_tpu_torch.ops.warp_kernels import (
+    _SAMPLE_THREADS,
+    ChainGeometry,
+    SampleGeometry,
+    _chain_geometry,
+    _library,
+    _sample_geometry,
+)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # the kernels and the plain versions round the same float32 arithmetic in
@@ -303,6 +312,148 @@ def test_card_wrappers_raise_and_never_reroute():
     big_grids = torch.zeros((2, 1, 135, 240, 2), device=dev)
     with pytest.raises(ValueError, match="does not fit one block"):
         warp_chain_cuda(big, big_grids)
+
+
+# ------------------------------------------------------------------- K1
+
+# every shape the paths give K1: (name, B * gh * gw points, C, B * H * W pixels of x)
+_K1_PATHS = [
+    ("pspnet-predict", 32 * 32, 4096, 65 * 65),
+    ("deeplabv3-predict", 32 * 32, 2048, 64 * 64),
+    ("vit-predict", 32 * 32, 768, 16 * 16),
+    ("crop-head", 27 * 27, 4096, 55 * 55),
+    ("crop-key-resample", 67 * 120, 4096, 55 * 55),
+    ("train-head", 2 * 27 * 27, 4096, 2 * 55 * 55),
+    ("train-step", 2 * 27 * 27, 4096, 2 * 27 * 27),
+    ("deeplabv3-train-head", 2 * 27 * 27, 2048, 2 * 55 * 55),
+    ("deeplabv3-train-step", 2 * 27 * 27, 2048, 2 * 27 * 27),
+    ("vit-train-head", 2 * 26 * 26, 768, 2 * 13 * 13),
+    ("vit-train-step", 2 * 26 * 26, 768, 2 * 26 * 26),
+    ("segmentation-logits", 2 * 27 * 27, 5, 2 * 55 * 55),
+]
+# (itemsize, elements a vector): bf16 and float32 vectors, and the
+# one-element route (C * itemsize no multiple of 16, or an unaligned x)
+_K1_ROUTES = {"bf16": (2, 8), "float32": (4, 4), "bf16-one-element": (2, 1),
+              "float32-one-element": (4, 1)}
+
+
+def _k1_cover(geo: SampleGeometry, points: int, nv: int):
+    """Replay csrc/warp.cu::grid_sample_kernel's index arithmetic for every
+    thread of every block: how many times each (point, vector) is written,
+    and how many times each point's tap-table entry is built for each
+    channel chunk. Also checks that a thread reads only a table entry its
+    block built."""
+    rows = geo.threads // geo.lanes
+    bid = np.arange(geo.tiles * geo.chunks)[:, None]
+    t = np.arange(geo.threads)[None, :]
+    tile = bid // geo.chunks
+    chunk = np.broadcast_to(bid - tile * geo.chunks, (bid.shape[0], geo.threads))
+    row, lane = t // geo.lanes, t % geo.lanes
+    q0 = tile * rows
+    built = t < np.minimum(rows, points - q0)
+    table = np.zeros((points, geo.chunks), np.int64)
+    np.add.at(table, ((q0 + t)[built], chunk[built]), 1)
+    v = chunk * geo.lanes + lane
+    live = (v < nv) & (row < points - q0)
+    assert (row < np.minimum(rows, points - q0))[live].all()
+    writes = np.zeros((points, nv), np.int64)
+    np.add.at(writes, (np.broadcast_to(q0 + row, live.shape)[live], v[live]), 1)
+    return writes, table
+
+
+# every path's shape at its batch and at twice it, on every route it can take
+_K1_CASES = [(path, batch, route) for path in _K1_PATHS for batch in (1, 2)
+             for route, (itemsize, v) in _K1_ROUTES.items()
+             if v == 1 or (path[2] * itemsize) % 16 == 0]
+
+
+@pytest.mark.parametrize("path,batch,route", _K1_CASES,
+                         ids=[f"{p[0]}-b{b}-{r}" for p, b, r in _K1_CASES])
+def test_k1_geometry_covers_every_point_and_channel_once(path, batch, route):
+    """K1's geometry at every path's shape (and at twice its batch), in both
+    dtypes and on the one-element route: a block's threads and its tap
+    table within the card's limits, the grid within 2**31 - 1 blocks, and
+    every output point and channel vector written exactly once, each
+    point's table entry built once for each chunk."""
+    _, points, c, pixels = path
+    itemsize, v = _K1_ROUTES[route]
+    points, pixels = points * batch, pixels * batch
+    nv = c // v
+    geo = _sample_geometry(points, nv, pixels)
+    rows = geo.threads // geo.lanes
+    assert 0 < geo.lanes <= geo.threads <= _SAMPLE_THREADS <= 1024
+    assert geo.threads % geo.lanes == 0 and geo.lanes <= 32
+    assert geo.chunks == -(-nv // geo.lanes) and geo.chunks * geo.lanes - nv < geo.chunks
+    assert geo.tiles == -(-points // rows) and geo.tiles * geo.chunks < 2 ** 31
+    assert rows * 32 <= 48 * 1024  # the tap table: an int4 and a float4 a point
+    assert geo.stream == (points <= pixels)
+    writes, table = _k1_cover(geo, points, nv)
+    assert (writes == 1).all() and (table == 1).all()
+
+
+@pytest.mark.parametrize("name,points,c,pixels,itemsize,expect", [
+    # predict, bf16: a warp on 32 vectors (512 bytes) of a point, 8 points a block
+    ("pspnet-predict", 32 * 32, 4096, 65 * 65, 2, SampleGeometry(32, 256, 16, 128, True)),
+    ("deeplabv3-predict", 32 * 32, 2048, 64 * 64, 2, SampleGeometry(32, 256, 8, 128, True)),
+    ("vit-predict", 32 * 32, 768, 16 * 16, 2, SampleGeometry(32, 256, 3, 128, False)),
+    ("crop-head", 27 * 27, 4096, 55 * 55, 2, SampleGeometry(32, 256, 16, 92, True)),
+    ("crop-key-resample", 67 * 120, 4096, 55 * 55, 2, SampleGeometry(32, 256, 16, 1005, False)),
+    # training, float32
+    ("train-head", 2 * 27 * 27, 4096, 2 * 55 * 55, 4, SampleGeometry(32, 256, 32, 183, True)),
+    ("train-step", 2 * 27 * 27, 4096, 2 * 27 * 27, 4, SampleGeometry(32, 256, 32, 183, True)),
+    ("vit-train-head", 2 * 26 * 26, 768, 2 * 13 * 13, 4,
+     SampleGeometry(32, 256, 6, 169, False)),
+    # segmentation logits, C = 5: the one-element route, 51 points a block
+    ("segmentation-logits", 2 * 27 * 27, 5, 2 * 55 * 55, 4,
+     SampleGeometry(5, 255, 1, 29, True)),
+])
+def test_k1_geometry_at_the_path_shapes(name, points, c, pixels, itemsize, expect):
+    """The geometry K1 takes at the paths' shapes: up-sampling grids (more
+    points than x has pixels) read x with the default policy, since each
+    pixel is read by several points."""
+    v = 16 // itemsize if (c * itemsize) % 16 == 0 else 1
+    assert _sample_geometry(points, c // v, pixels) == expect
+
+
+def test_k1_geometry_raises_past_int32():
+    with pytest.raises(ValueError, match="nothing to sample"):
+        _sample_geometry(0, 8, 1)
+    with pytest.raises(ValueError, match="more than 2147483647"):
+        _sample_geometry(2 ** 31, 512, 1)
+    with pytest.raises(ValueError, match="more than 2147483647"):
+        _sample_geometry(8, 512, 2 ** 31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_tile_edges_match_plain_on_card(dtype):
+    """K1 bit-equal, by integer view, to its plain version on the CPU where
+    its tiles and chunks are ragged: 27x27 (729 points) at batch 1 and 2
+    (a tile crosses the first image's end), the 67x120 grid (8040 points),
+    13x13 onto (2, 26, 26, 768) (C = 768: 96 bf16 or 192 float32 vectors, not
+    a multiple of the chunk), C = 72, and C = 5 at an odd element offset
+    (the one-element route); random grids and the corner grid (a point's
+    four taps on one pixel), both align modes."""
+    dev = _card()
+    rng = np.random.default_rng(19)
+    cases = [((1, 55, 55, 128), (27, 27)), ((2, 55, 55, 128), (27, 27)),
+             ((1, 55, 55, 16), (67, 120)), ((2, 26, 26, 768), (13, 13)),
+             ((2, 13, 13, 72), (26, 26)), ((2, 13, 13, 5), (26, 26))]
+    for x_shape, hw in cases:
+        b = x_shape[0]
+        flat = torch.from_numpy(rng.standard_normal(1 + int(np.prod(x_shape))).astype(np.float32))
+        x = flat[1:].view(x_shape) if x_shape[-1] == 5 else flat[:-1].view(x_shape)
+        x = x.to(dtype)
+        rand = rng.uniform(-1.2, 1.2, (b,) + hw + (2,))
+        for grid in (rand, np.full((b,) + hw + (2,), -1.5)):
+            grid = torch.from_numpy(grid.astype(np.float32))
+            for align in (False, True):
+                xd = x.to(dev) if x_shape[-1] != 5 else torch.cat(
+                    [x.new_zeros(1).to(dev), x.reshape(-1).to(dev)])[1:].view(x_shape)
+                assert (xd.data_ptr() % 16 != 0) == (x_shape[-1] == 5)
+                got = grid_sample_cuda(xd, grid.to(dev), align)
+                want = grid_sample(x.contiguous(), grid, align)
+                assert torch.equal(_bits(got.cpu()), _bits(want)), (x_shape, hw, align)
 
 
 # ------------------------------------------------------------------- K3
