@@ -8,6 +8,7 @@
     python3 chip_smoke.py --k3     # K3 alone: build, check, time (about 20 s)
     python3 chip_smoke.py --train  # the training phases alone: 3t, 4t and 14-17
     python3 chip_smoke.py --k1-bwd # phase 3t alone: K1 and K1-bwd at the training shapes
+    python3 chip_smoke.py --test   # the evaluation phases alone: 18, 18k, 18c and 5p
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -183,11 +184,47 @@ Then the training phases, last, each model alone on the card:
    a finite loss; every BN's running mean moved but the aux head's in flow
    training (which never runs it); after the first flow step each aux
    parameter equals p0 - 10 lr wd p0 (a zero gradient, decayed and moved).
-13. Last (after phase 17): a JSON line {"kernels": [...]} (each kernel's
+Then evaluation, last but one:
+18. The test at full width through run_test on phase 14's tree (test.txt
+   and test2.txt, limit_test_batches = 2, so 3 samples), PSPNet-50 float32
+   with TF32 off, random weights: (a) flow_supervised, the crop route: 28
+   crops of 433 px a sample in one device call, K1 48 launches a sample
+   ((28, 55, 55, 4096) -> 27x27 at the chains' heads, (28, 27, 27, 4096)
+   -> 27x27 at their steps), K2 none; (b) the same under no_cropping, whole
+   frames at (433, 650): K1 48 a batch; (c) supervised, the multi-scale
+   flip test: 873 px crops over the 1143x2048 rescale (8 crops and their
+   flips, one call), no launch at all. Each: seconds a sample split into
+   the device call, the copy to the host and the canvas; device busy and
+   idle share (torch.profiler); peak memory; the metrics finite, the keys
+   Runner.test's.
+18k. K1 at the test's shapes in float32: (a)'s crop route, (28, 55, 55,
+   4096) and (28, 27, 27, 4096) -> 27x27, and (b)'s whole frames, (1, 55,
+   82, 4096) and (1, 67, 120, 4096) -> 67x120, each on its route's own
+   first grids (the chains' head and first step), random grids, the
+   identity grid and a corner-clamped grid: bit-equal to its plain version
+   by integer view; each timed beside its bytes bound, the plain version
+   and F.grid_sample (NCHW).
+18c. run_test card against CPU in float32 at 128x192 frames, n = 5
+   (flow_supervised): the crop route (65 px crops), each sample's crop
+   probabilities within 1e-4 and its map equal away from near-ties (twice
+   that); no_cropping, each whole-frame batch's probabilities within 1e-4,
+   its map equal away from near-ties and its counts equal where the map
+   is; the metrics equal where every map is.
+5p. profile_predict_phases at the main path's shapes (PSPNet-50 bf16,
+   513 px, n = 25): ms per region (predict_encoder, predict_warp,
+   predict_fusion, predict_decoder); one composed clip launches K1 3 and
+   K2 2 times and its maps equal make_flow_predict_fn's away from
+   near-ties (a top-2 logit gap above 2**-5 of the window's largest
+   |logit|), with at least 0.5 of the pixels clear and 0.98 equal;
+   make_cached_flow_predict_fn(fused_argmax=False) over phase 5's windows
+   gives the fused maps at every pixel but two-ulp ties of its own bf16
+   logits, and its maps are their argmax.
+13. Last (after phase 5p): a JSON line {"kernels": [...]} (each kernel's
    max_abs_err is its largest over every check; max_abs_err_by_dtype gives
    the largest in float32 and in bf16 apart), then the nvidia-smi line, then the last line {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import copy
 import ctypes
 import json
@@ -251,22 +288,28 @@ from floodseg_tpu_torch.train import (
     FitConfig,
     TrainState,
     crop_offsets,
+    fit,
     flow_sliding_window_predict,
     flow_transforms,
     make_cached_flow_predict_fn,
     make_flow_eval_step,
+    make_flow_phase_fns,
     make_flow_predict_crop_fn,
+    make_flow_predict_fn,
     make_flow_train_step,
     make_loss_fn,
     make_optimizer,
     make_train_step,
+    profile_predict_phases,
     round_train,
     run_fit,
     run_flow_fit,
     run_flow_predict,
+    run_test,
     sem_transforms,
 )
-from floodseg_tpu_torch.train.flow import _predict_decode, decode_split_ok
+from floodseg_tpu_torch.train.evaluate import _crop_stack
+from floodseg_tpu_torch.train.flow import _predict_decode, decode_split_ok, flow_train_forward
 from floodseg_tpu_torch.video import FlowInterpolator, default_grid, flow_model
 from floodseg_tpu_torch.video.grid import crop_motion_vectors_stack_np
 
@@ -2217,6 +2260,400 @@ def training_phases(dev) -> tuple:
     return errs, timing, results
 
 
+# --------------------------------------- evaluation: phases 18, 18k, 18c, 5p
+
+# phase 18: (label, tag, method, no_cropping, train crop); the test crop is
+# the rounded train crop, as apply_links links it
+TEST_PHASES = (
+    ("(a)", "pspnet_f32_test_crop", "flow_supervised", False, CROP),
+    ("(b)", "pspnet_f32_test_whole", "flow_supervised", True, CROP),
+    ("(c)", "pspnet_f32_test_supervised", "supervised", False, 873),
+)
+TEST_LIMIT = 2
+
+
+def test_config(method, no_cropping, crop, n=FRAME_DELTA, frame_hw=FRAME_HW,
+                limit=TEST_LIMIT) -> FitConfig:
+    return FitConfig(train_h=crop, train_w=crop, resize_h=frame_hw[0], resize_w=frame_hw[1],
+                     frame_delta=n, no_cropping=no_cropping, limit_test_batches=limit)
+
+
+def test_phase(model, dev, root, tag, method, no_cropping, crop, n=FRAME_DELTA,
+               frame_hw=FRAME_HW) -> dict:
+    """Phase 18 (a), (b) or (c): run_test on the tree at ``root`` under
+    torch.profiler (CUDA activity). Checks Runner.test's keys, finite
+    metrics and the launches: K1 2 (n - 1) a sample (a) or a batch (b), K2
+    and K3 never; nothing at all in (c). (Smaller arguments rehearse it on
+    the CPU.)"""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    cfg = test_config(method, no_cropping, crop, n, frame_hw)
+    prof = PhaseProfiler(sync=cuda_sync)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    activity = ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU
+    with tprofile(activities=[activity]) as tp:
+        results = run_test(model, root, cfg, method, profiler=prof, device=dev)
+    total = time.perf_counter() - t0
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0
+    region = "test_step" if no_cropping else "test_sample"
+    samples = len(prof.recorded_durations[region])
+    warps = 2 * (n - 1) if method == "flow_supervised" and cuda else 0
+    expected = {"grid_sample_cuda": warps * samples, "grid_sample_backward_cuda": 0,
+                "warp_chain_cuda": 0, "resize_quantize_int8_cuda": 0}
+    keys = {f"test_{m}{k}_epoch" for m in ("miou", "macc", "accuracy") for k in (1, 2)}
+    keys |= {"test_miou1_epoch_classes", "test_miou2_epoch_classes", "test_miou_epoch"}
+    finite = all(np.all(np.isfinite(v)) for v in results.values())
+    shown = {k: round(v, 4) for k, v in results.items() if not k.endswith("classes")}
+    log(f"  {samples} {'batches' if no_cropping else 'samples'} in {total:.1f} s; "
+        f"launches {counts} (expected {expected}); {shown}")
+    if samples != 3 or counts != expected:
+        raise AssertionError(f"the test launched {counts} over {samples} samples")
+    if set(results) != keys or not finite:
+        raise AssertionError(f"run_test returned {sorted(results)}, finite {finite}")
+    trace = os.path.join(PROFILE_DIR, f"{tag}_trace.json")
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    tp.export_chrome_trace(trace)
+    dt = device_time(trace, samples)
+    per = {k: prof.sum(k) / samples for k in (region, "crop_forward", "crop_probs_to_host",
+                                              "crop_canvas")}
+    log(f"  seconds a {'batch' if no_cropping else 'sample'}: {per[region]:.3f}"
+        + ("" if no_cropping else
+           f" (device call {per['crop_forward']:.3f}, probabilities to the host "
+           f"{per['crop_probs_to_host']:.3f}, float64 canvas and resize "
+           f"{per['crop_canvas']:.3f}; the rest is the loader and the crop cutting)")
+        + f"; device busy {dt['busy_ms']:.1f} ms of it, idle share "
+        f"{1 - dt['busy_ms'] / (1e3 * per[region]):.1%}, {dt['kernels']:.0f} kernels, "
+        f"device-to-host copies {dt['d2h_ms']:.1f} ms (torch.profiler); peak memory "
+        f"{peak_gb:.2f} GB")
+    return {"launches": counts, "samples": samples, "seconds": per, "total_s": total,
+            "s_a_sample": per[region], "peak_gb": peak_gb, "results": results, **dt}
+
+
+def test_grids(root, no_cropping, n=FRAME_DELTA, frame_hw=FRAME_HW) -> tuple:
+    """The grids run_test first gives K1, float32 on the CPU, and the frame
+    size the encoder sees: (a)'s first sample's crop grids, mvs_left
+    (n - 1, 28, 27, 27, 2) at the 433 px test crop, or (b)'s first batch's
+    whole-frame grids, (n - 1, batch_size_test, 67, 120, 2) at (433, 650)."""
+    cfg = test_config("flow_supervised", no_cropping, CROP, n, frame_hw)
+    ds = FlowDataset("test", root, os.path.join(root, "list", "all", "test.txt"),
+                     transform=flow_transforms(cfg, "pspnet")["test"], frame_delta=n)
+    rng = np.random.default_rng(0)
+    batch = collate([ds.get(i, rng) for i in range(cfg.batch_size_test)])
+    h, w = batch["frame_prev"].shape[1:3]
+    if no_cropping:
+        return torch.as_tensor(batch["mvs_left"]).contiguous(), (h, w)
+    crop = round_train(cfg.train_h, "pspnet")
+    _, _, ml, _ = _crop_stack(batch, crop_offsets(h, w, crop, crop), crop, crop)
+    return torch.as_tensor(ml).contiguous(), (crop, crop)
+
+
+def check_test_kernels(dev, root, c=4096, n=FRAME_DELTA, frame_hw=FRAME_HW) -> tuple:
+    """Phase 18k: K1 in float32 at the flow test's shapes. (a)'s crop
+    route: (28, 55, 55, C) -> 27x27 (the chains' heads) and (28, 27, 27, C)
+    -> 27x27 (their steps); (b)'s whole frames: (1, 55, 82, C) -> 67x120
+    and (1, 67, 120, C) -> 67x120 (more points than source pixels at the
+    heads, so x is not read evict-first). Each bit-equal to the plain
+    version on the route's own first grids, random grids, the identity and
+    a corner-clamped grid, and timed on its own grids beside bound, plain
+    version and F.grid_sample."""
+    g = torch.Generator().manual_seed(2)
+    flush, cpm = L2Flush(dev), sleep_cycles_per_ms()
+    errs, res = {}, {}
+    for route, no_cropping in (("test", False), ("test whole", True)):
+        ml, frame = test_grids(root, no_cropping, n, frame_hw)
+        batch, grid_hw = ml.shape[1], tuple(ml.shape[2:4])
+        # PSPNet-50's encoding: three stride-2 stages, each ceil(s / 2)
+        feat_hw = tuple((s - 1) // 8 + 1 for s in frame)
+        ident = torch.as_tensor(default_grid(grid_hw[0] * 16, grid_hw[1] * 16))[None]
+        grids = {"head": ml[0], "step": ml[1],
+                 "random": torch.rand((batch,) + grid_hw + (2,), generator=g) * 2.2 - 1.1,
+                 "identity": ident.expand(batch, -1, -1, -1),
+                 "corner": torch.full((batch,) + grid_hw + (2,), -1.5)}
+        grids = {k: v.to(dev).contiguous() for k, v in grids.items()}
+        xs = {part: torch.randn((batch,) + hw + (c,), generator=g).to(dev)
+              for part, hw in (("head", feat_hw), ("step", grid_hw))}
+        for x in xs.values():
+            for what, grid in grids.items():
+                note_err(errs, "grid_sample_cuda", torch.float32, check_k1(
+                    f"K1 float32 x{tuple(x.shape)} {route} {what} grid{tuple(grid.shape)}",
+                    x, grid, False))
+        for part, x in xs.items():
+            res[f"grid_sample_cuda ({route} {part}, float32)"] = time_k1(
+                x, x.permute(0, 3, 1, 2).contiguous(), grids[part], grids[part], False, flush,
+                cpm)
+        del xs, grids
+    log_timing(res)
+    return errs, res
+
+
+def _clear_share(probs: np.ndarray) -> tuple:
+    """(pixels whose top-2 probability gap exceeds 2e-4, twice the
+    tolerance; their share)."""
+    top2 = np.sort(probs, axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > 2e-4
+    return clear, float(clear.mean())
+
+
+def test_card_vs_cpu(no_cropping=False, n=5, frame_hw=(128, 192), crop=65, seed=1) -> None:
+    """Phase 18c: run_test (flow_supervised) in float32 on the card
+    against the CPU on a small tree. The crop route: each sample's crop
+    probabilities within 1e-4 and its map equal away from near-ties (a
+    top-2 gap of twice that). ``no_cropping``: each whole-frame batch's
+    probabilities (the eval step's logits, softmaxed) within 1e-4, its map
+    equal away from near-ties, and its counts equal where the map is. The
+    metrics equal where every map is."""
+    root = os.path.join(DATA_DIR, "test_tree_small")
+    if not os.path.isdir(root):
+        generate_synthetic_dataset(root, num_frames=24, size=frame_hw, frame_delta=n,
+                                   num_labeled=12)
+    cfg = test_config("flow_supervised", no_cropping, crop, n, frame_hw, limit=None)
+    cpu_model = random_model("pspnet", torch.float32, seed)
+    gpu_model = copy.deepcopy(cpu_model)
+    names = ("make_flow_test_crop_fn", "flow_sliding_window_test", "make_flow_eval_step")
+    originals = {k: getattr(fit, k) for k in names}
+    res = {}
+    for dev, m in ((torch.device("cpu"), cpu_model), (torch.device("cuda"), gpu_model)):
+        # each sample's (probabilities on the device, map) or each batch's
+        # (probabilities, map, counts)
+        probs, maps, counts = [], [], []
+
+        def recording_make(*args, **kw):
+            fn = originals["make_flow_test_crop_fn"](*args, **kw)
+
+            def recording(*a):
+                out = fn(*a)
+                probs.append(out.cpu().numpy())
+                return out
+            return recording
+
+        def recording_test(*args, **kw):
+            maps.append(originals["flow_sliding_window_test"](*args, **kw))
+            return maps[-1]
+
+        def recording_eval(model, classes, ignore_index, feature_based, no_warp):
+            step = originals["make_flow_eval_step"](model, classes, ignore_index,
+                                                    feature_based, no_warp)
+
+            def recording(state, batch):
+                with torch.no_grad(), full_precision_f32():
+                    logits = flow_train_forward(model, batch, None, False, feature_based,
+                                                no_warp)
+                p = torch.softmax(logits.float(), dim=-1)[..., :classes].cpu().numpy()
+                probs.append(p)
+                maps.append(p.argmax(-1))
+                out = step(state, batch)
+                counts.append([out[k].cpu().numpy() for k in ("intersection", "union",
+                                                             "target")])
+                return out
+            return recording
+
+        patches = ({"make_flow_eval_step": recording_eval} if no_cropping else
+                   {"make_flow_test_crop_fn": recording_make,
+                    "flow_sliding_window_test": recording_test})
+        for k, v in patches.items():
+            setattr(fit, k, v)
+        try:
+            summary = run_test(m, root, cfg, "flow_supervised", device=dev)
+        finally:
+            for k, v in originals.items():
+                setattr(fit, k, v)
+        res[dev.type] = (probs, maps, counts, summary)
+    (pc, mc, cc, sc), (pg, mg, cg, sg) = res["cpu"], res["cuda"]
+    if len(pc) != len(pg) or len(mc) != len(mg) or not pc:
+        raise AssertionError(f"{len(pc)} CPU calls, {len(pg)} card calls")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(pg, pc))
+    differ = clear_share = 0
+    if no_cropping:
+        what = f"{len(pc)} whole-frame batches of {pc[0].shape[1:3]}"
+        for p, a, b in zip(pc, mg, mc):
+            clear, share = _clear_share(p)
+            differ += int(((a != b) & clear).sum())
+            clear_share += share / len(pc)
+        for a, b, x, y in zip(mg, mc, cg, cc):
+            if np.array_equal(a, b) and not all(np.array_equal(u, v) for u, v in zip(x, y)):
+                raise AssertionError(f"equal maps, different counts: {x} {y}")
+    else:
+        offs = crop_offsets(*frame_hw, crop, crop)
+        what = f"{len(pc)} samples of {len(offs)} crops"
+        for p, a, b in zip(pc, mg, mc):
+            canvas = np.zeros(frame_hw + (CLASSES,))
+            count = np.zeros(frame_hw + (1,))
+            for (h, w), q in zip(offs, p):
+                canvas[h:h + crop, w:w + crop] += q
+                count[h:h + crop, w:w + crop] += 1
+            clear, share = _clear_share(canvas / count)
+            differ += int(((a != b) & clear).sum())
+            clear_share += share / len(pc)
+    same = all(np.array_equal(a, b) for a, b in zip(mg, mc))
+    log(f"  {what}: probabilities max_abs_err {err:.3e} (tol 1e-4); maps "
+        f"{'equal' if same else 'not all equal'}, {differ} pixels differ away from near-ties "
+        f"({clear_share:.4f} of pixels clear); test_miou_epoch card "
+        f"{sg['test_miou_epoch']:.6f}, CPU {sc['test_miou_epoch']:.6f}")
+    if not err <= 1e-4 or differ:
+        raise AssertionError(f"run_test differs between card and CPU: {err}, {differ}")
+    if same and sg != sc:
+        raise AssertionError(f"equal maps, different metrics: {sg} {sc}")
+
+
+# 5p's composed clip against make_flow_predict_fn: the same function in
+# bf16 with its roundings in other places (the warp phase's resize back to
+# the feature size, the blend in a call of its own), which the decoder
+# carries into the logits; maps are held where the top-2 logit gap exceeds
+# COMPOSED_GAP of the window's largest |logit|. A random-weight model's
+# logits lie close together, so that leaves about 0.59 of the pixels
+# (PERF.md §2): at least half must be clear, and at least 0.98 of all
+# pixels equal, so that the exclusion cannot hide a broken map.
+COMPOSED_GAP = 2.0 ** -5
+COMPOSED_MIN_CLEAR = 0.5
+COMPOSED_MIN_EQUAL = 0.98
+
+
+def phases_phase(model, wins, dev, n=FRAME_DELTA, size=SIZE, frame_hw=(512, 512)) -> dict:
+    """Phase 5p: profile_predict_phases on phase 5's second window (bf16
+    PSPNet-50, 513 px, n = 25), one composed clip of the phase functions
+    counted and held against make_flow_predict_fn, and
+    make_cached_flow_predict_fn(fused_argmax=False) against the fused
+    functions over phase 5's first windows."""
+    dg = default_grid(*frame_hw)
+    w = wins[1]
+    fns = make_flow_phase_fns(model, n, out_size=(size, size), default_grid=dg, device=dev)
+    variables = model.state_dict()  # on the card, where make_flow_phase_fns moved it
+    times = profile_predict_phases(model, variables, w, n, out_size=(size, size),
+                                   default_grid=dg, device=dev)
+    log(f"  ms a clip by region (mean of 5 after a warm-up, synchronised): "
+        f"{ {k: round(1e3 * v, 3) for k, v in times.items()} }; "
+        f"sum {1e3 * sum(times.values()):.3f}")
+    sync(dev)
+    reset_launch_counts()
+    f, f2 = fns["encode"](variables, w["frame_prev"]), fns["encode"](variables, w["frame_next"])
+    maps = fns["fuse"](f, f2, fns["warp_chain"](f, w["mvs_left"]),
+                       fns["warp_chain"](f2, w["mvs_right"]))
+    composed = fns["decode"](variables, maps)
+    sync(dev)
+    counts = launch_counts()
+    on_card = int(dev.type == "cuda")
+    expected = {"grid_sample_cuda": 3 * on_card, "grid_sample_backward_cuda": 0,
+                "warp_chain_cuda": 2 * on_card, "resize_quantize_int8_cuda": 0}
+    if counts != expected:
+        raise AssertionError(f"a composed clip launched {counts}, expected {expected}")
+    ref = make_flow_predict_fn(model, n, out_size=(size, size), default_grid=dg, device=dev)(
+        variables, w["frame_prev"], w["frame_next"], w["mvs_left"], w["mvs_right"])
+
+    with full_precision_f32():
+        logits = window_logits(model, w, n, dg, size, dev).float()
+    top2 = torch.topk(logits, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > COMPOSED_GAP * float(logits.abs().max())
+    differ = int(((composed != ref) & clear).sum())
+    equal, share = float((composed == ref).float().mean()), float(clear.float().mean())
+    log(f"  composed phases vs make_flow_predict_fn: {equal:.6f} of pixels equal, {differ} "
+        f"differ away from near-ties ({share:.4f} clear; at least {COMPOSED_MIN_CLEAR} clear "
+        f"and {COMPOSED_MIN_EQUAL} equal required)")
+    if differ or share < COMPOSED_MIN_CLEAR or equal < COMPOSED_MIN_EQUAL:
+        raise AssertionError(f"composed phases: {differ} pixels differ away from near-ties, "
+                             f"{share} clear, {equal} equal")
+    log(f"  one composed clip's launches {counts} (expected {expected})")
+    out, resized = {}, {}
+    for fused in (True, False):
+        full, cached = make_cached_flow_predict_fn(model, n=n, out_size=(size, size),
+                                                   default_grid=dg, fused_argmax=fused,
+                                                   device=dev)
+        with recording_epilogue(resized, (size, size)):
+            m0, enc = full(variables, wins[0]["frame_prev"], wins[0]["frame_next"],
+                           wins[0]["mvs_left"], wins[0]["mvs_right"])
+            r0 = resized.pop("last", None)
+            m1, _ = cached(variables, enc, wins[1]["frame_next"], wins[1]["mvs_left"],
+                           wins[1]["mvs_right"])
+            r1 = resized.pop("last", None)
+        out[fused] = (m0, m1, r0, r1)
+    for i in range(2):
+        got, want, own = out[False][i], out[True][i], out[False][2 + i].float()
+        top2 = torch.topk(own, 2, dim=-1).values
+        # the two epilogues' float32 sums differ at most in order, so after
+        # the one rounding to bf16 each resized logit by at most one ulp:
+        # only a top-2 gap of two ulps (of the larger magnitude) can turn
+        mag = torch.maximum(top2[..., 0].abs(), top2[..., 1].abs())
+        ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+        tie = (top2[..., 0] - top2[..., 1]) <= 2 * ulp
+        own_map = torch.argmax(own, dim=-1).to(torch.int32)
+        differ = int(((got != want) & ~tie).sum())
+        log(f"  fused_argmax=False vs True, window {i}: "
+            f"{float((got == want).float().mean()):.6f} of pixels equal, {differ} differ away "
+            f"from two-ulp ties of the unfused epilogue's own bf16 logits "
+            f"({float(tie.float().mean()):.4f} of pixels such ties); the unfused maps "
+            f"{'are' if torch.equal(own_map, got) else 'are NOT'} the argmax of those logits")
+        if differ or not torch.equal(own_map, got):
+            raise AssertionError(f"fused_argmax=False, window {i}: {differ} pixels differ "
+                                 f"away from ties")
+    return {"times": times, "launches": counts}
+
+
+@contextlib.contextmanager
+def recording_epilogue(resized: dict, out_size):
+    """Keep, as resized["last"], the last output at ``out_size`` of
+    resize_bilinear inside video/flow_model.py (the unfused epilogue's
+    resized logits, before its argmax)."""
+    original = flow_model.resize_bilinear
+
+    def recording(x, size, *a, **kw):
+        y = original(x, size, *a, **kw)
+        if tuple(y.shape[-3:-1]) == tuple(out_size):
+            resized["last"] = y
+        return y
+
+    flow_model.resize_bilinear = recording
+    try:
+        yield
+    finally:
+        flow_model.resize_bilinear = original
+
+
+def evaluation_phases(dev, root, model, wins) -> tuple:
+    """Phases 18, 18k, 18c and 5p in order, on phase 14's tree at ``root``
+    and phase 5's bf16 ``model`` and windows; returns (18k's errors, 18k's
+    timing, phase 18's results by tag, 5p's)."""
+    log(f"[18] the test at full width through run_test: PSPNet-50 float32, "
+        f"{FRAME_HW[0]}x{FRAME_HW[1]} frames, limit_test_batches = {TEST_LIMIT}")
+    test_model = random_model("pspnet", torch.float32, seed=7)
+    results = {}
+    for label, tag, method, no_cropping, crop in TEST_PHASES:
+        t0 = time.perf_counter()
+        log(f"[18] {label} {method}" + (", no_cropping" if no_cropping else "")
+            + f", {crop} px test crop")
+        results[tag] = test_phase(test_model, dev, root, tag, method, no_cropping, crop)
+        log(f"  phase 18 {label}: {time.perf_counter() - t0:.1f} s")
+    test_model.cpu()
+    del test_model
+    log("[18k] K1 at the flow test's shapes (28 crops and whole frames, C = 4096, float32)")
+    errs, timing = check_test_kernels(dev, root)
+    log("[18c] run_test card vs CPU (float32, 128x192 frames, n = 5): the crop route "
+        "(65 px crops), then no_cropping")
+    test_card_vs_cpu()
+    test_card_vs_cpu(no_cropping=True)
+    log(f"[5p] profile_predict_phases: PSPNet-50 bf16, {SIZE} px key frames, "
+        f"n = {FRAME_DELTA}")
+    phases = phases_phase(model, wins, dev)
+    model.cpu()
+    return errs, timing, results, phases
+
+
+def test_alone() -> int:
+    """--test: build csrc/warp.cu and the codec, write phase 14's tree, then
+    phases 18, 18k, 18c and 5p."""
+    log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}")
+    build_kernels(["warp", "jpeg"])
+    dev = torch.device("cuda")
+    root = train_tree()
+    model = random_model("pspnet", torch.bfloat16, seed=0)
+    wins = clip_windows(FRAME_DELTA, (512, 512), 3, SIZE, dev)
+    evaluation_phases(dev, root, model, wins)
+    return 0
+
+
 # ------------------------------------------------------------------ main
 
 # slow-pipe conversions and functions, the divide's range check, calls
@@ -2599,6 +3036,8 @@ def main() -> int:
         return train_alone()
     if sys.argv[1:] == ["--k1-bwd"]:
         return k1_bwd_alone()
+    if sys.argv[1:] == ["--test"]:
+        return test_alone()
     if sys.argv[1:2] == ["--k1"] and len(sys.argv) <= 3:
         return k1_alone(*sys.argv[2:])
     t_start = time.perf_counter()
@@ -2723,6 +3162,12 @@ def main() -> int:
     train_errs, train_timing, train_paths = training_phases(dev)
     paths.update(train_paths)
     log(f"  phases 3t, 4t, 14-17: {time.perf_counter() - t_train:.1f} s")
+    t_eval = time.perf_counter()
+    eval_errs, eval_timing, test_paths, phases = evaluation_phases(
+        dev, os.path.join(DATA_DIR, "train_tree"), model, wins)
+    paths.update(test_paths)
+    paths["pspnet_bf16_phases"] = phases
+    log(f"  phases 18, 18k, 18c, 5p: {time.perf_counter() - t_eval:.1f} s")
 
     sources = {"grid_sample_cuda": ("floodseg_tpu/ops/pallas_warp.py:70", "warp.cu"),
                "grid_sample_backward_cuda": (
@@ -2739,7 +3184,11 @@ def main() -> int:
         "vit_key_resample": vit_timing[key],
         "crop": crop_timing["grid_sample_cuda (crop -> 27x27)"],
         "crop_key_resample": crop_timing[
-            "grid_sample_cuda (crop -> 67x120 identity, align_corners=True)"]},
+            "grid_sample_cuda (crop -> 67x120 identity, align_corners=True)"],
+        "test_head_f32": eval_timing["grid_sample_cuda (test head, float32)"],
+        "test_step_f32": eval_timing["grid_sample_cuda (test step, float32)"],
+        "test_whole_head_f32": eval_timing["grid_sample_cuda (test whole head, float32)"],
+        "test_whole_step_f32": eval_timing["grid_sample_cuda (test whole step, float32)"]},
         "grid_sample_backward_cuda": {
             "workspace_f32": train_timing[
                 "grid_sample_backward_cuda (workspace route, float32)"]},
@@ -2761,7 +3210,7 @@ def main() -> int:
         t = timing[kname]
         by_path = {p: r["launches"][kname] for p, r in paths.items()}
         by_dtype = {}
-        for e in (errs, dl_errs, vit_errs, crop_errs, train_errs):
+        for e in (errs, dl_errs, vit_errs, crop_errs, train_errs, eval_errs):
             for tag, v in e.get(kname, {}).items():
                 by_dtype[tag] = max(by_dtype.get(tag, 0.0), v)
         kernels.append({
@@ -2778,7 +3227,8 @@ def main() -> int:
             "passed": True})
     log(f"  codec {json.dumps({k: round(v, 3) for k, v in codec.items()})}; crop route "
         f"{crop['seconds']['predict_interference']:.3f} s a window; training ms a step "
-        f"{ {tag: round(r['step_ms'], 1) for tag, r in train_paths.items()} }")
+        f"{ {tag: round(r['step_ms'], 1) for tag, r in train_paths.items()} }; test s a "
+        f"sample { {tag: round(r['s_a_sample'], 3) for tag, r in test_paths.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,9 @@
 from floodseg_tpu_torch.ops import resize_kernels, warp_kernels
-from floodseg_tpu_torch.ops.grid_sample import grid_sample, grid_sample_backward
+from floodseg_tpu_torch.ops.grid_sample import (
+    grid_sample,
+    grid_sample_backward,
+    grid_sample_matmul,
+)
 from floodseg_tpu_torch.ops.pool import adaptive_avg_pool, global_avg_pool, max_pool
 from floodseg_tpu_torch.ops.quant import (
     conv_int8,
@@ -46,6 +50,7 @@ __all__ = [
     "grid_sample_backward",
     "grid_sample_backward_cuda",
     "grid_sample_cuda",
+    "grid_sample_matmul",
     "int8_deeplab_decode",
     "int8_seghead_decode",
     "launch_counts",

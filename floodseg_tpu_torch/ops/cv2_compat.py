@@ -27,10 +27,14 @@ _COEF_SCALE = 2048  # cv2's INTER_RESIZE_COEF_SCALE: 11-bit resize weights
 _BLUR_TAPS = np.array([16, 64, 96, 64, 16], np.int64)  # [1, 4, 6, 4, 1] / 16, 8 bits
 
 
-def _cv2_axis(n_in: int, n_out: int, scale: float):
+def _cv2_axis(n_in: int, n_out: int, scale: float, exact_fraction: bool = False):
     """cv2's source index and float32 fraction of each output index:
-    fx = float((dx + 0.5) * scale - 0.5), sx = floor(fx), fx -= sx."""
-    f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    fx = float((dx + 0.5) * scale - 0.5), sx = floor(fx), fx -= sx; with
+    ``exact_fraction`` the fraction is taken in float64 and then rounded
+    (the 1-, 3- and 4-channel float32 path)."""
+    f = (np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5
+    if not exact_fraction:
+        f = f.astype(np.float32)
     s = np.floor(f)
     return s.astype(np.int64), (f - s).astype(np.float32)
 
@@ -48,7 +52,13 @@ def cv2_resize_linear(im: np.ndarray, out_hw: Tuple[int, int],
     clamped neighbours. uint8: weights rounded to 11 bits, a horizontal
     pass in int32, then the vertical pass as cv2's SIMD path rounds it,
     ((((d0 >> 4) * b0) >> 16) + (((d1 >> 4) * b1) >> 16) + 2) >> 2;
-    float32: the same two passes in float32. ``rows``/``cols``: compute only
+    float32 with 2 or more than 4 channels: the same two passes in float32;
+    float32 with 1, 3 or 4 channels (OpenCV 5.0 interpolates these as its
+    warps do): the fractions from float64 positions, then fma(a, p01 - p00,
+    p00) along each row and fma(b, v1 - v0, v0) between the two rows, in
+    float32 (to the bit from the sizes; from ``inv_scale``, which no caller
+    passes with such an array, a column past the source's last one can
+    differ by an ulp). ``rows``/``cols``: compute only
     those output rows and columns (each output pixel depends on its own
     indices alone, so a window of the output costs a window's work)."""
     h, w = im.shape[:2]
@@ -59,11 +69,12 @@ def cv2_resize_linear(im: np.ndarray, out_hw: Tuple[int, int],
     sy_scale = 1.0 / (inv_scale[0] if inv_scale else oh / h)
     sx_scale = 1.0 / (inv_scale[1] if inv_scale else ow / w)
     x = im if im.ndim == 3 else im[..., None]
-    sx, fx = _cv2_axis(w, ow, sx_scale)
+    lerp = x.dtype == np.float32 and x.shape[2] in (1, 3, 4)
+    sx, fx = _cv2_axis(w, ow, sx_scale, lerp)
     edge = (sx < 0) | (sx >= w - 1)
     fx[edge] = 0.0
     sx = np.clip(sx, 0, w - 1)
-    sy, fy = _cv2_axis(h, oh, sy_scale)
+    sy, fy = _cv2_axis(h, oh, sy_scale, lerp)
     if cols is not None:
         sx, fx = sx[cols], fx[cols]
     if rows is not None:
@@ -84,6 +95,12 @@ def cv2_resize_linear(im: np.ndarray, out_hw: Tuple[int, int],
         d = (xi[:, sx] * a0 + xi[:, sx1] * a1) >> 4
         out = ((((d[r0] * b0) >> 16) + ((d[r1] * b1) >> 16) + 2) >> 2)
         out = np.clip(out, 0, 255).astype(np.uint8)
+    elif lerp:
+        a = fx[:, None]
+        p0, p1 = x[:, sx], x[:, sx1]
+        v = _fma(a, p1 - p0, p0)
+        b = fy[:, None, None]
+        out = _fma(b, v[r1] - v[r0], v[r0])
     elif x.dtype == np.float32:
         a0, a1 = (one - fx)[:, None], fx[:, None]
         d = x[:, sx] * a0 + x[:, sx1] * a1

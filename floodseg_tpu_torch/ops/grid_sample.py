@@ -9,12 +9,20 @@ accumulation, and one rounding to the input dtype at the end. Equivalent to
 ``torch.nn.functional.grid_sample(mode="bilinear", padding_mode="border")``
 on NHWC tensors, which the port never calls.
 
+``grid_sample_matmul`` is the JAX package's other formulation of the same
+warp (its ``grid_sample(..., impl="matmul")``): the bilinear weights as a
+one-hot (B, P, H*W) matrix contracted with the flattened source. The JAX
+package leaves that product to XLA, outside any Pallas kernel, so here it
+stays a torch product; it is not on the flow paths.
+
 The arithmetic is written one rounded operation at a time, in the order
 the CUDA kernel performs it, so that the kernel and this version agree to
 the last bit in float32.
 """
 
 import torch
+
+from floodseg_tpu_torch.core.device import full_precision_f32
 
 
 def tap_coords(h: int, w: int, grid: torch.Tensor, align_corners: bool):
@@ -65,6 +73,29 @@ def blend_taps(vals: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
     for k in range(1, 4):
         acc = acc + vals[..., k, :] * wgt[..., k, None]
     return acc
+
+
+def grid_sample_matmul(x: torch.Tensor, grid: torch.Tensor,
+                       align_corners: bool = False) -> torch.Tensor:
+    """The warp as a one-hot product: the (B, P, H*W) matrix of the four
+    float32 tap weights of each output point (taps that clamp onto one
+    pixel add up, tap 0 to 3 in order), cast to x's dtype, contracted with
+    the flattened x in ``promote_types(x.dtype, float32)`` with full-
+    precision float32 products, and the result cast to x's dtype."""
+    b, h, w, c = x.shape
+    gb, gh, gw, _ = grid.shape
+    if gb != b:
+        raise ValueError(f"batch mismatch: x has {b}, grid has {gb}")
+    idx, wgt = tap_indices_weights(h, w, grid.reshape(b, gh * gw, 2), align_corners)
+    q = torch.arange(h * w, device=x.device)
+    mat = (q == idx[..., 0, None]) * wgt[..., 0, None]
+    for k in range(1, 4):
+        mat = mat + (q == idx[..., k, None]) * wgt[..., k, None]
+    cdt = torch.promote_types(x.dtype, torch.float32)
+    with full_precision_f32():
+        out = torch.einsum("bph,bhc->bpc", mat.to(x.dtype).to(cdt),
+                           x.reshape(b, h * w, c).to(cdt))
+    return out.to(x.dtype).reshape(b, gh, gw, c)
 
 
 def grid_sample(x: torch.Tensor, grid: torch.Tensor,

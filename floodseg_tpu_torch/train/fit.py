@@ -1,6 +1,6 @@
-"""Training from files on one device (counterpart of the ``supervised`` and
-``flow_supervised`` wiring of the JAX package's ``Runner.fit``,
-floodseg_tpu/cli/runner.py).
+"""Training and testing from files on one device (counterpart of the
+``supervised`` and ``flow_supervised`` wiring of the JAX package's
+``Runner.fit`` and ``Runner.test``, floodseg_tpu/cli/runner.py).
 
 ``run_fit`` (single-frame ``supervised``) and ``run_flow_fit``
 (``flow_supervised``) build what ``Runner.fit`` builds for their method
@@ -17,6 +17,12 @@ repository's training configs (configs/train_flow_supervised.yaml, or
 train_supervised.yaml, over pspnet.yaml, train_base.yaml and
 dataset_flow.yaml); the crop size is linked to the architecture as the
 JAX config's ``apply_links`` links it (``round_train``).
+
+``run_test`` evaluates a model on the held-out lists (test.txt, test2.txt)
+as ``Runner.test`` does: the single-frame method through the multi-scale
+flip sliding window (train/evaluate.py::multi_scale_test), the flow method
+through the crop sliding window (flow_sliding_window_test) or, with
+``no_cropping``, the whole-frame eval step.
 """
 
 import os
@@ -34,11 +40,21 @@ from floodseg_tpu_torch.data.loader import DataLoader, device_put
 from floodseg_tpu_torch.data.transforms import (
     MEAN,
     Compose,
+    build_test_transform,
     build_train_transform,
     build_val_transform,
 )
-from floodseg_tpu_torch.ops.metrics import MetricMeter
-from floodseg_tpu_torch.train.flow import make_flow_eval_step, make_flow_train_step
+from floodseg_tpu_torch.ops.metrics import MetricMeter, intersection_and_union
+from floodseg_tpu_torch.train.evaluate import (
+    flow_sliding_window_test,
+    make_crop_forward,
+    multi_scale_test,
+)
+from floodseg_tpu_torch.train.flow import (
+    make_flow_eval_step,
+    make_flow_test_crop_fn,
+    make_flow_train_step,
+)
 from floodseg_tpu_torch.train.optim import make_optimizer, model_arch
 from floodseg_tpu_torch.train.state import TrainState, create_train_state
 from floodseg_tpu_torch.train.supervised import make_eval_step, make_loss_fn, make_train_step
@@ -50,7 +66,9 @@ class FitConfig:
     JAX package's config (model.*, data.*, trainer.*). ``train_h`` and
     ``train_w`` are the crop before ``round_train``, which the run applies
     for the model's architecture as ``apply_links`` does. ``aux_weight`` is
-    the single-frame method's (0 turns the aux loss off)."""
+    the single-frame method's (0 turns the aux loss off). ``test_h`` and
+    ``test_w`` are the test crop, None for the rounded train crop (the
+    link ``apply_links`` makes)."""
     data_variant: Optional[str] = "all"
     classes: int = 5
     ignore_index: int = 255
@@ -87,6 +105,14 @@ class FitConfig:
     early_stopping_min_delta: float = 1e-3
     limit_train_batches: Optional[int] = None
     limit_val_batches: Optional[int] = None
+    test_h: Optional[int] = None
+    test_w: Optional[int] = None
+    test_scales: Sequence[float] = (1.0,)
+    test_base_size: int = 2048
+    resize_factor_test: float = 1.0
+    batch_size_test: int = 1
+    workers_test: int = 8
+    limit_test_batches: Optional[int] = None
 
 
 def round_train(x: int, arch: str) -> int:
@@ -104,11 +130,20 @@ def crop_size(cfg: FitConfig, arch: str) -> Tuple[int, int]:
     return round_train(cfg.train_h, arch), round_train(cfg.train_w, arch)
 
 
+def _test_crop(cfg: FitConfig, arch: str) -> Tuple[int, int]:
+    """The test crop (h, w): ``test_h``/``test_w``, or the rounded train
+    crop where they are None."""
+    th, tw = crop_size(cfg, arch)
+    return (th if cfg.test_h is None else cfg.test_h,
+            tw if cfg.test_w is None else cfg.test_w)
+
+
 def sem_transforms(cfg: FitConfig, arch: str) -> Dict[str, Compose]:
-    """The single-frame train and val transforms of ``Runner._transforms``:
-    both resize to the frame size; train rotates, and pads a crop larger
-    than the scaled frame with MEAN (labels with the ignore index); val is
-    center-cropped."""
+    """The single-frame train, val and test transforms of
+    ``Runner._transforms``: all resize to the frame size; train rotates,
+    and pads a crop larger than the scaled frame with MEAN (labels with the
+    ignore index); val is center-cropped; test only resizes (float32, not
+    normalised: the test normalises each crop on the device)."""
     th, tw = crop_size(cfg, arch)
     resize = (cfg.resize_h, cfg.resize_w)
     classes_ignore = list(cfg.classes_ignore)
@@ -118,17 +153,21 @@ def sem_transforms(cfg: FitConfig, arch: str) -> Dict[str, Compose]:
                                        crop_padding=MEAN, ignore_index=cfg.ignore_index),
         "val": build_val_transform(th, tw, classes_ignore, resize, crop_padding=MEAN,
                                    ignore_index=cfg.ignore_index),
+        "test": build_test_transform(classes_ignore, resize, normalize=False),
     }
 
 
 def flow_transforms(cfg: FitConfig, arch: str = "pspnet") -> Dict[str, Compose]:
-    """The train and val transforms with the flow sizing rules of
+    """The train, val and test transforms with the flow sizing rules of
     ``Runner._transforms``: with ``no_cropping`` the train frames are
     resized to 1.5x the crop and scaled down into it, and val is resized
     to the crop; otherwise both resize to the frame size times
     ``resize_factor`` and val is center-cropped. The train crop pads with
     nothing (a scaled frame smaller than the crop raises); ``no_warp``
-    also rotates."""
+    also rotates. Test resizes to (the val height, the train resize's
+    width) times ``resize_factor_test``, each side for the ViT to a
+    multiple of 32 (at least 32) so that the token grid spans the frame,
+    and normalises."""
     th, tw = crop_size(cfg, arch)
     scale_min, scale_max = cfg.scale_min, cfg.scale_max
     if cfg.resize_factor != 1.0:
@@ -141,6 +180,10 @@ def flow_transforms(cfg: FitConfig, arch: str = "pspnet") -> Dict[str, Compose]:
     else:
         resize = (int(cfg.resize_h * cfg.resize_factor), int(cfg.resize_w * cfg.resize_factor))
         resize_val = resize
+    test_resize = (int(resize_val[0] * cfg.resize_factor_test),
+                   int(resize[1] * cfg.resize_factor_test))
+    if arch == "vit":
+        test_resize = tuple(max(32, round_train(side, "vit")) for side in test_resize)
     return {
         "train": build_train_transform(th, tw, list(cfg.classes_ignore), scale_min, scale_max,
                                        resize, with_rotate=cfg.no_warp, crop_padding=None,
@@ -148,6 +191,7 @@ def flow_transforms(cfg: FitConfig, arch: str = "pspnet") -> Dict[str, Compose]:
         "val": build_val_transform(th, tw, list(cfg.classes_ignore), resize_val,
                                    crop=not cfg.no_cropping, crop_padding=None,
                                    ignore_index=cfg.ignore_index),
+        "test": build_test_transform(list(cfg.classes_ignore), test_resize, normalize=True),
     }
 
 
@@ -337,3 +381,107 @@ def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = No
     return _fit_loop(cfg, state, train_fn, eval_step, loader, val_loader,
                      steps_per_epoch, profiler, on_step)
 
+
+
+_TIME_MAJOR_KEYS = ("mvs_left", "mvs_right")  # (T, B, ...)
+
+
+def _single_samples(batch: Dict):
+    """A collated batch split into one-sample batches (the sliding-window
+    tests take one frame at a time; the test batch size sizes only the
+    loader). Grids are time-major."""
+    size = next(np.shape(v)[0] for k, v in batch.items() if k not in _TIME_MAJOR_KEYS)
+    if size == 1:
+        yield batch
+        return
+    for i in range(size):
+        yield {k: (v[:, i:i + 1] if k in _TIME_MAJOR_KEYS else v[i:i + 1])
+               for k, v in batch.items()}
+
+
+def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
+             method: str = "flow_supervised", profiler: Optional[PhaseProfiler] = None,
+             device: DeviceLike = None) -> Dict:
+    """Evaluate ``model`` (its own weights, in eval mode) on the tree at
+    ``data_root`` as the JAX package's ``Runner.test`` does for ``method``
+    ("supervised" or "flow_supervised") on one device.
+
+    For each of test.txt and test2.txt under the list variant that exists:
+    the test transform's dataset (``FlowDataset("test", type="l")`` or
+    ``SemDataset("val")``) behind an unshuffled loader of
+    ``batch_size_test`` items on ``workers_test`` threads, at most
+    ``limit_test_batches`` batches (0 returns {}). Flow with
+    ``no_cropping`` evaluates each batch whole through the eval step;
+    otherwise each sample goes through ``flow_sliding_window_test`` (the
+    test crop) or ``multi_scale_test`` (``test_scales``,
+    ``test_base_size``), and its map's counts against the label feed a
+    ``MetricMeter``. Returns test_miou{k}_epoch, test_macc{k}_epoch,
+    test_accuracy{k}_epoch and test_miou{k}_epoch_classes for list k, and
+    test_miou_epoch, their mean, when both ran. ``profiler`` records
+    "test_step" (a whole-frame batch) or "test_sample" (a sliding-window
+    sample, with the sliding window's own regions inside).
+    """
+    cfg = cfg or FitConfig()
+    if method not in ("supervised", "flow_supervised"):
+        raise ValueError(f"run_test takes 'supervised' or 'flow_supervised', got {method!r}")
+    if cfg.limit_test_batches == 0:
+        return {}
+    flow = method == "flow_supervised"
+    dev = resolve_device(device)
+    arch = model_arch(model)
+    crop_h, crop_w = _test_crop(cfg, arch)
+    transform = (flow_transforms if flow else sem_transforms)(cfg, arch)["test"]
+    if flow:
+        crop_fn = make_flow_test_crop_fn(model, cfg.classes, cfg.feature_based, cfg.no_warp,
+                                         device=dev)
+        eval_whole = make_flow_eval_step(model, cfg.classes, cfg.ignore_index,
+                                         cfg.feature_based, cfg.no_warp)
+    else:
+        crop_forward = make_crop_forward(model, cfg.classes, device=dev)
+    variables = model.state_dict()
+    profiler = profiler or PhaseProfiler()
+    results = {}
+    for k, name in enumerate(("test.txt", "test2.txt"), start=1):
+        path = _list_path(data_root, cfg.data_variant, name)
+        if not os.path.exists(path):
+            continue
+        if flow:
+            ds = FlowDataset("test", data_root, path, type="l", transform=transform,
+                             frame_delta=cfg.frame_delta, no_warp=cfg.no_warp,
+                             no_random_frame_delta=cfg.no_random_frame_delta)
+        else:
+            ds = SemDataset("val", data_root, path, transform)
+        loader = DataLoader(ds, batch_size=cfg.batch_size_test, num_workers=cfg.workers_test,
+                            seed=cfg.seed)
+        meter = MetricMeter(cfg.classes)
+        for bi, batch in enumerate(loader):
+            if cfg.limit_test_batches is not None and bi >= cfg.limit_test_batches:
+                break
+            if flow and cfg.no_cropping:
+                with profiler.profile("test_step"):
+                    m = eval_whole(None, device_put(batch, dev))
+                    counts = [m[c].cpu().numpy() for c in ("intersection", "union", "target")]
+                meter.update(*counts)
+                continue
+            for sub in _single_samples(batch):
+                with profiler.profile("test_sample"):
+                    if flow:
+                        pred = flow_sliding_window_test(crop_fn, variables, sub, cfg.classes,
+                                                        crop_h, crop_w, profiler=profiler)
+                    else:
+                        pred = multi_scale_test(crop_forward, variables,
+                                                sub["frame_current"][0], cfg.classes, crop_h,
+                                                crop_w, cfg.test_scales, cfg.test_base_size,
+                                                profiler=profiler)
+                meter.update(*intersection_and_union(
+                    torch.from_numpy(pred), torch.from_numpy(sub["label"][0]), cfg.classes,
+                    cfg.ignore_index))
+        s = meter.summary()
+        results[f"test_miou{k}_epoch"] = s["miou"]
+        results[f"test_macc{k}_epoch"] = s["macc"]
+        results[f"test_accuracy{k}_epoch"] = s["allacc"]
+        results[f"test_miou{k}_epoch_classes"] = s["iou_class"]
+    if "test_miou2_epoch" in results:
+        results["test_miou_epoch"] = (results["test_miou1_epoch"]
+                                      + results["test_miou2_epoch"]) / 2
+    return results

@@ -11,26 +11,34 @@ seeds, as JAX's ``r1, r2, r3``: encode(prev), encode(next), decode (both
 decodes of the logit-warping mode use the third). The warps are K1 with
 K1-bwd as their gradient (video/flow_model.py).
 
+Test: ``make_flow_test_crop_fn`` runs the crops of a frame through
+``flow_train_forward`` in eval mode as one batch (the flow sliding-window
+test, train/evaluate.py::flow_sliding_window_test).
+
 Predict:
 
-``make_flow_predict_fn``, ``make_cached_flow_predict_fn`` and
-``make_flow_predict_crop_fn`` keep the JAX package's signatures and return
+``make_flow_predict_fn``, ``make_cached_flow_predict_fn``,
+``make_flow_predict_crop_fn``, ``make_flow_test_crop_fn`` and
+``make_flow_phase_fns`` keep the JAX package's signatures and return
 values (and take ``device``). Where the JAX builders jit a
 program that applies a flax module to a ``variables`` tree, these bind the
 ``variables`` mapping (the model's ``state_dict()`` keys) to the module for
 the call with ``torch.func.functional_call``, the PyTorch counterpart of
 ``apply``, and run eagerly under ``torch.inference_mode``.
 
-The returned functions take key frames as uint8 or float pixel values in
+The predict functions take key frames as uint8 or float pixel values in
 NHWC and normalise them on the device with ``MEAN``/``STD``, as bench.py
-does around the JAX builders. They run on ``device`` (``None`` -> ``cuda``;
-core/device.py) and move the model there, channels-last on the card.
+does around the JAX builders; the test crop function takes the test
+transform's frames, normalised on the host, as the JAX one does. They run
+on ``device`` (``None`` -> ``cuda``; core/device.py) and move the model
+there, channels-last on the card.
 Float policy: each call runs inside ``full_precision_f32`` (TF32 off for
 convolutions and matrix products, bf16 products reduced in float32, the
 caller's flags restored after), so a float32 model computes in float32 and
 a bf16 one rounds each product once, as the JAX package's do.
 """
 
+import time
 from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -39,6 +47,7 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from floodseg_tpu_torch.core.device import DeviceLike, full_precision_f32, resolve_device
+from floodseg_tpu_torch.core.profiler import cuda_sync
 from floodseg_tpu_torch.data.transforms import MEAN, STD
 from floodseg_tpu_torch.models.deeplabv3 import ASPP
 from floodseg_tpu_torch.ops.quant import int8_deeplab_decode, int8_seghead_decode
@@ -50,6 +59,7 @@ from floodseg_tpu_torch.train.supervised import (
     split_seeds,
     step_metrics,
 )
+from floodseg_tpu_torch.ops.warp_kernels import grid_sample_cuda
 from floodseg_tpu_torch.video.flow_model import FlowInterpolator
 
 
@@ -232,6 +242,13 @@ class _Program(NamedTuple):
     grids: Callable
 
 
+def _normalizer(dev: torch.device) -> Callable:
+    """norm(x): pixel values to the device, float32, (x - MEAN) / STD."""
+    mean = torch.tensor(MEAN, dtype=torch.float32, device=dev)
+    std = torch.tensor(STD, dtype=torch.float32, device=dev)
+    return lambda x: (torch.as_tensor(x, device=dev).to(torch.float32) - mean) / std
+
+
 def _program(model, feature_based, no_warp, default_grid, int8_decode, int8_encode,
              device) -> _Program:
     dev = resolve_device(device)
@@ -243,11 +260,7 @@ def _program(model, feature_based, no_warp, default_grid, int8_decode, int8_enco
     _prepare(model, dev)
     dg = None if default_grid is None else torch.as_tensor(
         np.asarray(default_grid, np.float32), device=dev).contiguous()
-    mean = torch.tensor(MEAN, dtype=torch.float32, device=dev)
-    std = torch.tensor(STD, dtype=torch.float32, device=dev)
-
-    def norm(x):
-        return (torch.as_tensor(x, device=dev).to(torch.float32) - mean) / std
+    norm = _normalizer(dev)
 
     def grids(g):
         return torch.as_tensor(g, dtype=torch.float32, device=dev).contiguous()
@@ -269,7 +282,7 @@ def _bind(model: nn.Module, run: Callable) -> Callable:
 
 
 def _builder(model, n, feature_based, no_warp, out_size, default_grid,
-             int8_decode, int8_encode, device, cached_key):
+             int8_decode, int8_encode, device, cached_key, fused_argmax=True):
     prog = _program(model, feature_based, no_warp, default_grid, int8_decode,
                     int8_encode, device)
 
@@ -281,7 +294,7 @@ def _builder(model, n, feature_based, no_warp, out_size, default_grid,
             frame_prev, prog.norm(frame_next), prog.grids(mvs_left),
             prog.grids(mvs_right), n, default_grid=prog.dg, out_size=out_size,
             f_prev_enc=f_prev_enc, return_next_enc=return_next_enc,
-            argmax_epilogue=True)
+            argmax_epilogue=True, fused_argmax=fused_argmax)
 
     return _bind(model, run)
 
@@ -321,17 +334,15 @@ def make_cached_flow_predict_fn(model: nn.Module, n: int,
     full_fn(variables, fp, fn, ml, mr)           -> (maps, f_next_enc)
     cached_fn(variables, f_prev_enc, fn, ml, mr) -> (maps, f_next_enc)
 
-    ``fused_argmax`` is kept for the JAX signature; the port's epilogue is
-    always ``resize_argmax``, which gives the same maps as resize-then-argmax.
+    ``fused_argmax``: the epilogue is ``resize_argmax`` (True) or
+    ``resize_bilinear`` to ``out_size`` and then the argmax (False, the
+    JAX package's unfused variant that bench.py --epilogue-ab measures);
+    the maps are the same up to exact ties.
     """
-    if not fused_argmax:
-        raise NotImplementedError(
-            "the unfused resize-then-argmax epilogue gives the same maps as "
-            "resize_argmax and is not ported; use fused_argmax=True")
     args = (model, n, feature_based, no_warp, out_size, default_grid,
             int8_decode, int8_encode, device)
-    full = _builder(*args, cached_key=False)
-    cached = _builder(*args, cached_key=True)
+    full = _builder(*args, cached_key=False, fused_argmax=fused_argmax)
+    cached = _builder(*args, cached_key=True, fused_argmax=fused_argmax)
     return (lambda variables, fp, fn, ml, mr: full(variables, fp, fn, ml, mr, True),
             lambda variables, enc, fn, ml, mr: cached(variables, enc, fn, ml, mr, True))
 
@@ -371,3 +382,131 @@ def make_flow_predict_crop_fn(model: nn.Module, n: int, num_classes: int,
         return out
 
     return _bind(model, run)
+
+
+def make_flow_test_crop_fn(model: nn.Module, num_classes: int, feature_based: bool = True,
+                           no_warp: bool = False, device: DeviceLike = None) -> Callable:
+    """Batched crop forward for the flow sliding-window test: all crops of a
+    frame run as one batch through ``flow_train_forward`` in eval mode
+    (each crop's chains masked to its own length, every warp K1), then the
+    float32 softmax, sliced to ``num_classes``.
+
+    Returns fn(variables, frame_prev (N, ch, cw, 3), frame_next, mvs_left,
+    mvs_right (T, N, bh, bw, 2), left_index (N,), right_index (N,)) ->
+    (N, ch, cw, num_classes) float32 probabilities on the device. The
+    frames are normalised (the flow test transform normalises on the host).
+    """
+    prog = _program(model, feature_based, no_warp, None, False, False, device)
+
+    def run(frame_prev, frame_next, mvs_left, mvs_right, left_index, right_index):
+        batch = {"frame_prev": torch.as_tensor(frame_prev, dtype=torch.float32,
+                                               device=prog.dev),
+                 "frame_next": torch.as_tensor(frame_next, dtype=torch.float32,
+                                               device=prog.dev),
+                 "mvs_left": prog.grids(mvs_left), "mvs_right": prog.grids(mvs_right),
+                 "left_index": np.asarray(left_index), "right_index": np.asarray(right_index)}
+        logits = flow_train_forward(model, batch, None, False, feature_based, no_warp)
+        return torch.softmax(logits.to(torch.float32), dim=-1)[..., :num_classes]
+
+    return _bind(model, run)
+
+
+def make_flow_phase_fns(model: nn.Module, n: int, feature_based: bool = True,
+                        out_size: Tuple[int, int] = (1072, 1920),
+                        default_grid: Optional[np.ndarray] = None,
+                        device: DeviceLike = None) -> Dict[str, Callable]:
+    """The predict path cut into the four phases of the reference's
+    profiler regions, one function each (the production builders run them
+    as one call):
+
+    - ``encode(variables, frames)``: key frames (raw pixels, normalised on
+      the device) -> their encoding;
+    - ``warp_chain(f, grids)``: (1, H, W, C) and (n-1, 1, gh, gw, 2) ->
+      (n-1, H, W, C): K1 onto the first grid, one K2 launch for the rest
+      (the chain of ``predict_clip``), each step resized back to the
+      feature size (align_corners=True);
+    - ``fuse(f, f_next, fwd, bwd)``: the key map through the identity
+      ``default_grid`` (K1, align_corners=True; feature_based only) and the
+      (n - p) / n, p / n blend of fwd and the reversed bwd -> (n, H, W, C);
+    - ``decode(variables, maps)``: one decode of the stack, resized to
+      ``out_size`` (align_corners=True), argmax -> (n, out_h, out_w) int32.
+
+    Each runs under inference mode and ``full_precision_f32``.
+    """
+    prog = _program(model, feature_based, False, default_grid, False, False, device)
+
+    def scoped(fn):
+        def call(*args):
+            with torch.inference_mode(), full_precision_f32():
+                return fn(*args)
+        return call
+
+    def warp_chain(f, grids):
+        chain = FlowInterpolator._predict_chain(f.contiguous(), prog.grids(grids))
+        if chain.shape[1:3] != f.shape[1:3]:
+            chain = resize_bilinear(chain, tuple(f.shape[1:3]), align_corners=True)
+        return chain
+
+    def fuse(f, f_next, fwd, bwd):
+        fk = f
+        if feature_based and prog.dg is not None:
+            fk = grid_sample_cuda(f.contiguous(), prog.dg[None], align_corners=True)
+            if fk.shape[1:3] != f.shape[1:3]:
+                fk = resize_bilinear(fk, tuple(f.shape[1:3]), align_corners=True)
+        p = torch.arange(1, n, dtype=torch.float32, device=f.device)[:, None, None, None]
+        wf = ((n - p) / n).to(f.dtype)
+        wb = (p / n).to(f.dtype)
+        inter = wf * fwd + wb * torch.flip(bwd, dims=(0,))
+        return torch.cat([fk[:1], inter], dim=0)
+
+    def decode(maps):
+        out = model.decode(maps)
+        if tuple(out.shape[1:3]) != tuple(out_size):
+            out = resize_bilinear(out, out_size, align_corners=True)
+        return torch.argmax(out, dim=-1).to(torch.int32)
+
+    return {"encode": _bind(model, lambda frames: model.encode(prog.norm(frames))[0]),
+            "warp_chain": scoped(warp_chain), "fuse": scoped(fuse),
+            "decode": _bind(model, decode)}
+
+
+def profile_predict_phases(model: nn.Module, variables: Mapping[str, torch.Tensor],
+                           batch: Dict, n: int, feature_based: bool = True,
+                           out_size: Tuple[int, int] = (1072, 1920),
+                           default_grid: Optional[np.ndarray] = None, repeats: int = 5,
+                           device: DeviceLike = None) -> Dict[str, float]:
+    """Run one clip phase by phase (``make_flow_phase_fns``) and return the
+    mean seconds of each, named as the reference's profiler regions:
+    predict_encoder, predict_warp, predict_fusion, predict_decoder. Every
+    phase and the card are warmed up first; a region runs its phase
+    ``repeats`` times and ends with ``cuda_sync``. ``batch``: one window's
+    frame_prev, frame_next (raw pixels) and mvs_left, mvs_right."""
+    fns = make_flow_phase_fns(model, n, feature_based, out_size, default_grid, device)
+    dev = resolve_device(device)
+    fp, fnx = batch["frame_prev"], batch["frame_next"]
+    ml, mr = (torch.as_tensor(batch[k], dtype=torch.float32, device=dev).contiguous()
+              for k in ("mvs_left", "mvs_right"))
+
+    f = fns["encode"](variables, fp)
+    f2 = fns["encode"](variables, fnx)
+    fwd, bwd = fns["warp_chain"](f, ml), fns["warp_chain"](f2, mr)
+    fns["decode"](variables, fns["fuse"](f, f2, fwd, bwd))
+    cuda_sync()
+
+    times = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            out = fn()
+        cuda_sync()
+        times[name] = (time.perf_counter() - t0) / repeats
+        return out
+
+    f = timed("predict_encoder", lambda: fns["encode"](variables, fp))
+    f2 = fns["encode"](variables, fnx)
+    fwd = timed("predict_warp", lambda: fns["warp_chain"](f, ml))
+    bwd = fns["warp_chain"](f2, mr)
+    maps = timed("predict_fusion", lambda: fns["fuse"](f, f2, fwd, bwd))
+    timed("predict_decoder", lambda: fns["decode"](variables, maps))
+    return times

@@ -158,6 +158,7 @@ class FlowInterpolator:
         f_prev_enc: Optional[torch.Tensor] = None,
         return_next_enc: bool = False,
         argmax_epilogue: bool = False,
+        fused_argmax: bool = True,
     ):
         """Segment all ``n`` frames of a keyframe window.
 
@@ -165,7 +166,9 @@ class FlowInterpolator:
         the tail window). mvs_left: (n-1, 1, gh, gw, 2) forward grids;
         mvs_right: the matching inv_grids, reversed. Returns (n, H', W',
         classes) logits for frames [prev, ..., prev+n-1], or int32 class
-        maps (n, H', W') with ``argmax_epilogue``.
+        maps (n, H', W') with ``argmax_epilogue``: ``resize_argmax``
+        (``fused_argmax``), or ``resize_bilinear`` to ``out_size`` and then
+        the argmax (the same maps up to exact ties).
 
         ``f_prev_enc`` replaces the encoding of frame_prev (the previous
         window's next key); ``return_next_enc`` also returns the raw encoding
@@ -257,7 +260,11 @@ class FlowInterpolator:
             out = torch.cat([dec(f), dec(inter)], dim=0)
         else:
             out = dec(torch.cat([f, inter], dim=0))
-        if argmax_epilogue:
+        if argmax_epilogue and not fused_argmax:
+            if _hw(out) != out_size:
+                out = resize_bilinear(out, out_size, align_corners=True)
+            out = torch.argmax(out, dim=-1).to(torch.int32)
+        elif argmax_epilogue:
             out = resize_argmax(out, out_size, align_corners=True)
         elif _hw(out) != out_size:
             out = resize_bilinear(out, out_size, align_corners=True)

@@ -267,12 +267,29 @@ def test_predict_builders_raise_on_int8():
         make_cached_flow_predict_fn(m, n=5, int8_encode=True, device="cpu")
 
 
-def test_cached_builder_raises_on_unfused_argmax():
-    """The unfused epilogue gives the same maps as resize_argmax and is not
-    ported: asking for it raises instead of taking another path."""
-    with pytest.raises(NotImplementedError, match="fused_argmax=True"):
-        make_cached_flow_predict_fn(torch.nn.Module(), n=5, fused_argmax=False,
-                                    device="cpu")
+def test_cached_builder_raises_on_unfused_argmax(pair, jax_windows):
+    """The unfused epilogue (fused_argmax=False: resize, then argmax) no
+    longer raises: over both windows it gives the fused builders' maps
+    wherever the top-2 logit gap exceeds 1e-4, and the same encodings."""
+    _, _, port = pair
+    n, out_size, dg = (jax_windows[k] for k in ("n", "out_size", "dg"))
+    wins, frames = jax_windows["wins"], jax_windows["frames"]
+    out = {}
+    for fused in (True, False):
+        full, cached = make_cached_flow_predict_fn(port, n=n, out_size=out_size,
+                                                   default_grid=dg, fused_argmax=fused,
+                                                   device="cpu")
+        m0, enc0 = full(port.state_dict(), frames[0], frames[1], wins[0]["mvs_left"],
+                        wins[0]["mvs_right"])
+        m1, enc1 = cached(port.state_dict(), enc0, frames[3], wins[1]["mvs_left"],
+                          wins[1]["mvs_right"])
+        out[fused] = (m0, m1, enc0, enc1)
+    for i, lg in enumerate(jax_windows["logits"]):
+        top2 = np.sort(np.asarray(lg), axis=-1)[..., -2:]
+        clear = (top2[..., 1] - top2[..., 0]) > 1e-4
+        assert clear.mean() > 0.9 and out[False][i].dtype == torch.int32
+        np.testing.assert_array_equal(out[False][i].numpy()[clear], out[True][i].numpy()[clear])
+    assert torch.equal(out[False][2], out[True][2]) and torch.equal(out[False][3], out[True][3])
 
 
 def test_full_precision_f32_is_scoped():
@@ -353,12 +370,17 @@ def test_resize_frames_matches_cv2():
 def test_port_imports_no_jax():
     """No module of floodseg_tpu_torch, and not chip_smoke.py, imports jax,
     floodseg_tpu, PIL, cv2 or imageio; checked in a fresh interpreter's
-    sys.modules after importing every module of the port."""
+    sys.modules after importing every module of the port and the test and
+    profiling entry points by name."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import floodseg_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from floodseg_tpu_torch.ops import grid_sample_matmul\n"
+        "from floodseg_tpu_torch.train import (make_crop_forward, make_flow_phase_fns,\n"
+        "    make_flow_test_crop_fn, multi_scale_test, profile_predict_phases, run_test,\n"
+        "    sliding_window_predict, flow_sliding_window_test)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'floodseg_tpu', 'PIL', 'cv2', 'imageio'))\n"

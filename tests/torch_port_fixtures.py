@@ -1,7 +1,8 @@
 """Shared set-up for the port's parity tests (tests/test_torch_*.py).
 
-A JAX PSPNet-50 or DeepLabV3-50 initialised from PRNGKey(``key``), with
-every BatchNorm's scale, bias, running mean and running variance replaced
+A JAX PSPNet-50 or DeepLabV3-50 initialised from PRNGKey(``key``) (or, on
+request, drawn from numpy in the init's shapes, which skips compiling the
+init), with every BatchNorm's scale, bias, running mean and running variance replaced
 by values from a seeded numpy generator so that no BN is the identity, or
 a JAX SegmenterViT whose LayerNorms, biases and cls token are replaced the
 same way (flax initialises them to the identity and zeros), carried into
@@ -64,11 +65,34 @@ def _to_dict(tree):
     return np.asarray(tree)
 
 
-def _pair(arch: str, size: int, seed: int, classes: int, key: int):
+def _numpy_init(shapes, rng):
+    """Variables in the shapes of ``shapes`` (jax.eval_shape of an init):
+    every kernel normal with variance 1 / fan_in (flax's lecun_normal, not
+    truncated), BN scales and variances ones, every other leaf zeros."""
+    out = {}
+    for name, sub in shapes.items():
+        if hasattr(sub, "items"):
+            out[name] = _numpy_init(sub, rng)
+        elif name == "kernel":
+            fan_in = int(np.prod(sub.shape[:-1]))
+            out[name] = (rng.standard_normal(sub.shape) / np.sqrt(fan_in)).astype(np.float32)
+        else:
+            out[name] = np.full(sub.shape, float(name in ("scale", "var")), np.float32)
+    return out
+
+
+def _pair(arch: str, size: int, seed: int, classes: int, key: int,
+          compiled_init: bool = True):
     jm = jax_build_model(arch, classes=classes, layers=50, with_aux=False)
     x0 = jnp.zeros((1, size, size, 3), jnp.float32)
-    variables = _to_dict(jax.device_get(jax.jit(
-        lambda: jm.init({"params": jax.random.PRNGKey(key)}, x0, train=False))()))
+
+    def init():
+        return jm.init({"params": jax.random.PRNGKey(key)}, x0, train=False)
+
+    if compiled_init:
+        variables = _to_dict(jax.device_get(jax.jit(init)()))
+    else:
+        variables = _numpy_init(jax.eval_shape(init), np.random.default_rng(key))
     _perturb_bn(variables["params"], variables["batch_stats"],
                 np.random.default_rng(seed))
     port = load_jax_variables(
@@ -76,10 +100,13 @@ def _pair(arch: str, size: int, seed: int, classes: int, key: int):
     return jm, variables, port
 
 
-def pspnet50_pair(size: int = 65, seed: int = 0, classes: int = 5, key: int = 0):
+def pspnet50_pair(size: int = 65, seed: int = 0, classes: int = 5, key: int = 0,
+                  compiled_init: bool = True):
     """(jax_model, variables as numpy dicts, port PSPNet-50 with the same
-    weights), both float32 and without the aux head."""
-    return _pair("pspnet", size, seed, classes, key)
+    weights), both float32 and without the aux head. ``compiled_init=False``
+    draws the weights from a numpy generator seeded with ``key`` in the
+    init's shapes (``_numpy_init``) instead of compiling flax's init."""
+    return _pair("pspnet", size, seed, classes, key, compiled_init)
 
 
 def deeplabv3_pair(size: int = 65, seed: int = 0, classes: int = 5, key: int = 0):
