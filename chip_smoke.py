@@ -9,6 +9,7 @@
     python3 chip_smoke.py --train  # the training phases alone: 3t, 4t and 14-17
     python3 chip_smoke.py --k1-bwd # phase 3t alone: K1 and K1-bwd at the training shapes
     python3 chip_smoke.py --test   # the evaluation phases alone: 18, 18k, 18c and 5p
+    python3 chip_smoke.py --gan    # the s4GAN phases alone: 4g, 19 and 20
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -184,6 +185,37 @@ Then the training phases, last, each model alone on the card:
    a finite loss; every BN's running mean moved but the aux head's in flow
    training (which never runs it); after the first flow step each aux
    parameter equals p0 - 10 lr wd p0 (a zero gradient, decayed and moved).
+Then s4GAN training:
+4g. One flow_gan and one gan step on the card against the CPU, each from
+   one state at step 1 (so the self-training gate can open): PSPNet-50 with
+   its aux head at 65 px and a random discriminator (ndf 64), float32 with
+   TF32 off, batch 2, frame_delta 5, the configs' generator SGD without the
+   aux head (flow_gan lr 1e-4, wd 1e-4; gan lr 2.5e-4, wd 5e-4) and the
+   discriminator's Adam (lr_D 1e-4, betas (0.9, 0.99)), every dropout of
+   both with one keep mask drawn on the CPU, and a threshold_st halfway
+   between the two unlabeled samples' confidences (read on the CPU), so
+   st_count is 1 of 2. Losses within rtol 1e-4; st_count 1 on both; every
+   generator parameter and BN statistic within 1e-4 of its tensor's
+   largest magnitude or 32 times the CPU float32 step's distance to
+   float64, whichever is larger; of each discriminator tensor at most
+   1e-3 of the elements farther than 1e-4 (Adam turns a near-zero
+   gradient's rounding into a full step); what the step changed within
+   4t's floor rule; every aux parameter equal to its start to the bit on
+   both.
+19. flow_gan at full width through run_gan_fit on phase 14's tree:
+   PSPNet-50 with its aux head, 433 px crops, n = 25, batch 2, the flow_gan
+   config, random weights, 10 steps (2 warm-up, 6 timed with a synchronise
+   after each, 2 under torch.profiler), 2 validation frames. The same
+   report as 14, the wait covering the three role batches, and the
+   discriminator's 4x4 convolutions (told from the generator's by their
+   operands' shapes in the trace) as a family of their own. Checks: K1 96
+   and K1-bwd 96 launches every step (two generator forwards), K1 48 a
+   validation frame, K2 and K3 none; every step's loss_s, loss_d and
+   loss_fm finite; every discriminator parameter moved; every aux
+   parameter equal to its start to the bit after every step.
+20. gan at full width: PSPNet-50, 873 px crops through SemDataset, the gan
+   config, 6 steps (2 warm-up, 2 timed, 2 profiled), 2 validation crops; no
+   launch at all; the same report and checks.
 Then evaluation, last but one:
 18. The test at full width through run_test on phase 14's tree (test.txt
    and test2.txt, limit_test_batches = 2, so 3 samples), PSPNet-50 float32
@@ -261,7 +293,7 @@ from floodseg_tpu_torch.data import (
     synthetic_clip,
 )
 from floodseg_tpu_torch.data.image import decode_jpeg, encode_jpeg, imread
-from floodseg_tpu_torch.models import build_model, init_from_generator_
+from floodseg_tpu_torch.models import S4GANDiscriminator, build_model, init_from_generator_
 from floodseg_tpu_torch.models.layers import Dropout
 from floodseg_tpu_torch.ops import build, launch_counts, quant, reset_launch_counts
 from floodseg_tpu_torch.ops.grid_sample import (
@@ -285,10 +317,12 @@ from floodseg_tpu_torch.ops.warp_kernels import (
     warp_chain_plain,
 )
 from floodseg_tpu_torch.train import (
+    AUX_KEYS,
     FitConfig,
     TrainState,
     crop_offsets,
     fit,
+    flow_g_forward,
     flow_sliding_window_predict,
     flow_transforms,
     make_cached_flow_predict_fn,
@@ -297,6 +331,7 @@ from floodseg_tpu_torch.train import (
     make_flow_predict_crop_fn,
     make_flow_predict_fn,
     make_flow_train_step,
+    make_gan_train_step,
     make_loss_fn,
     make_optimizer,
     make_train_step,
@@ -305,8 +340,10 @@ from floodseg_tpu_torch.train import (
     run_fit,
     run_flow_fit,
     run_flow_predict,
+    run_gan_fit,
     run_test,
     sem_transforms,
+    single_frame_g_forward,
 )
 from floodseg_tpu_torch.train.evaluate import _crop_stack
 from floodseg_tpu_torch.train.flow import _predict_decode, decode_split_ok, flow_train_forward
@@ -2068,40 +2105,79 @@ def train_tree(n=FRAME_DELTA, frame_hw=FRAME_HW, frames=100, labeled=40) -> str:
     return root
 
 
-# phases 14-17: (phase, tag, arch, trunk depth, method, crop, steps, warm-up,
-# validation frames); the crop goes through round_train
+# phases 14-17 and 19-20: (phase, tag, arch, trunk depth, method, crop, steps,
+# warm-up, validation frames); the crop goes through round_train
 TRAIN_PHASES = (
     ("14", "pspnet_f32_train", "pspnet", 50, "flow_supervised", CROP, 14, 2, 3),
     ("15", "deeplabv3_f32_train", "deeplabv3", 101, "flow_supervised", CROP, 8, 2, 2),
     ("16", "vit_f32_train", "vit", 0, "flow_supervised", CROP, 8, 2, 2),
     ("17", "pspnet_f32_supervised", "pspnet", 50, "supervised", 873, 8, 2, 2),
 )
+GAN_PHASES = (
+    ("19", "pspnet_f32_flow_gan", "pspnet", 50, "flow_gan", CROP, 10, 2, 2),
+    ("20", "pspnet_f32_gan", "pspnet", 50, "gan", 873, 6, 2, 2),
+)
+# the s4GAN configs' generator optimizers (configs/train_flow_gan.yaml,
+# configs/train_gan.yaml); the discriminator's Adam at lr_D 1e-4 in both
+GAN_OPTIM = {"flow_gan": {"lr": 1e-4, "weight_decay": 1e-4},
+             "gan": {"lr": 2.5e-4, "weight_decay": 5e-4}}
+GAN_LOSSES = ("loss_s", "loss_d", "loss_fm")
+D_CONV_FAMILY = "discriminator convolutions (4x4, forward and backward)"
+
+
+def d_conv_launches(events) -> set:
+    """The correlation ids of the kernels that the s4GAN discriminator's
+    convolutions (forward and backward) launched, from a chrome trace
+    recorded with shapes: launches (runtime calls) inside a convolution op
+    on the same thread that has an operand of shape (., ., 4, 4), a kernel
+    size no generator has."""
+    spans = {}
+    for e in events:
+        dims = e.get("args", {}).get("Input Dims") or []
+        if e.get("cat") == "cpu_op" and "conv" in e.get("name", "") and any(
+                isinstance(d, list) and len(d) == 4 and d[2:] == [4, 4] for d in dims):
+            spans.setdefault(e.get("tid"), []).append((e["ts"], e["ts"] + e["dur"]))
+    return {e["args"]["correlation"] for e in events
+            if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {})
+            and any(t0 <= e["ts"] <= t1 for t0, t1 in spans.get(e.get("tid"), ()))}
 
 
 def train_phase(dev, root, tag, arch="pspnet", layers=50, method="flow_supervised",
                 crop=CROP, steps=14, warmup=2, val_batches=3, profiled=2,
                 n=FRAME_DELTA, frame_hw=FRAME_HW) -> dict:
-    """Phases 14-17: training at full width through run_flow_fit
-    (``flow_supervised``) or run_fit (``supervised``) on the tree at
-    ``root``: the repository's configuration for the method (float32,
-    batch 2, the crop through round_train, n = 25, SGD with the heads at
-    10x, OHEM 0.7 / 100000; the single-frame method's rotating transform
-    with MEAN padding and the aux loss at 0.4), ``steps`` steps
+    """Phases 14-17 and 19-20: training at full width through run_flow_fit
+    (``flow_supervised``), run_fit (``supervised``) or run_gan_fit
+    (``flow_gan``, ``gan``) on the tree at ``root``: the repository's
+    configuration for the method (float32, batch 2, the crop through
+    round_train, n = 25, SGD with the heads at 10x, OHEM 0.7 / 100000; the
+    single-frame methods' rotating transform with MEAN padding and the aux
+    loss at 0.4; s4GAN: the configs' SGD without the aux head and the
+    discriminator's Adam, a random discriminator), ``steps`` steps
     (``warmup`` untimed, the last ``profiled`` under torch.profiler) and a
     validation pass over ``val_batches`` frames. The loader alone first.
-    Checks: a finite loss; K1 48 and K1-bwd 48 launches every flow step
-    (and K1 48 a validation frame), K2 and K3 none, and no launch at all in
-    the single-frame method; every BN's running mean moved but, in flow
-    training (which never runs it), the aux head's; after the first flow
-    step each aux parameter equals p0 - 10 lr wd p0. (Smaller arguments
-    rehearse it on the CPU.)"""
+    Checks: a finite loss; K1 48 and K1-bwd 48 launches every
+    flow_supervised step and 96 each every flow_gan step (two generator
+    forwards), K1 48 a validation frame, K2 and K3 none, and no launch at
+    all in the single-frame methods; every BN's running mean moved but, in
+    flow training (which never runs it), the aux head's; after the first
+    flow_supervised step each aux parameter equals p0 - 10 lr wd p0; in
+    s4GAN every aux parameter equal to its start to the bit after every
+    step, every step's loss_s, loss_d and loss_fm finite, and every
+    discriminator parameter moved. (Smaller arguments rehearse it on the
+    CPU.)"""
     from torch.profiler import ProfilerActivity, profile as tprofile
-    flow = method == "flow_supervised"
+    flow = method in ("flow_supervised", "flow_gan")
+    gan = method in ("flow_gan", "gan")
     model = random_model(arch, torch.float32, seed=7, image_size=round_train(crop, arch),
                          with_aux=True, layers=layers)
     cfg = FitConfig(train_h=crop, train_w=crop, resize_h=frame_hw[0], resize_w=frame_hw[1],
                     frame_delta=n, max_epochs=1, limit_train_batches=steps,
-                    limit_val_batches=val_batches)
+                    limit_val_batches=val_batches, **GAN_OPTIM.get(method, {}))
+    disc = None
+    if gan:
+        disc = init_from_generator_(S4GANDiscriminator(CLASSES),
+                                    torch.Generator().manual_seed(8))
+        d0 = {k: v.detach().clone() for k, v in disc.state_dict().items()}
     size = round_train(crop, arch)
     log(f"  {arch} ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters), "
         f"{method}, {size} px crops; TF32 off (the steps run under full_precision_f32); {cfg}")
@@ -2127,14 +2203,19 @@ def train_phase(dev, root, tag, arch="pspnet", layers=50, method="flow_supervise
     bn0 = {k: v.clone() for k, v in model.state_dict().items() if k.endswith("running_mean")}
     counts_by_step, prev = [], {}
     tp = tprofile(activities=[ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
-    aux_err = []
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else []), record_shapes=gan)
+    aux_err, aux_changed, gan_losses = [], [], []
 
     def on_step(step, state, metrics):
         now = launch_counts()
         counts_by_step.append({k: v - prev.get(k, 0) for k, v in now.items()})
         prev.update(now)
-        if step == 0 and flow:
+        if gan:
+            params = dict(model.named_parameters())
+            aux_changed.extend((step, k) for k, p0 in aux0.items()
+                               if not torch.equal(params[k].detach().cpu(), p0))
+            gan_losses.append({k: metrics[k] for k in GAN_LOSSES})
+        elif step == 0 and flow:
             lr = state.schedule(0) * 10
             for k, p0 in aux0.items():
                 p1 = dict(model.named_parameters())[k].detach().cpu()
@@ -2152,8 +2233,12 @@ def train_phase(dev, root, tag, arch="pspnet", layers=50, method="flow_supervise
         torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
-    run = run_flow_fit if flow else run_fit
-    summary = run(model, root, cfg, profiler=prof, on_step=on_step, device=dev)
+    if gan:
+        summary = run_gan_fit(model, root, cfg, method, discriminator=disc, profiler=prof,
+                              on_step=on_step, device=dev)
+    else:
+        run = run_flow_fit if flow else run_fit
+        summary = run(model, root, cfg, profiler=prof, on_step=on_step, device=dev)
     total = time.perf_counter() - t0
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
@@ -2172,17 +2257,32 @@ def train_phase(dev, root, tag, arch="pspnet", layers=50, method="flow_supervise
     if not np.isfinite(epoch["train_loss"]):
         raise AssertionError(f"the training loss is not finite: {epoch['train_loss']}")
     warps = 2 * (n - 1) if dev.type == "cuda" and flow else 0  # two chains of n - 1 warps
-    per_step = {"grid_sample_cuda": warps, "grid_sample_backward_cuda": warps,
+    forwards = 2 if gan else 1  # s4GAN: the labeled and the unlabeled batch
+    per_step = {"grid_sample_cuda": forwards * warps,
+                "grid_sample_backward_cuda": forwards * warps,
                 "warp_chain_cuda": 0, "resize_quantize_int8_cuda": 0}
     bad = [(i, c) for i, c in enumerate(counts_by_step) if c != per_step]
-    expected = {"grid_sample_cuda": warps * (steps + val_batches),
-                "grid_sample_backward_cuda": warps * steps, "warp_chain_cuda": 0,
+    expected = {"grid_sample_cuda": warps * (forwards * steps + val_batches),
+                "grid_sample_backward_cuda": forwards * warps * steps, "warp_chain_cuda": 0,
                 "resize_quantize_int8_cuda": 0}
     log(f"  launches: {counts} (expected {expected}); every step {per_step}: "
         f"{'yes' if not bad else bad}")
     if bad or counts != expected:
         raise AssertionError(f"the training path launched {counts}, steps {bad}")
-    if flow and aux0:
+    if gan:
+        host = [{k: float(v) for k, v in m.items()} for m in gan_losses]
+        moved_d = [k for k, v in disc.state_dict().items() if not torch.equal(v.cpu(), d0[k])]
+        log(f"  s4GAN: every step's {', '.join(GAN_LOSSES)} "
+            f"{[[round(m[k], 5) for k in GAN_LOSSES] for m in host]}; discriminator "
+            f"parameters moved {len(moved_d)} of {len(d0)}; aux parameters changed after a "
+            f"step: {aux_changed or 'none'} ({len(aux0)} checked after each of {len(host)} "
+            f"steps)")
+        if not all(np.isfinite(v) for m in host for v in m.values()) or len(host) != steps:
+            raise AssertionError(f"an s4GAN loss is not finite: {host}")
+        if aux_changed or not aux0 or len(moved_d) != len(d0):
+            raise AssertionError(f"s4GAN: aux changed {aux_changed}, discriminator moved "
+                                 f"{len(moved_d)} of {len(d0)}")
+    elif flow and aux0:
         log(f"  aux head after the first step: largest |p1 - (p0 - 10 lr wd p0)| "
             f"{max(aux_err):.2e} of its tensor's largest magnitude (tol 1e-6)")
         if not aux_err or max(aux_err) > 1e-6:
@@ -2205,16 +2305,21 @@ def train_phase(dev, root, tag, arch="pspnet", layers=50, method="flow_supervise
     with open(os.path.join(PROFILE_DIR, f"{tag}_profile.txt"), "w") as f:
         f.write(tp.key_averages().table(sort_by="cuda_time_total", row_limit=40))
     with open(trace) as f:
-        kernels = [e for e in json.load(f)["traceEvents"]
-                   if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    d_launches = d_conv_launches(events) if gan else set()
     dt = device_time(trace, profiled)
     span = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)) / 1e3 \
         if kernels else float("nan")
     # each family's kernels as the union of their spans: K1-bwd's gather is
     # resident, waiting, while its index build runs
-    spans = {name: [] for name, _ in TRAIN_FAMILIES}
+    families_of = ((D_CONV_FAMILY, ()),) + TRAIN_FAMILIES if gan else TRAIN_FAMILIES
+    spans = {name: [] for name, _ in families_of}
     for e in kernels:
-        fam = next(name for name, pats in TRAIN_FAMILIES if any(p in e["name"] for p in pats))
+        if e.get("args", {}).get("correlation") in d_launches:
+            fam = D_CONV_FAMILY
+        else:
+            fam = next(name for name, pats in TRAIN_FAMILIES if any(p in e["name"] for p in pats))
         spans[fam].append((e["ts"], e["ts"] + e["dur"]))
     families = {name: union_us(v) / (1e3 * profiled) for name, v in spans.items()}
     log(f"  profiler over {profiled} steps: device busy {dt['busy_ms']:.1f} ms a step of "
@@ -2258,6 +2363,195 @@ def training_phases(dev) -> tuple:
                                    val)
         log(f"  phase {phase}: {time.perf_counter() - t0:.1f} s")
     return errs, timing, results
+
+
+# ------------------------------------------------- s4GAN: phases 4g, 19, 20
+
+def gan_roles(size=65, n=5) -> dict:
+    """Phase 4g's role batches on the CPU: a flow batch each for "l" (with
+    labels) and "u" (without), and the gt role's frames and labels (the
+    single-frame step reads only the frames and labels)."""
+    u = train_batch(seed=6, size=size, n=n)
+    gt = train_batch(seed=7, size=size, n=n)
+    return {"l": train_batch(seed=3, size=size, n=n),
+            "u": {k: v for k, v in u.items() if k != "label"},
+            "gt": {k: gt[k] for k in ("frame_current", "label")}}
+
+
+def _fresh(module, masks, dev, dtype):
+    """A copy of ``module`` on ``dev`` in ``dtype`` (channels-last on the
+    card) whose every Dropout takes the keep masks of ``masks``."""
+    m = copy.deepcopy(module).to(dev, dtype)
+    for mod in m.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = dtype
+    if dev.type == "cuda":
+        m.to(memory_format=torch.channels_last)
+    fixed_keep_masks(m, masks)
+    return m
+
+
+def _on(batch: dict, dev, dtype) -> dict:
+    return {k: (v.to(dev, dtype) if torch.is_tensor(v) and k.startswith("frame")
+                else v.to(dev) if torch.is_tensor(v) else v) for k, v in batch.items()}
+
+
+def _g_forward(g, method):
+    return flow_g_forward(g) if method == "flow_gan" else single_frame_g_forward(g)
+
+
+def gan_threshold(model, disc, roles, masks, method) -> tuple:
+    """(threshold_st, its margin): halfway between the two unlabeled
+    samples' sigmoid(D(pred_cat)) of the step's first discriminator call,
+    on the CPU in float32 with the phase's masks, so that one sample of two
+    passes."""
+    dev = torch.device("cpu")
+    g, d = _fresh(model, masks, dev, torch.float32), _fresh(disc, masks, dev, torch.float32)
+    u = _on(roles["u"], dev, torch.float32)
+    with torch.no_grad(), full_precision_f32():
+        pred_u = _g_forward(g, method)(u, None)
+        img = u["frame_current"]
+        d.train()
+        z, _ = d(torch.cat([torch.softmax(pred_u, -1),
+                            (img - img.min()) / (img.max() - img.min())], -1))
+    conf = sorted(float(c) for c in torch.sigmoid(z))
+    return (conf[0] + conf[1]) / 2, (conf[1] - conf[0]) / 2
+
+
+def gan_step(model, disc, roles, masks, dev, method, threshold, dtype=torch.float32) -> tuple:
+    """One s4GAN step of copies of ``model`` and ``disc`` on ``dev`` in
+    ``dtype`` from a state at step 1 (the gate's step > 0; fresh optimizer
+    state): the config's generator SGD without the aux head, the
+    discriminator's Adam (lr_D 1e-4, betas (0.9, 0.99)). Returns (the
+    metrics, the generator's and the discriminator's state_dict after it),
+    float64 on the CPU."""
+    g, d = _fresh(model, masks, dev, dtype), _fresh(disc, masks, dev, dtype)
+    opt = GAN_OPTIM[method]
+    opt_g, sched_g = make_optimizer(g, opt["lr"], 10, "sgd", 0.9, opt["weight_decay"],
+                                    exclude=AUX_KEYS)
+    opt_d, sched_d = make_optimizer(d, 1e-4, 10, "adam", weight_decay=0.0, head_lr_scale=1.0,
+                                    betas=(0.9, 0.99))
+    step = make_gan_train_step(_g_forward(g, method), CLASSES, 255, threshold, 0.1, 1.0,
+                               gt_norm_by_labeled_max=method == "gan")
+    _, _, m = step(TrainState(1, g, opt_g, sched_g), TrainState(1, d, opt_d, sched_d),
+                   {r: _on(b, dev, dtype) for r, b in roles.items()}, None)
+
+    def host(module):
+        return {k: v.detach().double().cpu().clone() for k, v in module.state_dict().items()}
+
+    return {k: v.detach().double().cpu() for k, v in m.items()}, host(g), host(d)
+
+
+# phase 4g's hold on the discriminator after its Adam step: Adam moves an
+# element by about lr whatever its gradient's size, so where a gradient is
+# float32 rounding away from 0 its sign, and the element's step, may flip;
+# the CPU's float32 step leaves up to 2.4e-4 of a conv weight's elements more
+# than 1e-4 of the tensor's largest magnitude from the float64 step's. At
+# most D_OFF_SHARE of a tensor's elements may sit that far from the CPU's.
+D_OFF_SHARE = 1e-3
+
+
+def check_gan_step_card_vs_cpu(method, size=65, n=5, card=torch.device("cuda")) -> None:
+    """Phase 4g for one method: PSPNet-50 with its aux head at ``size`` px
+    and a discriminator, batch 2, frame_delta ``n``, float32 with TF32 off,
+    one step on the card and on the CPU from the same state with the same
+    keep masks (one a Dropout, drawn on the CPU; the same masks in the
+    generator's two forwards and the discriminator's four calls) and a
+    threshold_st that passes one sample of two (gan_threshold). Losses
+    within rtol 1e-4; st_count 1 on both; every generator parameter and BN
+    statistic within 1e-4 of its tensor's largest magnitude, or, where it
+    is larger, within STEP_FLOOR_FACTOR times the CPU float32 step's own
+    distance to the same step in float64 (4t's floor rule: the gan
+    config's LR is 2.5 times 4t's, and BN's backward at 9x9 maps amplifies
+    the rounding of the larger update); of each discriminator tensor at
+    most D_OFF_SHARE of the elements farther than 1e-4; what the step
+    changed within 4t's float32 floor rule; every aux parameter equal to
+    its start to the bit on both. (``card`` the CPU rehearses
+    it.)"""
+    model = random_model("pspnet", torch.float32, seed=4, image_size=size, with_aux=True)
+    disc = init_from_generator_(S4GANDiscriminator(CLASSES), torch.Generator().manual_seed(9))
+    p0 = {**{f"g.{k}": v.detach().double().clone() for k, v in model.state_dict().items()},
+          **{f"d.{k}": v.detach().double().clone() for k, v in disc.state_dict().items()}}
+    roles, masks = gan_roles(size, n), {}
+    threshold, margin = gan_threshold(model, disc, roles, masks, method)
+    runs = {}
+    t0 = time.perf_counter()
+    for name, dev, dtype in (("card", card, torch.float32),
+                             ("cpu", torch.device("cpu"), torch.float32),
+                             ("f64", torch.device("cpu"), torch.float64)):
+        m, sg, sd = gan_step(model, disc, roles, masks, dev, method, threshold, dtype)
+        runs[name] = (m, {**{f"g.{k}": v for k, v in sg.items()},
+                          **{f"d.{k}": v for k, v in sd.items()}})
+    log(f"  threshold_st {threshold:.6f} (margin {margin:.2e} to the nearer confidence); "
+        f"three steps (card, CPU float32, CPU float64) in {time.perf_counter() - t0:.1f} s; "
+        f"{len(masks)} dropout masks")
+    (mc, sc), (mh, sh), (m64, _) = runs["card"], runs["cpu"], runs["f64"]
+    losses = ("loss", "loss_s", "loss_ce", "loss_fm", "loss_st", "loss_d")
+    rel = {k: abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k])) for k in losses}
+    counts = (int(mc["st_count"]), int(mh["st_count"]), int(m64["st_count"]))
+    log(f"  losses card | CPU | float64: " + "; ".join(
+        f"{k} {float(mc[k]):.7f} | {float(mh[k]):.7f} | {float(m64[k]):.7f}" for k in losses)
+        + f"; largest card vs CPU rel {max(rel.values()):.2e} (tol 1e-4); st_count {counts}")
+    s64 = runs["f64"][1]
+    d, d_limit, off, off_floor = {}, {}, {}, {}
+    for k, ref in sh.items():
+        scale = float(ref.abs().max()) if ref.numel() else 0.0
+        if scale == 0.0:
+            continue
+        if k.startswith("d."):
+            # Adam's share of elements off by more than 1e-4 of the scale
+            off[k] = float(((sc[k] - ref).abs() > 1e-4 * scale).double().mean())
+            off_floor[k] = float(((ref - s64[k]).abs() > 1e-4 * scale).double().mean())
+        else:
+            d[k] = float((sc[k] - ref).abs().max()) / scale
+            d_limit[k] = max(1e-4, STEP_FLOOR_FACTOR * float((ref - s64[k]).abs().max()) / scale)
+    key, dkey = max(d, key=lambda k: d[k] / d_limit[k]), max(off, key=off.get)
+    moved = {k for k in sh if not torch.equal(sh[k], p0[k])}
+    moved_card = {k for k in sc if not torch.equal(sc[k], p0[k])}
+    e, floor = step_rel(sc, sh, p0), step_rel(sh, s64, p0)
+    limit = {k: max(STEP_ABS, STEP_FLOOR_FACTOR * floor.get(k, 0.0)) for k in e}
+    worst = sorted(e, key=lambda k: e[k] / limit[k], reverse=True)[:3]
+    aux = [k for k in p0 if k.startswith("g.aux.") and "running" not in k
+           and "num_batches" not in k]
+    aux_equal = all(torch.equal(s[k], p0[k]) for s in (sc, sh) for k in aux)
+    log(f"  generator parameter or BN statistic closest to its limit: {key} {d[key]:.2e} of "
+        f"its tensor's largest magnitude (limit {d_limit[key]:.2e}: 1e-4, or "
+        f"{STEP_FLOOR_FACTOR:.0f} times the CPU float32 step's distance to float64); "
+        f"largest {max(d.values()):.2e}; discriminator elements off by more "
+        f"than 1e-4 of their tensor's largest magnitude: at most {off[dkey]:.2e} of a tensor "
+        f"({dkey}; tol {D_OFF_SHARE:.0e}; CPU float32 vs float64 "
+        f"{max(off_floor.values()):.2e}); the step's change: {len(e)} tensors moved "
+        f"({len(moved_card)} on the card), card vs CPU median "
+        f"{statistics.median(e.values()):.2e}, closest to the limit "
+        + "; ".join(f"{k} {e[k]:.2e} | {limit[k]:.2e}" for k in worst)
+        + f"; the {len(aux)} aux parameters equal to their start on both: {aux_equal}")
+    ok = (max(rel.values()) <= 1e-4 and counts[0] == counts[1] == 1
+          and all(d[k] <= d_limit[k] for k in d) and off[dkey] <= D_OFF_SHARE
+          and moved == moved_card and all(e[k] <= limit[k] for k in e) and aux_equal
+          and any(k.startswith("d.") for k in moved) and len(aux) == 5)
+    if not ok:
+        raise AssertionError(f"the {method} step on the card disagrees with the CPU")
+
+
+def gan_phases(dev, root=None) -> dict:
+    """Phases 4g, 19 and 20 in order on phase 14's tree (written when
+    ``root`` is None); returns each full-width phase's result by tag."""
+    for method in ("flow_gan", "gan"):
+        log(f"[4g] the {method} step on the card against the CPU (PSPNet-50 with aux, 65 px, "
+            f"float32, batch 2, frame_delta 5)")
+        check_gan_step_card_vs_cpu(method)
+    root = root or train_tree()
+    results = {}
+    for phase, tag, arch, layers, method, crop, steps, warmup, val in GAN_PHASES:
+        t0 = time.perf_counter()
+        log(f"[{phase}] {method} through run_gan_fit: PSPNet-50 float32 with its aux head, "
+            f"batch 2, {round_train(crop, arch)} px crops of {FRAME_HW[0]}x{FRAME_HW[1]} frames"
+            + (f", n = {FRAME_DELTA}" if method == "flow_gan" else "")
+            + f", {GAN_OPTIM[method]}")
+        results[tag] = train_phase(dev, root, tag, arch, layers, method, crop, steps, warmup,
+                                   val)
+        log(f"  phase {phase}: {time.perf_counter() - t0:.1f} s")
+    return results
 
 
 # --------------------------------------- evaluation: phases 18, 18k, 18c, 5p
@@ -3014,6 +3308,15 @@ def k1_bwd_alone() -> int:
     return 0
 
 
+def gan_alone() -> int:
+    """--gan: build csrc/warp.cu and the codec, then phases 4g, 19 and 20."""
+    log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}")
+    build_kernels(["warp", "jpeg"])
+    gan_phases(torch.device("cuda"))
+    return 0
+
+
 def train_alone() -> int:
     """--train: build csrc/warp.cu and the codec, then phases 3t, 4t and 14-17."""
     log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
@@ -3036,6 +3339,8 @@ def main() -> int:
         return train_alone()
     if sys.argv[1:] == ["--k1-bwd"]:
         return k1_bwd_alone()
+    if sys.argv[1:] == ["--gan"]:
+        return gan_alone()
     if sys.argv[1:] == ["--test"]:
         return test_alone()
     if sys.argv[1:2] == ["--k1"] and len(sys.argv) <= 3:
@@ -3162,6 +3467,11 @@ def main() -> int:
     train_errs, train_timing, train_paths = training_phases(dev)
     paths.update(train_paths)
     log(f"  phases 3t, 4t, 14-17: {time.perf_counter() - t_train:.1f} s")
+    t_gan = time.perf_counter()
+    gan_paths = gan_phases(dev, os.path.join(DATA_DIR, "train_tree"))
+    paths.update(gan_paths)
+    train_paths.update(gan_paths)
+    log(f"  phases 4g, 19, 20: {time.perf_counter() - t_gan:.1f} s")
     t_eval = time.perf_counter()
     eval_errs, eval_timing, test_paths, phases = evaluation_phases(
         dev, os.path.join(DATA_DIR, "train_tree"), model, wins)

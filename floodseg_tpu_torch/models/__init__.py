@@ -3,7 +3,8 @@
 The port has the three flow-predict architectures: PSPNet and DeepLabV3
 (ResNet-50/101/152 trunks) and the Segmenter ViT (ViT-B/32 with the
 MaskTransformer decoder). All three train: training-mode BN, each one's
-dropout (models/layers.py::Dropout), the CNNs' aux heads.
+dropout (models/layers.py::Dropout), the CNNs' aux heads. The s4GAN
+methods add ``S4GANDiscriminator``.
 """
 
 import torch
@@ -11,6 +12,7 @@ import torch.nn as nn
 
 from floodseg_tpu_torch.models.convert import from_jax_variables, load_jax_variables
 from floodseg_tpu_torch.models.deeplabv3 import DeepLabV3
+from floodseg_tpu_torch.models.discriminator import S4GANDiscriminator
 from floodseg_tpu_torch.models.layers import init_from_generator_
 from floodseg_tpu_torch.models.pspnet import PPM, PSPNet
 from floodseg_tpu_torch.models.resnet import ResNetFeatures
@@ -38,5 +40,5 @@ def build_model(arch: str, classes: int = 5, layers: int = 50, image_size: int =
 
 
 __all__ = ["ARCHS", "DeepLabV3", "MaskTransformer", "PPM", "PSPNet", "ResNetFeatures",
-           "SegmenterViT", "VisionTransformer", "build_model", "from_jax_variables",
-           "init_from_generator_", "load_jax_variables"]
+           "S4GANDiscriminator", "SegmenterViT", "VisionTransformer", "build_model",
+           "from_jax_variables", "init_from_generator_", "load_jax_variables"]

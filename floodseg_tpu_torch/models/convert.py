@@ -7,8 +7,10 @@ whose tree has no ``batch_stats`` or an empty one; ``ppm`` for PSPNet,
 ``classifier``/``aspp`` for DeepLabV3), and emits the reference's key
 names exactly as floodseg_tpu/models/lightning_export.py does:
 ``export_pspnet_variables(..., flow=False)``,
-``export_deeplabv3_variables``, and ``export_vit_encoder(p["encoder"],
-"encoder.")`` with ``export_mask_transformer(p["decoder"], "decoder.")``.
+``export_deeplabv3_variables``, ``export_vit_encoder(p["encoder"],
+"encoder.")`` with ``export_mask_transformer(p["decoder"], "decoder.")``,
+and ``export_s4gan_discriminator`` for an s4GAN discriminator's tree
+(``conv1``..``conv4`` and ``final``, no ``batch_stats``).
 The port keeps its own copy of that mapping and needs no JAX at run time:
 
   conv  HWIO kernel -> OIHW ``weight`` (+ ``bias``)
@@ -40,6 +42,9 @@ Segmenter ViT (timm's and Segmenter's names):
   decoder proj_dec, cls_emb, proj_patch, proj_classes, decoder_norm,
           mask_norm, blocks.I.* under ``decoder.``; the linear decoder's
           head -> decoder.head
+
+s4GAN discriminator:
+  conv1..conv4 -> layers.{0,3,6,9}; final (a linear head) -> final.0
 
 ``load_jax_variables`` strict-loads the result into a port model.
 """
@@ -217,10 +222,20 @@ def _vit(p: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
+def _discriminator(p: Mapping) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for i, li in enumerate((0, 3, 6, 9)):
+        _conv(out, p[f"conv{i + 1}"], f"layers.{li}")
+    _linear(out, p["final"], "final.0")
+    return out
+
+
 def from_jax_variables(variables: Mapping) -> Dict[str, np.ndarray]:
-    """JAX PSPNet, DeepLabV3 or SegmenterViT variables -> the reference's
-    state_dict (numpy)."""
+    """JAX PSPNet, DeepLabV3, SegmenterViT or S4GANDiscriminator variables
+    -> the reference's state_dict (numpy)."""
     p = variables["params"]
+    if "final" in p and "conv1" in p:
+        return _discriminator(p)
     if "patch_proj" in p.get("encoder", {}):
         return _vit(p)
     s = variables["batch_stats"]
@@ -228,12 +243,13 @@ def from_jax_variables(variables: Mapping) -> Dict[str, np.ndarray]:
         return _pspnet(p, s)
     if "aspp" in p.get("classifier", {}):
         return _deeplabv3(p, s)
-    raise ValueError(f"not a PSPNet, DeepLabV3 or SegmenterViT variable tree: {sorted(p)}")
+    raise ValueError(f"not a PSPNet, DeepLabV3, SegmenterViT or S4GANDiscriminator variable "
+                     f"tree: {sorted(p)}")
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
-    """Strict-load JAX PSPNet, DeepLabV3 or SegmenterViT variables into the
-    port's ``model``."""
+    """Strict-load JAX PSPNet, DeepLabV3, SegmenterViT or S4GANDiscriminator
+    variables into the port's ``model``."""
     state = {k: torch.from_numpy(np.array(v))  # a writable copy of each leaf
              for k, v in from_jax_variables(variables).items()}
     model.load_state_dict(state, strict=True)

@@ -10,9 +10,12 @@
   ``min_kept`` exceeds the valid pixels. No value is read back to the
   host, so a step never waits for the card.
 - ``ohem_with_aux``: the main OHEM CE plus ``aux_weight`` times the aux's.
+- ``binary_cross_entropy``: mean BCE from logits in the stable form, the
+  s4GAN discriminator's (``BCELoss`` of the sigmoid).
+- ``feature_matching_loss``: s4GAN's mean |mean(real) - mean(fake)| of the
+  discriminator's pooled features.
 
 Logits are NHWC. Everything computes at >= float32 (float64 stays float64).
-The s4GAN losses come with s4GAN.
 """
 
 from typing import Optional
@@ -26,12 +29,17 @@ def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_index: int = 255) -> torch.Tensor:
-    """Mean CE over non-ignored pixels. logits (..., C), labels (...) int."""
+                       ignore_index: int = 255,
+                       weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE over non-ignored pixels. logits (..., C), labels (...) int.
+    ``weights`` (shaped as ``labels``) weigh each pixel; the mean divides by
+    max(sum(valid * weights), 1)."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).to(torch.int64)
     nll = -torch.gather(_log_softmax(logits), -1, safe[..., None])[..., 0]
     w = valid.to(torch.float32)
+    if weights is not None:
+        w = w * weights.to(torch.float32)
     return torch.sum(nll * w) / torch.clamp_min(torch.sum(w), 1.0)
 
 
@@ -69,3 +77,19 @@ def ohem_with_aux(pred: torch.Tensor, aux: Optional[torch.Tensor], labels: torch
         loss = loss + aux_weight * ohem_cross_entropy(aux, labels, ignore_index, thresh,
                                                       min_kept)
     return loss
+
+
+def binary_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean BCE from logits: max(z, 0) - z t + log1p(exp(-|z|))."""
+    dt = torch.promote_types(logits.dtype, torch.float32)
+    z, t = logits.to(dt), targets.to(dt)
+    return torch.mean(torch.clamp_min(z, 0) - z * t + torch.log1p(torch.exp(-torch.abs(z))))
+
+
+def feature_matching_loss(d_feat_fake: torch.Tensor, d_feat_real: torch.Tensor) -> torch.Tensor:
+    """Mean over features of |mean over the batch of the real features -
+    that of the fake ones|."""
+    dt = torch.promote_types(d_feat_fake.dtype, torch.float32)
+    mf = torch.mean(d_feat_fake.to(dt), dim=0)
+    mr = torch.mean(d_feat_real.to(dt), dim=0)
+    return torch.mean(torch.abs(mr - mf))

@@ -9,11 +9,14 @@ from floodseg_tpu_torch.train.evaluate import (
 from floodseg_tpu_torch.train.fit import (
     FitConfig,
     flow_transforms,
+    role_datasets,
     round_train,
     run_fit,
     run_flow_fit,
+    run_gan_fit,
     run_test,
     sem_transforms,
+    train_loaders,
 )
 from floodseg_tpu_torch.train.flow import (
     flow_train_forward,
@@ -27,17 +30,26 @@ from floodseg_tpu_torch.train.flow import (
     plain_train_forward,
     profile_predict_phases,
 )
-from floodseg_tpu_torch.train.optim import head_mask, make_optimizer, poly_schedule
+from floodseg_tpu_torch.train.gan import (
+    flow_g_forward,
+    make_gan_train_step,
+    one_hot_masks,
+    single_frame_g_forward,
+)
+from floodseg_tpu_torch.train.optim import AUX_KEYS, head_mask, make_optimizer, poly_schedule
 from floodseg_tpu_torch.train.predict import colorize, run_flow_predict, run_predict
 from floodseg_tpu_torch.train.state import TrainState, create_train_state
 from floodseg_tpu_torch.train.supervised import make_eval_step, make_loss_fn, make_train_step
 
-__all__ = ["FitConfig", "TrainState", "colorize", "create_train_state", "crop_offsets",
-           "flow_sliding_window_predict", "flow_sliding_window_test", "flow_train_forward",
-           "flow_transforms", "head_mask", "make_cached_flow_predict_fn", "make_crop_forward",
-           "make_eval_step", "make_flow_eval_step", "make_flow_phase_fns",
-           "make_flow_predict_crop_fn", "make_flow_predict_fn", "make_flow_test_crop_fn",
-           "make_flow_train_step", "make_loss_fn", "make_optimizer", "make_train_step",
-           "multi_scale_test", "plain_train_forward", "poly_schedule", "profile_predict_phases",
-           "round_train", "run_fit", "run_flow_fit", "run_flow_predict", "run_predict",
-           "run_test", "sem_transforms", "sliding_window_predict"]
+__all__ = ["AUX_KEYS", "FitConfig", "TrainState", "colorize", "create_train_state",
+           "crop_offsets", "flow_g_forward", "flow_sliding_window_predict",
+           "flow_sliding_window_test", "flow_train_forward", "flow_transforms", "head_mask",
+           "make_cached_flow_predict_fn", "make_crop_forward", "make_eval_step",
+           "make_flow_eval_step", "make_flow_phase_fns", "make_flow_predict_crop_fn",
+           "make_flow_predict_fn", "make_flow_test_crop_fn", "make_flow_train_step",
+           "make_gan_train_step", "make_loss_fn", "make_optimizer", "make_train_step",
+           "multi_scale_test", "one_hot_masks", "plain_train_forward", "poly_schedule",
+           "profile_predict_phases", "role_datasets", "round_train", "run_fit",
+           "run_flow_fit", "run_flow_predict", "run_gan_fit", "run_predict", "run_test",
+           "sem_transforms", "single_frame_g_forward", "sliding_window_predict",
+           "train_loaders"]

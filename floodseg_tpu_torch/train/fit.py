@@ -1,15 +1,18 @@
 """Training and testing from files on one device (counterpart of the
-``supervised`` and ``flow_supervised`` wiring of the JAX package's
-``Runner.fit`` and ``Runner.test``, floodseg_tpu/cli/runner.py).
+``supervised``, ``flow_supervised``, ``gan`` and ``flow_gan`` wiring of the
+JAX package's ``Runner.fit`` and ``Runner.test``,
+floodseg_tpu/cli/runner.py).
 
-``run_fit`` (single-frame ``supervised``) and ``run_flow_fit``
-(``flow_supervised``) build what ``Runner.fit`` builds for their method
-without the config layer, the logger and the checkpoints: the method's
-transforms with their sizing rules, the train dataset (``SemDataset`` or
-``FlowDataset``) behind an infinite, shuffled, ``drop_last`` loader that
-copies each batch to the device, the optimizer and poly schedule over the
-trunk and head groups, and the method's train and eval steps. Both run one
-loop (``_fit_loop``): the epochs' steps, validation every
+``run_fit`` (single-frame ``supervised``), ``run_flow_fit``
+(``flow_supervised``) and ``run_gan_fit`` (s4GAN, ``gan`` and
+``flow_gan``) build what ``Runner.fit`` builds for their method without
+the config layer, the logger and the checkpoints: the method's transforms
+with their sizing rules, the train dataset of each role (``SemDataset``
+or ``FlowDataset``: "l", and for s4GAN "u" and "gt", split as
+``Runner._train_datasets`` splits them), each behind its own infinite,
+shuffled, ``drop_last`` loader that copies each batch to the device, the
+optimizers and poly schedules, and the method's train and eval steps. All
+run one loop (``_fit_loop``): the epochs' steps, validation every
 ``check_val_every_n_epoch`` epochs through the eval step, and the early
 stopping counter. Step metrics stay on the device and are read back once
 an epoch. ``FitConfig`` holds the settings, with the defaults of the
@@ -19,10 +22,10 @@ dataset_flow.yaml); the crop size is linked to the architecture as the
 JAX config's ``apply_links`` links it (``round_train``).
 
 ``run_test`` evaluates a model on the held-out lists (test.txt, test2.txt)
-as ``Runner.test`` does: the single-frame method through the multi-scale
-flip sliding window (train/evaluate.py::multi_scale_test), the flow method
-through the crop sliding window (flow_sliding_window_test) or, with
-``no_cropping``, the whole-frame eval step.
+as ``Runner.test`` does: the single-frame methods through the multi-scale
+flip sliding window (train/evaluate.py::multi_scale_test), the flow
+methods through the crop sliding window (flow_sliding_window_test) or,
+with ``no_cropping``, the whole-frame eval step.
 """
 
 import os
@@ -44,6 +47,8 @@ from floodseg_tpu_torch.data.transforms import (
     build_train_transform,
     build_val_transform,
 )
+from floodseg_tpu_torch.models.discriminator import S4GANDiscriminator
+from floodseg_tpu_torch.models.layers import init_from_generator_
 from floodseg_tpu_torch.ops.metrics import MetricMeter, intersection_and_union
 from floodseg_tpu_torch.train.evaluate import (
     flow_sliding_window_test,
@@ -55,20 +60,36 @@ from floodseg_tpu_torch.train.flow import (
     make_flow_test_crop_fn,
     make_flow_train_step,
 )
-from floodseg_tpu_torch.train.optim import make_optimizer, model_arch
+from floodseg_tpu_torch.train.gan import (
+    flow_g_forward,
+    make_gan_train_step,
+    single_frame_g_forward,
+)
+from floodseg_tpu_torch.train.optim import AUX_KEYS, make_optimizer, model_arch
 from floodseg_tpu_torch.train.state import TrainState, create_train_state
 from floodseg_tpu_torch.train.supervised import make_eval_step, make_loss_fn, make_train_step
 
 
 @dataclass
 class FitConfig:
-    """The settings ``run_fit`` and ``run_flow_fit`` read, named as in the
-    JAX package's config (model.*, data.*, trainer.*). ``train_h`` and
-    ``train_w`` are the crop before ``round_train``, which the run applies
-    for the model's architecture as ``apply_links`` does. ``aux_weight`` is
-    the single-frame method's (0 turns the aux loss off). ``test_h`` and
-    ``test_w`` are the test crop, None for the rounded train crop (the
-    link ``apply_links`` makes)."""
+    """The settings ``run_fit``, ``run_flow_fit`` and ``run_gan_fit`` read,
+    named as in the JAX package's config (model.*, data.*, trainer.*).
+    ``train_h`` and ``train_w`` are the crop before ``round_train``, which
+    the run applies for the model's architecture as ``apply_links`` does.
+    ``aux_weight`` is the single-frame method's (0 turns the aux loss off).
+    ``test_h`` and ``test_w`` are the test crop, None for the rounded train
+    crop (the link ``apply_links`` makes).
+
+    The s4GAN settings, with the JAX config's defaults: ``lr_D`` (the
+    discriminator's Adam), ``threshold_st``, ``lambda_fm``, ``lambda_st``
+    and ``data_ratio`` (the labeled share of train.txt when there is no
+    train_u.txt). The repository's configs set, for ``gan``
+    (configs/train_gan.yaml): lr 2.5e-4, weight_decay 5e-4, lr_D 1e-4, and
+    the single-frame 873 px crop; for ``flow_gan``
+    (configs/train_flow_gan.yaml): lr 1e-4, weight_decay 1e-4, lr_D 1e-4,
+    433 px crops, frame_delta 25; both threshold_st 0.6, lambda_fm 0.1,
+    lambda_st 1.0. The generator's loss is plain CE (``loss`` is not
+    read)."""
     data_variant: Optional[str] = "all"
     classes: int = 5
     ignore_index: int = 255
@@ -113,6 +134,11 @@ class FitConfig:
     batch_size_test: int = 1
     workers_test: int = 8
     limit_test_batches: Optional[int] = None
+    lr_D: float = 1e-4
+    threshold_st: float = 0.6
+    lambda_fm: float = 0.1
+    lambda_st: float = 1.0
+    data_ratio: float = 1.0
 
 
 def round_train(x: int, arch: str) -> int:
@@ -214,42 +240,70 @@ def _prepare(model: nn.Module, dev: torch.device) -> nn.Module:
     return model
 
 
-def _loaders(cfg: FitConfig, train_ds, val_ds, dev: torch.device):
-    """(the infinite shuffled train loader, the val loader, steps an epoch)."""
-    if len(train_ds) < cfg.batch_size:
-        raise ValueError(f"batch {cfg.batch_size} exceeds the train set ({len(train_ds)})")
+# the seed offsets of the roles' shuffle streams (Runner._train_loaders)
+ROLE_SEED_OFFSETS = {"l": 0, "u": 1, "gt": 2}
+
+
+def train_loaders(cfg: FitConfig, roles: Mapping[str, object],
+                  device: DeviceLike = None) -> Tuple[Dict[str, DataLoader], int]:
+    """``Runner._train_loaders`` on one device: for each role of ``roles``
+    ("l", and "u" and "gt" for s4GAN) an infinite, shuffled, ``drop_last``
+    loader of ``batch_size`` with the role's seed offset that copies each
+    batch to ``device``; and the steps an epoch, the longer of the labeled
+    and unlabeled sets over the batch (at least 1), then at most
+    ``limit_train_batches``. A labeled or unlabeled set smaller than the
+    batch raises (its loader would yield nothing)."""
+    dev = resolve_device(device)
+    batch = cfg.batch_size
+    small = {name: len(roles[k]) for k, name in (("l", "labeled"), ("u", "unlabeled"))
+             if k in roles and len(roles[k]) < batch}
+    if small:
+        raise ValueError(f"batch {batch} exceeds the train set(s) {small}; lower batch_size "
+                         f"or adjust data_ratio")
     put = (lambda b: device_put(b, dev))
-    loader = DataLoader(train_ds, batch_size=cfg.batch_size, shuffle=True,
-                        num_workers=cfg.workers, seed=cfg.seed, infinite=True,
-                        drop_last=True, device_put=put)
-    val_loader = DataLoader(val_ds, batch_size=cfg.batch_size_val, num_workers=cfg.workers,
-                            seed=cfg.seed, device_put=put)
-    steps_per_epoch = max(1, len(train_ds) // cfg.batch_size)
+    loaders = {k: DataLoader(ds, batch_size=batch, shuffle=True, num_workers=cfg.workers,
+                             seed=cfg.seed + ROLE_SEED_OFFSETS[k], infinite=True,
+                             drop_last=True, device_put=put)
+               for k, ds in roles.items()}
+    steps_per_epoch = max(1, max(len(roles[k]) // batch for k in ("l", "u") if k in roles))
     if cfg.limit_train_batches is not None:
         steps_per_epoch = min(steps_per_epoch, cfg.limit_train_batches)
-    return loader, val_loader, steps_per_epoch
+    return loaders, steps_per_epoch
+
+
+def _val_loader(cfg: FitConfig, val_ds, dev: torch.device) -> DataLoader:
+    return DataLoader(val_ds, batch_size=cfg.batch_size_val, num_workers=cfg.workers,
+                      seed=cfg.seed, device_put=lambda b: device_put(b, dev))
+
+
+def _max_iter(cfg: FitConfig, steps_per_epoch: int) -> int:
+    return max(1, steps_per_epoch * cfg.max_epochs)
 
 
 def _state(model: nn.Module, cfg: FitConfig, steps_per_epoch: int,
-           pretrained: Optional[Mapping[str, torch.Tensor]]) -> TrainState:
-    max_iter = max(1, steps_per_epoch * cfg.max_epochs)
-    opt, schedule = make_optimizer(model, cfg.lr, max_iter, cfg.optimizer.lower(),
-                                   cfg.momentum, cfg.weight_decay, cfg.power)
+           pretrained: Optional[Mapping[str, torch.Tensor]],
+           exclude: Sequence[str] = ()) -> TrainState:
+    opt, schedule = make_optimizer(model, cfg.lr, _max_iter(cfg, steps_per_epoch),
+                                   cfg.optimizer.lower(), cfg.momentum, cfg.weight_decay,
+                                   cfg.power, exclude=exclude)
     return create_train_state(model, opt, schedule, pretrained)
 
 
-def _fit_loop(cfg: FitConfig, state: TrainState, train_fn: Callable, eval_fn: Callable,
-              loader: DataLoader, val_loader: DataLoader, steps_per_epoch: int,
-              profiler: Optional[PhaseProfiler],
-              on_step: Optional[Callable[[int, TrainState, Dict], None]]) -> Dict:
+def _fit_loop(cfg: FitConfig, state, train_fn: Callable, eval_fn: Callable,
+              loaders: Mapping[str, DataLoader], val_loader: DataLoader,
+              steps_per_epoch: int, profiler: Optional[PhaseProfiler],
+              on_step: Optional[Callable[[int, object, Dict], None]]) -> Dict:
     """The epochs: ``train_fn(state, batch, generator)`` for each step,
     metrics read back once an epoch, validation through ``eval_fn(state,
-    batch)`` and early stopping on the validation mIoU.
+    batch)`` and early stopping on the validation mIoU. ``state`` is the
+    method's (a ``TrainState``, or s4GAN's (generator, discriminator)
+    pair); ``batch`` is the "l" loader's batch when it is the only role,
+    else the dict of every role's batch, as the JAX Runner draws them.
 
     Returns a summary: per epoch the mean train loss, the train mIoU and,
     on validation epochs, the validation mIoU, mAcc, accuracy and counts;
     the best validation mIoU and its epoch; the steps taken; the final
-    ``TrainState``. ``profiler`` records each step's wait for its batch
+    state. ``profiler`` records each step's wait for its batches
     (``train_load``) and the step (``train_step``; give the profiler a sync
     to time the device); ``on_step(global_step, state, metrics)`` runs
     after each step."""
@@ -258,13 +312,15 @@ def _fit_loop(cfg: FitConfig, state: TrainState, train_fn: Callable, eval_fn: Ca
     best_metric, best_epoch, wait_count = -np.inf, -1, 0
     val_every = max(1, cfg.check_val_every_n_epoch)
     global_step = 0
-    it = iter(loader)
+    its = {k: iter(v) for k, v in loaders.items()}
     try:
         for epoch in range(cfg.max_epochs):
             step_metrics = []
             for _ in range(steps_per_epoch):
                 with profiler.profile("train_load"):
-                    batch = next(it)
+                    batch = {k: next(it) for k, it in its.items()}
+                    if len(batch) == 1:
+                        batch = batch["l"]
                 with profiler.profile("train_step"):
                     state, metrics = train_fn(state, batch,
                                               step_generator(cfg.seed, global_step))
@@ -303,7 +359,8 @@ def _fit_loop(cfg: FitConfig, state: TrainState, train_fn: Callable, eval_fn: Ca
                     if wait_count >= cfg.early_stopping_patience:
                         break
     finally:
-        it.close()
+        for it in its.values():
+            it.close()
     return {"epochs": epochs, "steps": global_step, "steps_per_epoch": steps_per_epoch,
             "best_val_miou": float(best_metric) if np.isfinite(best_metric) else None,
             "best_epoch": best_epoch, "state": state}
@@ -330,13 +387,13 @@ def run_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
                           _list_path(data_root, cfg.data_variant, "train.txt"), tf["train"])
     val_ds = SemDataset("val", data_root, _list_path(data_root, cfg.data_variant, "val.txt"),
                         tf["val"])
-    loader, val_loader, steps_per_epoch = _loaders(cfg, train_ds, val_ds, dev)
+    loaders, steps_per_epoch = train_loaders(cfg, {"l": train_ds}, dev)
     state = _state(model, cfg, steps_per_epoch, pretrained)
     loss_fn = make_loss_fn(cfg.loss, cfg.aux_weight, cfg.ignore_index, cfg.ohem_thresh,
                            cfg.ohem_min_kept)
     train_step = make_train_step(model, loss_fn, cfg.classes, cfg.ignore_index)
     eval_step = make_eval_step(model, cfg.classes, cfg.ignore_index)
-    return _fit_loop(cfg, state, train_step, eval_step, loader, val_loader,
+    return _fit_loop(cfg, state, train_step, eval_step, loaders, _val_loader(cfg, val_ds, dev),
                      steps_per_epoch, profiler, on_step)
 
 
@@ -362,7 +419,7 @@ def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = No
                            transform=tf["train"], **common)
     val_ds = FlowDataset("val", data_root, _list_path(data_root, cfg.data_variant, "val.txt"),
                          transform=tf["val"], **common)
-    loader, val_loader, steps_per_epoch = _loaders(cfg, train_ds, val_ds, dev)
+    loaders, steps_per_epoch = train_loaders(cfg, {"l": train_ds}, dev)
     state = _state(model, cfg, steps_per_epoch, pretrained)
     loss_fn = make_loss_fn(cfg.loss, 0.0, cfg.ignore_index, cfg.ohem_thresh,
                            cfg.ohem_min_kept)
@@ -378,9 +435,123 @@ def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = No
                  and coin.random() < cfg.no_interpolation_percentage)
         return (plain_step if plain else interp_step)(state, batch, rng)
 
-    return _fit_loop(cfg, state, train_fn, eval_step, loader, val_loader,
+    return _fit_loop(cfg, state, train_fn, eval_step, loaders, _val_loader(cfg, val_ds, dev),
                      steps_per_epoch, profiler, on_step)
 
+
+FLOW_METHODS = ("flow_supervised", "flow_gan")
+GAN_METHODS = ("gan", "flow_gan")
+
+
+def _set_items(ds, items) -> None:
+    ds.items = list(items)
+    if hasattr(ds, "length"):
+        ds.length = len(ds.items)
+
+
+def role_datasets(cfg: FitConfig, data_root: str, method: str,
+                  transform: Optional[Callable] = None) -> Dict[str, object]:
+    """The s4GAN ``method``'s train datasets by role, as
+    ``Runner._train_datasets`` and ``Runner._train_loaders`` make them:
+    "l" over train.txt and "u" over train_u.txt when it exists; otherwise
+    train.txt split into disjoint "l" and "u" sets by ``data_ratio`` with
+    ``np.random.default_rng(seed).permutation``, raising when either side
+    would be empty; "gt" over the labeled set's items. Flow roles are
+    ``FlowDataset`` of the role's type; single-frame ones ``SemDataset``,
+    the "u" role's the "test" split (its labels are zeros)."""
+    flow = method in FLOW_METHODS
+
+    def dataset(list_name: str, role: str):
+        path = _list_path(data_root, cfg.data_variant, list_name)
+        if flow:
+            return FlowDataset("train", data_root, path, type=role, transform=transform,
+                               frame_delta=cfg.frame_delta, no_warp=cfg.no_warp,
+                               no_random_frame_delta=cfg.no_random_frame_delta)
+        return SemDataset("test" if role == "u" else "train", data_root, path, transform)
+
+    ds_l = dataset("train.txt", "l")
+    if os.path.exists(_list_path(data_root, cfg.data_variant, "train_u.txt")):
+        ds_u = dataset("train_u.txt", "u")
+    else:
+        ds_u = dataset("train.txt", "u")
+        items = list(ds_l.items)
+        perm = np.random.default_rng(cfg.seed).permutation(len(items))
+        size_l = int(cfg.data_ratio * len(items))
+        if size_l == 0 or size_l == len(items):
+            raise ValueError(
+                f"data_ratio={cfg.data_ratio} splits {len(items)} train items into "
+                f"l={size_l}/u={len(items) - size_l}; a semi-supervised method needs both "
+                f"non-empty: adjust data_ratio or provide train_u.txt")
+        _set_items(ds_l, [items[i] for i in perm[:size_l]])
+        _set_items(ds_u, [items[i] for i in perm[size_l:]])
+    ds_gt = dataset("train.txt", "gt")
+    _set_items(ds_gt, ds_l.items)
+    return {"l": ds_l, "u": ds_u, "gt": ds_gt}
+
+
+def run_gan_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
+                method: str = "flow_gan", discriminator: Optional[nn.Module] = None,
+                pretrained: Optional[Mapping[str, torch.Tensor]] = None,
+                profiler: Optional[PhaseProfiler] = None,
+                on_step: Optional[Callable[[int, Tuple[TrainState, TrainState], Dict],
+                                           None]] = None,
+                device: DeviceLike = None) -> Dict:
+    """Train ``model`` (the generator, any of the port's three
+    architectures) on the tree at ``data_root`` as the JAX package's
+    ``Runner.fit`` does for s4GAN ``method`` ("flow_gan" or "gan") on one
+    device: the three roles' loaders (``role_datasets``, ``train_loaders``),
+    the generator's SGD over the trunk and head groups without the aux
+    heads (``AUX_KEYS``: never updated), the discriminator's Adam (``lr_D``,
+    betas (0.9, 0.99), no weight decay, one group; the same poly schedule),
+    the s4GAN step (train/gan.py; the flow method's generator forward is the
+    interpolated one) and validation through the generator's eval step (the
+    flow or the single-frame one). ``discriminator``: an
+    ``S4GANDiscriminator`` for ``cfg.classes`` (None: one with weights drawn
+    from a generator seeded with ``cfg.seed``). The state the hooks see and
+    the summary's "state" are the (generator, discriminator) pair;
+    otherwise ``pretrained``, the hooks and the summary as in ``run_fit``."""
+    cfg = cfg or FitConfig()
+    if method not in GAN_METHODS:
+        raise ValueError(f"run_gan_fit takes 'gan' or 'flow_gan', got {method!r}")
+    flow = method in FLOW_METHODS
+    dev = resolve_device(device)
+    _prepare(model, dev)
+    tf = (flow_transforms if flow else sem_transforms)(cfg, model_arch(model))
+    roles = role_datasets(cfg, data_root, method, tf["train"])
+    val_path = _list_path(data_root, cfg.data_variant, "val.txt")
+    if flow:
+        val_ds = FlowDataset("val", data_root, val_path, type="l", transform=tf["val"],
+                             frame_delta=cfg.frame_delta, no_warp=cfg.no_warp,
+                             no_random_frame_delta=cfg.no_random_frame_delta)
+    else:
+        val_ds = SemDataset("val", data_root, val_path, tf["val"])
+    loaders, steps_per_epoch = train_loaders(cfg, roles, dev)
+    state_g = _state(model, cfg, steps_per_epoch, pretrained, exclude=AUX_KEYS)
+    if discriminator is None:
+        discriminator = init_from_generator_(S4GANDiscriminator(cfg.classes),
+                                             torch.Generator().manual_seed(cfg.seed))
+    _prepare(discriminator, dev)
+    opt_d, schedule_d = make_optimizer(discriminator, cfg.lr_D, _max_iter(cfg, steps_per_epoch),
+                                       "adam", weight_decay=0.0, power=cfg.power,
+                                       head_lr_scale=1.0, betas=(0.9, 0.99))
+    state_d = TrainState(0, discriminator, opt_d, schedule_d)
+    g_forward = (flow_g_forward(model, cfg.feature_based, cfg.no_warp) if flow
+                 else single_frame_g_forward(model))
+    step = make_gan_train_step(g_forward, cfg.classes, cfg.ignore_index, cfg.threshold_st,
+                               cfg.lambda_fm, cfg.lambda_st, gt_norm_by_labeled_max=not flow)
+    if flow:
+        eval_step = make_flow_eval_step(model, cfg.classes, cfg.ignore_index,
+                                        cfg.feature_based, cfg.no_warp)
+    else:
+        eval_step = make_eval_step(model, cfg.classes, cfg.ignore_index)
+
+    def train_fn(state, batch, rng):
+        state_g, state_d, metrics = step(state[0], state[1], batch, rng)
+        return (state_g, state_d), metrics
+
+    return _fit_loop(cfg, (state_g, state_d), train_fn,
+                     lambda state, batch: eval_step(state[0], batch), loaders,
+                     _val_loader(cfg, val_ds, dev), steps_per_epoch, profiler, on_step)
 
 
 _TIME_MAJOR_KEYS = ("mvs_left", "mvs_right")  # (T, B, ...)
@@ -404,7 +575,8 @@ def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
              device: DeviceLike = None) -> Dict:
     """Evaluate ``model`` (its own weights, in eval mode) on the tree at
     ``data_root`` as the JAX package's ``Runner.test`` does for ``method``
-    ("supervised" or "flow_supervised") on one device.
+    on one device: "supervised" and "gan" take the single-frame route,
+    "flow_supervised" and "flow_gan" the flow route.
 
     For each of test.txt and test2.txt under the list variant that exists:
     the test transform's dataset (``FlowDataset("test", type="l")`` or
@@ -422,11 +594,12 @@ def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
     sample, with the sliding window's own regions inside).
     """
     cfg = cfg or FitConfig()
-    if method not in ("supervised", "flow_supervised"):
-        raise ValueError(f"run_test takes 'supervised' or 'flow_supervised', got {method!r}")
+    if method not in ("supervised",) + FLOW_METHODS + GAN_METHODS:
+        raise ValueError(f"run_test takes 'supervised', 'flow_supervised', 'gan' or "
+                         f"'flow_gan', got {method!r}")
     if cfg.limit_test_batches == 0:
         return {}
-    flow = method == "flow_supervised"
+    flow = method in FLOW_METHODS
     dev = resolve_device(device)
     arch = model_arch(model)
     crop_h, crop_w = _test_crop(cfg, arch)

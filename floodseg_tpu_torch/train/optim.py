@@ -5,11 +5,17 @@ The JAX package chains optax transforms; the port uses ``torch.optim.SGD``
 and ``torch.optim.Adam``, whose semantics the JAX chain reproduces (weight
 decay added to the gradient before the momentum or the moments, classic
 L2), with two parameter groups: the pretrained trunk at the base LR and
-every head at ``head_lr_scale`` times it. The poly schedule sets each
-group's LR before every step.
+every head at ``head_lr_scale`` times it, or one group when that is 1 (the
+s4GAN discriminator's Adam). The poly schedule sets each group's LR before
+every step.
+
+``exclude`` is the JAX package's ``exclude_subtrees``: the parameters under
+those top-level keys of the JAX tree (the aux heads, ``AUX_KEYS``, for the
+s4GAN generator) are left out of the optimizer, so they get no update at
+all, no decay and no momentum, whatever gradient reaches them.
 """
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +26,8 @@ from floodseg_tpu_torch.models.convert import jax_top_level
 # top-level keys of the JAX tree that belong to the pretrained trunk (LR x1);
 # everything else is a head (LR x10)
 BACKBONE_KEYS = ("backbone", "encoder")
+# the aux heads' top-level keys, which the s4GAN generator freezes
+AUX_KEYS = ("aux", "aux_classifier")
 
 
 def poly_schedule(base_lr: float, max_iter: int, power: float = 0.9) -> Callable:
@@ -55,14 +63,21 @@ def head_mask(model: nn.Module) -> Dict[str, bool]:
             for name, _ in model.named_parameters()}
 
 
-def param_groups(model: nn.Module, base_lr: float,
-                 head_lr_scale: float = 10.0) -> List[dict]:
+def param_groups(model: nn.Module, base_lr: float, head_lr_scale: float = 10.0,
+                 exclude: Sequence[str] = ()) -> List[dict]:
     """The trunk's and the heads' parameters as two groups, each with its
-    ``lr_scale``."""
+    ``lr_scale``, or all of them as one group when ``head_lr_scale`` is 1
+    and nothing is excluded (any module: no architecture is asked for).
+    Parameters under the JAX top-level keys in ``exclude`` are in no
+    group."""
+    if head_lr_scale == 1.0 and not exclude:
+        return [{"params": list(model.parameters()), "lr": base_lr, "lr_scale": 1.0}]
+    arch = model_arch(model)
     mask = head_mask(model)
     groups = []
     for head, scale in ((False, 1.0), (True, head_lr_scale)):
-        params = [p for n, p in model.named_parameters() if mask[n] == head]
+        params = [p for n, p in model.named_parameters()
+                  if mask[n] == head and jax_top_level(arch, n) not in exclude]
         if params:
             groups.append({"params": params, "lr": base_lr * scale, "lr_scale": scale})
     return groups
@@ -71,11 +86,12 @@ def param_groups(model: nn.Module, base_lr: float,
 def make_optimizer(model: nn.Module, base_lr: float, max_iter: int,
                    optimizer: str = "sgd", momentum: float = 0.9,
                    weight_decay: float = 1e-4, power: float = 0.9,
-                   head_lr_scale: float = 10.0,
-                   betas=(0.9, 0.999)) -> Tuple[torch.optim.Optimizer, Callable]:
+                   head_lr_scale: float = 10.0, betas=(0.9, 0.999),
+                   exclude: Sequence[str] = ()) -> Tuple[torch.optim.Optimizer, Callable]:
     """(optimizer, schedule): SGD (momentum, weight decay) or Adam (classic
-    L2 weight decay) over ``param_groups``, and the poly LR of each step."""
-    groups = param_groups(model, base_lr, head_lr_scale)
+    L2 weight decay) over ``param_groups`` (without the ``exclude``
+    subtrees), and the poly LR of each step."""
+    groups = param_groups(model, base_lr, head_lr_scale, exclude)
     if optimizer == "sgd":
         opt = torch.optim.SGD(groups, lr=base_lr, momentum=momentum,
                               weight_decay=weight_decay)

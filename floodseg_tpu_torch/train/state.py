@@ -29,8 +29,9 @@ class TrainState:
         A parameter without a gradient gets a zero one first: the JAX
         optimizer decays and moves every parameter, also one the loss does
         not reach (the aux head of flow training), where torch's optimizers
-        would skip it. Each group's LR is the schedule's for this step
-        times the group's ``lr_scale``."""
+        would skip it. A parameter in no group (s4GAN's aux head,
+        ``make_optimizer(exclude=...)``) is not touched. Each group's LR is
+        the schedule's for this step times the group's ``lr_scale``."""
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group.get("lr_scale", 1.0)

@@ -267,7 +267,7 @@ def test_predict_builders_raise_on_int8():
         make_cached_flow_predict_fn(m, n=5, int8_encode=True, device="cpu")
 
 
-def test_cached_builder_raises_on_unfused_argmax(pair, jax_windows):
+def test_cached_builder_unfused_argmax_matches_fused(pair, jax_windows):
     """The unfused epilogue (fused_argmax=False: resize, then argmax) no
     longer raises: over both windows it gives the fused builders' maps
     wherever the top-2 logit gap exceeds 1e-4, and the same encodings."""
@@ -370,8 +370,8 @@ def test_resize_frames_matches_cv2():
 def test_port_imports_no_jax():
     """No module of floodseg_tpu_torch, and not chip_smoke.py, imports jax,
     floodseg_tpu, PIL, cv2 or imageio; checked in a fresh interpreter's
-    sys.modules after importing every module of the port and the test and
-    profiling entry points by name."""
+    sys.modules after importing every module of the port and the test,
+    profiling and s4GAN entry points by name."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import floodseg_tpu_torch as pkg\n"
@@ -380,7 +380,9 @@ def test_port_imports_no_jax():
         "from floodseg_tpu_torch.ops import grid_sample_matmul\n"
         "from floodseg_tpu_torch.train import (make_crop_forward, make_flow_phase_fns,\n"
         "    make_flow_test_crop_fn, multi_scale_test, profile_predict_phases, run_test,\n"
-        "    sliding_window_predict, flow_sliding_window_test)\n"
+        "    sliding_window_predict, flow_sliding_window_test, run_gan_fit,\n"
+        "    make_gan_train_step, role_datasets, train_loaders)\n"
+        "from floodseg_tpu_torch.models import S4GANDiscriminator\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'floodseg_tpu', 'PIL', 'cv2', 'imageio'))\n"
@@ -390,7 +392,7 @@ def test_port_imports_no_jax():
         "          'models.deeplabv3', 'models.vit', 'ops.metrics', 'core.profiler',\n"
         "          'data.image', 'data.avi', 'data.dataset', 'data.loader',\n"
         "          'data.synthetic', 'data.transforms', 'train.evaluate',\n"
-        "          'train.predict'):\n"
+        "          'train.predict', 'train.gan', 'models.discriminator'):\n"
         "    assert 'floodseg_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

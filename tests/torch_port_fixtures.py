@@ -81,6 +81,30 @@ def _numpy_init(shapes, rng):
     return out
 
 
+def numpy_leaves(shapes, rng):
+    """Float64 values in the init's shapes (``jax.eval_shape`` of a ViT's
+    or a discriminator's init): kernels normal with variance
+    1 / fan_in, LayerNorm scales in [0.5, 1.5], biases normal at 0.1, the
+    MaskTransformer's projections normal at d**-0.5 and every other leaf
+    (the cls token, the position and class embeddings) normal at 0.02, so
+    that no LayerNorm is the identity (drawn in numpy: no init compiles)."""
+    out = {}
+    for name, leaf in shapes.items():
+        if hasattr(leaf, "items"):
+            out[name] = numpy_leaves(leaf, rng)
+        elif name == "kernel":
+            out[name] = rng.standard_normal(leaf.shape) / np.sqrt(np.prod(leaf.shape[:-1]))
+        elif name == "scale":
+            out[name] = rng.uniform(0.5, 1.5, leaf.shape)
+        elif name == "bias":
+            out[name] = rng.normal(0.0, 0.1, leaf.shape)
+        elif name in ("proj_patch", "proj_classes"):
+            out[name] = rng.normal(0.0, leaf.shape[0] ** -0.5, leaf.shape)
+        else:
+            out[name] = rng.normal(0.0, 0.02, leaf.shape)
+    return out
+
+
 def _pair(arch: str, size: int, seed: int, classes: int, key: int,
           compiled_init: bool = True):
     jm = jax_build_model(arch, classes=classes, layers=50, with_aux=False)
@@ -216,6 +240,33 @@ def flax_keep_masks(model, variables, key, x, method=None):
         model.apply(variables, jnp.zeros(np.shape(x), jnp.asarray(x).dtype), train=True,
                     method=method, rngs={"dropout": key}, mutable=["batch_stats"])
     return masks
+
+
+def flax_keep_masks_fn(model, x, method=None):
+    """A jitted ``(variables, key) -> flax_keep_masks(model, variables, key,
+    x, method)``: one compile for the calls of one shape, where recording
+    each call's masks eagerly would compile every op of the apply again.
+    The masks are the ones the eager recording gives (a key's draws do not
+    depend on jit)."""
+    shape, dtype = np.shape(x), jnp.asarray(x).dtype
+
+    def masks_of(variables, key):
+        masks = {}
+
+        def interceptor(next_fun, args, kwargs, context):
+            if isinstance(context.module, fnn.Dropout) and context.method_name == "__call__":
+                out = next_fun(jnp.ones_like(args[0]), *args[1:], **kwargs)
+                masks["/".join(context.module.path)] = out != 0
+                return out
+            return next_fun(*args, **kwargs)
+
+        with fnn.intercept_methods(interceptor):
+            model.apply(variables, jnp.zeros(shape, dtype), train=True, method=method,
+                        rngs={"dropout": key}, mutable=["batch_stats"])
+        return masks
+
+    jitted = jax.jit(masks_of)
+    return lambda variables, key: {k: np.asarray(v) for k, v in jitted(variables, key).items()}
 
 
 def inject_keep_masks(port, masks, names, nchw=()):
@@ -391,3 +442,28 @@ def jax_fit(tree, jm, variables, cfg, method, crop, extra=None):
         m = ev(state, {k: jnp.asarray(v) for k, v in vb.items()})
         meter.update(m["intersection"], m["union"], m["target"])
     return float(np.mean(losses)), meter, steps
+
+
+def jax_runner(tree, method, cfg, arch="vit"):
+    """A JAX ``Runner`` for ``method`` and ``arch`` on ``tree`` with the
+    settings of ``cfg`` (the port's FitConfig), made without its
+    constructor: one device, no mesh, no model, logger or checkpoints; its
+    transforms, datasets and loaders are the Runner's own."""
+    from floodseg_tpu.cli.runner import FLOW_METHODS, Runner
+    from floodseg_tpu.core.config import load_config
+
+    jcfg = load_config([], {
+        "method": method, "model.arch": arch, "data.data_root": tree,
+        "data.data_variant": cfg.data_variant, "data.train_h": cfg.train_h,
+        "data.train_w": cfg.train_w, "data.resize_h": cfg.resize_h,
+        "data.resize_w": cfg.resize_w, "data.frame_delta": cfg.frame_delta,
+        "data.data_classes_ignore": list(cfg.classes_ignore),
+        "data.batch_size": cfg.batch_size, "data.batch_size_val": cfg.batch_size_val,
+        "data.workers": cfg.workers, "data.data_ratio": cfg.data_ratio,
+        "trainer.seed": cfg.seed, "trainer.max_epochs": cfg.max_epochs,
+        "trainer.limit_train_batches": cfg.limit_train_batches,
+        "model.optim.lr": cfg.lr, "model.optim.lr_D": cfg.lr_D,
+        "model.threshold_st": cfg.threshold_st})
+    r = object.__new__(Runner)
+    r.cfg, r.is_flow, r.num_devices, r.mesh = jcfg, method in FLOW_METHODS, 1, None
+    return r
