@@ -10,6 +10,7 @@
     python3 chip_smoke.py --k1-bwd # phase 3t alone: K1 and K1-bwd at the training shapes
     python3 chip_smoke.py --test   # the evaluation phases alone: 18, 18k, 18c and 5p
     python3 chip_smoke.py --gan    # the s4GAN phases alone: 4g, 19 and 20
+    python3 chip_smoke.py --u2pl   # the U2PL phases alone: 4u and 21
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -216,7 +217,7 @@ Then s4GAN training:
 20. gan at full width: PSPNet-50, 873 px crops through SemDataset, the gan
    config, 6 steps (2 warm-up, 2 timed, 2 profiled), 2 validation crops; no
    launch at all; the same report and checks.
-Then evaluation, last but one:
+Then evaluation:
 18. The test at full width through run_test on phase 14's tree (test.txt
    and test2.txt, limit_test_batches = 2, so 3 samples), PSPNet-50 float32
    with TF32 off, random weights: (a) flow_supervised, the crop route: 28
@@ -251,7 +252,39 @@ Then evaluation, last but one:
    make_cached_flow_predict_fn(fused_argmax=False) over phase 5's windows
    gives the fused maps at every pixel but two-ulp ties of its own bf16
    logits, and its maps are their argmax.
-13. Last (after phase 5p): a JSON line {"kernels": [...]} (each kernel's
+Then U2PL (the contrastive method), after evaluation:
+4u. One sup_step, the sync, one semi_step and a true_ema semi_step on the
+   card against the CPU (float32, and float64 for the floor): PSPNet-50
+   with its aux and rep heads and a teacher of its own init, 65 px, batch
+   2 + 2, TF32 off, the contrastive config's settings with max_enqueue 48
+   and the bank's caps cut to 64 (class 0: 96) so that a ring wraps, the
+   cutmix coin taken, every dropout with one keep mask a module and shape
+   and every draw from CPU generators (HostDraws), shared by the runs;
+   each step runs on the card and in float64 from a copy of the CPU
+   float32 trajectory's state, with the CPU's teacher outputs, from which
+   every mask is computed (the card's own within 1e-4 of their scale or
+   4t's floor rule; the pixels where they would move a pseudo-label or an
+   entropy mask are named: near-ties, at most 1e-3 of them). Losses within
+   rtol 1e-4; student and teacher parameters and BN statistics within
+   4t's rules, what the step changed held per tensor in L2 (a BN over 36
+   values, the PPM's 3x3 bin, makes single channels too noisy for 4t's
+   largest-element form); the bank's counts and pointers equal, its keys
+   within 1e-4 of their scale; the teacher's parameters the student's
+   tensors after the aliased semi step, its own after the true_ema one.
+21. contrastive at full width through run_contrastive_fit on phase 14's
+   tree: PSPNet-101 (the configuration's depth) with aux and rep heads,
+   873 px crops, batch 2 + 2, the configuration's settings (the (5, 50000, 256) bank),
+   random weights; 4 epochs of 2 steps with sup_only_epoch 1: 2 sup steps,
+   the sync, 6 semi steps (2 warm-up, 2 timed, 2 under torch.profiler),
+   validation every second epoch over one crop. The report of 14 (ms a sup
+   and a semi step, the wait for batches, device busy and idle share, ms
+   by kernel family, peak memory). Checks: no launch of K1, K2, K3 or
+   K1-bwd; every loss finite; contra_loss non-zero on a semi step; no class
+   count above its cap, none growing by more than max_enqueue a step; the
+   teacher's parameters the student's tensors after every semi step, its
+   BN statistics its own; validation served the teacher; no step copies
+   to the host (the profiled window holds only the epoch's read-back).
+13. Last (after phase 21): a JSON line {"kernels": [...]} (each kernel's
    max_abs_err is its largest over every check; max_abs_err_by_dtype gives
    the largest in float32 and in bf16 apart), then the nvidia-smi line, then the last line {"ok": true, "device": {...}}.
 """
@@ -301,6 +334,7 @@ from floodseg_tpu_torch.ops.grid_sample import (
     grid_sample_backward,
     tap_indices_weights,
 )
+from floodseg_tpu_torch.ops.u2pl import U2PLDraws, masked_percentile, softmax_entropy
 from floodseg_tpu_torch.ops.resize_kernels import (
     resize_quantize_int8_cuda,
     resize_quantize_int8_plain,
@@ -318,8 +352,10 @@ from floodseg_tpu_torch.ops.warp_kernels import (
 )
 from floodseg_tpu_torch.train import (
     AUX_KEYS,
+    ContrastiveConfig,
     FitConfig,
     TrainState,
+    create_u2pl_state,
     crop_offsets,
     fit,
     flow_g_forward,
@@ -335,8 +371,10 @@ from floodseg_tpu_torch.train import (
     make_loss_fn,
     make_optimizer,
     make_train_step,
+    make_u2pl_steps,
     profile_predict_phases,
     round_train,
+    run_contrastive_fit,
     run_fit,
     run_flow_fit,
     run_flow_predict,
@@ -344,6 +382,7 @@ from floodseg_tpu_torch.train import (
     run_test,
     sem_transforms,
     single_frame_g_forward,
+    sync_teacher,
 )
 from floodseg_tpu_torch.train.evaluate import _crop_stack
 from floodseg_tpu_torch.train.flow import _predict_decode, decode_split_ok, flow_train_forward
@@ -1929,10 +1968,10 @@ def train_batch(seed=3, size=65, n=5, device="cpu") -> dict:
 
 
 def fixed_keep_masks(model, store: dict, seed=5) -> list:
-    """Every Dropout of ``model`` takes one keep mask per module name, drawn
-    on the CPU (from ``seed`` and the name) at its first call and kept in
-    ``store``: runs on the card and on the CPU that share ``store`` drop
-    the same elements. Returns the hooks' handles."""
+    """Every Dropout of ``model`` takes one keep mask per module name and
+    input shape, drawn on the CPU (from ``seed`` and the name) at its first
+    call and kept in ``store``: runs on the card and on the CPU that share
+    ``store`` drop the same elements. Returns the hooks' handles."""
     handles = []
     for name, mod in model.named_modules():
         if not isinstance(mod, Dropout):
@@ -1940,11 +1979,12 @@ def fixed_keep_masks(model, store: dict, seed=5) -> list:
 
         def hook(mod, args, name=name):
             x = args[0]
-            if name not in store:
+            key = (name, tuple(x.shape))
+            if key not in store:
                 g = torch.Generator().manual_seed(seed + zlib.crc32(name.encode()))
                 shape = [1 if d in mod.broadcast_dims else s for d, s in enumerate(x.shape)]
-                store[name] = torch.rand(shape, generator=g) < 1.0 - mod.rate
-            mod.keep = store[name].to(x.device)
+                store[key] = torch.rand(shape, generator=g) < 1.0 - mod.rate
+            mod.keep = store[key].to(x.device)
         handles.append(mod.register_forward_pre_hook(hook))
     return handles
 
@@ -2380,7 +2420,8 @@ def gan_roles(size=65, n=5) -> dict:
 
 def _fresh(module, masks, dev, dtype):
     """A copy of ``module`` on ``dev`` in ``dtype`` (channels-last on the
-    card) whose every Dropout takes the keep masks of ``masks``."""
+    card) whose every Dropout takes the keep masks of ``masks``
+    (fixed_keep_masks)."""
     m = copy.deepcopy(module).to(dev, dtype)
     for mod in m.modules():
         if hasattr(mod, "compute_dtype"):
@@ -2934,6 +2975,451 @@ def evaluation_phases(dev, root, model, wins) -> tuple:
     return errs, timing, results, phases
 
 
+# ----------------------------------------------------------- U2PL: 4u, 21
+
+# phase 4u's contrastive settings: the config's (256 queries, 50 negatives,
+# the thresholds and ranks), with max_enqueue and the bank's caps cut so that
+# a class's ring wraps within two semi steps at 65 px
+U2PL_4U = ContrastiveConfig(max_enqueue=48)
+U2PL_4U_CAPS = dict(bank_capacity=64, bank_class0_capacity=96)
+U2PL_LOSSES = ("loss", "sup_loss", "unsup_loss", "contra_loss")
+# the share of a semi step's decision pixels (pseudo-labels and the three
+# entropy masks) that the card's own teacher outputs may move against the
+# CPU's: near-ties of float32 values at an argmax or an order statistic; a
+# fault would move many more
+U2PL_FLIP_SHARE = 1e-3
+# phase 21's device time by family: TRAIN_FAMILIES with U2PL's sorts (the
+# OHEM threshold, the entropy percentiles, the class ranks) and top-k, and
+# the gathers and scatters of the anchors and the bank
+# (after the convolutions and products: cuDNN's wgrad kernels are "indexed")
+_PRODUCTS = [name for name, _ in TRAIN_FAMILIES].index("matrix products") + 1
+U2PL_FAMILIES = (TRAIN_FAMILIES[:_PRODUCTS] + (
+    ("sorts and top-k (OHEM, entropy percentiles, class ranks, key subsets)",
+     ("sort", "Sort", "radix", "Radix", "topk", "TopK", "bitonic")),
+    ("gathers and scatters (anchors, negatives, the bank)",
+     ("index", "Index", "gather", "scatter", "Scatter")),)
+    + tuple(f for f in TRAIN_FAMILIES[_PRODUCTS:] if f[0] != "OHEM sort"))
+
+
+class HostDraws(U2PLDraws):
+    """U2PLDraws whose uniforms come from CPU generators and are then moved
+    to ``device``: runs on the card and on the CPU with the same seeds draw
+    the same values (each device applies them to its own masks and
+    counts). The augmentation coin is fixed below 0.5: the cutmix is
+    taken."""
+
+    def __init__(self, device):
+        super().__init__(torch.device("cpu"), 11, 12, 13)
+        self.target = device
+
+    def _u(self, gen, n, dtype=torch.float64):
+        return super()._u(gen, n, dtype).to(self.target)
+
+    def coin(self):
+        return torch.full((), 0.25, dtype=torch.float64, device=self.target)
+
+
+U2PL_KINDS = ("sup", "semi (aliased, cutmix taken)", "semi (true_ema)")
+
+
+@contextlib.contextmanager
+def teacher_tape(teacher, replay=None):
+    """Inside the block, each call of ``teacher`` runs its own forward (its
+    BN statistics move as they would) and keeps a host copy of the outputs
+    in the yielded list; with ``replay`` (another run's list) it returns
+    that run's outputs of the same call instead, on this device in this
+    dtype, so that every mask and threshold computed from the teacher is
+    the other run's."""
+    tape, orig = [], teacher.forward
+
+    def forward(x):
+        out = orig(x)
+        tape.append({k: v.detach().double().cpu() for k, v in out.items()})
+        if replay is None:
+            return out
+        ref = replay[len(tape) - 1]
+        return {k: ref[k].to(v.device, v.dtype) for k, v in out.items()}
+
+    teacher.forward = forward
+    try:
+        yield tape
+    finally:
+        del teacher.forward
+
+
+def u2pl_decisions(tape, n_l=2, epoch_frac=0.5):
+    """A semi step's decisions from a teacher tape (its eval-mode call on
+    the unlabeled batch, then its training-mode call on the joint one):
+    the pseudo-labels (argmax), and the entropy masks at the unsupervised
+    drop percentile and at alpha_t and 100 - alpha_t of the step
+    (ops/u2pl.py), each a flat bool tensor, as float32 computes them."""
+    pred_u, pred_all = tape[0]["pred"].float(), tape[1]["pred"].float()
+    entropy = softmax_entropy(pred_all[n_l:])
+    valid = torch.ones_like(entropy, dtype=torch.bool)
+    alpha = np.float32(20.0) * (np.float32(1.0) - np.float32(epoch_frac))
+    drop = np.float32(100.0) - np.float32(20.0) * (np.float32(1.0) - np.float32(epoch_frac))
+    out = {"pseudo-labels": torch.argmax(pred_u, -1).flatten()}
+    for name, p, keep_above in (("unsupervised drop", drop, True), ("low entropy", alpha, False),
+                                ("high entropy", np.float32(100.0) - alpha, True)):
+        t = masked_percentile(entropy, valid, torch.tensor(p))
+        out[name] = ((entropy >= t) if keep_above else (entropy <= t)).flatten()
+    return out
+
+
+def u2pl_moved(state, dev, dtype):
+    """A copy of a U2PLState on ``dev`` in ``dtype``: both models (an aliased
+    teacher stays aliased), the optimizer's state, the bank (float32)."""
+    st = copy.deepcopy(state)
+    for m in (st.student.model, st.teacher):
+        m.to(dev, dtype)
+        for mod in m.modules():
+            if hasattr(mod, "compute_dtype"):
+                mod.compute_dtype = dtype
+        if dev.type == "cuda":
+            m.to(memory_format=torch.channels_last)
+    for per_param in st.student.optimizer.state.values():
+        for k, v in per_param.items():
+            if torch.is_tensor(v):
+                per_param[k] = v.to(dev, dtype)
+    b = st.bank
+    b.buffer, b.counts, b.ptrs = b.buffer.to(dev), b.counts.to(dev), b.ptrs.to(dev)
+    return st
+
+
+def u2pl_record(state, metrics=None) -> tuple:
+    """(metrics, the student's and the teacher's state_dict, the bank's
+    counts, pointers and keys, whether the teacher's parameters are the
+    student's tensors), on the CPU in float64."""
+    def host(module):
+        return {k: v.detach().double().cpu().clone() for k, v in module.state_dict().items()}
+
+    params = dict(state.student.model.named_parameters())
+    aliased = all(p is params[n] for n, p in state.teacher.named_parameters())
+    b = state.bank
+    return ({k: v.detach().double().cpu() for k, v in (metrics or {}).items()},
+            host(state.student.model), host(state.teacher),
+            (b.counts.cpu().clone(), b.ptrs.cpu().clone(), b.keys.double().cpu().clone()),
+            aliased)
+
+
+def u2pl_step(state, kind, batch, dev, dtype, draws) -> tuple:
+    """Phase 4u's step ``kind`` on ``state`` (in place): the sup step; the
+    sync and a semi step; or sync_teacher(alias=False) and a true_ema semi
+    step (rel_step 3: decay 0.75). The config's SGD and OHEM with the aux
+    loss at 0.4, the cutmix, epoch_frac 0.5, ``draws`` (HostDraws).
+    Returns ``u2pl_record`` after it."""
+    common = (CLASSES, U2PL_4U, 255, 0.4, 0.7, 100000, "cutmix", 80.0, 1.0, 0.99)
+    sup, semi = make_u2pl_steps(*common)
+    _, semi_ema = make_u2pl_steps(*common, true_ema=True)
+    batch = {r: _on(b, dev, dtype) for r, b in batch.items()}
+    if kind == "sup":
+        _, m = sup(state, batch, None)
+    else:
+        aliased = kind.startswith("semi (aliased")
+        sync_teacher(state, alias=aliased)
+        step, rel = (semi, 0) if aliased else (semi_ema, 3)
+        _, m = step(state, batch, None, 0.5, rel, draws=draws)
+    return u2pl_record(state, m)
+
+
+def step_rel_l2(a: dict, b: dict, p0: dict) -> dict:
+    """Per tensor that ``b``'s step moved: ||a - b|| / ||b - p0|| (L2), how
+    far ``a``'s change is from ``b``'s relative to the size of ``b``'s
+    change as a whole."""
+    out = {}
+    for k, ref in b.items():
+        scale = float(torch.linalg.vector_norm(ref - p0[k])) if ref.numel() else 0.0
+        if scale > 0.0:
+            out[k] = float(torch.linalg.vector_norm(a[k] - ref)) / scale
+    return out
+
+
+def check_u2pl_step_card_vs_cpu(size=65, card=torch.device("cuda")) -> None:
+    """Phase 4u: PSPNet-50 with its aux and rep heads and a teacher of its
+    own init, ``size`` px, batch 2 + 2, float32 with TF32 off, the config's
+    SGD (lr 1e-4, the heads at 10x). The trajectory sup step, sync + semi
+    step, sync(alias=False) + true_ema semi step runs on the CPU in
+    float32; each step also runs on the card and on the CPU in float64
+    from a copy of the CPU's state before it, so the devices differ by that
+    step's rounding only; every dropout takes one keep mask a module and
+    input shape and every draw comes from CPU generators (HostDraws), the
+    same for all. The teacher's outputs, from which every mask, threshold
+    and pseudo-label is computed, are the CPU's on every run
+    (``teacher_tape``): the card's own are held within 1e-4 of their scale
+    or STEP_FLOOR_FACTOR times the CPU float32 outputs' distance to
+    float64's, and the pixels where they would have moved a decision (near-ties at an
+    argmax or an order statistic) are named, at most U2PL_FLIP_SHARE of
+    them. After each step: losses within rtol 1e-4; every student
+    and teacher parameter and BN statistic within 1e-4 of its tensor's
+    largest magnitude or, where larger, within STEP_FLOOR_FACTOR times the
+    CPU float32 step's distance to float64; what the step changed, per
+    tensor, within STEP_FLOOR_FACTOR times the CPU float32 change's L2
+    distance to float64's (never tighter than STEP_ABS), relative to the
+    change's L2 size (4t's rule, in L2: by the largest element, one
+    channel of a BN that normalises over 36 values, the PPM's 3x3 bin at
+    batch 4, moves by up to a quarter of its change between float32 and
+    float64 on one device, so a single sample's floor can be 100x too
+    tight there); the bank's counts and pointers equal and its
+    keys within 1e-4 of their scale; after the semi step the teacher's
+    parameters are the student's tensors on both, after the true_ema step
+    their own. (``card`` the CPU rehearses it.)"""
+    model = init_from_generator_(build_model("pspnet", classes=CLASSES, layers=50,
+                                             semisupervised=True),
+                                 torch.Generator().manual_seed(4))
+    teacher = init_from_generator_(build_model("pspnet", classes=CLASSES, layers=50,
+                                               semisupervised=True),
+                                   torch.Generator().manual_seed(5))
+    batches = []
+    for seed in (3, 8, 10):
+        lab, unl = train_batch(seed=seed, size=size), train_batch(seed=seed + 1, size=size)
+        batches.append({"l": {k: lab[k] for k in ("frame_current", "label")},
+                        "u": {"frame_current": unl["frame_current"]}})
+    masks, cpu = {}, torch.device("cpu")
+    s = _fresh(model, masks, cpu, torch.float32)
+    opt, sched = make_optimizer(s, 1e-4, 10)
+    state = create_u2pl_state(s, opt, sched, _fresh(teacher, masks, cpu, torch.float32),
+                              num_classes=CLASSES, max_enqueue=U2PL_4U.max_enqueue,
+                              **U2PL_4U_CAPS)
+    log(f"  {U2PL_4U}; caps {U2PL_4U_CAPS}")
+    bad, contra = [], []
+    for kind, batch in zip(U2PL_KINDS, batches):
+        t0 = time.perf_counter()
+        _, s0, t0d, _, _ = u2pl_record(state)
+        on_card, in_f64 = (u2pl_moved(state, card, torch.float32),
+                           u2pl_moved(state, cpu, torch.float64))
+        with teacher_tape(state.teacher) as tape:
+            mh, sh, th, bh, ah = u2pl_step(state, kind, batch, cpu, torch.float32,
+                                           HostDraws(cpu))
+        with teacher_tape(on_card.teacher, tape) as card_tape:
+            mc, sc, tc, bc, ac = u2pl_step(on_card, kind, batch, card, torch.float32,
+                                           HostDraws(card))
+        with teacher_tape(in_f64.teacher, tape) as f64_tape:
+            m64, s64, t64, b64, _ = u2pl_step(in_f64, kind, batch, cpu, torch.float64,
+                                              HostDraws(cpu))
+        contra.append(float(mh["contra_loss"]))
+        # the card's own teacher outputs against the CPU's, which every run
+        # used, within 1e-4 of their scale or STEP_FLOOR_FACTOR times the CPU
+        # float32 outputs' distance to float64's own; the decisions they would
+        # have moved are named
+        t_ratio, t_err = {}, {}
+        for i, (o, r, f) in enumerate(zip(card_tape, tape, f64_tape)):
+            for k in r:
+                scale = float(r[k].abs().max())
+                t_err[f"{i}.{k}"] = float((o[k] - r[k]).abs().max()) / scale
+                t_ratio[f"{i}.{k}"] = t_err[f"{i}.{k}"] / max(
+                    1e-4, STEP_FLOOR_FACTOR * float((r[k] - f[k]).abs().max()) / scale)
+        t_key = max(t_ratio, key=t_ratio.get)
+        flips, flipped, pixels = {}, 0, 0
+        if kind != "sup":
+            own, ref = u2pl_decisions(card_tape), u2pl_decisions(tape)
+            for name, r in ref.items():
+                where = torch.nonzero(own[name] != r).flatten().tolist()
+                flips[name] = where[:8] + (["..."] if len(where) > 8 else [])
+                flipped, pixels = flipped + len(where), pixels + r.numel()
+        rel = {k: abs(float(mc[k]) - float(mh[k])) / max(abs(float(mh[k])), 1e-30)
+               for k in U2PL_LOSSES if float(mh[k]) or float(mc[k])}
+        d, limit, e, e_limit = {}, {}, {}, {}
+        for net, c, h, f, p0 in (("s", sc, sh, s64, s0), ("t", tc, th, t64, t0d)):
+            for k, ref in h.items():
+                scale = float(ref.abs().max()) if ref.numel() else 0.0
+                if scale == 0.0 or "num_batches" in k:
+                    continue
+                d[f"{net}.{k}"] = float((c[k] - ref).abs().max()) / scale
+                limit[f"{net}.{k}"] = max(1e-4, STEP_FLOOR_FACTOR
+                                          * float((ref - f[k]).abs().max()) / scale)
+            ch, floor = step_rel_l2(c, h, p0), step_rel_l2(h, f, p0)
+            for k, v in ch.items():
+                e[f"{net}.{k}"] = v
+                e_limit[f"{net}.{k}"] = max(STEP_ABS, STEP_FLOOR_FACTOR * floor.get(k, 0.0))
+        key = max(d, key=lambda k: d[k] / limit[k])
+        counts_eq = torch.equal(bc[0], bh[0]) and torch.equal(bc[1], bh[1])
+        kscale = float(bh[2].abs().max())
+        keys_err = float((bc[2] - bh[2]).abs().max()) / kscale if kscale else 0.0
+        f64_counts = torch.equal(b64[0], bh[0]) and torch.equal(b64[1], bh[1])
+        want_alias = kind.startswith("semi (aliased")
+        log(f"  {kind} ({time.perf_counter() - t0:.1f} s): losses card | CPU | float64 "
+            + "; ".join(f"{k} {float(mc[k]):.7f} | {float(mh[k]):.7f} | {float(m64[k]):.7f}"
+                        for k in U2PL_LOSSES)
+            + f"; largest card vs CPU rel {max(rel.values()):.2e} (tol 1e-4)")
+        log(f"    closest to its limit: {key} {d[key]:.2e} of its largest magnitude (limit "
+            f"{limit[key]:.2e}); bank counts {bc[0].tolist()} pointers {bc[1].tolist()} "
+            f"equal to the CPU's: {counts_eq} (float64's too: {f64_counts}); keys "
+            f"{keys_err:.2e} of their scale (tol 1e-4); teacher aliased card {ac} CPU {ah}")
+        log(f"    the teacher's outputs (the CPU's used on every run): the card's own within "
+            f"{t_err[t_key]:.2e} of their scale at call.output {t_key}, {t_ratio[t_key]:.2f} of "
+            f"its limit (1e-4, or {STEP_FLOOR_FACTOR:.0f}x the CPU float32 outputs' distance "
+            f"to float64's)"
+            + (f"; pixels where they would have moved a decision {flips} (at most "
+               f"{U2PL_FLIP_SHARE:.0e} of {pixels})" if flips else ""))
+        worst = sorted(e, key=lambda k: e[k] / e_limit[k], reverse=True)[:4]
+        card_floor, by_max = {}, {}
+        for net, c, h, f, p0 in (("s", sc, sh, s64, s0), ("t", tc, th, t64, t0d)):
+            card_floor.update({f"{net}.{k}": v for k, v in step_rel_l2(c, f, p0).items()})
+            by_max.update({f"{net}.{k}": v for k, v in step_rel(c, h, p0).items()})
+        mkey = max(by_max, key=by_max.get)
+        log("    the step's change (L2) closest to its limit, card vs CPU | limit | card vs "
+            "float64: " + "; ".join(f"{k} {e[k]:.2e} | {e_limit[k]:.2e} | "
+                                    f"{card_floor.get(k, 0.0):.2e}" for k in worst)
+            + f"; by the largest element (4t's form, for the record) {mkey} {by_max[mkey]:.2e}")
+        if not (max(rel.values()) <= 1e-4 and t_ratio[t_key] <= 1.0
+                and flipped <= U2PL_FLIP_SHARE * pixels
+                and all(d[k] <= limit[k] for k in d)
+                and all(e[k] <= e_limit[k] for k in e) and counts_eq and keys_err <= 1e-4
+                and ac == ah == want_alias):
+            bad.append(kind)
+    counts, ptrs = state.bank.counts, state.bank.ptrs
+    wrapped = bool((ptrs < counts).any())
+    log(f"  {len(masks)} dropout masks; a ring wrapped: {wrapped} (counts {counts.tolist()}, "
+        f"pointers {ptrs.tolist()}); contra_loss of the semi steps {contra[1:]}")
+    if bad or not wrapped or not all(contra[1:]):
+        raise AssertionError(f"U2PL card vs CPU: {bad}; wrapped {wrapped}; contra {contra}")
+
+
+def u2pl_phase(dev, root, tag, layers=101, crop=873, epochs=4, steps=2, profiled=2,
+               frame_hw=FRAME_HW) -> dict:
+    """Phase 21: ``contrastive`` at full width through run_contrastive_fit
+    on the tree at ``root``: PSPNet-``layers`` with its aux and rep heads
+    (random weights, the teacher its own init), the repository's
+    configuration (configs/train_contrastive.yaml over train_base.yaml:
+    float32, batch 2 + 2, the ``crop`` through round_train, SGD lr 1e-4 and
+    weight decay 1e-4 with the heads at 10x, OHEM with the aux loss at 0.4,
+    the contrastive settings, the (5, 50000, 256) bank, cutmix, drop
+    percent 80, ema_decay 0.99, the aliased teacher), ``epochs`` epochs of
+    ``steps`` steps with sup_only_epoch 1: 2 sup steps, the sync, then the
+    semi steps (2 warm-up, 2 timed, the last ``profiled`` under
+    torch.profiler), validation every second epoch over one crop. Checks:
+    no launch of K1, K2, K3 or K1-bwd; every loss finite; contra_loss
+    non-zero on a semi step; no class count above its cap and none growing
+    by more than max_enqueue a step; the teacher's parameters the
+    student's tensors after every semi step; its BN statistics its own;
+    validation served the teacher; no copy to the host in the profiled
+    window but the epoch's one read-back of the metrics."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    model = init_from_generator_(build_model("pspnet", classes=CLASSES, layers=layers,
+                                             semisupervised=True),
+                                 torch.Generator().manual_seed(7))
+    cfg = FitConfig(train_h=crop, train_w=crop, resize_h=frame_hw[0], resize_w=frame_hw[1],
+                    max_epochs=epochs, limit_train_batches=steps, sup_only_epoch=1,
+                    check_val_every_n_epoch=2, limit_val_batches=1)
+    total_steps = epochs * steps
+    log(f"  PSPNet-{layers} with aux and rep heads "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters), "
+        f"{round_train(crop, 'pspnet')} px crops, batch {cfg.batch_size} + {cfg.batch_size}; "
+        f"{cfg.contrastive}; caps {cfg.bank_capacity} / {cfg.bank_class0_capacity}")
+    records = []
+    tp = tprofile(activities=[ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+
+    def on_step(step, state, metrics):
+        params = dict(state.student.model.named_parameters())
+        aliased = all(p is params[n] for n, p in state.teacher.named_parameters())
+        records.append((metrics, state.bank.counts.clone(), state.teacher_synced and aliased))
+        if step == total_steps - profiled - 1:
+            _sync(dev)
+            tp.start()
+        if step == total_steps - 1:
+            _sync(dev)
+            tp.stop()
+
+    prof = PhaseProfiler(sync=lambda: _sync(dev))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = run_contrastive_fit(model, root, cfg, profiler=prof, on_step=on_step, device=dev)
+    total = time.perf_counter() - t0
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    state = summary["state"]
+    step_s = prof.recorded_durations["train_step"]
+    load_s = prof.recorded_durations["train_load"]
+    sup_ms = [1e3 * v for v in step_s[:steps]]
+    semi_ms = [1e3 * v for v in step_s[steps:]]
+    timed = semi_ms[2:len(semi_ms) - profiled]
+    wait_ms = 1e3 * statistics.median(load_s[steps + 2:total_steps - profiled])
+    host = [({k: float(v) for k, v in m.items() if v.dim() == 0}, c.cpu(), a)
+            for m, c, a in records]
+    caps = torch.tensor(state.bank.caps)
+    grow = [int((h[1] - p[1]).max()) for p, h in zip(host, host[1:])]
+    finite = all(np.isfinite(v) for m, _, _ in host for v in m.values())
+    contra = [m["contra_loss"] for m, _, _ in host[steps:]]
+    over = any(bool((c > caps).any()) for _, c, _ in host)
+    aliased = [a for _, _, a in host[steps:]]
+    s_bn = {k: v for k, v in state.student.model.state_dict().items() if "running" in k}
+    t_bn = {k: v for k, v in state.teacher.state_dict().items() if "running" in k}
+    bn_own = sum(not torch.equal(v, t_bn[k]) for k, v in s_bn.items())
+    params = dict(state.student.model.named_parameters())
+    equal = all(torch.equal(p, params[n]) for n, p in state.teacher.named_parameters())
+    log(f"  {summary['steps']} steps in {total:.1f} s with validation; ms a sup step "
+        f"{[round(v, 1) for v in sup_ms]}, a semi step {[round(v, 1) for v in semi_ms]} "
+        f"(timed median {statistics.median(timed):.1f}); the step's wait for its batches "
+        f"{wait_ms:.1f} ms (median); peak memory {peak_gb:.2f} GB")
+    log(f"  losses by step (loss, sup, unsup, contra): "
+        f"{[[round(m[k], 5) for k in U2PL_LOSSES] for m, _, _ in host]}; bank counts "
+        f"{host[-1][1].tolist()} of caps {list(state.bank.caps)}, the most a class grew in a "
+        f"step {max(grow)} (max_enqueue {cfg.contrastive.max_enqueue}); teacher aliased "
+        f"after every semi step {aliased}, its parameters equal to the student's {equal}, its "
+        f"BN statistics its own in {bn_own} of {len(s_bn)} tensors; validation served "
+        f"{summary['served']}; launches {counts}")
+    if any(counts.values()) or not finite or not any(contra) or over \
+            or max(grow) > cfg.contrastive.max_enqueue or not all(aliased) or not equal \
+            or bn_own != len(s_bn) or [s for _, s in summary["served"]] != ["teacher"] * 2:
+        raise AssertionError("phase 21's checks failed")
+
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    trace = os.path.join(PROFILE_DIR, f"{tag}_trace.json")
+    tp.export_chrome_trace(trace)
+    with open(os.path.join(PROFILE_DIR, f"{tag}_profile.txt"), "w") as f:
+        f.write(tp.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    # the window opens after the step before it, so it holds that epoch's one
+    # read-back of its steps' metrics: every other copy to the host would be
+    # a step's
+    d2h = sum(e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"] for e in events)
+    read_back = steps * len(records[-1][0])
+    dt = device_time(trace, profiled)
+    span = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)) / 1e3 \
+        if kernels else float("nan")
+    spans = {name: [] for name, _ in U2PL_FAMILIES}
+    for e in kernels:
+        fam = next(name for name, pats in U2PL_FAMILIES if any(p in e["name"] for p in pats))
+        spans[fam].append((e["ts"], e["ts"] + e["dur"]))
+    families = {name: union_us(v) / (1e3 * profiled) for name, v in spans.items()}
+    log(f"  profiler over {profiled} semi steps: device busy {dt['busy_ms']:.1f} ms a step of "
+        f"{span / profiled:.1f} (idle share {1 - dt['busy_ms'] * profiled / span:.1%}); "
+        f"{dt['kernels']:.0f} kernels a step; ms a step by family "
+        f"{ {k: round(v, 3) for k, v in families.items()} }")
+    log(f"  copies to the host in the window: {d2h} (the epoch's metric read-back: "
+        f"{read_back})")
+    log(tp.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+    if dev.type == "cuda" and d2h != read_back:
+        raise AssertionError(f"a U2PL step read back to the host: {d2h} copies")
+    return {"launches": counts, "step_ms": statistics.median(timed), "sup_ms": sup_ms,
+            "semi_ms": semi_ms, "wait_ms": wait_ms, "peak_gb": peak_gb,
+            "busy_ms": dt["busy_ms"], "span_ms": span / profiled, "family_ms": families,
+            "layers": layers}
+
+
+def u2pl_phases(dev, root=None) -> dict:
+    """Phases 4u and 21 on phase 14's tree (written when ``root`` is None);
+    returns phase 21's result by tag."""
+    log("[4u] one sup step, the sync, one semi step and a true_ema semi step on the card "
+        "against the CPU (PSPNet-50 with aux and rep heads, 65 px, float32, batch 2 + 2)")
+    t0 = time.perf_counter()
+    check_u2pl_step_card_vs_cpu()
+    log(f"  phase 4u: {time.perf_counter() - t0:.1f} s")
+    root = root or train_tree()
+    t0 = time.perf_counter()
+    tag = "pspnet101_f32_contrastive"
+    log(f"[21] contrastive through run_contrastive_fit: PSPNet-101 float32 with aux and rep "
+        f"heads, 873 px crops of {FRAME_HW[0]}x{FRAME_HW[1]} frames")
+    result = u2pl_phase(dev, root, tag)
+    log(f"  phase 21: {time.perf_counter() - t0:.1f} s")
+    return {tag: result}
+
+
 def test_alone() -> int:
     """--test: build csrc/warp.cu and the codec, write phase 14's tree, then
     phases 18, 18k, 18c and 5p."""
@@ -3317,6 +3803,15 @@ def gan_alone() -> int:
     return 0
 
 
+def u2pl_alone() -> int:
+    """--u2pl: build csrc/warp.cu and the codec, then phases 4u and 21."""
+    log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}")
+    build_kernels(["warp", "jpeg"])
+    u2pl_phases(torch.device("cuda"))
+    return 0
+
+
 def train_alone() -> int:
     """--train: build csrc/warp.cu and the codec, then phases 3t, 4t and 14-17."""
     log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
@@ -3343,6 +3838,8 @@ def main() -> int:
         return gan_alone()
     if sys.argv[1:] == ["--test"]:
         return test_alone()
+    if sys.argv[1:] == ["--u2pl"]:
+        return u2pl_alone()
     if sys.argv[1:2] == ["--k1"] and len(sys.argv) <= 3:
         return k1_alone(*sys.argv[2:])
     t_start = time.perf_counter()
@@ -3478,6 +3975,11 @@ def main() -> int:
     paths.update(test_paths)
     paths["pspnet_bf16_phases"] = phases
     log(f"  phases 18, 18k, 18c, 5p: {time.perf_counter() - t_eval:.1f} s")
+    t_u2pl = time.perf_counter()
+    u2pl_paths = u2pl_phases(dev, os.path.join(DATA_DIR, "train_tree"))
+    paths.update(u2pl_paths)
+    train_paths.update(u2pl_paths)
+    log(f"  phases 4u, 21: {time.perf_counter() - t_u2pl:.1f} s")
 
     sources = {"grid_sample_cuda": ("floodseg_tpu/ops/pallas_warp.py:70", "warp.cu"),
                "grid_sample_backward_cuda": (

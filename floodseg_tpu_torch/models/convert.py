@@ -46,6 +46,13 @@ Segmenter ViT (timm's and Segmenter's names):
 s4GAN discriminator:
   conv1..conv4 -> layers.{0,3,6,9}; final (a linear head) -> final.0
 
+U2PL's rep head (a tree with ``rep``): the reference's ModelRepresentation
+layout that ``_export_role`` emits, the model's keys under ``model.`` and
+the head under ``rep.``: PSPNet ``model.*`` + rep conv1/bn/conv2 ->
+``rep.{0,1,4}``; DeepLabV3 ``model.model.*`` + ``rep.{0,1,4}``; the ViT
+``model.model.*`` + the rep MaskTransformer under ``rep.rep_model.``
+(models/semi.py builds these modules).
+
 ``load_jax_variables`` strict-loads the result into a port model.
 """
 
@@ -113,18 +120,22 @@ def _trunk(out: dict, bp: Mapping, bs: Mapping, stem: Mapping[str, str],
 # The top-level key of the JAX variable tree that each state_dict key comes
 # from, by the key's first component, as the bridge below names them:
 # PSPNet's trunk (layer0 the stem, layer1-4) is the JAX ``backbone``, the
-# DeepLabV3 trunk keeps ``backbone.``, the ViT's parts keep their names.
+# DeepLabV3 trunk keeps ``backbone.``, the ViT's parts keep their names;
+# the U2PL rep head is ``rep`` in every architecture.
 JAX_TOP_LEVEL = {
     "pspnet": {**{f"layer{i}": "backbone" for i in range(5)},
-               "ppm": "ppm", "cls": "cls", "aux": "aux"},
+               "ppm": "ppm", "cls": "cls", "aux": "aux", "rep": "rep"},
     "deeplabv3": {"backbone": "backbone", "classifier": "classifier",
-                  "aux_classifier": "aux_classifier"},
-    "vit": {"encoder": "encoder", "decoder": "decoder"},
+                  "aux_classifier": "aux_classifier", "rep": "rep"},
+    "vit": {"encoder": "encoder", "decoder": "decoder", "rep": "rep"},
 }
 
 
 def jax_top_level(arch: str, key: str) -> str:
-    """The JAX tree's top-level key of the port's state_dict ``key``."""
+    """The JAX tree's top-level key of the port's state_dict ``key`` (a
+    rep-head model's ``model.`` prefixes are seen through)."""
+    while key.startswith("model."):
+        key = key[len("model."):]
     first = key.split(".", 1)[0]
     try:
         return JAX_TOP_LEVEL[arch][first]
@@ -138,6 +149,7 @@ _TV_STEM = {"conv1": "conv1", "bn1": "bn1"}
 
 
 def _pspnet(p: Mapping, s: Mapping) -> Dict[str, np.ndarray]:
+    """A PSPNet tree; with ``rep``, the ModelRepresentation layout."""
     out: Dict[str, np.ndarray] = {}
     _trunk(out, p["backbone"], s["backbone"], _PSP_STEM)
     for i in range(len([k for k in p["ppm"] if k.endswith("_conv")])):
@@ -146,7 +158,18 @@ def _pspnet(p: Mapping, s: Mapping) -> Dict[str, np.ndarray]:
     _seg_head(out, p["cls"], s["cls"], "cls")
     if "aux" in p:
         _seg_head(out, p["aux"], s["aux"], "aux")
-    return out
+    return _with_rep(out, p, s, "model.")
+
+
+def _with_rep(out: Dict[str, np.ndarray], p: Mapping, s: Mapping,
+              prefix: str) -> Dict[str, np.ndarray]:
+    """``out`` itself for a tree without ``rep``; else ``out`` under
+    ``prefix`` plus the CNN rep head as ``rep.{0,1,4}``."""
+    if "rep" not in p:
+        return out
+    wrapped = {prefix + k: v for k, v in out.items()}
+    _seg_head(wrapped, p["rep"], s["rep"], "rep")
+    return wrapped
 
 
 def _deeplabv3(p: Mapping, s: Mapping) -> Dict[str, np.ndarray]:
@@ -167,7 +190,7 @@ def _deeplabv3(p: Mapping, s: Mapping) -> Dict[str, np.ndarray]:
         _conv_bn(out, p["aux_classifier"], s["aux_classifier"], "conv", "bn",
                  "aux_classifier.0", "aux_classifier.1")
         _conv(out, p["aux_classifier"]["classifier"], "aux_classifier.4")
-    return out
+    return _with_rep(out, p, s, "model.model.")
 
 
 def _linear(out: dict, p: Mapping, key: str) -> None:
@@ -219,7 +242,11 @@ def _vit(p: Mapping) -> Dict[str, np.ndarray]:
         _linear(out, p["decoder"]["head"], "decoder.head")
     else:
         _mask_transformer(out, p["decoder"], "decoder.")
-    return out
+    if "rep" not in p:
+        return out
+    wrapped = {"model.model." + k: v for k, v in out.items()}
+    _mask_transformer(wrapped, p["rep"], "rep.rep_model.")
+    return wrapped
 
 
 def _discriminator(p: Mapping) -> Dict[str, np.ndarray]:
@@ -231,8 +258,9 @@ def _discriminator(p: Mapping) -> Dict[str, np.ndarray]:
 
 
 def from_jax_variables(variables: Mapping) -> Dict[str, np.ndarray]:
-    """JAX PSPNet, DeepLabV3, SegmenterViT or S4GANDiscriminator variables
-    -> the reference's state_dict (numpy)."""
+    """JAX PSPNet, DeepLabV3, SegmenterViT (each with or without the U2PL
+    rep head) or S4GANDiscriminator variables -> the reference's state_dict
+    (numpy)."""
     p = variables["params"]
     if "final" in p and "conv1" in p:
         return _discriminator(p)

@@ -127,11 +127,14 @@ class DeepLabV3(nn.Module):
         """DeepLabHead only (the flow path's decoder), NHWC; no upsampling."""
         return _nhwc(self.classifier(_nchw(f))).contiguous()
 
-    def forward(self, x: torch.Tensor) -> dict:
+    def forward(self, x: torch.Tensor, with_feature: bool = False):
+        """NHWC images -> {"pred"} (and "aux" in training); with
+        ``with_feature`` also the trunk's c4 that the U2PL rep head reads,
+        as (out, f)."""
         h, w = x.shape[1], x.shape[2]
         f, feats = self.encode(x)
         out = {"pred": resize_bilinear(self.decode(f), (h, w), align_corners=False)}
         if self.training and hasattr(self, "aux_classifier"):
             aux = _nhwc(self.aux_classifier(_nchw(feats["c3"])))
             out["aux"] = resize_bilinear(aux, (h, w), align_corners=False)
-        return out
+        return (out, f) if with_feature else out

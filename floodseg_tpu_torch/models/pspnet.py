@@ -107,7 +107,10 @@ class PSPNet(ResNetFeatures):
         """cls head only (the flow path's decoder), NHWC; no upsampling."""
         return _nhwc(self.cls(_nchw(f))).contiguous()
 
-    def forward(self, x: torch.Tensor) -> dict:
+    def forward(self, x: torch.Tensor, with_feature: bool = False):
+        """NHWC images -> {"pred"} (and "aux" in training); with
+        ``with_feature`` also the PPM output that the U2PL rep head reads,
+        as (out, f)."""
         h, w = x.shape[1], x.shape[2]
         if (h - 1) % 8 or (w - 1) % 8:
             raise ValueError(f"PSPNet input must be 8k+1, got {(h, w)}")
@@ -121,4 +124,4 @@ class PSPNet(ResNetFeatures):
             if self.zoom_factor != 1:
                 aux = resize_bilinear(aux, (h, w), align_corners=True)
             out["aux"] = aux
-        return out
+        return (out, f) if with_feature else out

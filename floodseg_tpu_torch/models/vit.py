@@ -275,10 +275,15 @@ class SegmenterViT(nn.Module):
         return self.decoder(f.reshape(b, gh * gw, d),
                             (gh * self.patch_size, gw * self.patch_size))
 
-    def forward(self, x: torch.Tensor) -> dict:
+    def forward(self, x: torch.Tensor, with_feature: bool = False):
+        """NHWC images -> {"pred"}; with ``with_feature`` also the
+        encoder's tokens (B, 1 + N, D) of the padded frame, which the U2PL
+        rep head reads, as (out, tokens)."""
         h_ori, w_ori = x.shape[1], x.shape[2]
         x = self._pad(x)
         h, w = x.shape[1], x.shape[2]
-        masks = self.decoder(self.encoder(x)[:, 1:], (h, w))
+        feats = self.encoder(x)
+        masks = self.decoder(feats[:, 1:], (h, w))
         masks = resize_bilinear(masks, (h, w), align_corners=False)
-        return {"pred": masks[:, :h_ori, :w_ori]}
+        out = {"pred": masks[:, :h_ori, :w_ori]}
+        return (out, feats) if with_feature else out

@@ -1,15 +1,16 @@
 """Training and testing from files on one device (counterpart of the
-``supervised``, ``flow_supervised``, ``gan`` and ``flow_gan`` wiring of the
-JAX package's ``Runner.fit`` and ``Runner.test``,
-floodseg_tpu/cli/runner.py).
+``supervised``, ``flow_supervised``, ``gan``, ``flow_gan`` and
+``contrastive`` wiring of the JAX package's ``Runner.fit`` and
+``Runner.test``, floodseg_tpu/cli/runner.py).
 
 ``run_fit`` (single-frame ``supervised``), ``run_flow_fit``
-(``flow_supervised``) and ``run_gan_fit`` (s4GAN, ``gan`` and
-``flow_gan``) build what ``Runner.fit`` builds for their method without
-the config layer, the logger and the checkpoints: the method's transforms
-with their sizing rules, the train dataset of each role (``SemDataset``
-or ``FlowDataset``: "l", and for s4GAN "u" and "gt", split as
-``Runner._train_datasets`` splits them), each behind its own infinite,
+(``flow_supervised``), ``run_gan_fit`` (s4GAN, ``gan`` and ``flow_gan``)
+and ``run_contrastive_fit`` (U2PL, ``contrastive``) build what
+``Runner.fit`` builds for their method without the config layer, the
+logger and the checkpoints: the method's transforms with their sizing
+rules, the train dataset of each role (``SemDataset`` or ``FlowDataset``:
+"l", and for the semi-supervised methods "u", and for s4GAN "gt", split
+as ``Runner._train_datasets`` splits them), each behind its own infinite,
 shuffled, ``drop_last`` loader that copies each batch to the device, the
 optimizers and poly schedules, and the method's train and eval steps. All
 run one loop (``_fit_loop``): the epochs' steps, validation every
@@ -25,11 +26,12 @@ JAX config's ``apply_links`` links it (``round_train``).
 as ``Runner.test`` does: the single-frame methods through the multi-scale
 flip sliding window (train/evaluate.py::multi_scale_test), the flow
 methods through the crop sliding window (flow_sliding_window_test) or,
-with ``no_cropping``, the whole-frame eval step.
+with ``no_cropping``, the whole-frame eval step; ``contrastive`` serves
+the U2PL teacher once it is synced, the student before.
 """
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +52,14 @@ from floodseg_tpu_torch.data.transforms import (
 from floodseg_tpu_torch.models.discriminator import S4GANDiscriminator
 from floodseg_tpu_torch.models.layers import init_from_generator_
 from floodseg_tpu_torch.ops.metrics import MetricMeter, intersection_and_union
+from floodseg_tpu_torch.train.contrastive import (
+    ContrastiveConfig,
+    U2PLState,
+    create_u2pl_state,
+    make_u2pl_steps,
+    served_model,
+    sync_teacher,
+)
 from floodseg_tpu_torch.train.evaluate import (
     flow_sliding_window_test,
     make_crop_forward,
@@ -72,8 +82,9 @@ from floodseg_tpu_torch.train.supervised import make_eval_step, make_loss_fn, ma
 
 @dataclass
 class FitConfig:
-    """The settings ``run_fit``, ``run_flow_fit`` and ``run_gan_fit`` read,
-    named as in the JAX package's config (model.*, data.*, trainer.*).
+    """The settings ``run_fit``, ``run_flow_fit``, ``run_gan_fit`` and
+    ``run_contrastive_fit`` read, named as in the JAX package's config
+    (model.*, data.*, trainer.*).
     ``train_h`` and ``train_w`` are the crop before ``round_train``, which
     the run applies for the model's architecture as ``apply_links`` does.
     ``aux_weight`` is the single-frame method's (0 turns the aux loss off).
@@ -89,7 +100,17 @@ class FitConfig:
     (configs/train_flow_gan.yaml): lr 1e-4, weight_decay 1e-4, lr_D 1e-4,
     433 px crops, frame_delta 25; both threshold_st 0.6, lambda_fm 0.1,
     lambda_st 1.0. The generator's loss is plain CE (``loss`` is not
-    read)."""
+    read).
+
+    The U2PL settings (``contrastive``), with the JAX config's defaults:
+    ``contrastive`` (the ContrastiveCfg step settings), ``bank_capacity``,
+    ``bank_class0_capacity`` and ``true_ema`` (model.contrastive.*),
+    ``sup_only_epoch``, ``unsupervised_apply_aug``,
+    ``unsupervised_drop_percent``, ``unsupervised_loss_weight`` and
+    ``ema_decay``. configs/train_contrastive.yaml sets lr 1e-4,
+    weight_decay 1e-4, OHEM, the single-frame 873 px crop and PSPNet-101
+    (the JAX config's default depth); the loss is always OHEM plus the aux
+    loss at ``aux_weight`` (``loss`` is not read)."""
     data_variant: Optional[str] = "all"
     classes: int = 5
     ignore_index: int = 255
@@ -139,6 +160,15 @@ class FitConfig:
     lambda_fm: float = 0.1
     lambda_st: float = 1.0
     data_ratio: float = 1.0
+    contrastive: ContrastiveConfig = field(default_factory=ContrastiveConfig)
+    bank_capacity: int = 30000
+    bank_class0_capacity: int = 50000
+    true_ema: bool = False
+    sup_only_epoch: int = 2
+    unsupervised_apply_aug: str = "cutmix"
+    unsupervised_drop_percent: float = 80.0
+    unsupervised_loss_weight: float = 1.0
+    ema_decay: float = 0.99
 
 
 def round_train(x: int, arch: str) -> int:
@@ -292,7 +322,8 @@ def _state(model: nn.Module, cfg: FitConfig, steps_per_epoch: int,
 def _fit_loop(cfg: FitConfig, state, train_fn: Callable, eval_fn: Callable,
               loaders: Mapping[str, DataLoader], val_loader: DataLoader,
               steps_per_epoch: int, profiler: Optional[PhaseProfiler],
-              on_step: Optional[Callable[[int, object, Dict], None]]) -> Dict:
+              on_step: Optional[Callable[[int, object, Dict], None]],
+              on_epoch: Optional[Callable[[int], None]] = None) -> Dict:
     """The epochs: ``train_fn(state, batch, generator)`` for each step,
     metrics read back once an epoch, validation through ``eval_fn(state,
     batch)`` and early stopping on the validation mIoU. ``state`` is the
@@ -306,7 +337,8 @@ def _fit_loop(cfg: FitConfig, state, train_fn: Callable, eval_fn: Callable,
     state. ``profiler`` records each step's wait for its batches
     (``train_load``) and the step (``train_step``; give the profiler a sync
     to time the device); ``on_step(global_step, state, metrics)`` runs
-    after each step."""
+    after each step; ``on_epoch(epoch)`` before each epoch's first step
+    (the host counter of a method whose step depends on the epoch)."""
     profiler = profiler or PhaseProfiler()
     epochs: List[Dict] = []
     best_metric, best_epoch, wait_count = -np.inf, -1, 0
@@ -315,6 +347,8 @@ def _fit_loop(cfg: FitConfig, state, train_fn: Callable, eval_fn: Callable,
     its = {k: iter(v) for k, v in loaders.items()}
     try:
         for epoch in range(cfg.max_epochs):
+            if on_epoch is not None:
+                on_epoch(epoch)
             step_metrics = []
             for _ in range(steps_per_epoch):
                 with profiler.profile("train_load"):
@@ -441,6 +475,7 @@ def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = No
 
 FLOW_METHODS = ("flow_supervised", "flow_gan")
 GAN_METHODS = ("gan", "flow_gan")
+SEMI_METHODS = GAN_METHODS + ("contrastive",)
 
 
 def _set_items(ds, items) -> None:
@@ -451,14 +486,16 @@ def _set_items(ds, items) -> None:
 
 def role_datasets(cfg: FitConfig, data_root: str, method: str,
                   transform: Optional[Callable] = None) -> Dict[str, object]:
-    """The s4GAN ``method``'s train datasets by role, as
+    """The train datasets by role of a semi-supervised ``method`` (s4GAN's
+    ``gan`` and ``flow_gan``, U2PL's ``contrastive``), as
     ``Runner._train_datasets`` and ``Runner._train_loaders`` make them:
     "l" over train.txt and "u" over train_u.txt when it exists; otherwise
     train.txt split into disjoint "l" and "u" sets by ``data_ratio`` with
     ``np.random.default_rng(seed).permutation``, raising when either side
-    would be empty; "gt" over the labeled set's items. Flow roles are
-    ``FlowDataset`` of the role's type; single-frame ones ``SemDataset``,
-    the "u" role's the "test" split (its labels are zeros)."""
+    would be empty; for s4GAN also "gt" over the labeled set's items. Flow
+    roles are ``FlowDataset`` of the role's type; single-frame ones
+    ``SemDataset``, the "u" role's the "test" split (its labels are
+    zeros)."""
     flow = method in FLOW_METHODS
 
     def dataset(list_name: str, role: str):
@@ -484,6 +521,8 @@ def role_datasets(cfg: FitConfig, data_root: str, method: str,
                 f"non-empty: adjust data_ratio or provide train_u.txt")
         _set_items(ds_l, [items[i] for i in perm[:size_l]])
         _set_items(ds_u, [items[i] for i in perm[size_l:]])
+    if method not in GAN_METHODS:
+        return {"l": ds_l, "u": ds_u}
     ds_gt = dataset("train.txt", "gt")
     _set_items(ds_gt, ds_l.items)
     return {"l": ds_l, "u": ds_u, "gt": ds_gt}
@@ -554,6 +593,77 @@ def run_gan_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = Non
                      _val_loader(cfg, val_ds, dev), steps_per_epoch, profiler, on_step)
 
 
+def run_contrastive_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
+                        teacher: Optional[nn.Module] = None,
+                        pretrained: Optional[Mapping[str, torch.Tensor]] = None,
+                        profiler: Optional[PhaseProfiler] = None,
+                        on_step: Optional[Callable[[int, U2PLState, Dict], None]] = None,
+                        draws: Optional[Callable[[int], object]] = None,
+                        device: DeviceLike = None) -> Dict:
+    """Train ``model`` (a port architecture with its rep head,
+    ``build_model(..., semisupervised=True)``) on the tree at ``data_root``
+    as the JAX package's ``Runner.fit`` does for ``contrastive`` (U2PL) on
+    one device: the "l" and "u" roles' single-frame loaders
+    (``role_datasets``, ``train_loaders``), the student's SGD over the trunk
+    and head groups (the rep head a head), the teacher (``teacher``, or a
+    copy of the architecture with weights drawn from a generator seeded
+    with ``seed + 1``; ``pretrained`` goes on the student only), the bank
+    on the device; ``sup_step`` in the epochs before ``sup_only_epoch``,
+    then ``sync_teacher`` once (aliased unless ``true_ema``) and
+    ``semi_step`` with ``epoch_frac`` = epoch / max_epochs and the steps
+    since the boundary from host counters; validation serves the teacher
+    once synced and the student before. ``draws(global_step)`` gives a
+    semi step's draws object (None: the step's own, train/contrastive.py).
+    The summary is ``_fit_loop``'s, its "state" the ``U2PLState``, and
+    "served" which model each validation pass served, (epoch, "teacher" or
+    "student")."""
+    cfg = cfg or FitConfig()
+    dev = resolve_device(device)
+    _prepare(model, dev)
+    tf = sem_transforms(cfg, model_arch(model))
+    roles = role_datasets(cfg, data_root, "contrastive", tf["train"])
+    val_ds = SemDataset("val", data_root, _list_path(data_root, cfg.data_variant, "val.txt"),
+                        tf["val"])
+    loaders, steps_per_epoch = train_loaders(cfg, roles, dev)
+    opt, schedule = make_optimizer(model, cfg.lr, _max_iter(cfg, steps_per_epoch),
+                                   cfg.optimizer.lower(), cfg.momentum, cfg.weight_decay,
+                                   cfg.power)
+    state = create_u2pl_state(model, opt, schedule, teacher, cfg.bank_capacity,
+                              cfg.bank_class0_capacity, cfg.classes,
+                              cfg.contrastive.max_enqueue, pretrained, seed=cfg.seed + 1)
+    sup_step, semi_step = make_u2pl_steps(
+        cfg.classes, cfg.contrastive, cfg.ignore_index, cfg.aux_weight, cfg.ohem_thresh,
+        cfg.ohem_min_kept, cfg.unsupervised_apply_aug, cfg.unsupervised_drop_percent,
+        cfg.unsupervised_loss_weight, cfg.ema_decay, cfg.true_ema)
+    host = {"epoch": 0, "i": 0, "step": 0}
+    served: List[Tuple[int, str]] = []
+
+    def on_epoch(epoch):
+        host["epoch"], host["i"] = epoch, 0
+
+    def train_fn(state, batch, rng):
+        e, i, step = host["epoch"], host["i"], host["step"]
+        host["i"], host["step"] = i + 1, step + 1
+        if e < cfg.sup_only_epoch:
+            return sup_step(state, batch, rng)
+        if not state.teacher_synced:
+            sync_teacher(state, alias=not cfg.true_ema)
+        rel = max((e - cfg.sup_only_epoch) * steps_per_epoch + i, 0)
+        return semi_step(state, batch, rng, e / cfg.max_epochs, rel,
+                         None if draws is None else draws(step))
+
+    def eval_fn(state, batch):
+        m = served_model(state)
+        if not served or served[-1][0] != host["epoch"]:
+            served.append((host["epoch"], "teacher" if m is state.teacher else "student"))
+        return make_eval_step(m, cfg.classes, cfg.ignore_index)(state, batch)
+
+    summary = _fit_loop(cfg, state, train_fn, eval_fn, loaders, _val_loader(cfg, val_ds, dev),
+                        steps_per_epoch, profiler, on_step, on_epoch)
+    summary["served"] = served
+    return summary
+
+
 _TIME_MAJOR_KEYS = ("mvs_left", "mvs_right")  # (T, B, ...)
 
 
@@ -575,8 +685,11 @@ def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
              device: DeviceLike = None) -> Dict:
     """Evaluate ``model`` (its own weights, in eval mode) on the tree at
     ``data_root`` as the JAX package's ``Runner.test`` does for ``method``
-    on one device: "supervised" and "gan" take the single-frame route,
-    "flow_supervised" and "flow_gan" the flow route.
+    on one device: "supervised", "gan" and "contrastive" take the
+    single-frame route, "flow_supervised" and "flow_gan" the flow route.
+    For "contrastive" ``model`` may be a ``U2PLState``: the test serves
+    the model ``Runner._eval_variables`` picks, the teacher once synced,
+    the student before.
 
     For each of test.txt and test2.txt under the list variant that exists:
     the test transform's dataset (``FlowDataset("test", type="l")`` or
@@ -594,11 +707,13 @@ def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
     sample, with the sliding window's own regions inside).
     """
     cfg = cfg or FitConfig()
-    if method not in ("supervised",) + FLOW_METHODS + GAN_METHODS:
-        raise ValueError(f"run_test takes 'supervised', 'flow_supervised', 'gan' or "
-                         f"'flow_gan', got {method!r}")
+    if method not in ("supervised",) + FLOW_METHODS + SEMI_METHODS:
+        raise ValueError(f"run_test takes 'supervised', 'flow_supervised', 'gan', 'flow_gan' "
+                         f"or 'contrastive', got {method!r}")
     if cfg.limit_test_batches == 0:
         return {}
+    if isinstance(model, U2PLState):
+        model = served_model(model)
     flow = method in FLOW_METHODS
     dev = resolve_device(device)
     arch = model_arch(model)

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from floodseg_tpu_torch.models.convert import jax_top_level
+from floodseg_tpu_torch.models.semi import unwrap
 
 # top-level keys of the JAX tree that belong to the pretrained trunk (LR x1);
 # everything else is a head (LR x10)
@@ -44,8 +45,9 @@ def poly_schedule(base_lr: float, max_iter: int, power: float = 0.9) -> Callable
 
 
 def model_arch(model: nn.Module) -> str:
-    """The architecture of a port model, from its module tree."""
-    names = {n.split(".", 1)[0] for n, _ in model.named_children()}
+    """The architecture of a port model, from its module tree (through the
+    U2PL wrapper, ``ModelRepresentation``)."""
+    names = {n.split(".", 1)[0] for n, _ in unwrap(model).named_children()}
     if "ppm" in names:
         return "pspnet"
     if "classifier" in names:
@@ -57,7 +59,8 @@ def model_arch(model: nn.Module) -> str:
 
 def head_mask(model: nn.Module) -> Dict[str, bool]:
     """Parameter name -> True for a head (10x LR) parameter: every parameter
-    whose JAX top-level key (``models/convert.py``'s map) is not the trunk."""
+    whose JAX top-level key (``models/convert.py``'s map) is not the trunk
+    (the U2PL rep head is a head)."""
     arch = model_arch(model)
     return {name: jax_top_level(arch, name) not in BACKBONE_KEYS
             for name, _ in model.named_parameters()}

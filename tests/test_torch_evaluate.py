@@ -380,12 +380,13 @@ def test_run_test_matches_jax_runner(vit, tree, monkeypatch, method, no_cropping
 
 def test_run_test_limit_zero_returns_nothing(vit, tree):
     """limit_test_batches = 0 turns the pass off, as in Runner.test, for
-    every method the port tests; a method it does not test raises."""
+    every method the port tests (contrastive too); a method that does not
+    exist raises."""
     jm, variables, port = vit
     cfg = FitConfig(train_h=CROP, train_w=CROP, limit_test_batches=0)
     assert run_test(port, tree, cfg, device="cpu") == {}
     assert _jax_runner_test(jm, variables, tree, cfg, "flow_supervised", []) == {}
-    for method in ("supervised", "gan", "flow_gan"):
+    for method in ("supervised", "gan", "flow_gan", "contrastive"):
         assert run_test(port, tree, cfg, method, device="cpu") == {}
-    with pytest.raises(ValueError, match="supervised"):
-        run_test(port, tree, cfg, "contrastive", device="cpu")
+    with pytest.raises(ValueError, match="contrastive"):
+        run_test(port, tree, cfg, "mean_teacher", device="cpu")

@@ -371,7 +371,7 @@ def test_port_imports_no_jax():
     """No module of floodseg_tpu_torch, and not chip_smoke.py, imports jax,
     floodseg_tpu, PIL, cv2 or imageio; checked in a fresh interpreter's
     sys.modules after importing every module of the port and the test,
-    profiling and s4GAN entry points by name."""
+    profiling, s4GAN and U2PL entry points by name."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import floodseg_tpu_torch as pkg\n"
@@ -381,8 +381,10 @@ def test_port_imports_no_jax():
         "from floodseg_tpu_torch.train import (make_crop_forward, make_flow_phase_fns,\n"
         "    make_flow_test_crop_fn, multi_scale_test, profile_predict_phases, run_test,\n"
         "    sliding_window_predict, flow_sliding_window_test, run_gan_fit,\n"
-        "    make_gan_train_step, role_datasets, train_loaders)\n"
-        "from floodseg_tpu_torch.models import S4GANDiscriminator\n"
+        "    make_gan_train_step, role_datasets, train_loaders, run_contrastive_fit,\n"
+        "    make_u2pl_steps, create_u2pl_state, sync_teacher, contra_memobank_loss)\n"
+        "from floodseg_tpu_torch.models import S4GANDiscriminator, with_rep\n"
+        "from floodseg_tpu_torch.ops.u2pl import U2PLDraws, generate_unsup_data\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'floodseg_tpu', 'PIL', 'cv2', 'imageio'))\n"
@@ -392,7 +394,8 @@ def test_port_imports_no_jax():
         "          'models.deeplabv3', 'models.vit', 'ops.metrics', 'core.profiler',\n"
         "          'data.image', 'data.avi', 'data.dataset', 'data.loader',\n"
         "          'data.synthetic', 'data.transforms', 'train.evaluate',\n"
-        "          'train.predict', 'train.gan', 'models.discriminator'):\n"
+        "          'train.predict', 'train.gan', 'models.discriminator', 'ops.u2pl',\n"
+        "          'train.memory_bank', 'train.contrastive', 'models.semi'):\n"
         "    assert 'floodseg_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
