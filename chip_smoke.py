@@ -11,6 +11,7 @@
     python3 chip_smoke.py --test   # the evaluation phases alone: 18, 18k, 18c and 5p
     python3 chip_smoke.py --gan    # the s4GAN phases alone: 4g, 19 and 20
     python3 chip_smoke.py --u2pl   # the U2PL phases alone: 4u and 21
+    python3 chip_smoke.py --cli    # phase 22 alone: the CLI on the card
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -31,9 +32,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    -> 65x65), on random data in both align modes, at an odd shape whose C
    is not a 16-channel vector, with values far past the clip range, and
    on every finite bf16 value through an identity resize at four scales;
-   K1 also on a grid that clamps every point to one corner. K1 must be
-   bit-equal to its plain version (by integer view), K2 agree to the bit
-   (tolerance float32 1e-5, bf16 1 ulp); K3's int8 outputs must be equal.
+   K1 also on a grid that clamps every point to one corner. K1 and K2 must
+   be bit-equal to their plain versions (by integer view); K3's int8
+   outputs must be equal.
    Then each kernel's time on the main path's inputs (CUDA events, median,
    L2 flushed and the host's enqueue hidden behind a sleep kernel before
    each launch; K1 on the chain's head grid and on the identity grid of
@@ -283,8 +284,23 @@ Then U2PL (the contrastive method), after evaluation:
    count above its cap, none growing by more than max_enqueue a step; the
    teacher's parameters the student's tensors after every semi step, its
    BN statistics its own; validation served the teacher; no step copies
-   to the host (the profiled window holds only the epoch's read-back).
-13. Last (after phase 21): a JSON line {"kernels": [...]} (each kernel's
+   to the host (the profiled window, the last epoch's steps without any
+   epoch's read-back, traces kernels and no copy).
+22. The CLI in process on the card (floodseg_tpu_torch.cli.main; ``run``
+   is ``main`` returning its Runner): PSPNet-50 flow_supervised from
+   configs/{train_base,train_flow_supervised,dataset_flow,pspnet}.yaml on
+   phase 14's tree (433 px crops, n = 25, 1072x1920 predict frames, as the
+   configs give them), 2 epochs of 2 steps, one val and one test batch:
+   ``fit`` (checkpoints, then the test and the crop-route predict on the
+   best one), ``test --ckpt_path <run>/checkpoints/last``, ``predict`` on
+   that checkpoint with no_cropping and the int8 decoder. Each
+   subcommand's wall time and launches on a line. Checks: K1, K1-bwd, K2
+   and K3 each launched; the state restore_best gives and the one the test
+   restores equal, bit for bit, the states the fit saved at those epochs;
+   the predict maps equal run_flow_predict's on the same weights, pixel
+   for pixel; metrics.json has the keys the JAX Runner writes. Peak memory
+   beside the card's name and power limit.
+13. Last (after phase 22): a JSON line {"kernels": [...]} (each kernel's
    max_abs_err is its largest over every check; max_abs_err_by_dtype gives
    the largest in float32 and in bf16 apart), then the nvidia-smi line, then the last line {"ok": true, "device": {...}}.
 """
@@ -354,6 +370,8 @@ from floodseg_tpu_torch.train import (
     AUX_KEYS,
     ContrastiveConfig,
     FitConfig,
+    FitHooks,
+    default_fit_config,
     TrainState,
     create_u2pl_state,
     crop_offsets,
@@ -406,7 +424,6 @@ CLASSES = 5
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
-F32_TOL = 1e-5
 
 
 def log(*a):
@@ -422,39 +439,15 @@ def nvidia_smi_line() -> str:
 
 # ---------------------------------------------------------------- checks
 
-def bf16_ulps(got: torch.Tensor, ref: torch.Tensor) -> float:
-    """Largest |got - ref| in units of ref's bf16 ulp."""
-    g, r = got.float(), ref.float()
-    mag = r.abs().clamp_min(2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return float(((g - r).abs() / ulp).max())
-
-
-def compare(name, got, ref, dtype) -> float:
-    """Hold a kernel's output against its plain version: float32 within
-    1e-5, bf16 within 1 bf16 ulp. Returns the max abs error."""
-    err = float((got.float() - ref.float()).abs().max())
-    if dtype == torch.float32:
-        ok, detail = err <= F32_TOL, f"max_abs_err {err:.3e} (tol {F32_TOL})"
-    else:
-        ulps = bf16_ulps(got, ref)
-        ok, detail = ulps <= 1.0, f"max_abs_err {err:.3e}, {ulps:.2f} bf16 ulp (tol 1 ulp)"
-    log(f"  {name}: {detail} -> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"{name} disagrees with its plain version: {detail}")
-    return err
-
-
 def bits_differ(got: torch.Tensor, ref: torch.Tensor) -> int:
     """Elements whose bits differ (float32 or bf16, by integer view)."""
     bits = torch.int32 if got.dtype == torch.float32 else torch.int16
     return int((got.contiguous().view(bits) != ref.contiguous().view(bits)).sum())
 
 
-def check_k1(name, x, grid, align) -> float:
-    """K1 bit-equal, by integer view, to its plain version on the same
-    inputs on the card. Returns the max abs error, 0."""
-    got, ref = grid_sample_cuda(x, grid, align), grid_sample(x, grid, align)
+def check_bits(name, got, ref) -> float:
+    """A kernel's output bit-equal, by integer view, to its plain version's
+    on the same inputs on the card. Returns the max abs error, 0."""
     differ = bits_differ(got, ref)
     err = float((got.float() - ref.float()).abs().max())
     log(f"  {name}: {differ} elements differ from the plain version, max_abs_err "
@@ -462,6 +455,11 @@ def check_k1(name, x, grid, align) -> float:
     if differ:
         raise AssertionError(f"{name} is not bit-equal to its plain version ({differ} elements)")
     return err
+
+
+def check_k1(name, x, grid, align) -> float:
+    """K1 bit-equal to its plain version (``check_bits``)."""
+    return check_bits(name, grid_sample_cuda(x, grid, align), grid_sample(x, grid, align))
 
 
 def note_err(errs: dict, kname: str, dtype: torch.dtype, err: float) -> None:
@@ -528,7 +526,8 @@ def k2_design(y0) -> str:
 
 
 def check_k2(x, y0, grids, y0w, gridsw, mvs, dg) -> float:
-    """K2 against its plain version in x's dtype: random grids at 32x32 and
+    """K2 bit-equal to its plain version (``check_bits``; its design does the
+    plain version's arithmetic in its order) in x's dtype: random grids at 32x32 and
     at the reference's 67x120 (the single-buffer design), the main path's
     own grids from K1's plain output, and two degenerate grids on the same
     input: every point clamped to the top-left corner (the four taps of a
@@ -543,9 +542,9 @@ def check_k2(x, y0, grids, y0w, gridsw, mvs, dg) -> float:
     for y, gs, what in ((y0, grids, "random"), (y0w, gridsw, "random"),
                         (y0m, mvs[1:], "main-path"), (y0m, corner, "corner"),
                         (y0m, ident, "identity")):
-        err = max(err, compare(
+        err = max(err, check_bits(
             f"K2 {tag} y0{tuple(y.shape)} {what} T={gs.shape[0]} ({k2_design(y)}, every step)",
-            warp_chain_cuda(y, gs), warp_chain_plain(y, gs), dtype))
+            warp_chain_cuda(y, gs), warp_chain_plain(y, gs)))
     return err
 
 
@@ -1369,7 +1368,7 @@ def check_crop_kernels(model, dev) -> tuple:
     first-window grid, K1 -> the 67x120 full-frame identity grid
     (align_corners=True, an up-sample) and onto a 67x120 grid clamped to one
     corner, K2 23 steps on (1, 27, 27, 4096) from K1's output; float32 and
-    bf16 against the plain versions (K1 bit-equal, K2 phase 3's tolerance),
+    bf16 against the plain versions (K1 and K2 bit-equal),
     then bf16 timed beside bound and F.grid_sample."""
     feat_hw, c = crop_feature_hw(model, dev)
     log(f"  PSPNet-50 encodes a {CROP} px crop to {feat_hw + (c,)}")
@@ -1392,9 +1391,9 @@ def check_crop_kernels(model, dev) -> tuple:
                 f"K1 {tag} x{tuple(x.shape)} {what} grid{tuple(grid.shape)} align={align}",
                 x, grid, align))
         y0 = grid_sample(x, ml[0], False)
-        note_err(errs, "warp_chain_cuda", dtype, compare(
+        note_err(errs, "warp_chain_cuda", dtype, check_bits(
             f"K2 {tag} y0{tuple(y0.shape)} crop grids T={ml.shape[0] - 1} ({k2_design(y0)})",
-            warp_chain_cuda(y0, ml[1:]), warp_chain_plain(y0, ml[1:]), dtype))
+            warp_chain_cuda(y0, ml[1:]), warp_chain_plain(y0, ml[1:])))
     flush, cpm = L2Flush(dev), sleep_cycles_per_ms()
     x = xs.to(dev, torch.bfloat16)
     xn = x.permute(0, 3, 1, 2).contiguous()
@@ -2018,7 +2017,7 @@ def train_steps(model, batch, masks, dev, dtype=torch.float32,
             ev = make_flow_eval_step(m, CLASSES, 255)(None, batch)
             out["eval"] = {k: v.cpu() for k, v in ev.items()}
             continue
-        opt, sched = make_optimizer(m, FitConfig.lr, 10)
+        opt, sched = make_optimizer(m, default_fit_config().lr, 10)
         if name == "supervised":
             step = make_train_step(m, make_loss_fn("ohem", 0.4, 255, 0.7, 100000), CLASSES, 255)
         else:
@@ -2210,9 +2209,9 @@ def train_phase(dev, root, tag, arch="pspnet", layers=50, method="flow_supervise
     gan = method in ("flow_gan", "gan")
     model = random_model(arch, torch.float32, seed=7, image_size=round_train(crop, arch),
                          with_aux=True, layers=layers)
-    cfg = FitConfig(train_h=crop, train_w=crop, resize_h=frame_hw[0], resize_w=frame_hw[1],
-                    frame_delta=n, max_epochs=1, limit_train_batches=steps,
-                    limit_val_batches=val_batches, **GAN_OPTIM.get(method, {}))
+    cfg = default_fit_config(train_h=crop, train_w=crop, resize_h=frame_hw[0], resize_w=frame_hw[1],
+                             frame_delta=n, max_epochs=1, limit_train_batches=steps,
+                             limit_val_batches=val_batches, **GAN_OPTIM.get(method, {}))
     disc = None
     if gan:
         disc = init_from_generator_(S4GANDiscriminator(CLASSES),
@@ -2609,8 +2608,9 @@ TEST_LIMIT = 2
 
 def test_config(method, no_cropping, crop, n=FRAME_DELTA, frame_hw=FRAME_HW,
                 limit=TEST_LIMIT) -> FitConfig:
-    return FitConfig(train_h=crop, train_w=crop, resize_h=frame_hw[0], resize_w=frame_hw[1],
-                     frame_delta=n, no_cropping=no_cropping, limit_test_batches=limit)
+    return default_fit_config(train_h=crop, train_w=crop, resize_h=frame_hw[0],
+                              resize_w=frame_hw[1], frame_delta=n, no_cropping=no_cropping,
+                              limit_test_batches=limit)
 
 
 def test_phase(model, dev, root, tag, method, no_cropping, crop, n=FRAME_DELTA,
@@ -3275,7 +3275,7 @@ def check_u2pl_step_card_vs_cpu(size=65, card=torch.device("cuda")) -> None:
         raise AssertionError(f"U2PL card vs CPU: {bad}; wrapped {wrapped}; contra {contra}")
 
 
-def u2pl_phase(dev, root, tag, layers=101, crop=873, epochs=4, steps=2, profiled=2,
+def u2pl_phase(dev, root, tag, layers=101, crop=873, epochs=4, steps=2,
                frame_hw=FRAME_HW) -> dict:
     """Phase 21: ``contrastive`` at full width through run_contrastive_fit
     on the tree at ``root``: PSPNet-``layers`` with its aux and rep heads
@@ -3286,22 +3286,25 @@ def u2pl_phase(dev, root, tag, layers=101, crop=873, epochs=4, steps=2, profiled
     the contrastive settings, the (5, 50000, 256) bank, cutmix, drop
     percent 80, ema_decay 0.99, the aliased teacher), ``epochs`` epochs of
     ``steps`` steps with sup_only_epoch 1: 2 sup steps, the sync, then the
-    semi steps (2 warm-up, 2 timed, the last ``profiled`` under
-    torch.profiler), validation every second epoch over one crop. Checks:
+    semi steps (2 warm-up, 2 timed, then the last epoch's under
+    torch.profiler: the window opens after the epoch before it has read its
+    metrics back and closes after the last step, before the last read-back),
+    validation every second epoch over one crop. Checks:
     no launch of K1, K2, K3 or K1-bwd; every loss finite; contra_loss
     non-zero on a semi step; no class count above its cap and none growing
     by more than max_enqueue a step; the teacher's parameters the
     student's tensors after every semi step; its BN statistics its own;
-    validation served the teacher; no copy to the host in the profiled
-    window but the epoch's one read-back of the metrics."""
+    validation served the teacher; the profiled window traced kernels and
+    no copy to the host."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     model = init_from_generator_(build_model("pspnet", classes=CLASSES, layers=layers,
                                              semisupervised=True),
                                  torch.Generator().manual_seed(7))
-    cfg = FitConfig(train_h=crop, train_w=crop, resize_h=frame_hw[0], resize_w=frame_hw[1],
-                    max_epochs=epochs, limit_train_batches=steps, sup_only_epoch=1,
-                    check_val_every_n_epoch=2, limit_val_batches=1)
+    cfg = default_fit_config(train_h=crop, train_w=crop, resize_h=frame_hw[0], resize_w=frame_hw[1],
+                             max_epochs=epochs, limit_train_batches=steps, sup_only_epoch=1,
+                             check_val_every_n_epoch=2, limit_val_batches=1)
     total_steps = epochs * steps
+    profiled = steps
     log(f"  PSPNet-{layers} with aux and rep heads "
         f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters), "
         f"{round_train(crop, 'pspnet')} px crops, batch {cfg.batch_size} + {cfg.batch_size}; "
@@ -3314,19 +3317,26 @@ def u2pl_phase(dev, root, tag, layers=101, crop=873, epochs=4, steps=2, profiled
         params = dict(state.student.model.named_parameters())
         aliased = all(p is params[n] for n, p in state.teacher.named_parameters())
         records.append((metrics, state.bank.counts.clone(), state.teacher_synced and aliased))
-        if step == total_steps - profiled - 1:
-            _sync(dev)
-            tp.start()
         if step == total_steps - 1:
             _sync(dev)
             tp.stop()
+
+    class OpenWindow(FitHooks):
+        """Starts the profiler once the epoch before the last has read its
+        metrics back, so the window holds the last epoch's steps alone."""
+
+        def end_epoch(self, epoch, state, record, global_step, early_stop):
+            if epoch == epochs - 2:
+                _sync(dev)
+                tp.start()
 
     prof = PhaseProfiler(sync=lambda: _sync(dev))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
-    summary = run_contrastive_fit(model, root, cfg, profiler=prof, on_step=on_step, device=dev)
+    summary = run_contrastive_fit(model, root, cfg, profiler=prof, on_step=on_step, device=dev,
+                                  hooks=OpenWindow())
     total = time.perf_counter() - t0
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
@@ -3374,11 +3384,9 @@ def u2pl_phase(dev, root, tag, layers=101, crop=873, epochs=4, steps=2, profiled
     with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    # the window opens after the step before it, so it holds that epoch's one
-    # read-back of its steps' metrics: every other copy to the host would be
-    # a step's
+    # the window holds the last epoch's steps and none of the epochs'
+    # read-backs, so any copy to the host in it is a step's
     d2h = sum(e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"] for e in events)
-    read_back = steps * len(records[-1][0])
     dt = device_time(trace, profiled)
     span = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)) / 1e3 \
         if kernels else float("nan")
@@ -3391,10 +3399,11 @@ def u2pl_phase(dev, root, tag, layers=101, crop=873, epochs=4, steps=2, profiled
         f"{span / profiled:.1f} (idle share {1 - dt['busy_ms'] * profiled / span:.1%}); "
         f"{dt['kernels']:.0f} kernels a step; ms a step by family "
         f"{ {k: round(v, 3) for k, v in families.items()} }")
-    log(f"  copies to the host in the window: {d2h} (the epoch's metric read-back: "
-        f"{read_back})")
+    log(f"  copies to the host in the window: {d2h}")
     log(tp.key_averages().table(sort_by="cuda_time_total", row_limit=15))
-    if dev.type == "cuda" and d2h != read_back:
+    if dev.type == "cuda" and not kernels:
+        raise AssertionError("the profiled window traced no kernel of the U2PL steps")
+    if dev.type == "cuda" and d2h:
         raise AssertionError(f"a U2PL step read back to the host: {d2h} copies")
     return {"launches": counts, "step_ms": statistics.median(timed), "sup_ms": sup_ms,
             "semi_ms": semi_ms, "wait_ms": wait_ms, "peak_gb": peak_gb,
@@ -3431,6 +3440,210 @@ def test_alone() -> int:
     model = random_model("pspnet", torch.bfloat16, seed=0)
     wins = clip_windows(FRAME_DELTA, (512, 512), 3, SIZE, dev)
     evaluation_phases(dev, root, model, wins)
+    return 0
+
+
+# ------------------------------------------------------------------ the CLI
+
+CLI_CONFIGS = ("train_base", "train_flow_supervised", "dataset_flow", "pspnet")
+# the keys the JAX Runner writes to metrics.json after a flow fit
+# (floodseg_tpu/cli/runner.py: fit's best validation, test, predict)
+CLI_METRICS = ({"best_val_miou", "best_epoch", "test_miou_epoch"}
+               | {f"test_{m}{k}_epoch" for m in ("miou", "macc", "accuracy") for k in (1, 2)}
+               | {f"test_miou{k}_epoch_classes" for k in (1, 2)}
+               | {"predict_time_mean", "predict_time_sum", "frames", "predict_miou1_epoch",
+                  "predict_macc1_epoch", "predict_accuracy1_epoch",
+                  "predict_miou1_epoch_classes", "frames_per_second"})
+CLI_KERNELS = ("grid_sample_cuda", "grid_sample_backward_cuda", "warp_chain_cuda",
+               "resize_quantize_int8_cuda")
+
+
+def cpu_payload(state) -> dict:
+    """A state's checkpoint payload (core/checkpoint.py) with every tensor
+    copied to the host, flattened by name."""
+    from floodseg_tpu_torch.core.checkpoint import state_payload
+    out = {}
+
+    def walk(prefix, v):
+        if isinstance(v, dict):
+            for k, x in v.items():
+                walk(f"{prefix}.{k}", x)
+        elif isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                walk(f"{prefix}[{i}]", x)
+        else:
+            out[prefix] = v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v
+
+    walk("", state_payload(state))
+    return out
+
+
+def payload_bits_differ(a: dict, b: dict) -> int:
+    """Entries of two flattened payloads that differ (tensors by integer
+    view)."""
+    if a.keys() != b.keys():
+        return len(a.keys() ^ b.keys())
+    n = 0
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor):
+            same = (x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+                x.reshape(-1).view(torch.uint8) if x.is_floating_point() else x,
+                y.reshape(-1).view(torch.uint8) if y.is_floating_point() else y))
+        else:
+            same = x == y
+        n += not same
+    return n
+
+
+def cli_phase(dev, root) -> dict:
+    """Phase 22: the CLI in process on the card, ``floodseg_tpu_torch.cli.main``
+    (``run`` is ``main`` returning its Runner), PSPNet-50 flow_supervised from
+    configs/{train_base,train_flow_supervised,dataset_flow,pspnet}.yaml on
+    phase 14's tree, 2 epochs of 2 steps, one val and one test batch: ``fit``
+    (the test and the crop-route predict after it), ``test --ckpt_path
+    <run>/checkpoints/last``, then ``predict`` on the same checkpoint with
+    ``--model.no_cropping true --model.int8_decode true``. Checks: K1,
+    K1-bwd, K2 and K3 each launched; the state restore_best and the test
+    restore equal, bit for bit, the states the fit saved at those epochs;
+    the CLI's predict maps equal run_flow_predict's on the same weights,
+    by integer equality; metrics.json has the JAX Runner's keys."""
+    from floodseg_tpu_torch.cli import main as cli
+    from floodseg_tpu_torch.cli.runner import Runner
+    from floodseg_tpu_torch.core.checkpoint import CheckpointManager
+
+    log_dir = os.path.join(os.path.dirname(DATA_DIR), "cli_logs")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    common = [a for n in CLI_CONFIGS
+              for a in ("--config", os.path.join(here, "configs", f"{n}.yaml"))]
+    common += ["--data.data_root", root, "--data.predict_v_id", "synth",
+               "--trainer.max_epochs", "2", "--trainer.limit_train_batches", "2",
+               "--trainer.limit_val_batches", "1", "--trainer.limit_test_batches", "1",
+               "--trainer.log_dir", log_dir, "--trainer.run_name", "cli"]
+    run_dir = os.path.join(log_dir, "cli")
+    last = os.path.join(run_dir, "checkpoints", "last")
+    saved, spent = {}, {}
+    # seconds in the Runner's parts (the model's draw on the host, the fit,
+    # its checkpoint saves, restores, the test and predict), and this
+    # phase's own copies of what the fit saves
+    timed = [(Runner, "_build_model"), (Runner, "fit"), (CheckpointManager, "save"),
+             (CheckpointManager, "restore"), (Runner, "test"), (Runner, "predict")]
+    originals = {(owner, name): getattr(owner, name) for owner, name in timed}
+
+    def timer(owner, name):
+        orig = originals[(owner, name)]
+
+        def wrapped(*args, **kwargs):
+            if name == "save":  # what the fit saves, kept on the host
+                t0 = time.perf_counter()
+                saved[args[2]] = cpu_payload(args[1])
+                spent["copies kept by this phase"] = (spent.get("copies kept by this phase", 0.0)
+                                                      + time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return wrapped
+
+    launches, seconds, parts = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for owner, name in timed:
+        setattr(owner, name, timer(owner, name))
+    try:
+        for name, argv in (
+                ("fit", ["fit", *common]),
+                ("test", ["test", *common, "--ckpt_path", last]),
+                ("predict", ["predict", *common, "--ckpt_path", last, "--model.no_cropping",
+                             "true", "--model.int8_decode", "true", "--model.save_images",
+                             "true", "--model.save_video", "false"])):
+            reset_launch_counts()
+            spent.clear()
+            t0 = time.perf_counter()
+            runner = cli.run(argv)
+            torch.cuda.synchronize(dev)
+            # the subcommand's own seconds: its wall time less this phase's
+            # host copies of what it saves, which the CLI does not make
+            copies = spent.get("copies kept by this phase", 0.0)
+            seconds[name] = time.perf_counter() - t0 - copies
+            launches[name] = launch_counts()
+            parts[name] = dict(spent)
+            log(f"  {name}: {seconds[name]:.1f} s wall less {copies:.2f} s of this phase's "
+                f"copies, launches {launches[name]}; seconds in "
+                f"{ {k: round(v, 2) for k, v in spent.items()} }")
+            if name == "fit":
+                with open(os.path.join(run_dir, "metrics.json")) as f:
+                    keys = set(json.load(f))
+                if keys != CLI_METRICS:
+                    raise AssertionError(f"metrics.json keys {sorted(keys ^ CLI_METRICS)} "
+                                         f"differ from the JAX Runner's")
+                best = os.path.basename(runner.ckpt.best_path)
+                best_epoch = int(best.split("-")[0][len("epoch="):])
+                differ = payload_bits_differ(cpu_payload(runner.state), saved[best_epoch])
+                epochs = runner.fit_summary["epochs"]
+                log(f"  restore_best ({best}): {differ} entries differ from the state the "
+                    f"fit saved at epoch {best_epoch}; metrics.json has the JAX Runner's "
+                    f"{len(keys)} keys; epochs' steps and read-back "
+                    f"{sum(e['epoch_time'] for e in epochs):.2f} s, last train loss "
+                    f"{epochs[-1]['train_loss']:.4f}; crop-route predict "
+                    f"{runner.logger.summary['predict_time_sum']:.2f} s over "
+                    f"{runner.logger.summary['frames']} frames")
+            elif name == "test":
+                differ = payload_bits_differ(cpu_payload(runner.state), saved[max(saved)])
+                log(f"  test --ckpt_path last: {differ} entries differ from the state the fit "
+                    f"saved at epoch {max(saved)}; test mIoU "
+                    f"{runner.logger.summary['test_miou_epoch']:.4f}")
+            if name in ("fit", "test") and differ:
+                raise AssertionError(f"phase 22's {name} restored a state that differs from "
+                                     f"the saved one ({differ} entries)")
+    finally:
+        for (owner, name), orig in originals.items():
+            setattr(owner, name, orig)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    # the same weights through run_flow_predict, on the same device
+    frame, out = runner.predict_size()
+    direct = os.path.join(log_dir, "direct")
+    model = runner.state.model
+    d, m = runner.cfg.data, runner.cfg.model
+    ref = run_flow_predict(model, model.state_dict(), root, "synth", frame_delta=d.frame_delta,
+                           resize=out, crop=(m.test_h, m.test_w), no_cropping=True,
+                           num_classes=m.classes, int8_decode=True,
+                           classes_ignore=d.data_classes_ignore, save_images_dir=direct,
+                           workers=d.workers, seed=runner.cfg.trainer.seed, frame_size=frame)
+    pngs = os.path.join(run_dir, "frames", "synth")
+    names = sorted(os.listdir(direct))
+    if sorted(os.listdir(pngs)) != names or not names:
+        raise AssertionError("the CLI's predict and run_flow_predict wrote different frames")
+    unequal = sum(int((imread(os.path.join(pngs, n)) != imread(os.path.join(direct, n))).sum())
+                  for n in names)
+    summary = runner.logger.summary
+    log(f"  predict (no_cropping, int8 decoder, frames {frame} -> maps {out}): "
+        f"{summary['frames']} frames, {summary['frames_per_second']:.2f} frames/s; "
+        f"{unequal} map pixels differ from run_flow_predict's on the same weights "
+        f"({ref['frames']} frames)")
+    if unequal or ref["frames"] != summary["frames"]:
+        raise AssertionError(f"phase 22's predict maps differ from run_flow_predict's "
+                             f"({unequal} pixels)")
+    total = {k: sum(c[k] for c in launches.values()) for k in CLI_KERNELS}
+    missing = [k for k in CLI_KERNELS if not total[k]]
+    if missing:
+        raise AssertionError(f"phase 22 launched no {missing}")
+    log(f"  phase 22 launches {total}; peak memory {peak:.2f} GB on {nvidia_smi_line()}")
+    del runner, model
+    torch.cuda.empty_cache()
+    return {"launches": total, "launches_by_subcommand": launches, "seconds": seconds,
+            "parts": parts, "peak_gb": peak}
+
+
+def cli_alone() -> int:
+    """--cli: build warp.cu, resize.cu and the codec, write phase 14's tree,
+    then phase 22."""
+    log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}")
+    build_kernels(["warp", "resize", "jpeg"])
+    log("[22] the CLI on the card: fit, test --ckpt_path last, predict (no_cropping, int8)")
+    cli_phase(torch.device("cuda"), train_tree())
     return 0
 
 
@@ -3840,6 +4053,8 @@ def main() -> int:
         return test_alone()
     if sys.argv[1:] == ["--u2pl"]:
         return u2pl_alone()
+    if sys.argv[1:] == ["--cli"]:
+        return cli_alone()
     if sys.argv[1:2] == ["--k1"] and len(sys.argv) <= 3:
         return k1_alone(*sys.argv[2:])
     t_start = time.perf_counter()
@@ -3980,6 +4195,10 @@ def main() -> int:
     paths.update(u2pl_paths)
     train_paths.update(u2pl_paths)
     log(f"  phases 4u, 21: {time.perf_counter() - t_u2pl:.1f} s")
+    t_cli = time.perf_counter()
+    log("[22] the CLI on the card: fit, test --ckpt_path last, predict (no_cropping, int8)")
+    paths["pspnet_f32_cli"] = cli_phase(dev, os.path.join(DATA_DIR, "train_tree"))
+    log(f"  phase 22: {time.perf_counter() - t_cli:.1f} s")
 
     sources = {"grid_sample_cuda": ("floodseg_tpu/ops/pallas_warp.py:70", "warp.cu"),
                "grid_sample_backward_cuda": (

@@ -10,7 +10,10 @@ Public functions keep the JAX package's NHWC layout. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"`` (core/device.py).
 
 Layout:
-  core/    device resolution, the float policy, the phase profiler
+  cli/     the command line (main.py: fit, validate, test, predict) and the
+           Runner over the train entry points (runner.py)
+  core/    device resolution, the float policy, the phase profiler; the
+           layered YAML config and its YAML reader, checkpoints, run logging
   csrc/    hand-written CUDA kernels for sm_90a (built with nvcc on first use)
            and the host image codec (jpeg.cpp, built with the host compiler)
   ops/     resize, pooling, the plain warp and its backward, int8
@@ -18,8 +21,8 @@ Layout:
            the kernels' wrappers (warp_kernels: K1, K1-bwd and the
            differentiable warp, K2; resize_kernels: K3)
   models/  PSPNet, DeepLabV3 and the Segmenter ViT, each in eval and
-           training mode, with the reference's torch key names, and the
-           weight bridge
+           training mode, with the reference's torch key names, the
+           weight bridge, and the reference checkpoints' import
   video/   block-MV grid algebra (with the crop renormalisation) and the
            keyframe-warp interpolator, predict and training
   train/   flow-predict program builders (whole windows, cached, crops), the

@@ -150,13 +150,15 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 def encode_png(arr: np.ndarray, palette: Optional[np.ndarray] = None) -> bytes:
     """uint8 (H, W) -> an L PNG, or a P PNG with ``palette`` (n, 3) uint8
-    (n <= 256). Filter 0 on every row."""
+    (n <= 256); uint8 (H, W, 3) -> an RGB PNG. Filter 0 on every row."""
     arr = np.ascontiguousarray(arr)
-    if arr.dtype != np.uint8 or arr.ndim != 2:
-        raise ValueError(f"encode_png takes uint8 (H, W), got {arr.dtype} {arr.shape}")
-    h, w = arr.shape
-    ctype = 3 if palette is not None else 0
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), arr], axis=1).tobytes()
+    rgb = arr.ndim == 3 and arr.shape[2] == 3 and palette is None
+    if arr.dtype != np.uint8 or not (arr.ndim == 2 or rgb):
+        raise ValueError(f"encode_png takes uint8 (H, W) or (H, W, 3), got {arr.dtype} "
+                         f"{arr.shape}")
+    h, w = arr.shape[:2]
+    ctype = 2 if rgb else 3 if palette is not None else 0
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, -1)], axis=1).tobytes()
     out = [_PNG_SIG, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))]
     if palette is not None:
         pal = np.asarray(palette, np.uint8).reshape(-1, 3)

@@ -16,8 +16,12 @@ from floodseg_tpu_torch.train.evaluate import (
     sliding_window_predict,
 )
 from floodseg_tpu_torch.train.fit import (
+    METHODS,
     FitConfig,
+    FitHooks,
+    default_fit_config,
     flow_transforms,
+    method_state,
     role_datasets,
     round_train,
     run_fit,
@@ -25,6 +29,7 @@ from floodseg_tpu_torch.train.fit import (
     run_flow_fit,
     run_gan_fit,
     run_test,
+    run_validate,
     sem_transforms,
     train_loaders,
 )
@@ -57,7 +62,7 @@ from floodseg_tpu_torch.train.predict import colorize, run_flow_predict, run_pre
 from floodseg_tpu_torch.train.state import TrainState, create_train_state
 from floodseg_tpu_torch.train.supervised import make_eval_step, make_loss_fn, make_train_step
 
-__all__ = ["AUX_KEYS", "ContrastiveConfig", "FitConfig", "MemoryBank", "TrainState", "U2PLState",
+__all__ = ["AUX_KEYS", "METHODS", "ContrastiveConfig", "FitConfig", "FitHooks", "MemoryBank", "TrainState", "U2PLState",
            "colorize", "contra_memobank_loss", "create_memory_bank", "create_train_state",
            "create_u2pl_state", "crop_offsets", "enqueue", "flow_g_forward",
            "flow_sliding_window_predict", "flow_sliding_window_test", "flow_train_forward",
@@ -65,9 +70,9 @@ __all__ = ["AUX_KEYS", "ContrastiveConfig", "FitConfig", "MemoryBank", "TrainSta
            "make_eval_step", "make_flow_eval_step", "make_flow_phase_fns",
            "make_flow_predict_crop_fn", "make_flow_predict_fn", "make_flow_test_crop_fn",
            "make_flow_train_step", "make_gan_train_step", "make_loss_fn", "make_optimizer",
-           "make_train_step", "make_u2pl_steps", "multi_scale_test", "one_hot_masks",
+           "make_train_step", "make_u2pl_steps", "method_state", "multi_scale_test", "one_hot_masks",
            "plain_train_forward", "poly_schedule", "profile_predict_phases", "role_datasets",
            "round_train", "run_contrastive_fit", "run_fit", "run_flow_fit", "run_flow_predict",
-           "run_gan_fit", "run_predict", "run_test", "sample_negatives", "sem_transforms",
+           "run_gan_fit", "run_predict", "run_test", "run_validate", "sample_negatives", "sem_transforms",
            "served_model", "single_frame_g_forward", "sliding_window_predict", "sync_teacher",
            "train_loaders"]

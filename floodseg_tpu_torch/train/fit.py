@@ -16,11 +16,12 @@ optimizers and poly schedules, and the method's train and eval steps. All
 run one loop (``_fit_loop``): the epochs' steps, validation every
 ``check_val_every_n_epoch`` epochs through the eval step, and the early
 stopping counter. Step metrics stay on the device and are read back once
-an epoch. ``FitConfig`` holds the settings, with the defaults of the
-repository's training configs (configs/train_flow_supervised.yaml, or
-train_supervised.yaml, over pspnet.yaml, train_base.yaml and
-dataset_flow.yaml); the crop size is linked to the architecture as the
-JAX config's ``apply_links`` links it (``round_train``).
+an epoch. ``FitConfig`` holds the settings; the CLI makes it from the
+layered YAML (core/config.py::fit_config), and its defaults are that
+layering's for flow_supervised PSPNet-50. The crop size is linked to the
+architecture as ``apply_links`` links it (``round_train``). ``FitHooks``
+is what the CLI's Runner (cli/runner.py) adds around the loop: resume,
+a checkpoint and the logger's records every epoch.
 
 ``run_test`` evaluates a model on the held-out lists (test.txt, test2.txt)
 as ``Runner.test`` does: the single-frame methods through the multi-scale
@@ -31,13 +32,15 @@ the U2PL teacher once it is synced, the student before.
 """
 
 import os
-from dataclasses import dataclass, field
+import time
+from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from floodseg_tpu_torch.core.config import default_fit_config, round_train
 from floodseg_tpu_torch.core.device import DeviceLike, resolve_device
 from floodseg_tpu_torch.core.profiler import PhaseProfiler
 from floodseg_tpu_torch.data.dataset import FlowDataset, SemDataset
@@ -82,101 +85,90 @@ from floodseg_tpu_torch.train.supervised import make_eval_step, make_loss_fn, ma
 
 @dataclass
 class FitConfig:
-    """The settings ``run_fit``, ``run_flow_fit``, ``run_gan_fit`` and
-    ``run_contrastive_fit`` read, named as in the JAX package's config
-    (model.*, data.*, trainer.*).
+    """The settings ``run_fit``, ``run_flow_fit``, ``run_gan_fit``,
+    ``run_contrastive_fit``, ``run_validate`` and ``run_test`` read, named
+    as in the config (model.*, data.*, trainer.*; core/config.py::FIELDS
+    says which field each comes from). It has no defaults of its own: the
+    CLI makes it from the layered YAML (core/config.py::fit_config), and
+    ``default_fit_config(**overrides)`` is the repository's flow_supervised
+    PSPNet-50 layering with overrides, the one source of the values a
+    caller does not set.
+
     ``train_h`` and ``train_w`` are the crop before ``round_train``, which
     the run applies for the model's architecture as ``apply_links`` does.
     ``aux_weight`` is the single-frame method's (0 turns the aux loss off).
     ``test_h`` and ``test_w`` are the test crop, None for the rounded train
     crop (the link ``apply_links`` makes).
 
-    The s4GAN settings, with the JAX config's defaults: ``lr_D`` (the
-    discriminator's Adam), ``threshold_st``, ``lambda_fm``, ``lambda_st``
-    and ``data_ratio`` (the labeled share of train.txt when there is no
-    train_u.txt). The repository's configs set, for ``gan``
-    (configs/train_gan.yaml): lr 2.5e-4, weight_decay 5e-4, lr_D 1e-4, and
-    the single-frame 873 px crop; for ``flow_gan``
-    (configs/train_flow_gan.yaml): lr 1e-4, weight_decay 1e-4, lr_D 1e-4,
-    433 px crops, frame_delta 25; both threshold_st 0.6, lambda_fm 0.1,
-    lambda_st 1.0. The generator's loss is plain CE (``loss`` is not
-    read).
+    The s4GAN settings: ``lr_D`` (the discriminator's Adam),
+    ``threshold_st``, ``lambda_fm``, ``lambda_st`` and ``data_ratio`` (the
+    labeled share of train.txt when there is no train_u.txt). The
+    generator's loss is plain CE (``loss`` is not read).
 
-    The U2PL settings (``contrastive``), with the JAX config's defaults:
-    ``contrastive`` (the ContrastiveCfg step settings), ``bank_capacity``,
-    ``bank_class0_capacity`` and ``true_ema`` (model.contrastive.*),
-    ``sup_only_epoch``, ``unsupervised_apply_aug``,
-    ``unsupervised_drop_percent``, ``unsupervised_loss_weight`` and
-    ``ema_decay``. configs/train_contrastive.yaml sets lr 1e-4,
-    weight_decay 1e-4, OHEM, the single-frame 873 px crop and PSPNet-101
-    (the JAX config's default depth); the loss is always OHEM plus the aux
-    loss at ``aux_weight`` (``loss`` is not read)."""
-    data_variant: Optional[str] = "all"
-    classes: int = 5
-    ignore_index: int = 255
-    classes_ignore: Sequence[int] = (5,)
-    train_h: int = 433
-    train_w: int = 433
-    resize_h: int = 1072
-    resize_w: int = 1920
-    resize_factor: float = 1.0
-    scale_min: float = 0.5
-    scale_max: float = 2.0
-    no_cropping: bool = False
-    frame_delta: int = 25
-    no_random_frame_delta: bool = False
-    feature_based: bool = True
-    no_warp: bool = False
-    no_interpolation_percentage: float = 0.0
-    aux_weight: float = 0.4
-    batch_size: int = 2
-    batch_size_val: int = 1
-    workers: int = 8
-    optimizer: str = "sgd"
-    lr: float = 1e-4
-    momentum: float = 0.9
-    weight_decay: float = 1e-4
-    power: float = 0.9
-    loss: str = "ohem"
-    ohem_thresh: float = 0.7
-    ohem_min_kept: int = 100000
-    max_epochs: int = 100
-    seed: int = 42
-    check_val_every_n_epoch: int = 1
-    early_stopping_patience: int = 10
-    early_stopping_min_delta: float = 1e-3
-    limit_train_batches: Optional[int] = None
-    limit_val_batches: Optional[int] = None
-    test_h: Optional[int] = None
-    test_w: Optional[int] = None
-    test_scales: Sequence[float] = (1.0,)
-    test_base_size: int = 2048
-    resize_factor_test: float = 1.0
-    batch_size_test: int = 1
-    workers_test: int = 8
-    limit_test_batches: Optional[int] = None
-    lr_D: float = 1e-4
-    threshold_st: float = 0.6
-    lambda_fm: float = 0.1
-    lambda_st: float = 1.0
-    data_ratio: float = 1.0
-    contrastive: ContrastiveConfig = field(default_factory=ContrastiveConfig)
-    bank_capacity: int = 30000
-    bank_class0_capacity: int = 50000
-    true_ema: bool = False
-    sup_only_epoch: int = 2
-    unsupervised_apply_aug: str = "cutmix"
-    unsupervised_drop_percent: float = 80.0
-    unsupervised_loss_weight: float = 1.0
-    ema_decay: float = 0.99
-
-
-def round_train(x: int, arch: str) -> int:
-    """The crop size an architecture takes: 8k + 1 for the CNNs, a
-    multiple of 32 (the patch) for the ViT (the JAX config's rule)."""
-    if arch == "vit":
-        return x // 32 * 32
-    return (x - 1) // 8 * 8 + 1
+    The U2PL settings (``contrastive``): ``contrastive`` (the ContrastiveCfg
+    step settings), ``bank_capacity``, ``bank_class0_capacity`` and
+    ``true_ema`` (model.contrastive.*), ``sup_only_epoch``,
+    ``unsupervised_apply_aug``, ``unsupervised_drop_percent``,
+    ``unsupervised_loss_weight`` and ``ema_decay``; the loss is always OHEM
+    plus the aux loss at ``aux_weight`` (``loss`` is not read)."""
+    data_variant: Optional[str]
+    classes: int
+    ignore_index: int
+    classes_ignore: Sequence[int]
+    train_h: int
+    train_w: int
+    resize_h: int
+    resize_w: int
+    resize_factor: float
+    scale_min: float
+    scale_max: float
+    no_cropping: bool
+    frame_delta: int
+    no_random_frame_delta: bool
+    feature_based: bool
+    no_warp: bool
+    no_interpolation_percentage: float
+    aux_weight: float
+    batch_size: int
+    batch_size_val: int
+    workers: int
+    optimizer: str
+    lr: float
+    momentum: float
+    weight_decay: float
+    power: float
+    loss: str
+    ohem_thresh: float
+    ohem_min_kept: int
+    max_epochs: int
+    seed: int
+    check_val_every_n_epoch: int
+    early_stopping_patience: int
+    early_stopping_min_delta: float
+    limit_train_batches: Optional[int]
+    limit_val_batches: Optional[int]
+    test_h: Optional[int]
+    test_w: Optional[int]
+    test_scales: Sequence[float]
+    test_base_size: int
+    resize_factor_test: float
+    batch_size_test: int
+    workers_test: int
+    limit_test_batches: Optional[int]
+    lr_D: float
+    threshold_st: float
+    lambda_fm: float
+    lambda_st: float
+    data_ratio: float
+    contrastive: ContrastiveConfig
+    bank_capacity: int
+    bank_class0_capacity: int
+    true_ema: bool
+    sup_only_epoch: int
+    unsupervised_apply_aug: str
+    unsupervised_drop_percent: float
+    unsupervised_loss_weight: float
+    ema_decay: float
 
 
 def crop_size(cfg: FitConfig, arch: str) -> Tuple[int, int]:
@@ -213,6 +205,25 @@ def sem_transforms(cfg: FitConfig, arch: str) -> Dict[str, Compose]:
     }
 
 
+def flow_frame_size(cfg: FitConfig, arch: str, factor: float) -> Tuple[int, int]:
+    """The frame size of the flow test transform (``factor`` =
+    ``resize_factor_test``) and of predict (``resize_factor_predict``):
+    (the val resize's height, the train resize's width) times ``factor``,
+    each side for the ViT a multiple of 32 (at least 32) so that the token
+    grid spans the frame. ``no_cropping`` trains on frames resized to 1.5x
+    the crop and validates on the crop; otherwise both resize to the frame
+    size times ``resize_factor``."""
+    th, tw = crop_size(cfg, arch)
+    if cfg.no_cropping:
+        size = (th, int(tw * 1.5) + 1)
+    else:
+        size = (int(cfg.resize_h * cfg.resize_factor), int(cfg.resize_w * cfg.resize_factor))
+    size = (int(size[0] * factor), int(size[1] * factor))
+    if arch == "vit":
+        size = tuple(max(32, round_train(side, "vit")) for side in size)
+    return size
+
+
 def flow_transforms(cfg: FitConfig, arch: str = "pspnet") -> Dict[str, Compose]:
     """The train, val and test transforms with the flow sizing rules of
     ``Runner._transforms``: with ``no_cropping`` the train frames are
@@ -220,10 +231,8 @@ def flow_transforms(cfg: FitConfig, arch: str = "pspnet") -> Dict[str, Compose]:
     to the crop; otherwise both resize to the frame size times
     ``resize_factor`` and val is center-cropped. The train crop pads with
     nothing (a scaled frame smaller than the crop raises); ``no_warp``
-    also rotates. Test resizes to (the val height, the train resize's
-    width) times ``resize_factor_test``, each side for the ViT to a
-    multiple of 32 (at least 32) so that the token grid spans the frame,
-    and normalises."""
+    also rotates. Test resizes to ``flow_frame_size`` at
+    ``resize_factor_test`` and normalises."""
     th, tw = crop_size(cfg, arch)
     scale_min, scale_max = cfg.scale_min, cfg.scale_max
     if cfg.resize_factor != 1.0:
@@ -236,10 +245,7 @@ def flow_transforms(cfg: FitConfig, arch: str = "pspnet") -> Dict[str, Compose]:
     else:
         resize = (int(cfg.resize_h * cfg.resize_factor), int(cfg.resize_w * cfg.resize_factor))
         resize_val = resize
-    test_resize = (int(resize_val[0] * cfg.resize_factor_test),
-                   int(resize[1] * cfg.resize_factor_test))
-    if arch == "vit":
-        test_resize = tuple(max(32, round_train(side, "vit")) for side in test_resize)
+    test_resize = flow_frame_size(cfg, arch, cfg.resize_factor_test)
     return {
         "train": build_train_transform(th, tw, list(cfg.classes_ignore), scale_min, scale_max,
                                        resize, with_rotate=cfg.no_warp, crop_padding=None,
@@ -273,6 +279,11 @@ def _prepare(model: nn.Module, dev: torch.device) -> nn.Module:
 # the seed offsets of the roles' shuffle streams (Runner._train_loaders)
 ROLE_SEED_OFFSETS = {"l": 0, "u": 1, "gt": 2}
 
+FLOW_METHODS = ("flow_supervised", "flow_gan")
+GAN_METHODS = ("gan", "flow_gan")
+SEMI_METHODS = GAN_METHODS + ("contrastive",)
+METHODS = ("supervised", "flow_supervised", "gan", "flow_gan", "contrastive")
+
 
 def train_loaders(cfg: FitConfig, roles: Mapping[str, object],
                   device: DeviceLike = None) -> Tuple[Dict[str, DataLoader], int]:
@@ -301,9 +312,49 @@ def train_loaders(cfg: FitConfig, roles: Mapping[str, object],
     return loaders, steps_per_epoch
 
 
+def _flow_dataset(cfg: FitConfig, split: str, data_root: str, path: str, role: str,
+                  transform) -> FlowDataset:
+    return FlowDataset(split, data_root, path, type=role, transform=transform,
+                       frame_delta=cfg.frame_delta, no_warp=cfg.no_warp,
+                       no_random_frame_delta=cfg.no_random_frame_delta)
+
+
+def val_dataset(cfg: FitConfig, data_root: str, method: str, arch: str):
+    """The val split of ``method`` as ``Runner._dataset("val", "val.txt",
+    "l", tf["val"])`` makes it: a "l" ``FlowDataset`` under the flow val
+    transform for the flow methods, else a ``SemDataset`` under the
+    single-frame one. The fit's validation and ``run_validate`` read it."""
+    path = _list_path(data_root, cfg.data_variant, "val.txt")
+    if method in FLOW_METHODS:
+        return _flow_dataset(cfg, "val", data_root, path, "l", flow_transforms(cfg, arch)["val"])
+    return SemDataset("val", data_root, path, sem_transforms(cfg, arch)["val"])
+
+
 def _val_loader(cfg: FitConfig, val_ds, dev: torch.device) -> DataLoader:
     return DataLoader(val_ds, batch_size=cfg.batch_size_val, num_workers=cfg.workers,
                       seed=cfg.seed, device_put=lambda b: device_put(b, dev))
+
+
+def eval_step_for(model: nn.Module, cfg: FitConfig, method: str) -> Callable:
+    """The eval step validation runs for ``method``: the flow one
+    (interpolated, whole frame) for the flow methods, else the
+    single-frame one."""
+    if method in FLOW_METHODS:
+        return make_flow_eval_step(model, cfg.classes, cfg.ignore_index, cfg.feature_based,
+                                   cfg.no_warp)
+    return make_eval_step(model, cfg.classes, cfg.ignore_index)
+
+
+def _validate(cfg: FitConfig, eval_fn: Callable, state, val_loader: DataLoader) -> MetricMeter:
+    """One validation pass: ``eval_fn(state, batch)`` over at most
+    ``limit_val_batches`` batches, its counts in a ``MetricMeter``."""
+    meter = MetricMeter(cfg.classes)
+    for bi, batch in enumerate(val_loader):
+        if cfg.limit_val_batches is not None and bi >= cfg.limit_val_batches:
+            break
+        m = eval_fn(state, batch)
+        meter.update(*(m[k].cpu().numpy() for k in ("intersection", "union", "target")))
+    return meter
 
 
 def _max_iter(cfg: FitConfig, steps_per_epoch: int) -> int:
@@ -319,11 +370,73 @@ def _state(model: nn.Module, cfg: FitConfig, steps_per_epoch: int,
     return create_train_state(model, opt, schedule, pretrained)
 
 
+def method_state(model: nn.Module, cfg: FitConfig, method: str, steps_per_epoch: int,
+                 pretrained: Optional[Mapping[str, torch.Tensor]] = None,
+                 discriminator: Optional[nn.Module] = None,
+                 teacher: Optional[nn.Module] = None, device: DeviceLike = None):
+    """The state ``method`` trains, at step 0, for ``model`` (moved to
+    ``device``) with the poly schedule of ``steps_per_epoch`` steps an epoch:
+    a ``TrainState`` (SGD or Adam over the trunk and head groups) for
+    "supervised" and "flow_supervised"; for s4GAN the (generator,
+    discriminator) pair, the generator's optimizer without the aux heads
+    (``AUX_KEYS``: never updated), the discriminator's Adam (``lr_D``,
+    betas (0.9, 0.99), no weight decay, one group; the same poly schedule),
+    ``discriminator`` or one with weights drawn from a generator seeded with
+    ``seed``; for "contrastive" a ``U2PLState`` (create_u2pl_state: the
+    ``teacher`` or one drawn from ``seed + 1``, the bank on the model's
+    device). ``pretrained`` goes on ``model`` only. The run_* functions and
+    the CLI's Runner (to restore a checkpoint into) build it here."""
+    dev = resolve_device(device)
+    _prepare(model, dev)
+    if method in GAN_METHODS:
+        state_g = _state(model, cfg, steps_per_epoch, pretrained, exclude=AUX_KEYS)
+        if discriminator is None:
+            discriminator = init_from_generator_(S4GANDiscriminator(cfg.classes),
+                                                 torch.Generator().manual_seed(cfg.seed))
+        _prepare(discriminator, dev)
+        opt_d, schedule_d = make_optimizer(discriminator, cfg.lr_D,
+                                           _max_iter(cfg, steps_per_epoch), "adam",
+                                           weight_decay=0.0, power=cfg.power,
+                                           head_lr_scale=1.0, betas=(0.9, 0.99))
+        return state_g, TrainState(0, discriminator, opt_d, schedule_d)
+    if method == "contrastive":
+        opt, schedule = make_optimizer(model, cfg.lr, _max_iter(cfg, steps_per_epoch),
+                                       cfg.optimizer.lower(), cfg.momentum, cfg.weight_decay,
+                                       cfg.power)
+        return create_u2pl_state(model, opt, schedule, teacher, cfg.bank_capacity,
+                                 cfg.bank_class0_capacity, cfg.classes,
+                                 cfg.contrastive.max_enqueue, pretrained, seed=cfg.seed + 1)
+    if method not in ("supervised",) + FLOW_METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    return _state(model, cfg, steps_per_epoch, pretrained)
+
+
+class FitHooks:
+    """What a caller adds around the epochs (the CLI's Runner resumes,
+    saves a checkpoint and logs through these; cli/runner.py). ``start(state,
+    steps_per_epoch)`` returns the state to train, the epoch to start at and
+    the early-stopping state (best validation mIoU, its epoch, validations
+    without improvement) to start from; the steps before the start epoch
+    count as taken, so each step's generator is the one it would have had.
+    ``end_epoch(epoch, state, record, global_step, early_stop)`` runs after
+    each epoch's validation and early-stopping update, with the epoch's
+    record and the early-stopping state after it. These defaults start
+    afresh and do nothing."""
+
+    def start(self, state, steps_per_epoch: int):
+        return state, 0, (-np.inf, -1, 0)
+
+    def end_epoch(self, epoch: int, state, record: Dict, global_step: int,
+                  early_stop: Tuple[float, int, int]) -> None:
+        pass
+
+
 def _fit_loop(cfg: FitConfig, state, train_fn: Callable, eval_fn: Callable,
               loaders: Mapping[str, DataLoader], val_loader: DataLoader,
               steps_per_epoch: int, profiler: Optional[PhaseProfiler],
               on_step: Optional[Callable[[int, object, Dict], None]],
-              on_epoch: Optional[Callable[[int], None]] = None) -> Dict:
+              on_epoch: Optional[Callable[[int], None]] = None,
+              hooks: Optional[FitHooks] = None) -> Dict:
     """The epochs: ``train_fn(state, batch, generator)`` for each step,
     metrics read back once an epoch, validation through ``eval_fn(state,
     batch)`` and early stopping on the validation mIoU. ``state`` is the
@@ -338,15 +451,20 @@ def _fit_loop(cfg: FitConfig, state, train_fn: Callable, eval_fn: Callable,
     (``train_load``) and the step (``train_step``; give the profiler a sync
     to time the device); ``on_step(global_step, state, metrics)`` runs
     after each step; ``on_epoch(epoch)`` before each epoch's first step
-    (the host counter of a method whose step depends on the epoch)."""
+    (the host counter of a method whose step depends on the epoch);
+    ``hooks`` a ``FitHooks``. Each record also holds ``epoch_time``, the
+    seconds of the epoch's steps and read-back."""
     profiler = profiler or PhaseProfiler()
+    hooks = hooks or FitHooks()
     epochs: List[Dict] = []
-    best_metric, best_epoch, wait_count = -np.inf, -1, 0
+    state, start_epoch, (best_metric, best_epoch, wait_count) = hooks.start(
+        state, steps_per_epoch)
     val_every = max(1, cfg.check_val_every_n_epoch)
-    global_step = 0
+    global_step = start_epoch * steps_per_epoch
     its = {k: iter(v) for k, v in loaders.items()}
     try:
-        for epoch in range(cfg.max_epochs):
+        for epoch in range(start_epoch, cfg.max_epochs):
+            t0 = time.perf_counter()
             if on_epoch is not None:
                 on_epoch(epoch)
             step_metrics = []
@@ -369,29 +487,28 @@ def _fit_loop(cfg: FitConfig, state, train_fn: Callable, eval_fn: Callable,
                 meter.update(m["intersection"], m["union"], m["target"])
             record = {"epoch": epoch,
                       "train_loss": float(np.mean([float(m["loss"]) for m in host])),
-                      "train_miou": meter.summary()["miou"]}
+                      "train_miou": meter.summary()["miou"],
+                      "epoch_time": time.perf_counter() - t0}
             do_val = (epoch + 1) % val_every == 0 and cfg.limit_val_batches != 0
             if do_val:
-                val_meter = MetricMeter(cfg.classes)
-                for bi, vb in enumerate(val_loader):
-                    if cfg.limit_val_batches is not None and bi >= cfg.limit_val_batches:
-                        break
-                    m = eval_fn(state, vb)
-                    val_meter.update(*(m[k].cpu().numpy()
-                                       for k in ("intersection", "union", "target")))
+                val_meter = _validate(cfg, eval_fn, state, val_loader)
                 vs = val_meter.summary()
                 record.update(val_miou=vs["miou"], val_macc=vs["macc"],
                               val_accuracy=vs["allacc"],
                               val_counts={k: getattr(val_meter, k).copy()
                                           for k in ("intersection", "union", "target")})
             epochs.append(record)
+            stop = False
             if do_val:
                 if record["val_miou"] > best_metric + cfg.early_stopping_min_delta:
                     best_metric, best_epoch, wait_count = record["val_miou"], epoch, 0
                 else:
                     wait_count += 1
-                    if wait_count >= cfg.early_stopping_patience:
-                        break
+                    stop = wait_count >= cfg.early_stopping_patience
+            hooks.end_epoch(epoch, state, record, global_step,
+                            (best_metric, best_epoch, wait_count))
+            if stop:
+                break
     finally:
         for it in its.values():
             it.close()
@@ -404,64 +521,61 @@ def run_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
             pretrained: Optional[Mapping[str, torch.Tensor]] = None,
             profiler: Optional[PhaseProfiler] = None,
             on_step: Optional[Callable[[int, TrainState, Dict], None]] = None,
-            device: DeviceLike = None) -> Dict:
+            device: DeviceLike = None, hooks: Optional[FitHooks] = None) -> Dict:
     """Train ``model`` (any of the port's three architectures) on the tree
     at ``data_root`` as the JAX package's ``Runner.fit`` does for
     ``supervised`` on one device: single frames through ``SemDataset``,
     the whole model in training mode, OHEM (or CE) on ``pred`` plus
     ``aux_weight`` times that on ``aux``, validation on center crops.
     ``pretrained``: state_dict entries overlaid first (shape-checked);
-    returns ``_fit_loop``'s summary, with its ``profiler`` and ``on_step``
-    hooks."""
-    cfg = cfg or FitConfig()
+    returns ``_fit_loop``'s summary, with its ``profiler``, ``on_step``
+    and ``hooks`` (``FitHooks``)."""
+    cfg = cfg or default_fit_config()
     dev = resolve_device(device)
     _prepare(model, dev)
-    tf = sem_transforms(cfg, model_arch(model))
+    arch = model_arch(model)
     train_ds = SemDataset("train", data_root,
-                          _list_path(data_root, cfg.data_variant, "train.txt"), tf["train"])
-    val_ds = SemDataset("val", data_root, _list_path(data_root, cfg.data_variant, "val.txt"),
-                        tf["val"])
+                          _list_path(data_root, cfg.data_variant, "train.txt"),
+                          sem_transforms(cfg, arch)["train"])
+    val_ds = val_dataset(cfg, data_root, "supervised", arch)
     loaders, steps_per_epoch = train_loaders(cfg, {"l": train_ds}, dev)
-    state = _state(model, cfg, steps_per_epoch, pretrained)
+    state = method_state(model, cfg, "supervised", steps_per_epoch, pretrained, device=dev)
     loss_fn = make_loss_fn(cfg.loss, cfg.aux_weight, cfg.ignore_index, cfg.ohem_thresh,
                            cfg.ohem_min_kept)
     train_step = make_train_step(model, loss_fn, cfg.classes, cfg.ignore_index)
-    eval_step = make_eval_step(model, cfg.classes, cfg.ignore_index)
+    eval_step = eval_step_for(model, cfg, "supervised")
     return _fit_loop(cfg, state, train_step, eval_step, loaders, _val_loader(cfg, val_ds, dev),
-                     steps_per_epoch, profiler, on_step)
+                     steps_per_epoch, profiler, on_step, hooks=hooks)
 
 
 def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
                  pretrained: Optional[Mapping[str, torch.Tensor]] = None,
                  profiler: Optional[PhaseProfiler] = None,
                  on_step: Optional[Callable[[int, TrainState, Dict], None]] = None,
-                 device: DeviceLike = None) -> Dict:
+                 device: DeviceLike = None, hooks: Optional[FitHooks] = None) -> Dict:
     """Train ``model`` (any of the port's three architectures) on the tree
     at ``data_root`` as the JAX package's ``Runner.fit`` does for
     ``flow_supervised`` on one device: FlowDataset items, the interpolated
     and plain train steps with the host-side ``no_interpolation_percentage``
     coin, whole-frame validation through the interpolated eval step.
     ``pretrained``, the hooks and the summary as in ``run_fit``."""
-    cfg = cfg or FitConfig()
+    cfg = cfg or default_fit_config()
     dev = resolve_device(device)
     _prepare(model, dev)
-    tf = flow_transforms(cfg, model_arch(model))
-    common = dict(type="l", frame_delta=cfg.frame_delta, no_warp=cfg.no_warp,
-                  no_random_frame_delta=cfg.no_random_frame_delta)
-    train_ds = FlowDataset("train", data_root,
-                           _list_path(data_root, cfg.data_variant, "train.txt"),
-                           transform=tf["train"], **common)
-    val_ds = FlowDataset("val", data_root, _list_path(data_root, cfg.data_variant, "val.txt"),
-                         transform=tf["val"], **common)
+    arch = model_arch(model)
+    train_ds = _flow_dataset(cfg, "train", data_root,
+                             _list_path(data_root, cfg.data_variant, "train.txt"), "l",
+                             flow_transforms(cfg, arch)["train"])
+    val_ds = val_dataset(cfg, data_root, "flow_supervised", arch)
     loaders, steps_per_epoch = train_loaders(cfg, {"l": train_ds}, dev)
-    state = _state(model, cfg, steps_per_epoch, pretrained)
+    state = method_state(model, cfg, "flow_supervised", steps_per_epoch, pretrained,
+                         device=dev)
     loss_fn = make_loss_fn(cfg.loss, 0.0, cfg.ignore_index, cfg.ohem_thresh,
                            cfg.ohem_min_kept)
     interp_step, plain_step = make_flow_train_step(model, loss_fn, cfg.classes,
                                                    cfg.ignore_index, cfg.feature_based,
                                                    cfg.no_warp)
-    eval_step = make_flow_eval_step(model, cfg.classes, cfg.ignore_index,
-                                    cfg.feature_based, cfg.no_warp)
+    eval_step = eval_step_for(model, cfg, "flow_supervised")
     coin = np.random.default_rng(cfg.seed)
 
     def train_fn(state, batch, rng):
@@ -470,12 +584,7 @@ def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = No
         return (plain_step if plain else interp_step)(state, batch, rng)
 
     return _fit_loop(cfg, state, train_fn, eval_step, loaders, _val_loader(cfg, val_ds, dev),
-                     steps_per_epoch, profiler, on_step)
-
-
-FLOW_METHODS = ("flow_supervised", "flow_gan")
-GAN_METHODS = ("gan", "flow_gan")
-SEMI_METHODS = GAN_METHODS + ("contrastive",)
+                     steps_per_epoch, profiler, on_step, hooks=hooks)
 
 
 def _set_items(ds, items) -> None:
@@ -501,9 +610,7 @@ def role_datasets(cfg: FitConfig, data_root: str, method: str,
     def dataset(list_name: str, role: str):
         path = _list_path(data_root, cfg.data_variant, list_name)
         if flow:
-            return FlowDataset("train", data_root, path, type=role, transform=transform,
-                               frame_delta=cfg.frame_delta, no_warp=cfg.no_warp,
-                               no_random_frame_delta=cfg.no_random_frame_delta)
+            return _flow_dataset(cfg, "train", data_root, path, role, transform)
         return SemDataset("test" if role == "u" else "train", data_root, path, transform)
 
     ds_l = dataset("train.txt", "l")
@@ -534,7 +641,7 @@ def run_gan_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = Non
                 profiler: Optional[PhaseProfiler] = None,
                 on_step: Optional[Callable[[int, Tuple[TrainState, TrainState], Dict],
                                            None]] = None,
-                device: DeviceLike = None) -> Dict:
+                device: DeviceLike = None, hooks: Optional[FitHooks] = None) -> Dict:
     """Train ``model`` (the generator, any of the port's three
     architectures) on the tree at ``data_root`` as the JAX package's
     ``Runner.fit`` does for s4GAN ``method`` ("flow_gan" or "gan") on one
@@ -549,40 +656,24 @@ def run_gan_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = Non
     from a generator seeded with ``cfg.seed``). The state the hooks see and
     the summary's "state" are the (generator, discriminator) pair;
     otherwise ``pretrained``, the hooks and the summary as in ``run_fit``."""
-    cfg = cfg or FitConfig()
+    cfg = cfg or default_fit_config()
     if method not in GAN_METHODS:
         raise ValueError(f"run_gan_fit takes 'gan' or 'flow_gan', got {method!r}")
     flow = method in FLOW_METHODS
     dev = resolve_device(device)
     _prepare(model, dev)
-    tf = (flow_transforms if flow else sem_transforms)(cfg, model_arch(model))
-    roles = role_datasets(cfg, data_root, method, tf["train"])
-    val_path = _list_path(data_root, cfg.data_variant, "val.txt")
-    if flow:
-        val_ds = FlowDataset("val", data_root, val_path, type="l", transform=tf["val"],
-                             frame_delta=cfg.frame_delta, no_warp=cfg.no_warp,
-                             no_random_frame_delta=cfg.no_random_frame_delta)
-    else:
-        val_ds = SemDataset("val", data_root, val_path, tf["val"])
+    arch = model_arch(model)
+    roles = role_datasets(cfg, data_root, method,
+                          (flow_transforms if flow else sem_transforms)(cfg, arch)["train"])
+    val_ds = val_dataset(cfg, data_root, method, arch)
     loaders, steps_per_epoch = train_loaders(cfg, roles, dev)
-    state_g = _state(model, cfg, steps_per_epoch, pretrained, exclude=AUX_KEYS)
-    if discriminator is None:
-        discriminator = init_from_generator_(S4GANDiscriminator(cfg.classes),
-                                             torch.Generator().manual_seed(cfg.seed))
-    _prepare(discriminator, dev)
-    opt_d, schedule_d = make_optimizer(discriminator, cfg.lr_D, _max_iter(cfg, steps_per_epoch),
-                                       "adam", weight_decay=0.0, power=cfg.power,
-                                       head_lr_scale=1.0, betas=(0.9, 0.99))
-    state_d = TrainState(0, discriminator, opt_d, schedule_d)
+    state_g, state_d = method_state(model, cfg, method, steps_per_epoch, pretrained,
+                                    discriminator=discriminator, device=dev)
     g_forward = (flow_g_forward(model, cfg.feature_based, cfg.no_warp) if flow
                  else single_frame_g_forward(model))
     step = make_gan_train_step(g_forward, cfg.classes, cfg.ignore_index, cfg.threshold_st,
                                cfg.lambda_fm, cfg.lambda_st, gt_norm_by_labeled_max=not flow)
-    if flow:
-        eval_step = make_flow_eval_step(model, cfg.classes, cfg.ignore_index,
-                                        cfg.feature_based, cfg.no_warp)
-    else:
-        eval_step = make_eval_step(model, cfg.classes, cfg.ignore_index)
+    eval_step = eval_step_for(model, cfg, method)
 
     def train_fn(state, batch, rng):
         state_g, state_d, metrics = step(state[0], state[1], batch, rng)
@@ -590,7 +681,8 @@ def run_gan_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = Non
 
     return _fit_loop(cfg, (state_g, state_d), train_fn,
                      lambda state, batch: eval_step(state[0], batch), loaders,
-                     _val_loader(cfg, val_ds, dev), steps_per_epoch, profiler, on_step)
+                     _val_loader(cfg, val_ds, dev), steps_per_epoch, profiler, on_step,
+                     hooks=hooks)
 
 
 def run_contrastive_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
@@ -599,7 +691,8 @@ def run_contrastive_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfi
                         profiler: Optional[PhaseProfiler] = None,
                         on_step: Optional[Callable[[int, U2PLState, Dict], None]] = None,
                         draws: Optional[Callable[[int], object]] = None,
-                        device: DeviceLike = None) -> Dict:
+                        device: DeviceLike = None,
+                        hooks: Optional[FitHooks] = None) -> Dict:
     """Train ``model`` (a port architecture with its rep head,
     ``build_model(..., semisupervised=True)``) on the tree at ``data_root``
     as the JAX package's ``Runner.fit`` does for ``contrastive`` (U2PL) on
@@ -617,20 +710,15 @@ def run_contrastive_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfi
     The summary is ``_fit_loop``'s, its "state" the ``U2PLState``, and
     "served" which model each validation pass served, (epoch, "teacher" or
     "student")."""
-    cfg = cfg or FitConfig()
+    cfg = cfg or default_fit_config()
     dev = resolve_device(device)
     _prepare(model, dev)
-    tf = sem_transforms(cfg, model_arch(model))
-    roles = role_datasets(cfg, data_root, "contrastive", tf["train"])
-    val_ds = SemDataset("val", data_root, _list_path(data_root, cfg.data_variant, "val.txt"),
-                        tf["val"])
+    arch = model_arch(model)
+    roles = role_datasets(cfg, data_root, "contrastive", sem_transforms(cfg, arch)["train"])
+    val_ds = val_dataset(cfg, data_root, "contrastive", arch)
     loaders, steps_per_epoch = train_loaders(cfg, roles, dev)
-    opt, schedule = make_optimizer(model, cfg.lr, _max_iter(cfg, steps_per_epoch),
-                                   cfg.optimizer.lower(), cfg.momentum, cfg.weight_decay,
-                                   cfg.power)
-    state = create_u2pl_state(model, opt, schedule, teacher, cfg.bank_capacity,
-                              cfg.bank_class0_capacity, cfg.classes,
-                              cfg.contrastive.max_enqueue, pretrained, seed=cfg.seed + 1)
+    state = method_state(model, cfg, "contrastive", steps_per_epoch, pretrained,
+                         teacher=teacher, device=dev)
     sup_step, semi_step = make_u2pl_steps(
         cfg.classes, cfg.contrastive, cfg.ignore_index, cfg.aux_weight, cfg.ohem_thresh,
         cfg.ohem_min_kept, cfg.unsupervised_apply_aug, cfg.unsupervised_drop_percent,
@@ -639,7 +727,7 @@ def run_contrastive_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfi
     served: List[Tuple[int, str]] = []
 
     def on_epoch(epoch):
-        host["epoch"], host["i"] = epoch, 0
+        host["epoch"], host["i"], host["step"] = epoch, 0, epoch * steps_per_epoch
 
     def train_fn(state, batch, rng):
         e, i, step = host["epoch"], host["i"], host["step"]
@@ -656,10 +744,10 @@ def run_contrastive_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfi
         m = served_model(state)
         if not served or served[-1][0] != host["epoch"]:
             served.append((host["epoch"], "teacher" if m is state.teacher else "student"))
-        return make_eval_step(m, cfg.classes, cfg.ignore_index)(state, batch)
+        return eval_step_for(m, cfg, "contrastive")(state, batch)
 
     summary = _fit_loop(cfg, state, train_fn, eval_fn, loaders, _val_loader(cfg, val_ds, dev),
-                        steps_per_epoch, profiler, on_step, on_epoch)
+                        steps_per_epoch, profiler, on_step, on_epoch, hooks)
     summary["served"] = served
     return summary
 
@@ -680,9 +768,29 @@ def _single_samples(batch: Dict):
                for k, v in batch.items()}
 
 
+def run_validate(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
+                 method: str = "flow_supervised", device: DeviceLike = None) -> Dict:
+    """One validation pass of ``model`` (its own weights) as the fit loop
+    makes it for ``method`` (the CLI's ``validate``): ``val_dataset``
+    behind the val loader, the method's eval step (``eval_step_for``), at
+    most ``limit_val_batches`` batches (0 returns {}). Returns
+    val_miou_epoch, val_macc_epoch and val_accuracy_epoch."""
+    cfg = cfg or default_fit_config()
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    if cfg.limit_val_batches == 0:
+        return {}
+    ds = val_dataset(cfg, data_root, method, model_arch(model))
+    s = _validate(cfg, eval_step_for(model, cfg, method), None,
+                  _val_loader(cfg, ds, resolve_device(device))).summary()
+    return {"val_miou_epoch": s["miou"], "val_macc_epoch": s["macc"],
+            "val_accuracy_epoch": s["allacc"]}
+
+
 def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
              method: str = "flow_supervised", profiler: Optional[PhaseProfiler] = None,
-             device: DeviceLike = None) -> Dict:
+             device: DeviceLike = None,
+             on_sample: Optional[Callable[[Dict, np.ndarray], None]] = None) -> Dict:
     """Evaluate ``model`` (its own weights, in eval mode) on the tree at
     ``data_root`` as the JAX package's ``Runner.test`` does for ``method``
     on one device: "supervised", "gan" and "contrastive" take the
@@ -704,10 +812,12 @@ def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
     test_accuracy{k}_epoch and test_miou{k}_epoch_classes for list k, and
     test_miou_epoch, their mean, when both ran. ``profiler`` records
     "test_step" (a whole-frame batch) or "test_sample" (a sliding-window
-    sample, with the sliding window's own regions inside).
+    sample, with the sliding window's own regions inside). ``on_sample(sample,
+    pred)`` sees each sliding-window sample and its class map (the CLI's
+    test-image table).
     """
-    cfg = cfg or FitConfig()
-    if method not in ("supervised",) + FLOW_METHODS + SEMI_METHODS:
+    cfg = cfg or default_fit_config()
+    if method not in METHODS:
         raise ValueError(f"run_test takes 'supervised', 'flow_supervised', 'gan', 'flow_gan' "
                          f"or 'contrastive', got {method!r}")
     if cfg.limit_test_batches == 0:
@@ -722,8 +832,7 @@ def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
     if flow:
         crop_fn = make_flow_test_crop_fn(model, cfg.classes, cfg.feature_based, cfg.no_warp,
                                          device=dev)
-        eval_whole = make_flow_eval_step(model, cfg.classes, cfg.ignore_index,
-                                         cfg.feature_based, cfg.no_warp)
+        eval_whole = eval_step_for(model, cfg, method)
     else:
         crop_forward = make_crop_forward(model, cfg.classes, device=dev)
     variables = model.state_dict()
@@ -734,9 +843,7 @@ def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
         if not os.path.exists(path):
             continue
         if flow:
-            ds = FlowDataset("test", data_root, path, type="l", transform=transform,
-                             frame_delta=cfg.frame_delta, no_warp=cfg.no_warp,
-                             no_random_frame_delta=cfg.no_random_frame_delta)
+            ds = _flow_dataset(cfg, "test", data_root, path, "l", transform)
         else:
             ds = SemDataset("val", data_root, path, transform)
         loader = DataLoader(ds, batch_size=cfg.batch_size_test, num_workers=cfg.workers_test,
@@ -764,6 +871,8 @@ def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
                 meter.update(*intersection_and_union(
                     torch.from_numpy(pred), torch.from_numpy(sub["label"][0]), cfg.classes,
                     cfg.ignore_index))
+                if on_sample is not None:
+                    on_sample(sub, pred)
         s = meter.summary()
         results[f"test_miou{k}_epoch"] = s["miou"]
         results[f"test_macc{k}_epoch"] = s["macc"]

@@ -184,13 +184,15 @@ def run_flow_predict(
     seed: int = 0,
     profiler: Optional[PhaseProfiler] = None,
     device: DeviceLike = None,
+    frame_size: Optional[Tuple[int, int]] = None,
 ) -> Dict:
     """Predict the video ``predict_v_id`` under ``data_root`` as the JAX
     package's ``Runner.predict`` does on one device, and return
     ``run_predict``'s summary.
 
-    Frames are read by the predict FlowDataset, resized to ``resize`` and
-    left as raw pixels (``build_test_transform(normalize=False)``): the
+    Frames are read by the predict FlowDataset, resized to ``frame_size``
+    (None: ``resize``; the CLI's predict transform may size them apart
+    from the maps) and left as raw pixels (``build_test_transform(normalize=False)``): the
     port's builders normalize on the device. With ``no_cropping`` every
     window runs whole through the cached builders (key-feature reuse), its
     batches copied to the device by the loader; otherwise each window runs
@@ -203,7 +205,8 @@ def run_flow_predict(
     """
     dev = resolve_device(device)
     ds = FlowDataset("predict", data_root, None, type="u",
-                     transform=build_test_transform(classes_ignore, resize, normalize=False),
+                     transform=build_test_transform(classes_ignore, frame_size or resize,
+                                                    normalize=False),
                      frame_delta=frame_delta, no_warp=no_warp, predict_v_id=predict_v_id)
     colors_path = os.path.join(data_root, "list", "colors.txt")
     colors = (np.loadtxt(colors_path).astype("uint8") if os.path.exists(colors_path)

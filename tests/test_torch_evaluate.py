@@ -42,6 +42,7 @@ from floodseg_tpu_torch.ops import launch_counts, reset_launch_counts
 from floodseg_tpu_torch.ops.cv2_compat import cv2_resize_linear
 from floodseg_tpu_torch.train import (
     FitConfig,
+    default_fit_config,
     fit,
     flow_sliding_window_test,
     flow_transforms,
@@ -177,8 +178,8 @@ def test_flow_test_crop_fn_matches_jax(vit, tree):
     crops within 1e-4, and flow_sliding_window_test's map equal to JAX's
     away from near-ties; no kernel launch on the CPU."""
     jm, variables, port = vit
-    cfg = FitConfig(train_h=CROP, train_w=CROP, resize_h=SIZE[0], resize_w=SIZE[1],
-                    frame_delta=N)
+    cfg = default_fit_config(train_h=CROP, train_w=CROP, resize_h=SIZE[0], resize_w=SIZE[1],
+                             frame_delta=N)
     ds = FlowDataset("test", tree, os.path.join(tree, "list", "all", "test.txt"),
                      transform=flow_transforms(cfg, "vit")["test"], frame_delta=N)
     batch = collate([ds.get(0, np.random.default_rng(0))])
@@ -248,8 +249,8 @@ def _jax_test_transform(cfg: FitConfig, method: str, arch: str):
 def test_test_transforms_match_runner(method, arch, no_cropping, train, factor, expect):
     """The "test" transform's resize and normalisation, and the test crop,
     as Runner._transforms and apply_links give them."""
-    cfg = FitConfig(train_h=train, train_w=train, no_cropping=no_cropping,
-                    resize_factor_test=factor)
+    cfg = default_fit_config(train_h=train, train_w=train, no_cropping=no_cropping,
+                             resize_factor_test=factor)
     ours = (sem_transforms if method == "supervised" else flow_transforms)(cfg, arch)["test"]
     ref = _jax_test_transform(cfg, method, arch)
     sizes = [t.size for t in ours.transforms if isinstance(t, Resize)]
@@ -353,9 +354,9 @@ def test_run_test_matches_jax_runner(vit, tree, monkeypatch, method, no_cropping
     (or whole-frame counts) in agreement, the metrics equal when they are
     equal. The single-frame case runs two scales over base 96."""
     jm, variables, port = vit
-    cfg = FitConfig(train_h=CROP, train_w=CROP, resize_h=SIZE[0], resize_w=SIZE[1],
-                    frame_delta=N, no_cropping=no_cropping, workers_test=2,
-                    limit_test_batches=limit, test_scales=(0.75, 1.0), test_base_size=96)
+    cfg = default_fit_config(train_h=CROP, train_w=CROP, resize_h=SIZE[0], resize_w=SIZE[1],
+                             frame_delta=N, no_cropping=no_cropping, workers_test=2,
+                             limit_test_batches=limit, test_scales=(0.75, 1.0), test_base_size=96)
     ref_rec, our_rec = [], []
     ref = _jax_runner_test(jm, variables, tree, cfg, method, ref_rec)
     ours = _recording_run_test(monkeypatch, port, tree, cfg, method, our_rec)
@@ -383,7 +384,7 @@ def test_run_test_limit_zero_returns_nothing(vit, tree):
     every method the port tests (contrastive too); a method that does not
     exist raises."""
     jm, variables, port = vit
-    cfg = FitConfig(train_h=CROP, train_w=CROP, limit_test_batches=0)
+    cfg = default_fit_config(train_h=CROP, train_w=CROP, limit_test_batches=0)
     assert run_test(port, tree, cfg, device="cpu") == {}
     assert _jax_runner_test(jm, variables, tree, cfg, "flow_supervised", []) == {}
     for method in ("supervised", "gan", "flow_gan", "contrastive"):

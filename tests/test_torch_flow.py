@@ -369,9 +369,10 @@ def test_resize_frames_matches_cv2():
 
 def test_port_imports_no_jax():
     """No module of floodseg_tpu_torch, and not chip_smoke.py, imports jax,
-    floodseg_tpu, PIL, cv2 or imageio; checked in a fresh interpreter's
-    sys.modules after importing every module of the port and the test,
-    profiling, s4GAN and U2PL entry points by name."""
+    floodseg_tpu, PIL, cv2, imageio or yaml; checked in a fresh
+    interpreter's sys.modules after importing every module of the port and
+    the test, profiling, s4GAN, U2PL and CLI entry points by name (the
+    config, checkpoint, logging, runner and main modules)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import floodseg_tpu_torch as pkg\n"
@@ -385,9 +386,17 @@ def test_port_imports_no_jax():
         "    make_u2pl_steps, create_u2pl_state, sync_teacher, contra_memobank_loss)\n"
         "from floodseg_tpu_torch.models import S4GANDiscriminator, with_rep\n"
         "from floodseg_tpu_torch.ops.u2pl import U2PLDraws, generate_unsup_data\n"
+        "from floodseg_tpu_torch.core.config import load_config, fit_config\n"
+        "from floodseg_tpu_torch.core.checkpoint import CheckpointManager\n"
+        "from floodseg_tpu_torch.core.logging import RunLogger\n"
+        "from floodseg_tpu_torch.cli.runner import Runner\n"
+        "from floodseg_tpu_torch.cli.main import main, run\n"
+        "from floodseg_tpu_torch.models.torch_import import load_torch_file\n"
+        "load_config([f'configs/{n}.yaml' for n in ('train_base', 'train_flow_supervised',\n"
+        "                                            'dataset_flow', 'pspnet')])\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'floodseg_tpu', 'PIL', 'cv2', 'imageio'))\n"
+        "             ('jax', 'floodseg_tpu', 'PIL', 'cv2', 'imageio', 'yaml'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
         "for m in ('ops.warp_kernels', 'ops.quant', 'ops.resize_kernels',\n"
@@ -395,7 +404,9 @@ def test_port_imports_no_jax():
         "          'data.image', 'data.avi', 'data.dataset', 'data.loader',\n"
         "          'data.synthetic', 'data.transforms', 'train.evaluate',\n"
         "          'train.predict', 'train.gan', 'models.discriminator', 'ops.u2pl',\n"
-        "          'train.memory_bank', 'train.contrastive', 'models.semi'):\n"
+        "          'train.memory_bank', 'train.contrastive', 'models.semi',\n"
+        "          'core.config', 'core.yaml_subset', 'core.checkpoint', 'core.logging',\n"
+        "          'cli.runner', 'cli.main', 'models.torch_import'):\n"
         "    assert 'floodseg_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -28,7 +28,7 @@ from floodseg_tpu.data.synthetic import generate_synthetic_dataset as jax_genera
 
 from floodseg_tpu_torch.models import SegmenterViT, init_from_generator_
 from floodseg_tpu_torch.train import (
-    FitConfig,
+    default_fit_config,
     flow_transforms,
     role_datasets,
     run_test,
@@ -41,8 +41,9 @@ from torch_port_fixtures import jax_runner
 SIZE, TREE, N, CLASSES = 64, (128, 160), 5, 5
 CONFIG = dict(image_size=SIZE, patch_size=32, d_model=128, n_layers=2, dec_layers=2,
               n_heads=2)  # the narrow ViT of tests/test_torch_train_vit.py
-FIT = FitConfig(train_h=SIZE, train_w=SIZE, resize_h=TREE[0], resize_w=TREE[1], frame_delta=N,
-                workers=2, max_epochs=1, limit_train_batches=2, lr=1e-3, seed=42)
+FIT = default_fit_config(train_h=SIZE, train_w=SIZE, resize_h=TREE[0], resize_w=TREE[1],
+                         frame_delta=N, workers=2, max_epochs=1, limit_train_batches=2, lr=1e-3,
+                         seed=42)
 
 
 @pytest.fixture(scope="module")
@@ -74,7 +75,7 @@ def test_role_loaders_match_runner(tree, method):
     labels, grids and chain lengths), the gt role over the labeled items,
     the roles' seeds 42, 43 and 44, and the steps an epoch (the longer
     role, then limit_train_batches)."""
-    cfg = FitConfig(**{**FIT.__dict__, "limit_train_batches": None})
+    cfg = default_fit_config(**{**FIT.__dict__, "limit_train_batches": None})
     r = jax_runner(tree, method, cfg)
     ref, ref_steps = Runner._train_loaders(r, Runner._transforms(r))
     roles = role_datasets(cfg, tree, method, _transforms(cfg, method)["train"])
@@ -96,7 +97,7 @@ def test_data_ratio_split_matches_runner(tree, method):
     """Without train_u.txt, train.txt splits into disjoint l and u sets by
     data_ratio with the seed's permutation, as Runner._train_datasets
     splits it; the gt role takes the l items."""
-    cfg = FitConfig(**{**FIT.__dict__, "data_variant": "nou", "data_ratio": 0.5})
+    cfg = default_fit_config(**{**FIT.__dict__, "data_variant": "nou", "data_ratio": 0.5})
     r = jax_runner(tree, method, cfg)
     tf = Runner._transforms(r)["train"]
     ref_l, ref_u = Runner._train_datasets(r, tf, need_unlabeled=True)
@@ -109,7 +110,7 @@ def test_data_ratio_split_matches_runner(tree, method):
 
 @pytest.mark.parametrize("ratio", [1.0, 0.1])
 def test_data_ratio_split_raises_on_an_empty_side(tree, ratio):
-    cfg = FitConfig(**{**FIT.__dict__, "data_variant": "nou", "data_ratio": ratio})
+    cfg = default_fit_config(**{**FIT.__dict__, "data_variant": "nou", "data_ratio": ratio})
     r = jax_runner(tree, "flow_gan", cfg)
     with pytest.raises(ValueError, match="data_ratio"):
         Runner._train_datasets(r, None, need_unlabeled=True)
@@ -120,7 +121,7 @@ def test_data_ratio_split_raises_on_an_empty_side(tree, ratio):
 def test_role_smaller_than_the_batch_raises(tree):
     """data_ratio 0.9 leaves one unlabeled item for a batch of two: both
     wirings raise."""
-    cfg = FitConfig(**{**FIT.__dict__, "data_variant": "nou", "data_ratio": 0.9})
+    cfg = default_fit_config(**{**FIT.__dict__, "data_variant": "nou", "data_ratio": 0.9})
     r = jax_runner(tree, "gan", cfg)
     with pytest.raises(ValueError, match="unlabeled"):
         Runner._train_loaders(r, Runner._transforms(r))
@@ -138,8 +139,8 @@ def test_run_test_takes_the_gan_methods(tree, method, same_as):
     results on one model and tree."""
     port = init_from_generator_(SegmenterViT(classes=CLASSES, **CONFIG),
                                 torch.Generator().manual_seed(5))
-    cfg = FitConfig(train_h=SIZE, train_w=SIZE, resize_h=TREE[0], resize_w=TREE[1],
-                    frame_delta=N, workers_test=2, limit_test_batches=1, test_base_size=96)
+    cfg = default_fit_config(train_h=SIZE, train_w=SIZE, resize_h=TREE[0], resize_w=TREE[1],
+                             frame_delta=N, workers_test=2, limit_test_batches=1, test_base_size=96)
     ours, want = (run_test(port, tree, cfg, m, device="cpu") for m in (method, same_as))
     assert sorted(ours) == sorted(want) and "test_miou_epoch" in ours
     for k, v in want.items():

@@ -36,7 +36,7 @@ from floodseg_tpu.train.supervised import make_loss_fn as jax_make_loss_fn
 
 from floodseg_tpu_torch.data import FlowDataset, transforms
 from floodseg_tpu_torch.models import PSPNet
-from floodseg_tpu_torch.train import FitConfig, flow_transforms, run_flow_fit
+from floodseg_tpu_torch.train import default_fit_config, flow_transforms, run_flow_fit
 
 from torch_port_fixtures import _perturb_bn, _to_dict, port_state
 
@@ -193,13 +193,13 @@ def test_flow_transforms_sizing_rules():
     """Runner._transforms' flow rules: no_cropping resizes the train frames
     to 1.5x the crop + 1 and val to the crop; resize_factor pins scale_min
     to 1."""
-    tf = flow_transforms(FitConfig(train_h=33, train_w=65, no_cropping=True))
+    tf = flow_transforms(default_fit_config(train_h=33, train_w=65, no_cropping=True))
     resize = next(t for t in tf["train"].transforms if isinstance(t, transforms.Resize))
     scale = next(t for t in tf["train"].transforms
                  if isinstance(t, transforms.ScaleBlurFlipCrop)).scale.scale
     assert resize.size == (50, 98) and scale == [1 / 1.5 + 0.001, 1.0]
     assert not any(isinstance(t, transforms.Crop) for t in tf["val"].transforms)
-    tf = flow_transforms(FitConfig(resize_factor=0.5))
+    tf = flow_transforms(default_fit_config(resize_factor=0.5))
     resize = next(t for t in tf["train"].transforms if isinstance(t, transforms.Resize))
     scale = next(t for t in tf["train"].transforms
                  if isinstance(t, transforms.ScaleBlurFlipCrop)).scale.scale
@@ -208,9 +208,9 @@ def test_flow_transforms_sizing_rules():
 
 # ---------------------------------------------------------------- run_flow_fit
 
-FIT = FitConfig(train_h=CROP, train_w=CROP, resize_h=SIZE[0], resize_w=SIZE[1],
-                frame_delta=N, workers=2, max_epochs=1, limit_train_batches=2, lr=1e-3,
-                seed=42)
+FIT = default_fit_config(train_h=CROP, train_w=CROP, resize_h=SIZE[0], resize_w=SIZE[1],
+                         frame_delta=N, workers=2, max_epochs=1, limit_train_batches=2, lr=1e-3,
+                         seed=42)
 
 
 def _jax_fit(tree, variables, cfg):

@@ -31,13 +31,13 @@ from floodseg_tpu.models.deeplabv3 import DeepLabV3 as JaxDeepLabV3
 
 from floodseg_tpu_torch.models import build_model
 from floodseg_tpu_torch.models.layers import Dropout
-from floodseg_tpu_torch.train import FitConfig, fit, run_flow_fit
+from floodseg_tpu_torch.train import default_fit_config, fit, run_flow_fit
 
 from torch_port_fixtures import _perturb_bn, _to_dict, jax_fit, port_state, round_grids
 
 CROP = 33
-FIT = FitConfig(train_h=CROP, train_w=CROP, resize_h=96, resize_w=128, frame_delta=5,
-                workers=2, max_epochs=1, limit_train_batches=2, lr=1e-3, seed=42)
+FIT = default_fit_config(train_h=CROP, train_w=CROP, resize_h=96, resize_w=128, frame_delta=5,
+                         workers=2, max_epochs=1, limit_train_batches=2, lr=1e-3, seed=42)
 
 
 def _jax_model():

@@ -55,7 +55,7 @@ from floodseg_tpu.train.supervised import make_loss_fn as jax_make_loss_fn
 from floodseg_tpu_torch.models import build_model
 from floodseg_tpu_torch.models.layers import Dropout
 from floodseg_tpu_torch.train import (
-    FitConfig,
+    default_fit_config,
     TrainState,
     make_flow_train_step,
     make_loss_fn,
@@ -66,8 +66,8 @@ from floodseg_tpu_torch.train.fit import step_generator
 from torch_port_fixtures import _perturb_bn, _to_dict, jax_fit_data, jax_fit_state, port_state
 
 CROP = 33
-FIT = FitConfig(train_h=CROP, train_w=CROP, resize_h=96, resize_w=128, frame_delta=5,
-                workers=2, max_epochs=1, limit_train_batches=2, lr=1e-3, seed=42)
+FIT = default_fit_config(train_h=CROP, train_w=CROP, resize_h=96, resize_w=128, frame_delta=5,
+                         workers=2, max_epochs=1, limit_train_batches=2, lr=1e-3, seed=42)
 MULTIPLE = 8.0
 
 

@@ -26,7 +26,12 @@ from floodseg_tpu.data.synthetic import generate_synthetic_dataset as jax_genera
 
 from floodseg_tpu_torch.data import SemDataset, transforms
 from floodseg_tpu_torch.ops import cv2_compat
-from floodseg_tpu_torch.train import FitConfig, flow_transforms, round_train, sem_transforms
+from floodseg_tpu_torch.train import (
+    default_fit_config,
+    flow_transforms,
+    round_train,
+    sem_transforms,
+)
 
 MEAN = list(jax_tf.MEAN)
 
@@ -167,16 +172,16 @@ def test_sem_and_flow_transform_sizes():
     only with no_warp."""
     assert (round_train(433, "pspnet"), round_train(433, "vit"),
             round_train(873, "deeplabv3")) == (433, 416, 873)
-    cfg = FitConfig(train_h=873, train_w=873)
+    cfg = default_fit_config(train_h=873, train_w=873)
     tf = sem_transforms(cfg, "pspnet")["train"]
     fused = next(t for t in tf.transforms if isinstance(t, transforms.ScaleBlurFlipCrop))
     assert isinstance(fused.rotate, transforms.RandRotate)
     assert (fused.crop.crop_h, fused.crop.padding) == (873, MEAN)
     for arch, size in (("vit", 416), ("deeplabv3", 433)):
-        fused = next(t for t in flow_transforms(FitConfig(), arch)["train"].transforms
+        fused = next(t for t in flow_transforms(default_fit_config(), arch)["train"].transforms
                      if isinstance(t, transforms.ScaleBlurFlipCrop))
         assert fused.rotate is None and (fused.crop.crop_h, fused.crop.crop_w) == (size, size)
-    fused = next(t for t in flow_transforms(FitConfig(no_warp=True))["train"].transforms
+    fused = next(t for t in flow_transforms(default_fit_config(no_warp=True))["train"].transforms
                  if isinstance(t, transforms.ScaleBlurFlipCrop))
     assert fused.rotate is not None
 

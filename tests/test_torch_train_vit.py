@@ -42,7 +42,7 @@ from floodseg_tpu.train.supervised import make_loss_fn as jax_make_loss_fn
 
 from floodseg_tpu_torch.models import SegmenterViT
 from floodseg_tpu_torch.train import (
-    FitConfig,
+    default_fit_config,
     TrainState,
     make_flow_eval_step,
     make_flow_train_step,
@@ -209,9 +209,9 @@ def test_every_dropout_site_drew_a_mask(trajectory):
 # ---------------------------------------------------------------- run_flow_fit
 
 TREE = (128, 160)
-FIT = FitConfig(train_h=SIZE, train_w=SIZE, resize_h=TREE[0], resize_w=TREE[1],
-                frame_delta=5, workers=2, max_epochs=1, limit_train_batches=2, lr=1e-3,
-                seed=42)
+FIT = default_fit_config(train_h=SIZE, train_w=SIZE, resize_h=TREE[0], resize_w=TREE[1],
+                         frame_delta=5, workers=2, max_epochs=1, limit_train_batches=2, lr=1e-3,
+                         seed=42)
 
 
 @pytest.fixture(scope="module")

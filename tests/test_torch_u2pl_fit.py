@@ -42,7 +42,7 @@ from floodseg_tpu.ops.metrics import MetricMeter as JaxMeter
 from floodseg_tpu.train import contrastive as jcon
 
 from floodseg_tpu_torch.train import (
-    FitConfig,
+    default_fit_config,
     role_datasets,
     run_contrastive_fit,
     run_test,
@@ -71,9 +71,10 @@ from torch_u2pl_fixtures import (
 
 TREE = (128, 160)
 EPOCHS, STEPS, SUP_ONLY = 2, 2, 1
-FIT = FitConfig(train_h=SIZE, train_w=SIZE, resize_h=TREE[0], resize_w=TREE[1], frame_delta=5,
-                workers=2, workers_test=2, max_epochs=EPOCHS, limit_train_batches=STEPS, lr=LR,
-                seed=42, aux_weight=0.0, sup_only_epoch=SUP_ONLY, contrastive=CCFG, **CAPS)
+FIT = default_fit_config(train_h=SIZE, train_w=SIZE, resize_h=TREE[0], resize_w=TREE[1],
+                         frame_delta=5, workers=2, workers_test=2, max_epochs=EPOCHS,
+                         limit_train_batches=STEPS, lr=LR, seed=42, aux_weight=0.0,
+                         sup_only_epoch=SUP_ONLY, contrastive=CCFG, **CAPS)
 
 
 @pytest.fixture(scope="module")
@@ -91,7 +92,7 @@ def _first(loader):
 
 
 def test_role_loaders_match_runner(tree):
-    cfg = FitConfig(**{**FIT.__dict__, "limit_train_batches": None})
+    cfg = default_fit_config(**{**FIT.__dict__, "limit_train_batches": None})
     r = jax_runner(tree, "contrastive", cfg)
     ref, ref_steps = Runner._train_loaders(r, Runner._transforms(r))
     roles = role_datasets(cfg, tree, "contrastive", sem_transforms(cfg, "vit")["train"])
@@ -187,7 +188,7 @@ def test_run_contrastive_fit_validation_matches_jax(fits):
 def test_run_test_serves_the_model_the_runner_picks(fits, tree):
     _, ours = fits
     state = ours["state"]
-    cfg = FitConfig(**{**FIT.__dict__, "limit_test_batches": 1, "test_base_size": 96})
+    cfg = default_fit_config(**{**FIT.__dict__, "limit_test_batches": 1, "test_base_size": 96})
     got = run_test(state, tree, cfg, "contrastive", device="cpu")
     want = run_test(state.teacher, tree, cfg, "supervised", device="cpu")
     assert sorted(got) == sorted(want) and "test_miou_epoch" in got

@@ -39,7 +39,7 @@ from floodseg_tpu.train.state import TrainState as JaxTrainState
 from floodseg_tpu_torch.models import S4GANDiscriminator, SegmenterViT
 from floodseg_tpu_torch.train import (
     AUX_KEYS,
-    FitConfig,
+    default_fit_config,
     TrainState,
     flow_g_forward,
     make_eval_step,
@@ -71,9 +71,9 @@ D_NAMES = {f"Dropout_{i}": f"layers.{3 * i + 2}" for i in range(3)}
 THRESHOLD = {"flow_gan": 0.49102255, "gan": 0.49359600}
 METRICS = ("loss", "loss_s", "loss_ce", "loss_fm", "loss_st", "loss_d")
 COUNTS = ("intersection", "union", "target")
-FIT = FitConfig(train_h=SIZE, train_w=SIZE, resize_h=TREE[0], resize_w=TREE[1],
-                frame_delta=T + 1, workers=2, max_epochs=1, limit_train_batches=2, lr=LR,
-                lr_D=LR_D, threshold_st=THRESHOLD["flow_gan"], seed=42)
+FIT = default_fit_config(train_h=SIZE, train_w=SIZE, resize_h=TREE[0], resize_w=TREE[1],
+                         frame_delta=T + 1, workers=2, max_epochs=1, limit_train_batches=2, lr=LR,
+                         lr_D=LR_D, threshold_st=THRESHOLD["flow_gan"], seed=42)
 VAL_KEYS = ("frame_prev", "frame_next", "mvs_left", "mvs_right", "label", "left_index",
             "right_index")
 
