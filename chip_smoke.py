@@ -12,6 +12,8 @@
     python3 chip_smoke.py --gan    # the s4GAN phases alone: 4g, 19 and 20
     python3 chip_smoke.py --u2pl   # the U2PL phases alone: 4u and 21
     python3 chip_smoke.py --cli    # phase 22 alone: the CLI on the card
+    python3 chip_smoke.py --ddp    # phase 23 alone: data parallelism on the card
+    python3 chip_smoke.py --ddp-faults  # 23b's contrastive check against planted faults
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -300,7 +302,62 @@ Then U2PL (the contrastive method), after evaluation:
    the predict maps equal run_flow_predict's on the same weights, pixel
    for pixel; metrics.json has the keys the JAX Runner writes. Peak memory
    beside the card's name and power limit.
-13. Last (after phase 22): a JSON line {"kernels": [...]} (each kernel's
+Then data parallelism (parallel/, the global-batch steps), with rank
+processes of this script (``--ddp-rank PART BACKEND PREFIX``, the
+rendezvous on a free localhost port, every rank on cuda:0: under NCCL the
+port's own (parallel/dist.py), under gloo a group the rank makes first;
+their output under build/ddp/):
+23. (a) One rank over NCCL: run_flow_fit of phase 14's PSPNet-50 (float32,
+   aux head, seed 7) on phase 14's tree, 433 px crops, global batch 2, 2
+   steps and 2 validation frames; K1 and K1-bwd launch as in phase 14
+   (48 each a step, K1 48 a validation frame); held against phase 14's
+   step (the same run in this process, no process group) by 4t's rule:
+   what the steps changed, tensor by tensor, within STEP_FLOOR_FACTOR
+   times its float32 floor, never tighter than STEP_ABS, of the tensor's
+   largest change. The floor is measured as 4t's is, the distance of one
+   float32 run to another that computes the same thing: here the same
+   steps with each batch's samples reversed (and every dropout mask with
+   them), which reorders the sums over the batch as the ranks do (a
+   float64 run of PSPNet-50 at this size is out of reach on the CPU, and
+   K1 takes float32 and bf16 only). (b) Two ranks on the one card: NCCL with two ranks on cuda:0 is
+   tried with one all-reduce and refuses ("Duplicate GPU detected"; each
+   rank's error logged), so the ranks run on gloo with CUDA tensors. The
+   same fit over 2 ranks, 1 + 1 samples: the ranks' states bit-equal, each
+   rank's K1 48 and K1-bwd 48 a step and K1 48 for its validation frame,
+   the train loss within rtol 1e-4 of (a)'s and what the steps changed
+   within 4t's rule (STEP_FLOOR_FACTOR times the floor, never tighter than
+   STEP_ABS) of the one-rank run. Then one contrastive sup step, the sync
+   and one semi step of PSPNet-50 with its aux and rep heads at 321 px,
+   batch 2 + 2, the contrastive loss divided by num_devices = 2, over 2
+   ranks against one rank with num_devices 2: the sup and unsup losses
+   within DDP_LOSS_REL, the contrastive and total loss within
+   DDP_CONTRA_REL, the bank's count of each class within DDP_BANK_REL,
+   the ranks' states and banks' counts equal, what the steps changed per
+   tensor in L2 (4u's form) within DDP_U2PL_L2 of the change in the
+   median tensor and DDP_U2PL_L2_MAX in the largest (no floor: the
+   sampling of anchors and negatives does not survive a reordering; the
+   limits lie between sound runs and the planted faults of
+   ``--ddp-faults``). (c) DP predict through run_flow_predict(no_cropping,
+   world) on a predict tree of 3 windows of 512 px frames: phase 5's
+   PSPNet-50 bf16 at 513 px, n = 25, a batch of two windows (one a rank)
+   and a ragged batch of one (every rank), with the bf16 and the int8
+   decoder: every rank's maps (as make_dp_predict_fn returned them) and
+   summary equal one device's through run_predict on the non-cached
+   route the ranks run, pixel for pixel; rank 0's PNGs and AVI equal
+   that run's byte for byte, and no other rank wrote a file; one
+   device's run_flow_predict (the cached route) equal in its first
+   window and on at least COMPOSED_MIN_EQUAL of all pixels (5p's rule
+   for a bf16 rounding elsewhere: it reuses an encoding made alone);
+   each rank launches K1 6 and K2 4 (and K3 2 with
+   int8). Each part's wall time, and each rank's seconds, peak memory
+   and launches, beside the card's name and power limit.
+23f. (``--ddp-faults`` alone) 23b's contrastive check read on a second
+   one-rank run and a sound 2-rank run, which must pass every limit, and
+   on 2 ranks under each planted fault of DDP_FAULTS (``planted_fault``:
+   BatchNorm statistics over a rank's own samples, each rank's dropout
+   masks drawn at its own shape, the entropy percentiles over a rank's
+   own pixels), which must fail one.
+13. Last (after phase 23): a JSON line {"kernels": [...]} (each kernel's
    max_abs_err is its largest over every check; max_abs_err_by_dtype gives
    the largest in float32 and in bf16 apart), then the nvidia-smi line, then the last line {"ok": true, "device": {...}}.
 """
@@ -397,6 +454,7 @@ from floodseg_tpu_torch.train import (
     run_flow_fit,
     run_flow_predict,
     run_gan_fit,
+    run_predict,
     run_test,
     sem_transforms,
     single_frame_g_forward,
@@ -3647,6 +3705,739 @@ def cli_alone() -> int:
     return 0
 
 
+# ---------------------------------------------- data parallelism: phase 23
+
+# (a) and (b): the flow_supervised step of phase 14 (PSPNet-50 float32 with
+# its aux head, 433 px crops, global batch 2) for DDP_STEPS steps and
+# DDP_VAL validation frames; the contrastive check's crop, which two
+# processes on the card hold with their teachers and banks; (c) the
+# windows of DP predict: one a rank, then a remainder of one
+DDP_STEPS, DDP_VAL = 2, 2
+DDP_U2PL_CROP = 321
+# the contrastive check, 2 ranks against 1. Its anchors and negatives are
+# drawn by index among the pixels of entropy and probability masks, and a
+# mask bit that float32 rounding flips at a near-tie moves the draws, so no
+# reordering of the batch computes the same step to measure a floor with;
+# two one-rank runs on the card differ too (atomics in the backward). The
+# limits lie between what sound runs read and what the planted faults of
+# ``--ddp-faults`` read, largest sound reading / smallest fault reading
+# that the limit separates (an H100 80GB HBM3 at 700 W; PERF.md): the sup
+# and unsup losses, rtol (4.7e-5 / 8.1e-3); the contrastive loss and the
+# total with it, rtol (4.8e-4 / 8.1e-3); the memory bank's count of each
+# class, relative (3.1e-3 / 0.115); what the steps changed per tensor in
+# L2 (4u's form) in the median tensor (7.8e-3 / 0.48) and in the largest
+# (0.149 / 0.95). The entropy percentiles taken per rank move only the
+# bank and the ranks' agreement
+DDP_LOSS_REL = 1e-4
+DDP_CONTRA_REL = 5e-3
+DDP_BANK_REL = 1e-2
+DDP_U2PL_L2 = 5e-2
+DDP_U2PL_L2_MAX = 0.5
+# the planted faults: BatchNorm statistics over a rank's own samples, every
+# rank drawing its dropout masks at its own shape (the global masks' first
+# rows), the entropy percentiles over a rank's own pixels
+DDP_FAULTS = ("bn_local", "dropout_unsliced", "percentile_local")
+DDP_WINDOWS = 3
+DDP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ddp")
+DDP_TREE = os.path.join(DATA_DIR, "ddp_predict_tree")
+# run_predict's summary keys that hold times, not results
+PREDICT_TIMES = ("predict_time_mean", "predict_time_sum", "frames_per_second")
+DDP_KERNELS = ("grid_sample_cuda", "grid_sample_backward_cuda", "warp_chain_cuda",
+               "resize_quantize_int8_cuda")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(part: str, size: int, backend: str, timeout: float, expect_fail=False):
+    """``part`` on ``size`` rank processes of this script (``--ddp-rank``),
+    every one on cuda:0, rendezvousing through FLOODSEG_COORDINATOR on a
+    free localhost port with ``backend`` (``ddp_rank``). Returns each
+    rank's result (what it saved). A rank that fails, or a launch that
+    outlives ``timeout``, raises, unless ``expect_fail`` (then the outputs
+    come back with the exit codes, None for a rank killed at the
+    timeout)."""
+    os.makedirs(DDP_DIR, exist_ok=True)
+    prefix = os.path.join(DDP_DIR, part)
+    env = {**os.environ, "FLOODSEG_MULTIHOST": "1",
+           "FLOODSEG_COORDINATOR": f"localhost:{_free_port()}",
+           "FLOODSEG_NUM_PROCESSES": str(size), "LOCAL_RANK": "0"}
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, here, "--ddp-rank", part, backend, prefix],
+                              env={**env, "FLOODSEG_PROCESS_ID": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(size)]
+    outs, codes = [], []
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+                codes.append(p.returncode)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0])
+                codes.append(None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, out in enumerate(outs):
+        with open(f"{prefix}.rank{r}.log", "w") as f:
+            f.write(out)
+    if expect_fail:
+        return codes, outs
+    for r, (code, out) in enumerate(zip(codes, outs)):
+        if code != 0:
+            raise AssertionError(f"phase 23 {part}: rank {r} of {size} exited {code}:\n"
+                                 f"{out[-6000:]}")
+    return [torch.load(f"{prefix}.rank{r}.pt", weights_only=False) for r in range(size)]
+
+
+class _ReversedBatches:
+    """A train loader whose batches come with their samples in reverse
+    order (the grid chains on their second dim, the host ids too)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __iter__(self):
+        for b in self.loader:
+            yield {k: (v.flip(1) if k in ("mvs_left", "mvs_right") else v.flip(0))
+                   if torch.is_tensor(v) else np.ascontiguousarray(v[::-1])
+                   for k, v in b.items()}
+
+
+@contextlib.contextmanager
+def reversed_samples(model):
+    """Inside: run_flow_fit's train batches reversed (``_ReversedBatches``)
+    and every Dropout of ``model`` drawing its mask as it would and
+    reversing it with them, so that the step computes what it computes on
+    the batch in order, its sums over the batch in another order: the
+    float32 floor of a reordering, which is what data parallelism does to
+    the sums."""
+    orig = fit.train_loaders
+
+    def loaders(*args, **kwargs):
+        ls, steps = orig(*args, **kwargs)
+        return {k: _ReversedBatches(v) for k, v in ls.items()}, steps
+
+    def draw(mod, args):
+        x = args[0]
+        if mod.training and 0.0 < mod.rate < 1.0 and mod.generator is not None:
+            shape = [1 if d in mod.broadcast_dims else s for d, s in enumerate(x.shape)]
+            keep = torch.rand(shape, generator=mod.generator, device=x.device) < 1.0 - mod.rate
+            mod.keep = keep if 0 in mod.broadcast_dims else keep.flip(0)
+
+    def clear(mod, args, out):
+        mod.keep = None
+
+    hooks = [h for m in model.modules() if isinstance(m, Dropout)
+             for h in (m.register_forward_pre_hook(draw), m.register_forward_hook(clear))]
+    fit.train_loaders = loaders
+    try:
+        yield
+    finally:
+        fit.train_loaders = orig
+        for h in hooks:
+            h.remove()
+
+
+def ddp_fit(dev, root, world, batch, reverse=False) -> dict:
+    """run_flow_fit of phase 14's PSPNet-50 (seed 7, float32, aux head) on
+    ``root`` over ``world`` (None: one device) with ``batch`` samples a
+    rank: DDP_STEPS steps, DDP_VAL validation frames; ``reverse``: under
+    ``reversed_samples``. Returns the state (on the host), the epoch's
+    record, each step's synchronised ms, the launches, seconds and
+    peak."""
+    model = random_model("pspnet", torch.float32, seed=7, image_size=CROP, with_aux=True)
+    cfg = default_fit_config(train_h=CROP, train_w=CROP, resize_h=FRAME_HW[0],
+                             resize_w=FRAME_HW[1], frame_delta=FRAME_DELTA, max_epochs=1,
+                             limit_train_batches=DDP_STEPS, limit_val_batches=DDP_VAL,
+                             batch_size=batch)
+    prof = PhaseProfiler(sync=lambda: torch.cuda.synchronize(dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with reversed_samples(model) if reverse else contextlib.nullcontext():
+        summary = run_flow_fit(model, root, cfg, profiler=prof, device=dev, world=world)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    rec = summary["epochs"][0]
+    return {"state": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+            "record": {k: rec[k] for k in ("train_loss", "train_miou", "val_miou")},
+            "step_ms": [round(1e3 * s, 1) for s in prof.recorded_durations["train_step"]],
+            "launches": launch_counts(), "seconds": seconds,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def ddp_u2pl_batch(seed=11, size=DDP_U2PL_CROP) -> dict:
+    """A global U2PL batch, 2 labeled + 2 unlabeled at ``size`` px, on the
+    host (labels with 5% ignored)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, CLASSES, (2, size, size))
+    labels = np.where(rng.random(labels.shape) < 0.05, 255, labels).astype(np.int32)
+    frames = [rng.standard_normal((2, size, size, 3)).astype(np.float32) for _ in range(2)]
+    return {"l": {"frame_current": frames[0], "label": labels}, "u": {"frame_current": frames[1]}}
+
+
+@contextlib.contextmanager
+def planted_fault(name, world):
+    """Inside, the contrastive steps over ``world`` take the wrong
+    data-parallel step ``name`` (one of DDP_FAULTS; None: none): the
+    package's modules are patched in this process alone."""
+    from floodseg_tpu_torch.models.layers import BatchNorm2d
+    from floodseg_tpu_torch.parallel import shard
+    from floodseg_tpu_torch.train import contrastive
+    saved = {k: getattr(contrastive, k) for k in ("data_parallel", "masked_percentile")}
+    if name in ("bn_local", "dropout_unsliced"):
+        local = BatchNorm2d if name == "bn_local" else Dropout
+
+        @contextlib.contextmanager
+        def data_parallel(module, w):
+            with saved["data_parallel"](module, w):
+                for m in module.modules():
+                    if isinstance(m, local):
+                        m.world = None
+                yield
+
+        contrastive.data_parallel = data_parallel
+    elif name == "percentile_local":
+        contrastive.masked_percentile = lambda x, valid, q: saved["masked_percentile"](
+            shard(x, world), shard(valid, world), q)
+    elif name is not None:
+        raise ValueError(f"no planted fault {name!r}")
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(contrastive, k, v)
+
+
+def u2pl_p0() -> dict:
+    """The student's floating-point state before ``ddp_u2pl``'s steps."""
+    return {k: v.detach().clone() for k, v in init_from_generator_(
+        build_model("pspnet", classes=CLASSES, layers=50, with_aux=True, semisupervised=True),
+        torch.Generator().manual_seed(12)).state_dict().items() if v.is_floating_point()}
+
+
+def u2pl_readings(two, one, p0=None) -> dict:
+    """The contrastive check's readings of ``two`` (each rank's
+    ``ddp_u2pl`` result) against ``one`` (a one-device result): the largest
+    relative distance of the sup and unsup losses and of the contrastive
+    and total loss over both steps, the tensors and bank counts in which
+    the ranks differ, the bank counts' largest relative distance, and what
+    the steps changed per tensor in L2 (``step_rel_l2``): the median and
+    the largest tensor."""
+    def rel(keys):
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                   for a, b in zip(two[0]["losses"], one["losses"]) for k in keys)
+
+    a, b = two[0], one
+    ranks_differ = sum(not torch.equal(a["state"][k], r["state"][k])
+                       for r in two[1:] for k in a["state"])
+    ranks_differ += sum(not torch.equal(a["bank_counts"], r["bank_counts"]) for r in two[1:])
+    bank = ((a["bank_counts"] - b["bank_counts"]).abs().double()
+            / b["bank_counts"].double().clamp(min=1)).max()
+    l2 = step_rel_l2(a["state"], b["state"], p0 if p0 is not None else u2pl_p0())
+    largest = max(l2, key=l2.get)
+    return {"loss_rel": rel(("sup_loss", "unsup_loss")),
+            "contra_rel": rel(("contra_loss", "loss")), "ranks_differ": ranks_differ,
+            "bank_rel": float(bank), "l2_median": statistics.median(l2.values()),
+            "l2_largest": l2[largest], "l2_largest_tensor": largest}
+
+
+def u2pl_failures(r) -> list:
+    """The readings over their limits."""
+    limits = {"loss_rel": DDP_LOSS_REL, "contra_rel": DDP_CONTRA_REL, "ranks_differ": 0,
+              "bank_rel": DDP_BANK_REL, "l2_median": DDP_U2PL_L2,
+              "l2_largest": DDP_U2PL_L2_MAX}
+    return [k for k, v in limits.items() if r[k] > v]
+
+
+def u2pl_line(r) -> str:
+    return (f"sup/unsup losses rel {r['loss_rel']:.2e} (limit {DDP_LOSS_REL:g}), contrastive "
+            f"and total rel {r['contra_rel']:.2e} ({DDP_CONTRA_REL:g}), {r['ranks_differ']} "
+            f"tensors or banks differ between the ranks (0), bank counts rel "
+            f"{r['bank_rel']:.2e} ({DDP_BANK_REL:g}), what the steps changed in L2: median "
+            f"tensor {r['l2_median']:.2e} ({DDP_U2PL_L2:g}), largest {r['l2_largest']:.2e} "
+            f"({DDP_U2PL_L2_MAX:g}, {r['l2_largest_tensor']})")
+
+
+def ddp_u2pl(dev, world, fault=None) -> dict:
+    """One contrastive sup step, the sync and one semi step of PSPNet-50
+    with its aux and rep heads (teacher of its own init) over ``world``
+    (None: one device) on this rank's share of ``ddp_u2pl_batch``, the
+    contrastive loss divided by 2 either way; the draws from the step's
+    generators, the same on every rank; ``fault``: under
+    ``planted_fault``. Returns each step's losses, the student's state
+    after the semi step, the bank's counts, launches, seconds and peak."""
+    from floodseg_tpu_torch.parallel import shard_batch
+    model = init_from_generator_(build_model("pspnet", classes=CLASSES, layers=50,
+                                             with_aux=True, semisupervised=True),
+                                 torch.Generator().manual_seed(12)).to(dev)
+    teacher = init_from_generator_(build_model("pspnet", classes=CLASSES, layers=50,
+                                               with_aux=True, semisupervised=True),
+                                   torch.Generator().manual_seed(13)).to(dev)
+    model.to(memory_format=torch.channels_last)
+    teacher.to(memory_format=torch.channels_last)
+    cfg = default_fit_config()
+    opt, sched = make_optimizer(model, cfg.lr, 10)
+    state = create_u2pl_state(model, opt, sched, teacher, num_classes=CLASSES,
+                              max_enqueue=cfg.contrastive.max_enqueue)
+    sup, semi = make_u2pl_steps(CLASSES, ContrastiveConfig(num_devices=2), 255, 0.4,
+                                world=world)
+    glob = ddp_u2pl_batch()
+    batch = {r: {k: torch.as_tensor(v, device=dev)
+                 for k, v in (shard_batch(b, world) if world else b).items()}
+             for r, b in glob.items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with planted_fault(fault, world):
+        state, m_sup = sup(state, batch, fit.step_generator(0, 0))
+        sync_teacher(state)
+        state, m_semi = semi(state, batch, fit.step_generator(0, 1), 0.5, 0)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    return {"losses": [{k: float(v) for k, v in m.items() if k.endswith("loss")}
+                       for m in (m_sup, m_semi)],
+            "counts": m_semi["target"].cpu(), "bank_counts": state.bank.counts.cpu(),
+            "state": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                      if v.is_floating_point()},
+            "launches": launch_counts(), "seconds": seconds,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def ddp_predict_tree() -> str:
+    """Phase 23c's predict tree from the port's writer: DDP_WINDOWS windows
+    of 512 px frames, n = 25, with its palette (list/colors.txt)."""
+    shutil.rmtree(DDP_TREE, ignore_errors=True)
+    generate_synthetic_dataset(DDP_TREE, num_frames=DDP_WINDOWS * FRAME_DELTA + 1,
+                               size=(512, 512), frame_delta=FRAME_DELTA, num_labeled=2)
+    return DDP_TREE
+
+
+@contextlib.contextmanager
+def dp_maps_spy():
+    """Inside: every DP predict function that run_flow_predict makes
+    (parallel/mesh.py::make_dp_predict_fn) also puts the maps it returns
+    (uint8, on the host) in the list yielded, batch by batch."""
+    from floodseg_tpu_torch.train import predict as predict_mod
+    orig = predict_mod.make_dp_predict_fn
+    maps = []
+
+    def make(predict_fn, world):
+        dp = orig(predict_fn, world)
+
+        def spied(*args):
+            out = dp(*args)
+            maps.append(torch.as_tensor(out).to(torch.uint8).cpu())
+            return out
+
+        return spied
+
+    predict_mod.make_dp_predict_fn = make
+    try:
+        yield maps
+    finally:
+        predict_mod.make_dp_predict_fn = orig
+
+
+def plain_predict(model, dev, int8, png_dir, video_path) -> dict:
+    """What run_flow_predict's whole-frame route runs on one device, with
+    the non-cached make_flow_predict_fn, which every rank runs, in place of
+    the cached pair: run_predict over the same dataset, loader, palette and
+    outputs. Returns run_predict's summary."""
+    ds = FlowDataset("predict", DDP_TREE, None, type="u", frame_delta=FRAME_DELTA,
+                     transform=build_test_transform(None, (SIZE, SIZE), normalize=False),
+                     predict_v_id="synth")
+    fn = make_flow_predict_fn(model, n=FRAME_DELTA, out_size=(SIZE, SIZE),
+                              default_grid=ds.default_grid, int8_decode=int8, device=dev)
+    loader = DataLoader(ds, batch_size=1, num_workers=4,
+                        device_put=lambda b: device_put(b, dev))
+    colors = np.loadtxt(os.path.join(DDP_TREE, "list", "colors.txt")).astype("uint8")
+    return run_predict(fn, model.state_dict(), loader, CLASSES, colors=colors,
+                       save_images_dir=png_dir, video_path=video_path)
+
+
+def ddp_predict(dev, world, out_dir, plain=False) -> dict:
+    """run_flow_predict of ``ddp_predict_tree``'s video with phase 5's
+    PSPNet-50 bf16 (seed 0) at 513 px, n = 25, on the whole-frame route
+    (no_cropping), over ``world`` (None: one device, the cached route;
+    ``plain``: one device through ``plain_predict``), with the bf16 and
+    then the int8 decoder, the PNGs to out_dir/DEC/png and the AVI to
+    out_dir/DEC.avi. Returns for each decoder the summary less its times,
+    the frames/s, the maps the DP predict functions returned (none on one
+    device), launches, seconds and peak. The weights are on the card in
+    the builders' layout (channels_last) before the variables are taken,
+    so that every route convolves the same tensors."""
+    model = random_model("pspnet", torch.bfloat16, seed=0).to(dev)
+    model.to(memory_format=torch.channels_last)
+    out = {}
+    for dec in ("bf16", "int8"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        png_dir, video = os.path.join(out_dir, dec, "png"), os.path.join(out_dir, f"{dec}.avi")
+        with dp_maps_spy() as maps:
+            if plain:
+                summary = plain_predict(model, dev, dec == "int8", png_dir, video)
+            else:
+                summary = run_flow_predict(
+                    model, model.state_dict(), DDP_TREE, "synth", frame_delta=FRAME_DELTA,
+                    resize=(SIZE, SIZE), no_cropping=True, num_classes=CLASSES,
+                    int8_decode=dec == "int8", save_images_dir=png_dir, video_path=video,
+                    workers=4, device=dev, world=world)
+        torch.cuda.synchronize(dev)
+        out[dec] = {"summary": {k: v for k, v in summary.items() if k not in PREDICT_TIMES},
+                    "frames_per_second": summary.get("frames_per_second"),
+                    "maps": list(maps), "launches": launch_counts(),
+                    "seconds": time.perf_counter() - t0,
+                    "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    return out
+
+
+def ddp_rank(part: str, backend: str, prefix: str) -> int:
+    """--ddp-rank PART BACKEND PREFIX: one rank of phase 23 (the
+    environment of ``launch_ranks``): the rendezvous, then ``part`` on this
+    rank, its result saved to PREFIX.rank{r}.pt. Under ``nccl`` the port's
+    own (parallel/dist.py, which derives NCCL from the card); under
+    ``gloo`` (several ranks on the one card, which NCCL refuses) this
+    process makes the gloo group at the same address first, and the
+    port's initialiser finds it made. ``nccl_probe``: one all-reduce, the
+    error it raises saved instead of raised."""
+    from floodseg_tpu_torch.parallel import current_world, maybe_initialize_multihost
+    t0 = time.perf_counter()
+    if backend == "gloo":
+        torch.cuda.set_device(0)
+        torch.distributed.init_process_group(
+            "gloo", init_method=f"tcp://{os.environ['FLOODSEG_COORDINATOR']}",
+            world_size=int(os.environ["FLOODSEG_NUM_PROCESSES"]),
+            rank=int(os.environ["FLOODSEG_PROCESS_ID"]))
+    maybe_initialize_multihost()
+    world = current_world()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    log(f"[23 rank {world.rank}/{world.size}] {part} on {dev} "
+        f"({torch.distributed.get_backend()}), up in {time.perf_counter() - t0:.1f} s")
+    if part == "nccl_probe":
+        try:
+            x = torch.ones(1, device=dev)
+            torch.distributed.all_reduce(x)
+            torch.cuda.synchronize(dev)
+            result = {"error": None, "value": float(x)}
+        except RuntimeError as e:  # DistBackendError among them
+            result = {"error": f"{type(e).__name__}: {e}"}
+    else:
+        build.build(["warp", "resize"])
+        if part == "fit":
+            result = ddp_fit(dev, os.path.join(DATA_DIR, "train_tree"), world,
+                             2 // world.size)
+        elif part.startswith("u2pl"):
+            result = ddp_u2pl(dev, world, part.partition("-")[2] or None)
+        else:
+            result = ddp_predict(dev, world, f"{prefix}.rank{world.rank}.out")
+    torch.save(result, f"{prefix}.rank{world.rank}.pt")
+    log(f"[23 rank {world.rank}/{world.size}] {part} done in {time.perf_counter() - t0:.1f} s")
+    if part != "nccl_probe":  # its communicator is broken
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def change_within(name, got, ref, p0, floor=None) -> float:
+    """4t's rule on what a step changed: per tensor that ``ref``'s step
+    moved, max|got - ref| / max|ref - p0| within STEP_FLOOR_FACTOR times
+    ``floor`` (the tensor's float32 floor, the same measure between two
+    one-rank runs), never tighter than STEP_ABS. Returns the largest
+    distance over its limit; raises above 1."""
+    e = step_rel(got, ref, p0)
+    floor = floor or {}
+    limit = {k: max(STEP_ABS, STEP_FLOOR_FACTOR * floor.get(k, 0.0)) for k in e}
+    worst = sorted(e, key=lambda k: e[k] / limit[k], reverse=True)[:3]
+    moved = {k for k in ref if not torch.equal(ref[k], p0[k])}
+    moved_got = {k for k in got if not torch.equal(got[k], p0[k])}
+    bits = sum(not torch.equal(got[k], ref[k]) for k in ref)
+    ratio = max(e[k] / limit[k] for k in e)
+    log(f"  {name}: {len(e)} tensors moved, {bits} differ bitwise; the change's distance "
+        f"median {statistics.median(e.values()):.2e}, largest over its limit {ratio:.3f} "
+        f"({'; '.join(f'{k} {e[k]:.2e} of limit {limit[k]:.2e}' for k in worst)})")
+    if ratio > 1.0 or moved != moved_got:
+        raise AssertionError(f"phase 23 {name}: a step's change outside 4t's rule "
+                             f"({ratio:.3f} of the limit; moved sets equal: "
+                             f"{moved == moved_got})")
+    return ratio
+
+
+def _rank_line(part, results) -> None:
+    """Each rank's seconds (and ms a step), peak memory and launches (by
+    decoder for DP predict)."""
+    for r, res in enumerate(results):
+        runs = [("", res)] if "launches" in res else list(res.items())
+        for name, v in runs:
+            steps = f", ms a step {v['step_ms']}" if "step_ms" in v else ""
+            log(f"  {part}{' ' + name if name else ''} rank {r}: {v['seconds']:.2f} s{steps}, "
+                f"peak {v['peak_gb']:.2f} GB, launches "
+                f"{ {k: v['launches'][k] for k in DDP_KERNELS} }")
+
+
+def ddp_u2pl_part(dev) -> None:
+    """Phase 23b's contrastive check: the semi step over 2 gloo ranks
+    against one rank (``u2pl_readings`` within their limits)."""
+    log(f"  contrastive: sup step, sync, semi step of PSPNet-50 (aux, rep), batch 2 + 2 at "
+        f"{DDP_U2PL_CROP} px, num_devices 2, 2 gloo ranks against one rank")
+    t0 = time.perf_counter()
+    u2 = launch_ranks("u2pl", 2, "gloo", 600)
+    log(f"  wall {time.perf_counter() - t0:.1f} s")
+    _rank_line("u2pl (gloo, 2 ranks)", u2)
+    one_u2 = ddp_u2pl(dev, None)
+    torch.cuda.empty_cache()
+    log(f"  losses 2 ranks {u2[0]['losses']}, 1 rank {one_u2['losses']}; bank counts "
+        f"{u2[0]['bank_counts'].tolist()} and {one_u2['bank_counts'].tolist()}; one rank "
+        f"{one_u2['seconds']:.2f} s, peak {one_u2['peak_gb']:.2f} GB")
+    readings = u2pl_readings(u2, one_u2)
+    failed = u2pl_failures(readings)
+    log(f"  2 ranks against 1: {u2pl_line(readings)}")
+    if failed:
+        raise AssertionError(f"phase 23b contrastive: {failed} over their limits")
+    del u2, one_u2
+
+
+def ddp_predict_part(dev) -> dict:
+    """Phase 23c: run_flow_predict over 2 gloo ranks against one rank.
+    Returns the ranks' launches, summed."""
+    log(f"[23c] DP predict through run_flow_predict(no_cropping, world): PSPNet-50 bf16, "
+        f"{SIZE} px, n = {FRAME_DELTA}, {DDP_WINDOWS} windows (a batch of one a rank, then a "
+        f"ragged batch of one), the bf16 and the int8 decoder, 2 gloo ranks against one rank")
+    t0 = time.perf_counter()
+    ddp_predict_tree()
+    for r in range(2):
+        shutil.rmtree(os.path.join(DDP_DIR, f"predict.rank{r}.out"), ignore_errors=True)
+    log(f"  tree: {DDP_WINDOWS * FRAME_DELTA + 1} frames of 512x512 written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dp = launch_ranks("predict", 2, "gloo", 600)
+    log(f"  wall {time.perf_counter() - t0:.1f} s")
+    _rank_line("predict (gloo, 2 ranks)", dp)
+    ref_dir = os.path.join(DDP_DIR, "predict.one.out")
+    plain_dir = os.path.join(DDP_DIR, "predict.plain.out")
+    for d in (ref_dir, plain_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    one_c = ddp_predict(dev, None, ref_dir)
+    one_p = ddp_predict(dev, None, plain_dir, plain=True)
+    torch.cuda.empty_cache()
+    frames = DDP_WINDOWS * FRAME_DELTA
+
+    def png_maps(d):
+        names = sorted(os.listdir(d), key=lambda n: int(n.split(".")[0]))
+        return names, torch.stack([torch.from_numpy(imread(os.path.join(d, n)))
+                                   for n in names]).to(torch.uint8)
+
+    def same_bytes(a, b):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            return fa.read() == fb.read()
+
+    predict_launches = {k: 0 for k in DDP_KERNELS}
+    cached_off = []
+    for dec in ("bf16", "int8"):
+        plain, cached = one_p[dec], one_c[dec]
+        names, ref_maps = png_maps(os.path.join(plain_dir, dec, "png"))
+        c_names, c_maps = png_maps(os.path.join(ref_dir, dec, "png"))
+        if tuple(ref_maps.shape) != (frames, SIZE, SIZE) or c_names != names:
+            raise AssertionError(f"phase 23c {dec}: one rank wrote maps "
+                                 f"{tuple(ref_maps.shape)} and {tuple(c_maps.shape)}")
+        for r, res in enumerate(dp):
+            got = res[dec]
+            maps = torch.cat(got["maps"])
+            unequal = (int((maps != ref_maps).sum()) if maps.shape == ref_maps.shape
+                       else -1)
+            wrote = os.path.exists(os.path.join(DDP_DIR, f"predict.rank{r}.out"))
+            per = got["launches"]
+            # rank r: its window of the full batch, then the ragged window
+            want_k = {"grid_sample_cuda": 3 * 2, "warp_chain_cuda": 2 * 2,
+                      "resize_quantize_int8_cuda": 2 if dec == "int8" else 0}
+            log(f"  {dec} rank {r}: {len(got['maps'])} batches of maps "
+                f"{[tuple(m.shape) for m in got['maps']]}, {unequal} pixels differ from one "
+                f"rank's non-cached maps and {int((maps != c_maps).sum())} from "
+                f"run_flow_predict's; summary equal to the non-cached one rank's: "
+                f"{got['summary'] == plain['summary']}; wrote files: {wrote}; "
+                f"{got['frames_per_second']:.2f} frames/s; launches "
+                f"{ {k: per[k] for k in want_k} } (expected {want_k})")
+            if unequal or len(got["maps"]) != 2 or got["summary"] != plain["summary"]:
+                raise AssertionError(f"phase 23c {dec} rank {r}: {unequal} pixels differ, "
+                                     f"summary {got['summary']} against {plain['summary']}")
+            if {k: per[k] for k in want_k} != want_k:
+                raise AssertionError(f"phase 23c {dec} rank {r}: launches {per}")
+            if wrote != (r == 0):
+                raise AssertionError(f"phase 23c {dec}: rank {r} wrote files: {wrote}")
+            for k in DDP_KERNELS:
+                predict_launches[k] += per[k]
+        # rank 0 wrote what one rank writes on the same route, byte for byte
+        ours = os.path.join(DDP_DIR, "predict.rank0.out", dec)
+        same_pngs = sorted(os.listdir(os.path.join(ours, "png"))) == sorted(names) and all(
+            same_bytes(os.path.join(ours, "png", n), os.path.join(plain_dir, dec, "png", n))
+            for n in names)
+        same_avi = same_bytes(ours + ".avi", os.path.join(plain_dir, f"{dec}.avi"))
+        log(f"  {dec}: rank 0's PNGs equal one rank's, byte for byte: {same_pngs}; its AVI "
+            f"({len(read_mjpg_avi(ours + '.avi'))} frames): {same_avi}")
+        if not (same_pngs and same_avi):
+            raise AssertionError(f"phase 23c {dec}: rank 0's files differ from one rank's")
+        # run_flow_predict on one device reuses the next key's encoding (the
+        # cached pair), which the ranks do not: its first window runs the
+        # same program, bit for bit; later ones reuse an encoding made alone
+        # where the ranks make it beside the previous key, the same function
+        # with a bf16 rounding elsewhere, held by 5p's rule for that (at
+        # least COMPOSED_MIN_EQUAL of the pixels equal)
+        moved = [int((c_maps[w:w + FRAME_DELTA] != ref_maps[w:w + FRAME_DELTA]).sum())
+                 for w in range(0, frames, FRAME_DELTA)]
+        equal = 1.0 - sum(moved) / ref_maps.numel()
+        log(f"  {dec} one rank: run_flow_predict (cached route) {cached['seconds']:.2f} s "
+            f"with the loader, {cached['frames_per_second']:.2f} frames/s, peak "
+            f"{cached['peak_gb']:.2f} GB; the non-cached route {plain['seconds']:.2f} s, "
+            f"{plain['frames_per_second']:.2f} frames/s; pixels that differ between the two "
+            f"by window {moved} (the first: 0 required), {equal:.6f} equal (at least "
+            f"{COMPOSED_MIN_EQUAL:g}); summary "
+            f"{ {k: v for k, v in cached['summary'].items() if not k.endswith('classes')} }")
+        if moved[0] or equal < COMPOSED_MIN_EQUAL or (
+                cached["summary"]["frames"] != plain["summary"]["frames"]):
+            cached_off.append(f"{dec}: {moved} pixels by window")
+    if cached_off:
+        raise AssertionError(f"phase 23c: the cached and non-cached one-rank routes differ "
+                             f"({'; '.join(cached_off)})")
+    return predict_launches
+
+
+def ddp_phase(dev, root) -> dict:
+    """Phase 23: data parallelism on the card (parallel/, the global-batch
+    steps). Returns the launches of the main path's runs, summed over the
+    ranks, by part."""
+    smi = nvidia_smi_line()
+    t_all = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    p0 = {k: v.detach().clone() for k, v in random_model(
+        "pspnet", torch.float32, seed=7, image_size=CROP, with_aux=True).state_dict().items()}
+    log(f"[23a] one rank over NCCL: run_flow_fit, PSPNet-50 float32, global batch 2, "
+        f"{CROP} px crops, {DDP_STEPS} steps, {DDP_VAL} validation frames, on {smi}")
+    t0 = time.perf_counter()
+    (one,) = launch_ranks("fit", 1, "nccl", 600)
+    log(f"  wall {time.perf_counter() - t0:.1f} s with the process start")
+    _rank_line("fit (NCCL, 1 rank)", [one])
+    warps = 2 * (FRAME_DELTA - 1)
+    want = {"grid_sample_cuda": warps * (DDP_STEPS + DDP_VAL),
+            "grid_sample_backward_cuda": warps * DDP_STEPS}
+    got = {k: one["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"phase 23a launched {got}, phase 14's step launches {want}")
+    log("  phase 14's step in this process (no process group), the reference, and the same "
+        "with the batch's samples reversed (the float32 floor of reordering its sums):")
+    ref = ddp_fit(dev, root, None, 2)
+    rev = ddp_fit(dev, root, None, 2, reverse=True)
+    torch.cuda.empty_cache()
+    floor = step_rel(rev["state"], ref["state"], p0)
+    log(f"  one device: {ref['seconds']:.2f} s, ms a step {ref['step_ms']} (reversed "
+        f"{rev['step_ms']}), peak {ref['peak_gb']:.2f} GB, record "
+        f"{ref['record']}; reversed: record {rev['record']}; one rank over NCCL: record "
+        f"{one['record']}; the floor's median {statistics.median(floor.values()):.2e}, "
+        f"largest {max(floor.values()):.2e} of a tensor's largest change")
+    del rev
+    change_within("23a against phase 14's step", one["state"], ref["state"], p0, floor)
+    del one["state"]
+
+    log("[23b] two ranks on the one card")
+    t0 = time.perf_counter()
+    codes, outs = launch_ranks("nccl_probe", 2, "nccl", 120, expect_fail=True)
+    msgs = [next((ln for ln in out.splitlines() if "Duplicate GPU" in ln), None)
+            for out in outs]
+    for r, (c, out) in enumerate(zip(codes, outs)):
+        res = (torch.load(os.path.join(DDP_DIR, f"nccl_probe.rank{r}.pt"), weights_only=False)
+               if c == 0 else {"error": "the rank did not finish"})
+        log(f"  NCCL, two ranks on cuda:0, one all-reduce: rank {r} exit {c}; "
+            f"{(res.get('error') or 'no error')[:300]}")
+    log(f"  NCCL refuses two ranks on one device: "
+        f"{'yes (Duplicate GPU detected)' if any(msgs) else 'see the lines above'}; "
+        f"{time.perf_counter() - t0:.1f} s. The two ranks run on gloo with CUDA tensors.")
+    t0 = time.perf_counter()
+    two = launch_ranks("fit", 2, "gloo", 600)
+    log(f"  fit over 2 gloo ranks, 1 + 1 samples: wall {time.perf_counter() - t0:.1f} s")
+    _rank_line("fit (gloo, 2 ranks)", two)
+    # each rank: every step's forward on its sample, its share of the
+    # validation frames
+    want_rank = {"grid_sample_cuda": warps * (DDP_STEPS + DDP_VAL // 2),
+                 "grid_sample_backward_cuda": warps * DDP_STEPS}
+    for r, res in enumerate(two):
+        got = {k: res["launches"][k] for k in want_rank}
+        if got != want_rank:
+            raise AssertionError(f"phase 23b rank {r} launched {got}, expected {want_rank}")
+    differ = sum(not torch.equal(two[0]["state"][k], two[1]["state"][k]) for k in p0)
+    log(f"  the two ranks' states: {differ} tensors differ (0 required); records "
+        f"{[r['record'] for r in two]}")
+    if differ:
+        raise AssertionError(f"phase 23b: the ranks' states differ in {differ} tensors")
+    change_within("23b (2 ranks) against 23a (1 rank)", two[0]["state"], ref["state"], p0,
+                  floor)
+    d_loss = abs(two[0]["record"]["train_loss"] - ref["record"]["train_loss"])
+    log(f"  train loss 2 ranks {two[0]['record']['train_loss']:.7f}, 1 rank "
+        f"{ref['record']['train_loss']:.7f} (rel {d_loss / abs(ref['record']['train_loss']):.2e},"
+        f" tol 1e-4); val mIoU {two[0]['record']['val_miou']:.6f} and "
+        f"{ref['record']['val_miou']:.6f}")
+    if d_loss > 1e-4 * abs(ref["record"]["train_loss"]):
+        raise AssertionError("phase 23b: the train loss differs from the one-rank run's")
+    fit_launches = {k: sum(r["launches"][k] for r in two) for k in DDP_KERNELS}
+    for r in two:
+        del r["state"]
+    del ref
+
+    ddp_u2pl_part(dev)
+    predict_launches = ddp_predict_part(dev)
+    log(f"  phase 23: {time.perf_counter() - t_all:.1f} s on {smi}")
+    return {"pspnet_f32_ddp_fit": {"launches": fit_launches},
+            "pspnet_bf16_ddp_predict": {"launches": predict_launches}}
+
+
+def ddp_alone() -> int:
+    """--ddp: build warp.cu, resize.cu and the codec, write phase 14's tree,
+    then phase 23."""
+    log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}")
+    build_kernels(["warp", "resize", "jpeg"])
+    ddp_phase(torch.device("cuda"), train_tree())
+    return 0
+
+
+def ddp_faults_alone() -> int:
+    """--ddp-faults: the readings of phase 23b's contrastive check on a
+    second one-rank run and a sound 2-rank run (both must pass every
+    limit) and on 2 ranks under each planted fault (each must fail one),
+    against one one-rank run. The readings also go to
+    build/ddp/faults.json. Exits 1 when a sound run fails or a fault
+    passes."""
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    log(f"[1] environment: {smi} | torch {torch.__version__} CUDA {torch.version.cuda}")
+    build_kernels(["warp", "resize"])
+    log(f"[23f] the contrastive check of 23b against planted faults, on {smi}")
+    one = ddp_u2pl(dev, None)
+    rows = {"one rank, again": u2pl_readings([ddp_u2pl(dev, None)] * 2, one)}
+    torch.cuda.empty_cache()
+    for fault in (None,) + DDP_FAULTS:
+        two = launch_ranks("u2pl" if fault is None else f"u2pl-{fault}", 2, "gloo", 600)
+        rows[f"2 ranks, {fault or 'sound'}"] = u2pl_readings(two, one)
+    bad = []
+    for name, r in rows.items():
+        failed = u2pl_failures(r)
+        log(f"  {name}: {u2pl_line(r)}; over its limit: {failed or 'none'}")
+        if bool(failed) != (name.split(", ")[-1] in DDP_FAULTS):
+            bad.append(name)
+    with open(os.path.join(DDP_DIR, "faults.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    log(f"  sound runs that fail a limit or faults that pass every one: {bad or 'none'}")
+    return 1 if bad else 0
+
+
 # ------------------------------------------------------------------ main
 
 # slow-pipe conversions and functions, the divide's range check, calls
@@ -4055,6 +4846,12 @@ def main() -> int:
         return u2pl_alone()
     if sys.argv[1:] == ["--cli"]:
         return cli_alone()
+    if sys.argv[1:] == ["--ddp"]:
+        return ddp_alone()
+    if sys.argv[1:] == ["--ddp-faults"]:
+        return ddp_faults_alone()
+    if sys.argv[1:2] == ["--ddp-rank"] and len(sys.argv) == 5:
+        return ddp_rank(*sys.argv[2:])
     if sys.argv[1:2] == ["--k1"] and len(sys.argv) <= 3:
         return k1_alone(*sys.argv[2:])
     t_start = time.perf_counter()
@@ -4199,6 +4996,8 @@ def main() -> int:
     log("[22] the CLI on the card: fit, test --ckpt_path last, predict (no_cropping, int8)")
     paths["pspnet_f32_cli"] = cli_phase(dev, os.path.join(DATA_DIR, "train_tree"))
     log(f"  phase 22: {time.perf_counter() - t_cli:.1f} s")
+    log("[23] data parallelism: one rank over NCCL, two gloo ranks on the card, DP predict")
+    paths.update(ddp_phase(dev, os.path.join(DATA_DIR, "train_tree")))
 
     sources = {"grid_sample_cuda": ("floodseg_tpu/ops/pallas_warp.py:70", "warp.cu"),
                "grid_sample_backward_cuda": (

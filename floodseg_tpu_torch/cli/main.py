@@ -14,6 +14,13 @@ metrics.json; ``validate``, ``test`` and ``predict`` run on ``--ckpt_path``
 package's ``JAX_PLATFORMS``: ``cuda`` without a card raises, ``cpu`` runs
 the plain PyTorch path. ``trainer.debug_nans`` turns on
 ``torch.autograd.set_detect_anomaly`` for the run.
+
+Several ranks, one process a GPU: set FLOODSEG_MULTIHOST and launch one
+process a rank, e.g. ``torchrun --nproc_per_node 4 -m
+floodseg_tpu_torch.cli.main fit ...`` (``env://``), or with
+FLOODSEG_COORDINATOR=host:port, FLOODSEG_NUM_PROCESSES and
+FLOODSEG_PROCESS_ID in each process (parallel/dist.py). Under ``--device
+cpu`` the ranks run on gloo.
 """
 
 import argparse
@@ -24,6 +31,7 @@ import torch
 
 from floodseg_tpu_torch.cli.runner import Runner
 from floodseg_tpu_torch.core.config import load_config, parse_cli_overrides
+from floodseg_tpu_torch.parallel.dist import maybe_initialize_multihost
 
 
 def build_parser():
@@ -72,6 +80,9 @@ def run(argv=None) -> Runner:
         cfg.trainer.seed = args.seed
     np.random.seed(cfg.trainer.seed)
 
+    # several ranks: one process a GPU (parallel/dist.py), where the JAX CLI
+    # calls jax.distributed.initialize
+    ranks = maybe_initialize_multihost(device=args.device)
     runner = Runner(cfg, device=args.device)
     with torch.autograd.set_detect_anomaly(cfg.trainer.debug_nans):
         if args.subcommand == "fit":
@@ -91,6 +102,8 @@ def run(argv=None) -> Runner:
             else:
                 print("predict:", _shown(runner.predict(state)))
     runner.logger.close()
+    if ranks:
+        torch.distributed.destroy_process_group()
     return runner
 
 

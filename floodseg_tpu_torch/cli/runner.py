@@ -1,6 +1,10 @@
-"""The experiment runner on one device (counterpart of
-floodseg_tpu/cli/runner.py::Runner): fit, validate, test and predict for
-every training method, over the port's entry points.
+"""The experiment runner (counterpart of floodseg_tpu/cli/runner.py::Runner):
+fit, validate, test and predict for every training method, over the port's
+entry points, on one device or over the ranks of the process group
+(parallel/mesh.py::World, one GPU a rank; ``trainer.num_devices``: None
+for every rank, n for min(n, ranks), below the ranks raises). The global
+batch is ``batch_size`` times the ranks; only rank 0 writes checkpoints,
+logs and predict's files.
 
 - ``fit``: the method's ``run_*`` (train/fit.py) with the Runner as its
   ``FitHooks``: an optional warm start from a reference checkpoint
@@ -14,7 +18,8 @@ every training method, over the port's entry points.
   fresh state; ``load_torch_ckpt``: a reference Lightning checkpoint.
 - ``validate`` (``run_validate``), ``test`` (``run_test``, with the
   test-image table) and ``predict`` (``run_flow_predict``: the crop route,
-  or the cached route under ``no_cropping``) on the served model: the
+  or under ``no_cropping`` the cached route, or one window a rank over
+  several ranks) on the served model: the
   generator for s4GAN, the U2PL teacher once synced.
 
 The model is ``build_model`` of the config with weights drawn from a
@@ -38,6 +43,7 @@ from floodseg_tpu_torch.core.logging import RunLogger
 from floodseg_tpu_torch.data.transforms import MEAN, STD
 from floodseg_tpu_torch.models import build_model, init_from_generator_
 from floodseg_tpu_torch.models.torch_import import convert_resnet_backbone, load_torch_file
+from floodseg_tpu_torch.parallel.mesh import World, current_world, resolve_num_devices
 from floodseg_tpu_torch.train.contrastive import U2PLState, served_model
 from floodseg_tpu_torch.train.fit import (
     FLOW_METHODS,
@@ -53,24 +59,40 @@ from floodseg_tpu_torch.train.fit import (
     run_test,
     run_validate,
 )
+from floodseg_tpu_torch.train.optim import AUX_KEYS
 from floodseg_tpu_torch.train.predict import run_flow_predict
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _load_role(module: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    """``load_state_dict`` of one imported role: strict, but for the
+    module's aux head (``AUX_KEYS``) when ``sd`` has none of it, which
+    keeps the module's own."""
+    own_aux = {k for k in module.state_dict() if k.split(".")[0] in AUX_KEYS}
+    if own_aux and not any(k.split(".")[0] in AUX_KEYS for k in sd):
+        sd = {**{k: v for k, v in module.state_dict().items() if k in own_aux}, **sd}
+    module.load_state_dict(sd, strict=True)
+
+
 class Runner(FitHooks):
-    def __init__(self, cfg: Config, device: DeviceLike = None):
+    def __init__(self, cfg: Config, device: DeviceLike = None, world: Optional[World] = None):
         if cfg.method not in METHODS:
             raise ValueError(f"unknown method {cfg.method!r}; expected one of {METHODS}")
         self.cfg = cfg
+        self.world = world if world is not None else current_world()
+        self.num_devices = resolve_num_devices(cfg.trainer.num_devices, self.world)
         self.device = resolve_device(device)
+        if self.world.parallel and self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.is_flow = cfg.method in FLOW_METHODS
-        self.fit_cfg = fit_config(cfg)  # raises for a field the port does not read yet
+        # raises for a field the port does not read yet
+        self.fit_cfg = fit_config(cfg, num_devices=self.num_devices)
         run_name = cfg.trainer.run_name or cfg.runid or uuid.uuid4().hex[:8]
         self.logger = RunLogger(cfg.trainer.log_dir, run_name, wandb_project=cfg.wandb,
-                                tags=[cfg.tag] if cfg.tag else None)
+                                tags=[cfg.tag] if cfg.tag else None, world=self.world)
         self.ckpt = CheckpointManager(os.path.join(self.logger.log_dir, "checkpoints"),
-                                      save_top_k=cfg.trainer.save_top_k)
+                                      save_top_k=cfg.trainer.save_top_k, world=self.world)
         self.model = self._build_model()
         self.state = None
         self.fit_summary: Optional[Dict] = None
@@ -132,7 +154,8 @@ class Runner(FitHooks):
         warm-start from (fresh optimizer; a resume of this run wins)."""
         cfg, fc = self.cfg, self.fit_cfg
         self._torch_ckpt = torch_ckpt
-        kw = dict(pretrained=self._pretrained_variables(), device=self.device, hooks=self)
+        kw = dict(pretrained=self._pretrained_variables(), device=self.device, hooks=self,
+                  world=self.world)
         root = cfg.data.data_root
         if cfg.method == "supervised":
             summary = run_fit(self.model, root, fc, **kw)
@@ -191,6 +214,8 @@ class Runner(FitHooks):
         if "val_miou" in record and wait_count >= self.fit_cfg.early_stopping_patience:
             print(f"early stopping at epoch {epoch} (best {best:.4f} @ {best_epoch})",
                   flush=True)
+        if not self.logger.writes:  # rank 0 writes
+            return
         with open(self._es_path(), "w") as f:
             json.dump({"best_metric": float(best) if np.isfinite(best) else None,
                        "best_epoch": best_epoch, "wait_count": wait_count}, f)
@@ -230,10 +255,13 @@ class Runner(FitHooks):
         return state
 
     def _graft_torch_ckpt(self, state, path: str, eval_only: bool) -> None:
-        """Strict-load each role of a reference checkpoint into ``state``'s
-        modules (optimizer states untouched): the model into the generator
-        or student, the discriminator and the U2PL teacher where present.
-        For evaluation the teacher is marked synced; a fit syncs it at the
+        """Load each role of a reference checkpoint into ``state``'s modules
+        (optimizer states untouched): the model into the generator or
+        student, the discriminator and the U2PL teacher where present.
+        Every key must match, but the model may keep its own aux head where
+        the checkpoint has none (a FlowModel's), as the JAX
+        ``graft_variables`` keeps target leaves the source lacks. For
+        evaluation the teacher is marked synced; a fit syncs it at the
         boundary epoch as it would otherwise."""
         imported = load_torch_file(path)
         if imported["arch"] != self.cfg.model.arch:
@@ -245,16 +273,16 @@ class Runner(FitHooks):
                   f"{self.cfg.method!r}; weights load anyway", flush=True)
         roles = imported["roles"]
         if isinstance(state, tuple):
-            state[0].model.load_state_dict(roles["model"], strict=True)
+            _load_role(state[0].model, roles["model"])
             if "discriminator" in roles:
-                state[1].model.load_state_dict(roles["discriminator"], strict=True)
+                _load_role(state[1].model, roles["discriminator"])
         elif isinstance(state, U2PLState):
-            state.student.model.load_state_dict(roles["model"], strict=True)
+            _load_role(state.student.model, roles["model"])
             if "teacher" in roles:
-                state.teacher.load_state_dict(roles["teacher"], strict=True)
+                _load_role(state.teacher, roles["teacher"])
                 state.teacher_synced = state.teacher_synced or eval_only
         else:
-            state.model.load_state_dict(roles["model"], strict=True)
+            _load_role(state.model, roles["model"])
         print(f"[import] loaded {fam} {imported['arch']} checkpoint (epoch "
               f"{imported.get('epoch')}) from {path}", flush=True)
 
@@ -273,7 +301,7 @@ class Runner(FitHooks):
         else:
             model = self._eval_model(state)
         results = run_validate(model, self.cfg.data.data_root, self.fit_cfg, self.cfg.method,
-                               device=self.device)
+                               device=self.device, world=self.world)
         if results:
             self.logger.update_summary(results)
         return results
@@ -290,7 +318,11 @@ class Runner(FitHooks):
     def test(self, state=None) -> Dict:
         """``run_test`` on the served model, with up to ``log_test_images``
         rows of (image, colorized ground truth, colorized prediction) saved
-        through the logger."""
+        through the logger. Over D ranks the flow methods test each rank's
+        share of the samples (rank 0: samples 0, D, 2D, ...), so the table,
+        which rank 0 writes, holds other samples than a one-rank run logs;
+        the single-frame methods share out each frame's crops and log the
+        same rows."""
         cfg = self.cfg
         if self.fit_cfg.limit_test_batches == 0:
             return {}
@@ -309,7 +341,8 @@ class Runner(FitHooks):
                          colors[label.astype(np.int64)], colors[np.asarray(pred, np.int64)]])
 
         results = run_test(self._eval_model(state), cfg.data.data_root, self.fit_cfg,
-                           cfg.method, device=self.device, on_sample=on_sample)
+                           cfg.method, device=self.device, on_sample=on_sample,
+                           world=self.world)
         if rows:
             self.logger.log_image_table("test_outputs", ["image", "ground truth", "prediction"],
                                         rows)
@@ -347,6 +380,6 @@ class Runner(FitHooks):
             video_path=(os.path.join(log_dir, "video", f"{d.predict_v_id}.avi")
                         if m.save_video else None),
             compute_metrics=m.compute_metrics, workers=d.workers, seed=cfg.trainer.seed,
-            device=self.device, frame_size=frame)
+            device=self.device, frame_size=frame, world=self.world)
         self.logger.update_summary(summary)
         return summary

@@ -23,6 +23,10 @@ A checkpoint holds a method's whole state (``state_payload``): a
 teacher's state_dict, ``teacher_synced``, whether the teacher's parameters
 alias the student's, and the memory bank. ``load_payload`` restores one
 into a state of the same method and shapes, in place.
+
+Over the ranks of a ``world`` (parallel/mesh.py) only rank 0 writes; every
+rank waits for the save at a barrier and then reads the index, so that
+resume and ``best_path`` agree on every rank.
 """
 
 import json
@@ -30,6 +34,8 @@ import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from floodseg_tpu_torch.parallel.mesh import barrier
 
 SUFFIX = ".pt"
 
@@ -138,11 +144,16 @@ def load_payload(state, payload: Dict[str, Any]):
 class CheckpointManager:
     MONITOR = "val_miou_epoch"  # ranked highest first
 
-    def __init__(self, directory: str, save_top_k: int = 5):
+    def __init__(self, directory: str, save_top_k: int = 5, world=None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.world = world
+        if world is None or world.is_main:
+            os.makedirs(self.directory, exist_ok=True)
         self.save_top_k = save_top_k
         self._index_path = os.path.join(self.directory, "index.json")
+        self._read_index()
+
+    def _read_index(self) -> None:
         self._index: List[Dict] = []
         if os.path.exists(self._index_path):
             with open(self._index_path) as f:
@@ -189,7 +200,16 @@ class CheckpointManager:
         """Save ``state`` as ``last-{epoch}.pt`` and, when ``val_miou_epoch``
         was computed and ranks in the top k, under its top-k name. The
         previous save's last checkpoint is kept until now and then removed,
-        all but the newest, and the ``last`` link points at the new one."""
+        all but the newest, and the ``last`` link points at the new one.
+        Rank 0 writes; the other ranks read the index after it."""
+        if self.world is None or self.world.is_main:
+            self._save(state, epoch, metrics)
+        if self.world is not None and self.world.parallel:
+            barrier(self.world)
+            if not self.world.is_main:
+                self._read_index()
+
+    def _save(self, state: Any, epoch: int, metrics: Dict[str, float]):
         for _, p in self._last_entries()[:-1]:
             os.remove(p)
         metric = metrics.get(self.MONITOR)

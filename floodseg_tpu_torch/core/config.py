@@ -185,7 +185,7 @@ class TrainerConfig:
     limit_train_batches: Optional[int] = None
     limit_val_batches: Optional[int] = None
     limit_test_batches: Optional[int] = None
-    num_devices: Optional[int] = None   # the port runs on one device
+    num_devices: Optional[int] = None   # None: every rank of the world
     debug_nans: bool = False            # torch.autograd.set_detect_anomaly
     resume: bool = True                 # resume from the run's last checkpoint
 
@@ -358,7 +358,7 @@ FIELDS: Dict[str, str] = {
     "trainer.limit_train_batches": "fit:limit_train_batches",
     "trainer.limit_val_batches": "fit:limit_val_batches",
     "trainer.limit_test_batches": "fit:limit_test_batches",
-    "trainer.debug_nans": "main", "trainer.resume": _RUNNER,
+    "trainer.debug_nans": "main", "trainer.resume": _RUNNER, "trainer.num_devices": _RUNNER,
     "method": _RUNNER, "ckpt_path": _RUNNER, "wandb": _RUNNER, "runid": _RUNNER,
     "tag": _RUNNER,
 }
@@ -371,8 +371,6 @@ NOT_READ: Dict[str, tuple] = {
                           lambda v: v is False),
     "data.normalize_on_device": ("14", "False (frames are normalized on the host)",
                                  lambda v: v is False),
-    "trainer.num_devices": ("13d", "None or 1 (one device; DDP is not ported)",
-                            lambda v: v is None or v == 1),
 }
 
 
@@ -393,13 +391,14 @@ def check_supported(cfg: Config) -> None:
                 f"the port runs with {accepted}")
 
 
-def fit_config(cfg: Config):
+def fit_config(cfg: Config, num_devices: int = 1):
     """The ``FitConfig`` (train/fit.py) of a resolved ``Config`` (the port's
     or the JAX package's): each of its fields from the config field that
     ``FIELDS`` maps to it ("fit:"), with the optimizer's name lower case,
     ``aux_weight`` 0 without the aux head, lists as tuples, and the
-    "contrastive." fields a ``ContrastiveConfig`` on one device. Raises as
-    ``check_supported`` does."""
+    "contrastive." fields a ``ContrastiveConfig`` whose loss is divided by
+    ``num_devices`` (the ranks of the run). Raises as ``check_supported``
+    does."""
     from floodseg_tpu_torch.train.contrastive import ContrastiveConfig
     from floodseg_tpu_torch.train.fit import FitConfig
 
@@ -416,7 +415,7 @@ def fit_config(cfg: Config):
                 values[name] = tuple(value) if isinstance(value, list) else value
     values["optimizer"] = values["optimizer"].lower()
     values["aux_weight"] = cfg.model.aux_weight if cfg.model.aux else 0.0
-    values["contrastive"] = ContrastiveConfig(**contrastive, num_devices=1)
+    values["contrastive"] = ContrastiveConfig(**contrastive, num_devices=num_devices)
     return FitConfig(**values)
 
 

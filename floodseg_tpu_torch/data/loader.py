@@ -7,6 +7,13 @@ delivered in order.
 
 PRNG discipline: item i of epoch e is transformed with
 ``np.random.default_rng((seed, e, i))``, whatever the workers' schedule.
+
+Over the ranks of a ``world`` (parallel/mesh.py) a loader reads only this
+rank's part: with ``share="rows"`` its contiguous share of every batch of
+``batch_size`` (the global batch of a data-parallel step), with
+``share="batches"`` every ``world.size``-th batch from its rank on (its
+share of an evaluation pass). The PRNG discipline makes the items the ones
+a one-rank loader gives.
 """
 
 import queue
@@ -20,6 +27,7 @@ import torch
 
 from floodseg_tpu_torch.core.device import DeviceLike, resolve_device
 from floodseg_tpu_torch.data.dataset import _INT_KEYS, collate
+from floodseg_tpu_torch.parallel.mesh import World, shard
 
 
 def device_put(batch: Dict[str, np.ndarray], device: DeviceLike = None) -> Dict:
@@ -54,7 +62,11 @@ class DataLoader:
         prefetch: int = 2,
         device_put: Optional[Callable] = None,
         infinite: bool = False,
+        world: Optional[World] = None,
+        share: str = "rows",
     ):
+        if share not in ("rows", "batches"):
+            raise ValueError(f"share is 'rows' or 'batches', got {share!r}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -64,6 +76,8 @@ class DataLoader:
         self.prefetch = prefetch
         self.device_put = device_put
         self.infinite = infinite
+        self.world = world if world is not None and world.parallel else None
+        self.share = share
         self.epoch = 0
 
     def __len__(self):
@@ -82,8 +96,14 @@ class DataLoader:
         idx = self._epoch_indices(epoch)
         n = len(idx)
         stop = n - n % self.batch_size if self.drop_last else n
-        for s in range(0, stop, self.batch_size):
-            yield idx[s:s + self.batch_size]
+        w = self.world
+        for bi, s in enumerate(range(0, stop, self.batch_size)):
+            if w is None:
+                yield idx[s:s + self.batch_size]
+            elif self.share == "rows":
+                yield shard(idx[s:s + self.batch_size], w)
+            elif bi % w.size == w.rank:
+                yield idx[s:s + self.batch_size]
 
     def __iter__(self) -> Iterator:
         # claim this iteration's epoch up front: a consumer that breaks

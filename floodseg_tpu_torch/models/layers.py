@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from floodseg_tpu_torch.ops.pool import max_pool
+from floodseg_tpu_torch.parallel.mesh import all_reduce_sum, shard
 
 
 class Conv2d(nn.Conv2d):
@@ -51,32 +52,51 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics become 0.9 * running + 0.1 * batch statistic in place and
     without a gradient, the variance's unbiased by n / (n - 1) with n the
     elements a channel (torch's rule). ``num_batches_tracked`` is not used.
+
+    Synchronised over the ranks of ``world`` (set by ``data_parallel``)
+    when it has more than one: the per-channel sums of x and x^2 and the
+    element count are summed over the ranks (parallel/mesh.py::
+    all_reduce_sum, whose backward sums the gradients too), and the mean,
+    E[x^2] and n are the global batch's, in the same order.
     """
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.compute_dtype = dtype
+        self.world = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(self.compute_dtype, torch.float32)
         shape = (1, -1, 1, 1)
         xc = x.to(dt)
-        if self.training:
+        if self.training and self.world is not None and self.world.parallel:
+            # every rank holds an equal slice, so n is the local count times
+            # the ranks (no read-back)
+            c = x.shape[1]
+            n = x.numel() / c * self.world.size
+            sums = all_reduce_sum(torch.cat([xc.sum(dim=(0, 2, 3)), (xc * xc).sum(dim=(0, 2, 3))]),
+                                  self.world)
+            mean = sums[:c] / n
+            var = torch.clamp_min(sums[c:] / n - mean * mean, 0.0)
+            self._update_running(mean, var, n)
+        elif self.training:
             mean = xc.mean(dim=(0, 2, 3))
             var = torch.clamp_min((xc * xc).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
-            n = x.numel() / x.shape[1]
-            with torch.no_grad():
-                m = 0.9
-                rm, rv = self.running_mean, self.running_var
-                rm.copy_(m * rm + (1.0 - m) * mean.detach().to(rm.dtype))
-                unbiased = var.detach() * (n / max(n - 1, 1))
-                rv.copy_(m * rv + (1.0 - m) * unbiased.to(rv.dtype))
+            self._update_running(mean, var, x.numel() / x.shape[1])
         else:
             mean = self.running_mean.to(dt)
             var = self.running_var.to(dt)
         y = (xc - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
         y = y * self.weight.to(dt).view(shape) + self.bias.to(dt).view(shape)
         return y.to(self.compute_dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor, n: float) -> None:
+        m = 0.9
+        rm, rv = self.running_mean, self.running_var
+        rm.copy_(m * rm + (1.0 - m) * mean.detach().to(rm.dtype))
+        unbiased = var.detach() * (n / max(n - 1, 1))
+        rv.copy_(m * rv + (1.0 - m) * unbiased.to(rv.dtype))
 
 
 class Dropout(nn.Module):
@@ -96,6 +116,13 @@ class Dropout(nn.Module):
     The training steps set ``generator`` for each call
     (``dropout_generator``); without either, training mode raises: the port
     never draws from torch's global generator.
+
+    Under ``data_parallel`` with more than one rank, x is this rank's slice
+    of the global batch: a mask with a batch axis (not in
+    ``broadcast_dims``) is drawn at the global shape from the generator
+    every rank shares, and this rank's rows are taken, so that each rank
+    drops what the one-rank step on the global batch drops. A ``keep``
+    of the global batch is sliced the same way.
     """
 
     def __init__(self, rate: float = 0.1, broadcast_dims: Sequence[int] = ()):
@@ -104,6 +131,7 @@ class Dropout(nn.Module):
         self.broadcast_dims = tuple(broadcast_dims)
         self.generator: Optional[torch.Generator] = None
         self.keep: Optional[torch.Tensor] = None
+        self.world = None
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}, broadcast_dims={self.broadcast_dims}"
@@ -115,14 +143,40 @@ class Dropout(nn.Module):
             return torch.zeros_like(x)
         keep_prob = 1.0 - self.rate
         keep = self.keep
+        world = self.world if self.world is not None and self.world.parallel else None
+        sliced = world is not None and 0 not in self.broadcast_dims
         if keep is None:
             if self.generator is None:
                 raise RuntimeError("Dropout in training mode needs a keep mask "
                                    "or a generator (dropout_generator)")
             shape = [1 if d in self.broadcast_dims else n for d, n in enumerate(x.shape)]
+            if sliced:
+                shape[0] *= world.size
             keep = torch.rand(shape, generator=self.generator, device=x.device) < keep_prob
+        if sliced and keep.shape[0] == x.shape[0] * world.size:
+            keep = shard(keep, world)
         scale = float(torch.tensor(keep_prob, dtype=x.dtype))
         return torch.where(keep.to(x.device), x / scale, torch.zeros_like(x))
+
+
+@contextlib.contextmanager
+def data_parallel(module: nn.Module, world) -> Iterator[None]:
+    """Every ``BatchNorm2d`` and ``Dropout`` in ``module`` takes part in the
+    global batch of ``world`` (parallel/mesh.py::World) inside the block:
+    synchronised statistics, global-shape masks. Nothing is set for a
+    world of one or None."""
+    if world is None or not world.parallel:
+        yield
+        return
+    mods = [m for m in module.modules() if isinstance(m, (BatchNorm2d, Dropout))]
+    prev = [m.world for m in mods]
+    for m in mods:
+        m.world = world
+    try:
+        yield
+    finally:
+        for m, w in zip(mods, prev):
+            m.world = w
 
 
 @contextlib.contextmanager

@@ -23,11 +23,15 @@ discriminator). Each role's layout:
   DeepLabv3 + rep      model.model.* + rep.*            -> as is
   VITSegmentModel      model.encoder / model.decoder    -> without ``model.``
   ViT + rep            model.model.* + rep.rep_model.*  -> as is
+  FlowPSPNet           model.layer0..4 / ppm / decoder  -> decoder as cls, no aux
+  FlowDeepLabv3        model.encoder.model / decoder    -> backbone / classifier, no aux
   discriminator        layers.{0,3,6,9} / final.0       -> as is
 
-The reference's FlowModel wrappers (FlowPSPNet's ``model.decoder`` with its
-``layers.``/``encoder.`` aliases, FlowDeepLabv3's
-``model.encoder.model.*``) are not read yet (ROADMAP item 13d) and raise.
+FlowPSPNet repeats its shared modules under ``model.layers.`` and
+``model.encoder.`` (aliases of the same tensors): only the canonical names
+are read. The flow wrappers have no aux head; a caller loading them into a
+model with one keeps the model's own (cli/runner.py::_graft_torch_ckpt, as
+the JAX ``graft_variables`` keeps leaves the source lacks).
 """
 
 from typing import Any, Dict, Mapping, Tuple
@@ -82,16 +86,23 @@ def _sub(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
 def _role(sd: Mapping[str, Any]) -> Tuple[str, Dict[str, Any]]:
     """One role's keys (its prefix stripped) -> (arch, the port's
     state_dict)."""
-    if "model.decoder.0.weight" in sd and "model.layer0.0.weight" in sd:
-        raise NotImplementedError(
-            "a FlowModel(FlowPSPNet) checkpoint layout is not read by the port yet "
-            "(ROADMAP item 13d)")
-    if "model.encoder.model.conv1.weight" in sd:
-        raise NotImplementedError(
-            "a FlowModel(FlowDeepLabv3) checkpoint layout is not read by the port yet "
-            "(ROADMAP item 13d)")
     if "layer0.0.weight" in sd or "model.cls.0.weight" in sd:
         return "pspnet", dict(sd)
+    if "model.decoder.0.weight" in sd and "model.layer0.0.weight" in sd:
+        out = {}
+        for k, v in _sub(sd, "model.").items():
+            if k.startswith(("layers.", "encoder.")):
+                continue
+            out["cls." + k[len("decoder."):] if k.startswith("decoder.") else k] = v
+        return "pspnet", out
+    if "model.encoder.model.conv1.weight" in sd:
+        out = {}
+        for k, v in sd.items():
+            if k.startswith("model.encoder.model."):
+                out["backbone." + k[len("model.encoder.model."):]] = v
+            elif k.startswith("model.decoder."):
+                out["classifier." + k[len("model.decoder."):]] = v
+        return "deeplabv3", out
     if "model.backbone.conv1.weight" in sd:
         return "deeplabv3", _sub(sd, "model.")
     if "model.model.backbone.conv1.weight" in sd:
@@ -114,7 +125,13 @@ def import_lightning_checkpoint(ckpt: Mapping[str, Any]) -> Dict[str, Any]:
     roles: Dict[str, Dict[str, Any]] = {}
     if any(k.startswith("model_G.") for k in sd):
         arch, roles["model"] = _role(_sub(sd, "model_G."))
-        family = "gan"
+        # the FlowModel wrappers' own names decide (a ViT generator also has
+        # model.decoder.*)
+        is_flow = any(k.startswith(("model_G.model.layers.", "model_G.model.encoder.model."))
+                      for k in sd)
+        has_d = any(k.startswith("model_D.") for k in sd)
+        family = ("flow_gan" if is_flow and has_d else "flow_supervised" if is_flow
+                  else "gan")
     elif any(k.startswith("model_teacher.") for k in sd):
         family = "contrastive"
         arch, roles["model"] = _role(_sub(sd, "model."))

@@ -32,6 +32,17 @@ on the device. Every random draw but dropout goes through a draws object
 (ops/u2pl.py::U2PLDraws, or one a caller passes); dropout draws from
 generators seeded from the step's generator, as the other steps'.
 
+Over the ranks of a ``world`` (train/supervised.py says how): each rank
+holds its slices of the labeled and unlabeled batches; the images and
+labels are gathered, the pseudo-labels, the mixing and its draws are the
+global batch's, the student and the teacher run on this rank's
+contiguous share of the global labeled + mixed unlabeled batch under
+``data_parallel`` (synchronised BN, global-shape dropout), and their
+outputs are gathered, so the losses, the entropy percentiles, the
+memory-bank draws and enqueue and the EMA are the same on every rank. The
+contrastive loss stays divided by ``num_devices``, the world's size in a
+run (the JAX package's quirk).
+
 The schedules follow the JAX step's float32 rounding: ``epoch_frac``,
 ``drop_percent``, ``alpha_t``, ``100 - alpha_t`` and the true-EMA decay are
 float32 values (numpy float32 on the host), promoted to the model's dtype
@@ -47,7 +58,7 @@ import torch
 import torch.nn as nn
 
 from floodseg_tpu_torch.core.device import full_precision_f32
-from floodseg_tpu_torch.models.layers import init_from_generator_
+from floodseg_tpu_torch.models.layers import data_parallel, init_from_generator_
 from floodseg_tpu_torch.ops.losses import ohem_with_aux
 from floodseg_tpu_torch.ops.u2pl import (
     U2PLDraws,
@@ -58,6 +69,7 @@ from floodseg_tpu_torch.ops.u2pl import (
     nearest_resize_mask,
     softmax_entropy,
 )
+from floodseg_tpu_torch.parallel.mesh import World, gather, shard
 from floodseg_tpu_torch.train.gan import one_hot_masks
 from floodseg_tpu_torch.train.memory_bank import (
     MemoryBank,
@@ -69,6 +81,7 @@ from floodseg_tpu_torch.train.state import TrainState, create_train_state
 from floodseg_tpu_torch.train.supervised import (
     backward_and_update,
     dropout_seed,
+    gather_outputs,
     split_seeds,
     step_metrics,
 )
@@ -263,7 +276,7 @@ def make_u2pl_steps(num_classes: int, cfg: ContrastiveConfig = ContrastiveConfig
                     unsupervised_apply_aug: str = "cutmix",
                     unsupervised_drop_percent: float = 80.0,
                     unsupervised_loss_weight: float = 1.0, ema_decay: float = 0.99,
-                    true_ema: bool = False):
+                    true_ema: bool = False, world: Optional[World] = None):
     """(sup_step, semi_step) on a ``U2PLState``:
 
     - ``sup_step(state, batch, rng)`` for the warm-up epochs;
@@ -279,22 +292,28 @@ def make_u2pl_steps(num_classes: int, cfg: ContrastiveConfig = ContrastiveConfig
     (r_aug, r_coin, r_s, r_t, r_contra). Each returns (state, metrics):
     loss, sup_loss, unsup_loss and contra_loss, and the labeled batch's
     counts, on the device. ``true_ema`` needs a teacher synced with
-    ``alias=False``."""
+    ``alias=False``. ``world``: the ranks the steps run over (module
+    note)."""
+
+    def forward(module, x, seed, dev):
+        """``module`` in its mode on this rank's ``x``, outputs gathered."""
+        with dropout_seed(module, seed, dev), data_parallel(module, world):
+            return gather_outputs(module(x), world)
 
     def sup_step(state: U2PLState, batch: Dict, rng: Optional[torch.Generator]):
         student, teacher = state.student.model, state.teacher
-        image_l, label_l = batch["l"]["frame_current"], batch["l"]["label"]
+        image_l, label_l = batch["l"]["frame_current"], gather(batch["l"]["label"], world)
         r_s, r_t = split_seeds(rng, 2)
         dev = image_l.device
         with full_precision_f32():
             student.train()
-            with dropout_seed(student, r_s, dev):
-                out = student(image_l)
+            out = forward(student, image_l, r_s, dev)
             loss = ohem_with_aux(out["pred"], out.get("aux"), label_l, aux_weight,
                                  ignore_index, ohem_thresh, ohem_min_kept)
-            backward_and_update(state.student, loss)
+            backward_and_update(state.student, loss, world)
             teacher.train()
-            with torch.no_grad(), dropout_seed(teacher, r_t, dev):
+            with torch.no_grad(), dropout_seed(teacher, r_t, dev), \
+                    data_parallel(teacher, world):
                 teacher(image_l)  # warms the teacher's BN statistics only
         loss = loss.detach()
         zero = torch.zeros_like(loss)
@@ -304,8 +323,9 @@ def make_u2pl_steps(num_classes: int, cfg: ContrastiveConfig = ContrastiveConfig
     def semi_step(state: U2PLState, batch: Dict, rng: Optional[torch.Generator],
                   epoch_frac: float, rel_step: int, draws=None):
         student, teacher = state.student.model, state.teacher
-        image_l, label_l = batch["l"]["frame_current"], batch["l"]["label"]
-        image_u = batch["u"]["frame_current"]
+        image_l, label_l = (gather(batch["l"][k], world) for k in ("frame_current", "label"))
+        image_u_rank = batch["u"]["frame_current"]
+        image_u = gather(image_u_rank, world)
         n_l = image_l.shape[0]
         dev = image_l.device
         r_aug, r_coin, r_s, r_t, r_contra = split_seeds(rng, 5)
@@ -321,7 +341,7 @@ def make_u2pl_steps(num_classes: int, cfg: ContrastiveConfig = ContrastiveConfig
         with full_precision_f32():
             with torch.no_grad():
                 teacher.eval()
-                pred_t_u = teacher(image_u)["pred"]
+                pred_t_u = gather(teacher(image_u_rank)["pred"], world)
                 prob_t_u = torch.softmax(pred_t_u.to(torch.promote_types(pred_t_u.dtype,
                                                                          torch.float32)), -1)
                 logits_u_aug, label_u_aug = torch.max(prob_t_u, dim=-1)
@@ -335,18 +355,17 @@ def make_u2pl_steps(num_classes: int, cfg: ContrastiveConfig = ContrastiveConfig
                         torch.where(take, m, o) for m, o in
                         zip(mixed, (image_u, label_u_aug, logits_u_aug)))
                 image_all = torch.cat([image_l, image_u_aug], dim=0)
+                image_rank = shard(image_all, world)
 
                 teacher.train()
-                with dropout_seed(teacher, r_t, dev):
-                    out_t = teacher(image_all)
+                out_t = forward(teacher, image_rank, r_t, dev)
                 pred_t, rep_t = out_t["pred"], out_t["rep"]
                 prob_t = torch.softmax(pred_t.to(torch.promote_types(pred_t.dtype,
                                                                      torch.float32)), -1)
                 pred_t_u_large = pred_t[n_l:]
 
             student.train()
-            with dropout_seed(student, r_s, dev):
-                out = student(image_all)
+            out = forward(student, image_rank, r_s, dev)
             pred_all, rep_all = out["pred"], out["rep"]
             aux_l = out["aux"][:n_l] if out.get("aux") is not None else None
             sup_loss = ohem_with_aux(pred_all[:n_l], aux_l, label_l, aux_weight, ignore_index,
@@ -378,7 +397,7 @@ def make_u2pl_steps(num_classes: int, cfg: ContrastiveConfig = ContrastiveConfig
                     draws, rep_all, rep_t, label_l_oh, label_u_oh, prob_t[:n_l], prob_t[n_l:],
                     low_mask, high_mask, state.bank, cfg) / cfg.num_devices * cfg.loss_weight
             loss = sup_loss + unsup_loss + contra_loss
-            backward_and_update(state.student, loss)
+            backward_and_update(state.student, loss, world)
 
             if true_ema:
                 decay = min(_f32(1.0) - _f32(1.0) / (_f32(rel_step) + _f32(1.0)), _f32(ema_decay))

@@ -26,6 +26,7 @@ from floodseg_tpu_torch.core.profiler import PhaseProfiler
 from floodseg_tpu_torch.data.transforms import MEAN, _pad_constant
 from floodseg_tpu_torch.ops.cv2_compat import cv2_resize_linear
 from floodseg_tpu_torch.ops.resize import resize_bilinear
+from floodseg_tpu_torch.parallel.mesh import World, gather, shard
 from floodseg_tpu_torch.train.flow import _bind, _normalizer, _prepare
 from floodseg_tpu_torch.video.grid import crop_motion_vectors_stack_np
 
@@ -70,7 +71,7 @@ def _average(offs, probs, shape, num_classes: int, crop_h: int, crop_w: int) -> 
 
 
 def make_crop_forward(model: nn.Module, num_classes: int, flip: bool = True,
-                      device: DeviceLike = None) -> Callable:
+                      device: DeviceLike = None, world: Optional[World] = None) -> Callable:
     """Batched crop forward of the single-frame test: raw [0, 255] crops ->
     softmax probabilities.
 
@@ -82,6 +83,11 @@ def make_crop_forward(model: nn.Module, num_classes: int, flip: bool = True,
     float32 softmax, and with ``flip`` the mean of each crop's and its
     flip's (flipped back) probabilities. ``variables`` is bound to the
     model for the call (train/flow.py says how).
+
+    Over the ranks of ``world`` (parallel/mesh.py) the crops, padded to a
+    multiple of the ranks by repeating the last one, are shared out in
+    contiguous parts; the probabilities are gathered to every rank and the
+    padding dropped (the JAX ``make_crop_forward(mesh=...)``).
     """
     dev = resolve_device(device)
     _prepare(model, dev)
@@ -100,7 +106,18 @@ def make_crop_forward(model: nn.Module, num_classes: int, flip: bool = True,
             prob = (prob[:n] + torch.flip(prob[n:], dims=(2,))) / 2
         return prob
 
-    return _bind(model, run)
+    call = _bind(model, run)
+    if world is None or not world.parallel:
+        return call
+
+    def dp_call(variables, crops):
+        n = crops.shape[0]
+        pad = (-n) % world.size
+        if pad:
+            crops = np.concatenate([crops, np.repeat(crops[-1:], pad, axis=0)])
+        return gather(call(variables, shard(crops, world)), world)[:n]
+
+    return dp_call
 
 
 def sliding_window_predict(crop_forward: Callable, variables, image: np.ndarray,

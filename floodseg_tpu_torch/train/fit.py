@@ -23,6 +23,16 @@ architecture as ``apply_links`` links it (``round_train``). ``FitHooks``
 is what the CLI's Runner (cli/runner.py) adds around the loop: resume,
 a checkpoint and the logger's records every epoch.
 
+Data parallelism: every ``run_*`` takes a ``world`` (parallel/mesh.py;
+None or a world of one runs on one device as before). Each role's global
+batch is ``batch_size`` times the ranks, of which each rank loads its
+contiguous share (``train_loaders``); the steps run over the ranks
+(train/supervised.py), so every rank ends each step with the same state,
+the one a single device would reach on the global batch. Validation and
+the flow test share out the batches and sum their counts over the ranks
+(the reference's ``sync_dist``); the single-frame test shares out each
+frame's crops (train/evaluate.py::make_crop_forward).
+
 ``run_test`` evaluates a model on the held-out lists (test.txt, test2.txt)
 as ``Runner.test`` does: the single-frame methods through the multi-scale
 flip sliding window (train/evaluate.py::multi_scale_test), the flow
@@ -55,6 +65,7 @@ from floodseg_tpu_torch.data.transforms import (
 from floodseg_tpu_torch.models.discriminator import S4GANDiscriminator
 from floodseg_tpu_torch.models.layers import init_from_generator_
 from floodseg_tpu_torch.ops.metrics import MetricMeter, intersection_and_union
+from floodseg_tpu_torch.parallel.mesh import World, all_reduce_array
 from floodseg_tpu_torch.train.contrastive import (
     ContrastiveConfig,
     U2PLState,
@@ -285,17 +296,19 @@ SEMI_METHODS = GAN_METHODS + ("contrastive",)
 METHODS = ("supervised", "flow_supervised", "gan", "flow_gan", "contrastive")
 
 
-def train_loaders(cfg: FitConfig, roles: Mapping[str, object],
-                  device: DeviceLike = None) -> Tuple[Dict[str, DataLoader], int]:
-    """``Runner._train_loaders`` on one device: for each role of ``roles``
-    ("l", and "u" and "gt" for s4GAN) an infinite, shuffled, ``drop_last``
-    loader of ``batch_size`` with the role's seed offset that copies each
-    batch to ``device``; and the steps an epoch, the longer of the labeled
-    and unlabeled sets over the batch (at least 1), then at most
-    ``limit_train_batches``. A labeled or unlabeled set smaller than the
-    batch raises (its loader would yield nothing)."""
+def train_loaders(cfg: FitConfig, roles: Mapping[str, object], device: DeviceLike = None,
+                  world: Optional[World] = None) -> Tuple[Dict[str, DataLoader], int]:
+    """``Runner._train_loaders``: for each role of ``roles`` ("l", and "u"
+    and "gt" for s4GAN) an infinite, shuffled, ``drop_last`` loader of the
+    global batch, ``batch_size`` times the ranks of ``world``, with the
+    role's seed offset, which loads this rank's contiguous share of each
+    batch and copies it to ``device``; and the steps an epoch, the longer
+    of the labeled and unlabeled sets over the global batch (at least 1),
+    then at most ``limit_train_batches``. A labeled or unlabeled set
+    smaller than the global batch raises (its loader would yield
+    nothing)."""
     dev = resolve_device(device)
-    batch = cfg.batch_size
+    batch = cfg.batch_size * (world.size if world is not None else 1)
     small = {name: len(roles[k]) for k, name in (("l", "labeled"), ("u", "unlabeled"))
              if k in roles and len(roles[k]) < batch}
     if small:
@@ -304,7 +317,7 @@ def train_loaders(cfg: FitConfig, roles: Mapping[str, object],
     put = (lambda b: device_put(b, dev))
     loaders = {k: DataLoader(ds, batch_size=batch, shuffle=True, num_workers=cfg.workers,
                              seed=cfg.seed + ROLE_SEED_OFFSETS[k], infinite=True,
-                             drop_last=True, device_put=put)
+                             drop_last=True, device_put=put, world=world)
                for k, ds in roles.items()}
     steps_per_epoch = max(1, max(len(roles[k]) // batch for k in ("l", "u") if k in roles))
     if cfg.limit_train_batches is not None:
@@ -330,9 +343,37 @@ def val_dataset(cfg: FitConfig, data_root: str, method: str, arch: str):
     return SemDataset("val", data_root, path, sem_transforms(cfg, arch)["val"])
 
 
-def _val_loader(cfg: FitConfig, val_ds, dev: torch.device) -> DataLoader:
+def _val_loader(cfg: FitConfig, val_ds, dev: torch.device,
+                world: Optional[World] = None) -> DataLoader:
+    """The val loader; over the ranks of ``world`` each loads its share of
+    the batches."""
     return DataLoader(val_ds, batch_size=cfg.batch_size_val, num_workers=cfg.workers,
-                      seed=cfg.seed, device_put=lambda b: device_put(b, dev))
+                      seed=cfg.seed, device_put=lambda b: device_put(b, dev), world=world,
+                      share="batches")
+
+
+def _shared_batches(loader: DataLoader, limit: Optional[int]):
+    """(global batch index, batch) of a loader that shares out whole
+    batches, up to ``limit`` global batches."""
+    w = getattr(loader, "world", None) or World()
+    for k, batch in enumerate(loader):
+        bi = k * w.size + w.rank
+        if limit is not None and bi >= limit:
+            break
+        yield bi, batch
+
+
+def _sum_over_ranks(meter: MetricMeter, world: Optional[World]) -> MetricMeter:
+    """The meter's sums and count added over the ranks (``sync_dist``)."""
+    if world is None or not world.parallel:
+        return meter
+    n = meter.num_classes
+    total = all_reduce_array(np.concatenate([meter.intersection, meter.union, meter.target,
+                                             [float(meter.count)]]), world)
+    meter.intersection, meter.union, meter.target = (total[:n], total[n:2 * n],
+                                                     total[2 * n:3 * n])
+    meter.count = int(total[-1])
+    return meter
 
 
 def eval_step_for(model: nn.Module, cfg: FitConfig, method: str) -> Callable:
@@ -347,14 +388,13 @@ def eval_step_for(model: nn.Module, cfg: FitConfig, method: str) -> Callable:
 
 def _validate(cfg: FitConfig, eval_fn: Callable, state, val_loader: DataLoader) -> MetricMeter:
     """One validation pass: ``eval_fn(state, batch)`` over at most
-    ``limit_val_batches`` batches, its counts in a ``MetricMeter``."""
+    ``limit_val_batches`` batches, its counts in a ``MetricMeter``; over
+    ranks, each rank's share of the batches, the counts summed over them."""
     meter = MetricMeter(cfg.classes)
-    for bi, batch in enumerate(val_loader):
-        if cfg.limit_val_batches is not None and bi >= cfg.limit_val_batches:
-            break
+    for _, batch in _shared_batches(val_loader, cfg.limit_val_batches):
         m = eval_fn(state, batch)
         meter.update(*(m[k].cpu().numpy() for k in ("intersection", "union", "target")))
-    return meter
+    return _sum_over_ranks(meter, getattr(val_loader, "world", None))
 
 
 def _max_iter(cfg: FitConfig, steps_per_epoch: int) -> int:
@@ -521,12 +561,14 @@ def run_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
             pretrained: Optional[Mapping[str, torch.Tensor]] = None,
             profiler: Optional[PhaseProfiler] = None,
             on_step: Optional[Callable[[int, TrainState, Dict], None]] = None,
-            device: DeviceLike = None, hooks: Optional[FitHooks] = None) -> Dict:
+            device: DeviceLike = None, hooks: Optional[FitHooks] = None,
+            world: Optional[World] = None) -> Dict:
     """Train ``model`` (any of the port's three architectures) on the tree
     at ``data_root`` as the JAX package's ``Runner.fit`` does for
-    ``supervised`` on one device: single frames through ``SemDataset``,
-    the whole model in training mode, OHEM (or CE) on ``pred`` plus
-    ``aux_weight`` times that on ``aux``, validation on center crops.
+    ``supervised`` (over the ranks of ``world``, module note): single
+    frames through ``SemDataset``, the whole model in training mode, OHEM
+    (or CE) on ``pred`` plus ``aux_weight`` times that on ``aux``,
+    validation on center crops.
     ``pretrained``: state_dict entries overlaid first (shape-checked);
     returns ``_fit_loop``'s summary, with its ``profiler``, ``on_step``
     and ``hooks`` (``FitHooks``)."""
@@ -538,26 +580,29 @@ def run_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
                           _list_path(data_root, cfg.data_variant, "train.txt"),
                           sem_transforms(cfg, arch)["train"])
     val_ds = val_dataset(cfg, data_root, "supervised", arch)
-    loaders, steps_per_epoch = train_loaders(cfg, {"l": train_ds}, dev)
+    loaders, steps_per_epoch = train_loaders(cfg, {"l": train_ds}, dev, world)
     state = method_state(model, cfg, "supervised", steps_per_epoch, pretrained, device=dev)
     loss_fn = make_loss_fn(cfg.loss, cfg.aux_weight, cfg.ignore_index, cfg.ohem_thresh,
                            cfg.ohem_min_kept)
-    train_step = make_train_step(model, loss_fn, cfg.classes, cfg.ignore_index)
+    train_step = make_train_step(model, loss_fn, cfg.classes, cfg.ignore_index, world)
     eval_step = eval_step_for(model, cfg, "supervised")
-    return _fit_loop(cfg, state, train_step, eval_step, loaders, _val_loader(cfg, val_ds, dev),
-                     steps_per_epoch, profiler, on_step, hooks=hooks)
+    return _fit_loop(cfg, state, train_step, eval_step, loaders,
+                     _val_loader(cfg, val_ds, dev, world), steps_per_epoch, profiler, on_step,
+                     hooks=hooks)
 
 
 def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
                  pretrained: Optional[Mapping[str, torch.Tensor]] = None,
                  profiler: Optional[PhaseProfiler] = None,
                  on_step: Optional[Callable[[int, TrainState, Dict], None]] = None,
-                 device: DeviceLike = None, hooks: Optional[FitHooks] = None) -> Dict:
+                 device: DeviceLike = None, hooks: Optional[FitHooks] = None,
+                 world: Optional[World] = None) -> Dict:
     """Train ``model`` (any of the port's three architectures) on the tree
     at ``data_root`` as the JAX package's ``Runner.fit`` does for
-    ``flow_supervised`` on one device: FlowDataset items, the interpolated
-    and plain train steps with the host-side ``no_interpolation_percentage``
-    coin, whole-frame validation through the interpolated eval step.
+    ``flow_supervised`` (over the ranks of ``world``): FlowDataset items,
+    the interpolated and plain train steps with the host-side
+    ``no_interpolation_percentage`` coin, whole-frame validation through
+    the interpolated eval step.
     ``pretrained``, the hooks and the summary as in ``run_fit``."""
     cfg = cfg or default_fit_config()
     dev = resolve_device(device)
@@ -567,14 +612,14 @@ def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = No
                              _list_path(data_root, cfg.data_variant, "train.txt"), "l",
                              flow_transforms(cfg, arch)["train"])
     val_ds = val_dataset(cfg, data_root, "flow_supervised", arch)
-    loaders, steps_per_epoch = train_loaders(cfg, {"l": train_ds}, dev)
+    loaders, steps_per_epoch = train_loaders(cfg, {"l": train_ds}, dev, world)
     state = method_state(model, cfg, "flow_supervised", steps_per_epoch, pretrained,
                          device=dev)
     loss_fn = make_loss_fn(cfg.loss, 0.0, cfg.ignore_index, cfg.ohem_thresh,
                            cfg.ohem_min_kept)
     interp_step, plain_step = make_flow_train_step(model, loss_fn, cfg.classes,
                                                    cfg.ignore_index, cfg.feature_based,
-                                                   cfg.no_warp)
+                                                   cfg.no_warp, world)
     eval_step = eval_step_for(model, cfg, "flow_supervised")
     coin = np.random.default_rng(cfg.seed)
 
@@ -583,8 +628,9 @@ def run_flow_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = No
                  and coin.random() < cfg.no_interpolation_percentage)
         return (plain_step if plain else interp_step)(state, batch, rng)
 
-    return _fit_loop(cfg, state, train_fn, eval_step, loaders, _val_loader(cfg, val_ds, dev),
-                     steps_per_epoch, profiler, on_step, hooks=hooks)
+    return _fit_loop(cfg, state, train_fn, eval_step, loaders,
+                     _val_loader(cfg, val_ds, dev, world), steps_per_epoch, profiler, on_step,
+                     hooks=hooks)
 
 
 def _set_items(ds, items) -> None:
@@ -641,12 +687,13 @@ def run_gan_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = Non
                 profiler: Optional[PhaseProfiler] = None,
                 on_step: Optional[Callable[[int, Tuple[TrainState, TrainState], Dict],
                                            None]] = None,
-                device: DeviceLike = None, hooks: Optional[FitHooks] = None) -> Dict:
+                device: DeviceLike = None, hooks: Optional[FitHooks] = None,
+                world: Optional[World] = None) -> Dict:
     """Train ``model`` (the generator, any of the port's three
     architectures) on the tree at ``data_root`` as the JAX package's
-    ``Runner.fit`` does for s4GAN ``method`` ("flow_gan" or "gan") on one
-    device: the three roles' loaders (``role_datasets``, ``train_loaders``),
-    the generator's SGD over the trunk and head groups without the aux
+    ``Runner.fit`` does for s4GAN ``method`` ("flow_gan" or "gan"; over the
+    ranks of ``world``): the three roles' loaders (``role_datasets``,
+    ``train_loaders``), the generator's SGD over the trunk and head groups without the aux
     heads (``AUX_KEYS``: never updated), the discriminator's Adam (``lr_D``,
     betas (0.9, 0.99), no weight decay, one group; the same poly schedule),
     the s4GAN step (train/gan.py; the flow method's generator forward is the
@@ -666,13 +713,14 @@ def run_gan_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = Non
     roles = role_datasets(cfg, data_root, method,
                           (flow_transforms if flow else sem_transforms)(cfg, arch)["train"])
     val_ds = val_dataset(cfg, data_root, method, arch)
-    loaders, steps_per_epoch = train_loaders(cfg, roles, dev)
+    loaders, steps_per_epoch = train_loaders(cfg, roles, dev, world)
     state_g, state_d = method_state(model, cfg, method, steps_per_epoch, pretrained,
                                     discriminator=discriminator, device=dev)
     g_forward = (flow_g_forward(model, cfg.feature_based, cfg.no_warp) if flow
                  else single_frame_g_forward(model))
     step = make_gan_train_step(g_forward, cfg.classes, cfg.ignore_index, cfg.threshold_st,
-                               cfg.lambda_fm, cfg.lambda_st, gt_norm_by_labeled_max=not flow)
+                               cfg.lambda_fm, cfg.lambda_st, gt_norm_by_labeled_max=not flow,
+                               world=world)
     eval_step = eval_step_for(model, cfg, method)
 
     def train_fn(state, batch, rng):
@@ -681,7 +729,7 @@ def run_gan_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = Non
 
     return _fit_loop(cfg, (state_g, state_d), train_fn,
                      lambda state, batch: eval_step(state[0], batch), loaders,
-                     _val_loader(cfg, val_ds, dev), steps_per_epoch, profiler, on_step,
+                     _val_loader(cfg, val_ds, dev, world), steps_per_epoch, profiler, on_step,
                      hooks=hooks)
 
 
@@ -692,11 +740,13 @@ def run_contrastive_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfi
                         on_step: Optional[Callable[[int, U2PLState, Dict], None]] = None,
                         draws: Optional[Callable[[int], object]] = None,
                         device: DeviceLike = None,
-                        hooks: Optional[FitHooks] = None) -> Dict:
+                        hooks: Optional[FitHooks] = None,
+                        world: Optional[World] = None) -> Dict:
     """Train ``model`` (a port architecture with its rep head,
     ``build_model(..., semisupervised=True)``) on the tree at ``data_root``
-    as the JAX package's ``Runner.fit`` does for ``contrastive`` (U2PL) on
-    one device: the "l" and "u" roles' single-frame loaders
+    as the JAX package's ``Runner.fit`` does for ``contrastive`` (U2PL;
+    over the ranks of ``world``, the contrastive loss divided by
+    ``cfg.contrastive.num_devices`` as given): the "l" and "u" roles' single-frame loaders
     (``role_datasets``, ``train_loaders``), the student's SGD over the trunk
     and head groups (the rep head a head), the teacher (``teacher``, or a
     copy of the architecture with weights drawn from a generator seeded
@@ -716,13 +766,13 @@ def run_contrastive_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfi
     arch = model_arch(model)
     roles = role_datasets(cfg, data_root, "contrastive", sem_transforms(cfg, arch)["train"])
     val_ds = val_dataset(cfg, data_root, "contrastive", arch)
-    loaders, steps_per_epoch = train_loaders(cfg, roles, dev)
+    loaders, steps_per_epoch = train_loaders(cfg, roles, dev, world)
     state = method_state(model, cfg, "contrastive", steps_per_epoch, pretrained,
                          teacher=teacher, device=dev)
     sup_step, semi_step = make_u2pl_steps(
         cfg.classes, cfg.contrastive, cfg.ignore_index, cfg.aux_weight, cfg.ohem_thresh,
         cfg.ohem_min_kept, cfg.unsupervised_apply_aug, cfg.unsupervised_drop_percent,
-        cfg.unsupervised_loss_weight, cfg.ema_decay, cfg.true_ema)
+        cfg.unsupervised_loss_weight, cfg.ema_decay, cfg.true_ema, world)
     host = {"epoch": 0, "i": 0, "step": 0}
     served: List[Tuple[int, str]] = []
 
@@ -746,8 +796,9 @@ def run_contrastive_fit(model: nn.Module, data_root: str, cfg: Optional[FitConfi
             served.append((host["epoch"], "teacher" if m is state.teacher else "student"))
         return eval_step_for(m, cfg, "contrastive")(state, batch)
 
-    summary = _fit_loop(cfg, state, train_fn, eval_fn, loaders, _val_loader(cfg, val_ds, dev),
-                        steps_per_epoch, profiler, on_step, on_epoch, hooks)
+    summary = _fit_loop(cfg, state, train_fn, eval_fn, loaders,
+                        _val_loader(cfg, val_ds, dev, world), steps_per_epoch, profiler,
+                        on_step, on_epoch, hooks)
     summary["served"] = served
     return summary
 
@@ -769,12 +820,14 @@ def _single_samples(batch: Dict):
 
 
 def run_validate(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
-                 method: str = "flow_supervised", device: DeviceLike = None) -> Dict:
+                 method: str = "flow_supervised", device: DeviceLike = None,
+                 world: Optional[World] = None) -> Dict:
     """One validation pass of ``model`` (its own weights) as the fit loop
     makes it for ``method`` (the CLI's ``validate``): ``val_dataset``
     behind the val loader, the method's eval step (``eval_step_for``), at
-    most ``limit_val_batches`` batches (0 returns {}). Returns
-    val_miou_epoch, val_macc_epoch and val_accuracy_epoch."""
+    most ``limit_val_batches`` batches (0 returns {}), shared out over the
+    ranks of ``world``. Returns val_miou_epoch, val_macc_epoch and
+    val_accuracy_epoch."""
     cfg = cfg or default_fit_config()
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
@@ -782,7 +835,7 @@ def run_validate(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = No
         return {}
     ds = val_dataset(cfg, data_root, method, model_arch(model))
     s = _validate(cfg, eval_step_for(model, cfg, method), None,
-                  _val_loader(cfg, ds, resolve_device(device))).summary()
+                  _val_loader(cfg, ds, resolve_device(device), world)).summary()
     return {"val_miou_epoch": s["miou"], "val_macc_epoch": s["macc"],
             "val_accuracy_epoch": s["allacc"]}
 
@@ -790,7 +843,8 @@ def run_validate(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = No
 def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
              method: str = "flow_supervised", profiler: Optional[PhaseProfiler] = None,
              device: DeviceLike = None,
-             on_sample: Optional[Callable[[Dict, np.ndarray], None]] = None) -> Dict:
+             on_sample: Optional[Callable[[Dict, np.ndarray], None]] = None,
+             world: Optional[World] = None) -> Dict:
     """Evaluate ``model`` (its own weights, in eval mode) on the tree at
     ``data_root`` as the JAX package's ``Runner.test`` does for ``method``
     on one device: "supervised", "gan" and "contrastive" take the
@@ -815,6 +869,12 @@ def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
     sample, with the sliding window's own regions inside). ``on_sample(sample,
     pred)`` sees each sliding-window sample and its class map (the CLI's
     test-image table).
+
+    Over the ranks of ``world``: the flow routes share out the batches and
+    sum the counts over the ranks (``on_sample`` sees this rank's
+    samples); the single-frame route walks every sample on every rank and
+    shares out each scale's crops (``make_crop_forward``), as the JAX
+    Runner shards them over its mesh.
     """
     cfg = cfg or default_fit_config()
     if method not in METHODS:
@@ -834,7 +894,7 @@ def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
                                          device=dev)
         eval_whole = eval_step_for(model, cfg, method)
     else:
-        crop_forward = make_crop_forward(model, cfg.classes, device=dev)
+        crop_forward = make_crop_forward(model, cfg.classes, device=dev, world=world)
     variables = model.state_dict()
     profiler = profiler or PhaseProfiler()
     results = {}
@@ -847,11 +907,9 @@ def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
         else:
             ds = SemDataset("val", data_root, path, transform)
         loader = DataLoader(ds, batch_size=cfg.batch_size_test, num_workers=cfg.workers_test,
-                            seed=cfg.seed)
+                            seed=cfg.seed, world=world if flow else None, share="batches")
         meter = MetricMeter(cfg.classes)
-        for bi, batch in enumerate(loader):
-            if cfg.limit_test_batches is not None and bi >= cfg.limit_test_batches:
-                break
+        for _, batch in _shared_batches(loader, cfg.limit_test_batches):
             if flow and cfg.no_cropping:
                 with profiler.profile("test_step"):
                     m = eval_whole(None, device_put(batch, dev))
@@ -873,7 +931,7 @@ def run_test(model: nn.Module, data_root: str, cfg: Optional[FitConfig] = None,
                     cfg.ignore_index))
                 if on_sample is not None:
                     on_sample(sub, pred)
-        s = meter.summary()
+        s = _sum_over_ranks(meter, loader.world).summary()
         results[f"test_miou{k}_epoch"] = s["miou"]
         results[f"test_macc{k}_epoch"] = s["macc"]
         results[f"test_accuracy{k}_epoch"] = s["allacc"]

@@ -50,8 +50,10 @@ from floodseg_tpu_torch.core.device import DeviceLike, full_precision_f32, resol
 from floodseg_tpu_torch.core.profiler import cuda_sync
 from floodseg_tpu_torch.data.transforms import MEAN, STD
 from floodseg_tpu_torch.models.deeplabv3 import ASPP
+from floodseg_tpu_torch.models.layers import data_parallel
 from floodseg_tpu_torch.ops.quant import int8_deeplab_decode, int8_seghead_decode
 from floodseg_tpu_torch.ops.resize import resize_bilinear
+from floodseg_tpu_torch.parallel.mesh import World, gather
 from floodseg_tpu_torch.train.state import TrainState
 from floodseg_tpu_torch.train.supervised import (
     backward_and_update,
@@ -126,21 +128,27 @@ def plain_train_forward(model: nn.Module, images: torch.Tensor,
 
 def make_flow_train_step(model: nn.Module, loss_fn: Callable, num_classes: int,
                          ignore_index: int = 255, feature_based: bool = True,
-                         no_warp: bool = False) -> Tuple[Callable, Callable]:
+                         no_warp: bool = False,
+                         world: Optional[World] = None) -> Tuple[Callable, Callable]:
     """(interp_step, plain_step), each step(state, batch, rng) -> (state,
     metrics) with the loss and the counts of the argmax against the labels
     (computed before the update). The caller flips the
-    no_interpolation_percentage coin on the host."""
+    no_interpolation_percentage coin on the host. With a ``world`` of more
+    than one rank, each rank's forward (K1 and K1-bwd on its slice) runs
+    under ``data_parallel`` and the loss is the gathered global batch's
+    (train/supervised.py says how)."""
     def _step(state: TrainState, batch: Dict, rng: Optional[torch.Generator], plain: bool):
-        labels = batch["label"]
+        labels = gather(batch["label"], world)
         with full_precision_f32():
-            if plain:
-                logits = plain_train_forward(model, batch["frame_current"], rng, True)
-            else:
-                logits = flow_train_forward(model, batch, rng, True, feature_based,
-                                            no_warp)
+            with data_parallel(model, world):
+                if plain:
+                    logits = plain_train_forward(model, batch["frame_current"], rng, True)
+                else:
+                    logits = flow_train_forward(model, batch, rng, True, feature_based,
+                                                no_warp)
+            logits = gather(logits, world)
             loss = loss_fn({"pred": logits}, labels)
-            backward_and_update(state, loss)
+            backward_and_update(state, loss, world)
         return state, {"loss": loss.detach(),
                        **step_metrics(logits, labels, num_classes, ignore_index)}
 

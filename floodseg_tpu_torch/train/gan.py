@@ -24,6 +24,13 @@ only the D loss. The step's generator splits into six seeds, as JAX's
 ``r_l, r_u, r_d1..r_d4``. A step is ``step(state_g, state_d, batch, rng)
 -> (state_g, state_d, metrics)``, ``batch`` = {"l", "u", "gt"}; metrics
 stay on the device (train/supervised.py).
+
+Over the ranks of a ``world`` (train/supervised.py says how): G runs on
+this rank's slices under ``data_parallel``; its logits, the labels and the
+images are gathered, so D, its draws, the min-max normalisations, the
+self-training selection and every loss see the global batch, replicated
+on every rank. G's gradients are summed over the ranks; D's, computed on
+the same gathered inputs everywhere, are already equal and are not.
 """
 
 from typing import Callable, Dict, Optional
@@ -38,9 +45,16 @@ from floodseg_tpu_torch.ops.losses import (
     cross_entropy_loss,
     feature_matching_loss,
 )
+from floodseg_tpu_torch.models.layers import data_parallel
+from floodseg_tpu_torch.parallel.mesh import World, gather, sum_gradients
 from floodseg_tpu_torch.train.flow import flow_train_forward
 from floodseg_tpu_torch.train.state import TrainState
-from floodseg_tpu_torch.train.supervised import dropout_seed, split_seeds, step_metrics
+from floodseg_tpu_torch.train.supervised import (
+    dropout_seed,
+    optimizer_params,
+    split_seeds,
+    step_metrics,
+)
 
 
 def one_hot_masks(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -87,7 +101,8 @@ def flow_g_forward(model: nn.Module, feature_based: bool = True,
 def make_gan_train_step(g_forward: Callable, num_classes: int, ignore_index: int = 255,
                         threshold_st: float = 0.6, lambda_fm: float = 0.1,
                         lambda_st: float = 1.0,
-                        gt_norm_by_labeled_max: bool = False) -> Callable:
+                        gt_norm_by_labeled_max: bool = False,
+                        world: Optional[World] = None) -> Callable:
     """train_step(state_g, state_d, batch, rng) -> (state_g, state_d,
     metrics), the generator's forward from ``single_frame_g_forward`` or
     ``flow_g_forward``, the discriminator ``state_d.model``.
@@ -99,12 +114,16 @@ def make_gan_train_step(g_forward: Callable, num_classes: int, ignore_index: int
     def train_step(state_g: TrainState, state_d: TrainState, batch: Dict,
                    rng: Optional[torch.Generator]):
         batch_l, batch_u, batch_gt = batch["l"], batch["u"], batch["gt"]
-        label_l, label_gt = batch_l["label"], batch_gt["label"]
-        image_l, image_u = batch_l["frame_current"], batch_u["frame_current"]
-        image_gt = batch_gt["frame_current"]
+        label_l, label_gt = (gather(b["label"], world) for b in (batch_l, batch_gt))
+        image_l, image_u, image_gt = (gather(b["frame_current"], world)
+                                      for b in (batch_l, batch_u, batch_gt))
         r_l, r_u, r_d1, r_d2, r_d3, r_d4 = split_seeds(rng, 6)
         disc = state_d.model
         dev = image_l.device
+
+        def g_apply(b, seed):
+            with data_parallel(state_g.model, world):
+                return gather(g_forward(b, seed), world)
 
         def d_apply(x, seed):
             disc.train()
@@ -119,9 +138,9 @@ def make_gan_train_step(g_forward: Callable, num_classes: int, ignore_index: int
                 gt_img = _minmax(image_gt)
             d_cat_gt = torch.cat([one_hot_masks(label_gt, num_classes), gt_img], dim=-1)
 
-            pred_l = g_forward(batch_l, r_l)
+            pred_l = g_apply(batch_l, r_l)
             loss_ce = cross_entropy_loss(pred_l, label_l, ignore_index)
-            pred_u = g_forward(batch_u, r_u)
+            pred_u = g_apply(batch_u, r_u)
             prob_u = torch.softmax(pred_u.to(torch.promote_types(pred_u.dtype, torch.float32)),
                                    dim=-1)
             pred_cat = torch.cat([prob_u, _minmax(image_u)], dim=-1)
@@ -139,9 +158,10 @@ def make_gan_train_step(g_forward: Callable, num_classes: int, ignore_index: int
 
             gate = ((count > 0) & (state_g.step > 0)).to(loss_st.dtype)
             loss_s = loss_ce + lambda_fm * loss_fm + gate * lambda_st * loss_st
-            params_g = [p for g in state_g.optimizer.param_groups for p in g["params"]]
+            params_g = optimizer_params(state_g)
             state_g.optimizer.zero_grad(set_to_none=True)
             loss_s.backward(inputs=params_g)
+            sum_gradients(params_g, world)
             state_g.apply_gradients()
 
             fake = pred_cat.detach()

@@ -11,7 +11,9 @@ MJPG AVI. ``run_flow_predict`` builds what ``Runner.predict`` builds on one
 device (the dataset, the colours, the predict builders and the loader)
 without the config layer and the logger, and picks the route as it does:
 the sliding window of crops by default, the cached whole-frame route with
-``no_cropping``.
+``no_cropping``. Over the ranks of a ``world`` the whole-frame route runs
+one window a rank (parallel/mesh.py::make_dp_predict_fn) and rank 0 alone
+writes the PNGs and the AVI.
 """
 
 import os
@@ -29,6 +31,7 @@ from floodseg_tpu_torch.data.image import write_png
 from floodseg_tpu_torch.data.loader import DataLoader, device_put
 from floodseg_tpu_torch.data.transforms import build_test_transform
 from floodseg_tpu_torch.ops.metrics import MetricMeter, intersection_and_union
+from floodseg_tpu_torch.parallel.mesh import World, make_dp_predict_fn
 from floodseg_tpu_torch.train.evaluate import flow_sliding_window_predict
 from floodseg_tpu_torch.train.flow import (
     make_cached_flow_predict_fn,
@@ -185,6 +188,7 @@ def run_flow_predict(
     profiler: Optional[PhaseProfiler] = None,
     device: DeviceLike = None,
     frame_size: Optional[Tuple[int, int]] = None,
+    world: Optional[World] = None,
 ) -> Dict:
     """Predict the video ``predict_v_id`` under ``data_root`` as the JAX
     package's ``Runner.predict`` does on one device, and return
@@ -202,8 +206,18 @@ def run_flow_predict(
     given and the tree has ``list/colors.txt``. ``profiler`` records
     run_predict's "predict_interference" and, on the crop route,
     flow_sliding_window_predict's regions.
+
+    Over the ranks of ``world`` with ``no_cropping``, the loader gives
+    batches of as many windows as ranks, each rank predicts one through the
+    non-cached builder (no key reuse, as the JAX Runner under a mesh) and
+    the maps are gathered to every rank; a last, smaller batch runs window
+    by window. The crop route runs every window on every rank, as the JAX
+    Runner does. Only rank 0 writes files; every rank returns the summary.
     """
     dev = resolve_device(device)
+    world = world if world is not None and world.parallel else None
+    if world is not None and not world.is_main:
+        save_images_dir = video_path = None
     ds = FlowDataset("predict", data_root, None, type="u",
                      transform=build_test_transform(classes_ignore, frame_size or resize,
                                                     normalize=False),
@@ -226,9 +240,13 @@ def run_flow_predict(
         loader = DataLoader(ds, batch_size=1, num_workers=workers, seed=seed)
     else:
         predict_fn = make_flow_predict_fn(model, n=frame_delta, out_size=resize, **common)
-        cached_fns = make_cached_flow_predict_fn(model, n=frame_delta, out_size=resize,
-                                                 **common)
-        loader = DataLoader(ds, batch_size=1, num_workers=workers, seed=seed,
+        if world is None:
+            cached_fns = make_cached_flow_predict_fn(model, n=frame_delta, out_size=resize,
+                                                     **common)
+        else:
+            predict_fn = make_dp_predict_fn(predict_fn, world)
+        loader = DataLoader(ds, batch_size=1 if world is None else world.size,
+                            num_workers=workers, seed=seed,
                             device_put=lambda b: device_put(b, dev))
     return run_predict(predict_fn, variables, loader, num_classes, colors=colors,
                        save_images_dir=save_images_dir, video_path=video_path,

@@ -8,6 +8,13 @@ in place. Metrics stay on the device as tensors: nothing in a step reads a
 value back to the host, so the host can queue the next step while the card
 runs this one. Each step runs under ``full_precision_f32``: float32 means
 float32, as the JAX package's ``precision="highest"`` does.
+
+Data parallelism (``world``, parallel/mesh.py): with more than one rank,
+``batch`` is this rank's slice of the global batch; the model runs on it
+under ``data_parallel`` (synchronised BN, global-shape dropout), its
+outputs and the labels are gathered, and the loss and the metrics are the
+global batch's on every rank; the gradients are summed over the ranks
+before the update. A world of one (or None) runs the one-device step.
 """
 
 import contextlib
@@ -17,9 +24,10 @@ import torch
 import torch.nn as nn
 
 from floodseg_tpu_torch.core.device import full_precision_f32
-from floodseg_tpu_torch.models.layers import dropout_generator
+from floodseg_tpu_torch.models.layers import data_parallel, dropout_generator
 from floodseg_tpu_torch.ops.losses import cross_entropy_loss, ohem_with_aux
 from floodseg_tpu_torch.ops.metrics import intersection_and_union
+from floodseg_tpu_torch.parallel.mesh import World, gather, sum_gradients
 from floodseg_tpu_torch.train.state import TrainState
 
 
@@ -70,12 +78,26 @@ def step_metrics(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,
     return {"intersection": inter, "union": union, "target": target}
 
 
-def backward_and_update(state: TrainState, loss: torch.Tensor) -> None:
-    """Gradients of ``loss`` into ``.grad`` (cleared first), then
+def optimizer_params(state: TrainState) -> List[torch.Tensor]:
+    return [p for g in state.optimizer.param_groups for p in g["params"]]
+
+
+def backward_and_update(state: TrainState, loss: torch.Tensor,
+                        world: Optional[World] = None) -> None:
+    """Gradients of ``loss`` into ``.grad`` (cleared first), summed over
+    the ranks of ``world`` when it has more than one, then
     ``state.apply_gradients``."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    sum_gradients(optimizer_params(state), world)
     state.apply_gradients()
+
+
+def gather_outputs(out: Dict, world: Optional[World]) -> Dict:
+    """The model's outputs (a dict of per-rank tensors) gathered to the
+    global batch (parallel/mesh.py::gather); ``out`` itself in a world of
+    one."""
+    return {k: gather(v, world) for k, v in out.items()}
 
 
 def _device(model: nn.Module) -> torch.device:
@@ -83,19 +105,20 @@ def _device(model: nn.Module) -> torch.device:
 
 
 def make_train_step(model: nn.Module, loss_fn: Callable, num_classes: int,
-                    ignore_index: int = 255) -> Callable:
+                    ignore_index: int = 255, world: Optional[World] = None) -> Callable:
     """train_step(state, batch, rng) -> (state, metrics): the whole model in
     training mode on ``batch["frame_current"]`` (its aux head too), the loss
-    of ``loss_fn``, one optimizer step."""
+    of ``loss_fn``, one optimizer step; over the ranks of ``world`` as the
+    module note says."""
     def train_step(state: TrainState, batch: Dict, rng: Optional[torch.Generator]):
-        images, labels = batch["frame_current"], batch["label"]
+        images, labels = batch["frame_current"], gather(batch["label"], world)
         (seed,) = split_seeds(rng, 1)
         with full_precision_f32():
             model.train()
-            with dropout_seed(model, seed, _device(model)):
-                out = model(images)
+            with dropout_seed(model, seed, _device(model)), data_parallel(model, world):
+                out = gather_outputs(model(images), world)
             loss = loss_fn(out, labels)
-            backward_and_update(state, loss)
+            backward_and_update(state, loss, world)
         return state, {"loss": loss.detach(),
                        **step_metrics(out["pred"], labels, num_classes, ignore_index)}
 

@@ -19,8 +19,9 @@ dataset_flow, vit) with overrides.
 - ``--torch_ckpt``: Lightning dicts made by the JAX package's
   ``export_lightning_checkpoint`` from random variables load as the JAX
   importer reads them (``from_jax_variables(import_lightning_checkpoint)``),
-  bit for bit, for the bare, ``model.``, rep and s4GAN layouts; the
-  FlowModel layouts raise naming ROADMAP 13d;
+  bit for bit, for the bare, ``model.``, rep and s4GAN layouts and the
+  FlowPSPNet and FlowDeepLabv3 layouts of flow_supervised and flow_gan
+  (their family names too; the model keeps its own aux head);
 - ``_pretrained_variables`` maps a reference ResNet as the JAX package's
   ``convert_resnet_backbone`` does, through the weight bridge;
 - without ``--device``, on a machine with no card, the CLI raises.
@@ -414,15 +415,57 @@ def test_torch_ckpt_loads_as_the_jax_importer_reads(tmp_path, monkeypatch, case)
                    device="cpu").load_torch_ckpt(str(tmp_path / "ref.ckpt"))
 
 
-@pytest.mark.parametrize("arch", ["pspnet", "deeplabv3"])
-def test_torch_ckpt_flow_layouts_raise_naming_13d(tmp_path, arch):
-    rng = np.random.default_rng(5)
-    ckpt = _save(tmp_path / "flow.ckpt", export_lightning_checkpoint(
-        arch, {"model": _variables(arch, rng)}, "flow_supervised"))
-    assert ckpt["state_dict"]
+FLOW_CASES = [(arch, family) for arch in ("pspnet", "deeplabv3")
+              for family in ("flow_supervised", "flow_gan")]
+
+
+@pytest.mark.parametrize("arch,family", FLOW_CASES)
+def test_torch_ckpt_flow_layouts_load_as_the_jax_importer_reads(tmp_path, monkeypatch, capsys,
+                                                                arch, family):
+    """A FlowPSPNet or FlowDeepLabv3 checkpoint (``model_G.`` with the
+    FlowModel wrapper's names, and ``model_D.`` for flow_gan) imports as
+    the JAX importer reads it, under its family name, and loads through
+    ``load_torch_ckpt`` into a model with an aux head, which keeps its own
+    aux head and takes every other entry from the checkpoint."""
+    monkeypatch.undo()  # the full-width CNN the config builds
+    rng = np.random.default_rng(11 + FLOW_CASES.index((arch, family)))
+    variables = {"model": _variables(arch, rng)}
+    if family == "flow_gan":
+        variables["discriminator"] = _variables("disc", rng)
+    ckpt = _save(tmp_path / "flow.ckpt", export_lightning_checkpoint(arch, variables, family,
+                                                                     epoch=3))
+    jax_imported = import_lightning_checkpoint(ckpt)
+    want = {role: from_jax_variables(v) for role, v in jax_imported["roles"].items()}
     from floodseg_tpu_torch.models.torch_import import load_torch_file
-    with pytest.raises(NotImplementedError, match="13d"):
-        load_torch_file(str(tmp_path / "flow.ckpt"))
+    ours = load_torch_file(str(tmp_path / "flow.ckpt"))
+    assert (ours["arch"], ours["method_family"], ours["epoch"]) == (arch, family, 3)
+    assert jax_imported["method_family"] == family
+    assert ours["roles"].keys() == want.keys()
+    for role in want:
+        _state_dict_equal({k: v for k, v in ours["roles"][role].items()
+                           if not k.endswith("num_batches_tracked")},
+                          {k: torch.from_numpy(v) for k, v in want[role].items()
+                           if not k.endswith("num_batches_tracked")})
+    cfg = load_config([], {"method": family, "model.arch": arch, "model.layers": "50",
+                           "model.aux": "true", "data.train_w": "64",
+                           "trainer.log_dir": str(tmp_path), "trainer.run_name": "imp",
+                           "model.pretrained": "false"})
+    runner = Runner(cfg, device="cpu")
+    fresh = {k: v.clone() for k, v in runner.model.state_dict().items()}
+    state = runner.load_torch_ckpt(str(tmp_path / "flow.ckpt"))
+    assert "looks like" not in capsys.readouterr().out
+    model = state[0].model if family == "flow_gan" else state.model
+    aux = "aux." if arch == "pspnet" else "aux_classifier."
+    got = model.state_dict()
+    assert any(k.startswith(aux) for k in got)
+    for k, v in got.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        ref = fresh[k] if k.startswith(aux) else torch.from_numpy(want["model"][k])
+        torch.testing.assert_close(v, ref, rtol=0, atol=0, msg=k)
+    if family == "flow_gan":
+        _state_dict_equal(state[1].model.state_dict(),
+                          {k: torch.from_numpy(v) for k, v in want["discriminator"].items()})
 
 
 def test_torch_ckpt_through_the_cli(tree, tmp_path):
