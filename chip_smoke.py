@@ -14,6 +14,8 @@
     python3 chip_smoke.py --cli    # phase 22 alone: the CLI on the card
     python3 chip_smoke.py --ddp    # phase 23 alone: data parallelism on the card
     python3 chip_smoke.py --ddp-faults  # 23b's contrastive check against planted faults
+    python3 chip_smoke.py --int8-enc  # phase 24 alone: the int8 encoder
+    python3 chip_smoke.py --remat  # phase 25 alone: rematerialisation
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -301,7 +303,11 @@ Then U2PL (the contrastive method), after evaluation:
    restores equal, bit for bit, the states the fit saved at those epochs;
    the predict maps equal run_flow_predict's on the same weights, pixel
    for pixel; metrics.json has the keys the JAX Runner writes. Peak memory
-   beside the card's name and power limit.
+   beside the card's name and power limit. Then ``fit
+   --data.normalize_on_device true`` and the same fit normalised on the
+   host (one epoch of 2 steps under no_cropping, the test skipped): each
+   train step's frames reach the card as float16, and the weights and BN
+   statistics after it are within 4t's rule (STEP_ABS) of the host fit's.
 Then data parallelism (parallel/, the global-batch steps), with rank
 processes of this script (``--ddp-rank PART BACKEND PREFIX``, the
 rendezvous on a free localhost port, every rank on cuda:0: under NCCL the
@@ -357,7 +363,32 @@ their output under build/ddp/):
    BatchNorm statistics over a rank's own samples, each rank's dropout
    masks drawn at its own shape, the entropy percentiles over a rank's
    own pixels), which must fail one.
-13. Last (after phase 23): a JSON line {"kernels": [...]} (each kernel's
+Then the main stack's opt-ins:
+24. The int8 encoder (``model.int8_encode``, bench.py --int8-enc). (a) The
+   slice card against CPU, float32 with TF32 off, 129 px key frames, n = 5:
+   PSPNet-50 with the float32 and with the int8 decoder, DeepLabV3-50 with
+   the float32 one; every int8 conv the CPU run makes (the trunk's 52 an
+   encode, the decoder's) replayed on the card from the CPU's int8 input
+   and weights gives the CPU's int32 accumulator; the int8 maps' lanes off
+   logged; the logits' and encodings' mean and largest gaps within
+   INT8_ENC_GAP of their scale and the maps equal on INT8_ENC_MAPS of the
+   pixels (a rsqrt or rounding difference re-rounds a map at a moved
+   scale, and the blocks compound it). (b) bench.py --int8-enc's protocol:
+   PSPNet-50 at 513 px and DeepLabV3-50 at 512 px, bf16, n = 25, each with
+   the bf16 and the int8 decoder: frames/s, K1 3, K2 2 and K3 0 or 1
+   launches a window, the profiler's busy time, idle share and kernels a
+   window, peak memory; and one encoder call split by torch.profiler into
+   its im2col, torch._int_mm and quantization ranges and the rest. (c) For
+   the record: the share of one window's pixels whose class equals the
+   bf16 encoder's.
+25. Rematerialisation (``model.remat``). (a) Phase 14's flow fit
+   (PSPNet-50 float32 with its aux head, 433 px crops, batch 2, 2 steps)
+   built with remat and without: the same launches, and what the steps
+   changed (every tensor, then the BN running statistics alone) within
+   4t's rule (STEP_ABS) of the plain fit. (b) Phase 21's contrastive run
+   with the student rematerialised: its checks, ms a semi step and peak
+   memory beside phase 21's.
+13. Last (after phase 25): a JSON line {"kernels": [...]} (each kernel's
    max_abs_err is its largest over every check; max_abs_err_by_dtype gives
    the largest in float32 and in bf16 apart), then the nvidia-smi line, then the last line {"ok": true, "device": {...}}.
 """
@@ -461,7 +492,12 @@ from floodseg_tpu_torch.train import (
     sync_teacher,
 )
 from floodseg_tpu_torch.train.evaluate import _crop_stack
-from floodseg_tpu_torch.train.flow import _predict_decode, decode_split_ok, flow_train_forward
+from floodseg_tpu_torch.train.flow import (
+    _predict_decode,
+    _predict_encode,
+    decode_split_ok,
+    flow_train_forward,
+)
 from floodseg_tpu_torch.video import FlowInterpolator, default_grid, flow_model
 from floodseg_tpu_torch.video.grid import crop_motion_vectors_stack_np
 
@@ -970,13 +1006,15 @@ def check_int8_deeplab_decode_card_vs_cpu(model, shape=(2, 33, 33, 2048), seed=2
 
 # ------------------------------------------------------------- the slice
 
-def random_model(arch, dtype, seed=0, image_size=DL_SIZE, with_aux=False, layers=50):
+def random_model(arch, dtype, seed=0, image_size=DL_SIZE, with_aux=False, layers=50,
+                 remat=False):
     """PSPNet or DeepLabV3 with a ResNet-``layers`` trunk (with the aux head
-    if ``with_aux``), or ViT-B/32 for ``image_size`` px frames, with weights
-    from one torch.Generator seed, every BN's statistics and every
-    LayerNorm perturbed."""
+    if ``with_aux``; every bottleneck rematerialised in training if
+    ``remat``), or ViT-B/32 for ``image_size`` px frames, with weights from
+    one torch.Generator seed, every BN's statistics and every LayerNorm
+    perturbed."""
     model = build_model(arch, classes=CLASSES, layers=layers, image_size=image_size,
-                        with_aux=with_aux, dtype=dtype)
+                        with_aux=with_aux, dtype=dtype, remat=remat)
     return init_from_generator_(model, torch.Generator().manual_seed(seed))
 
 
@@ -999,14 +1037,15 @@ def clip_windows(n, frame_hw, num_windows, size, device, seed=0):
     return wins
 
 
-def window_logits(model, w, n, dg, size, device, int8=False):
+def window_logits(model, w, n, dg, size, device, int8=False, int8_encode=False):
     """Logits (n, size, size, classes) of one window through the
-    interpolator with the builders' decoder, frames normalised as the
-    predict builders do; ``int8`` decodes with the model's int8 head at the
-    key encodings' absmax hint."""
+    interpolator with the builders' encoder and decoder, frames normalised
+    as the predict builders do; ``int8`` decodes with the model's int8 head
+    at the key encodings' absmax hint, ``int8_encode`` encodes with the
+    int8 trunk."""
     mean = torch.tensor(MEAN, device=device)
     std = torch.tensor(STD, device=device)
-    interp = FlowInterpolator(lambda x: model.encode(x)[0], _predict_decode(model, int8),
+    interp = FlowInterpolator(_predict_encode(model, int8_encode), _predict_decode(model, int8),
                               decode_wants_absmax=int8, decode_split=decode_split_ok(model))
     with torch.inference_mode():
         return interp.predict_clip(
@@ -1016,19 +1055,19 @@ def window_logits(model, w, n, dg, size, device, int8=False):
             default_grid=torch.as_tensor(dg, device=device), out_size=(size, size))
 
 
-def slice_outputs(model, device, n, size, frame_hw, wins, int8):
+def slice_outputs(model, device, n, size, frame_hw, wins, int8, int8_encode=False):
     """Logits of window 0 through the interpolator, and the int32 maps and
     next encodings of the full program (window 0) and the cached program
     (window 1) through make_cached_flow_predict_fn."""
     dg = default_grid(*frame_hw)
     full, cached = make_cached_flow_predict_fn(
         model, n=n, out_size=(size, size), default_grid=dg, int8_decode=int8,
-        device=device)
+        int8_encode=int8_encode, device=device)
     variables = model.state_dict()
     w0, w1 = (  # the builders take raw frames; the interpolator normalised ones
         {k: (v.to(device) if torch.is_tensor(v) else v) for k, v in w.items()}
         for w in wins[:2])
-    logits = window_logits(model, w0, n, dg, size, device, int8)
+    logits = window_logits(model, w0, n, dg, size, device, int8, int8_encode)
     maps0, enc0 = full(variables, w0["frame_prev"], w0["frame_next"],
                        w0["mvs_left"], w0["mvs_right"])
     maps1, enc1 = cached(variables, enc0, w1["frame_next"], w1["mvs_left"],
@@ -1064,15 +1103,18 @@ ENC_TOL = {"float32": 1e-4, "int8": 1e-4, "bfloat16": 8 * 2.0 ** -8}
 SLICE_FRAME_HW = (128, 128)  # the clip's frames; key frames resized to ``size``
 
 
-class Int8Inputs:
-    """Records the int8 input of every conv_int8 call in the block."""
+class Int8Calls:
+    """Records every conv_int8 call in the block: its operands, geometry
+    and int32 accumulator, on the host."""
 
     def __enter__(self):
-        self.maps, self.conv = [], quant.conv_int8
+        self.calls, self.conv = [], quant.conv_int8
 
-        def recording(x_q, *a, **k):
-            self.maps.append(x_q.cpu())
-            return self.conv(x_q, *a, **k)
+        def recording(x_q, w_q, padding, dilation=(1, 1), strides=(1, 1)):
+            acc = self.conv(x_q, w_q, padding, dilation, strides)
+            self.calls.append((x_q.cpu(), w_q.cpu(), padding, tuple(dilation),
+                               tuple(strides), acc.cpu()))
+            return acc
 
         quant.conv_int8 = recording
         return self
@@ -1105,11 +1147,11 @@ def check_slice_card_vs_cpu(arch="pspnet", n=5, size=129, seed=1, int8=False,
             f"allow_bf16_reduced_precision_reduction="
             f"{matmul.allow_bf16_reduced_precision_reduction}")
         t0 = time.perf_counter()
-        with Int8Inputs() as ref_maps:
+        with Int8Calls() as ref_calls:
             ref = slice_outputs(cpu_model, torch.device("cpu"), n, size, SLICE_FRAME_HW,
                                 wins, int8)
         t1 = time.perf_counter()
-        with Int8Inputs() as got_maps:
+        with Int8Calls() as got_calls:
             got = slice_outputs(gpu_model, torch.device("cuda"), n, size, SLICE_FRAME_HW,
                                 wins, int8)
         torch.cuda.synchronize()
@@ -1120,11 +1162,11 @@ def check_slice_card_vs_cpu(arch="pspnet", n=5, size=129, seed=1, int8=False,
         names = (("input", "input", "input", "input", "concat", "projection")
                  if arch == "deeplabv3" else ("input",))
         worst = {}
-        for i, (a, b) in enumerate(zip(got_maps.maps, ref_maps.maps)):
+        for i, ((a, *_), (b, *_)) in enumerate(zip(got_calls.calls, ref_calls.calls)):
             share, step = lanes_off(a, b)
             k = names[i % per_call]
             worst[k] = max(worst.get(k, (0.0, 0)), (share, step))
-        log(f"  int8 maps card vs CPU over {len(ref_maps.maps)} convs, the largest share "
+        log(f"  int8 maps card vs CPU over {len(ref_calls.calls)} convs, the largest share "
             f"of lanes off and step by quantization: {worst}")
     scale = float(ref["logits"].abs().max())
     share = SLICE_TOL[(arch, mode)]
@@ -1176,13 +1218,14 @@ def sync(dev):
 
 
 def run_main_path(model, wins, int8, tag, dev=torch.device("cuda"), n=FRAME_DELTA,
-                  size=SIZE, frame_hw=(512, 512)) -> dict:
-    """Phases 5 to 9: a bf16 model (PSPNet-50 at 513 px, DeepLabV3-50 and
-    ViT-B/32 at 512 px), n = 25, bench.py's protocol, with the
-    full-precision or the int8 decoder."""
+                  size=SIZE, frame_hw=(512, 512), int8_encode=False) -> dict:
+    """Phases 5 to 9 and 24b: a bf16 model (PSPNet-50 at 513 px,
+    DeepLabV3-50 and ViT-B/32 at 512 px), n = 25, bench.py's protocol,
+    with the full-precision or the int8 decoder, and the full-precision or
+    (``int8_encode``, bench.py --int8-enc) the int8 encoder."""
     full, cached = make_cached_flow_predict_fn(
         model, n=n, out_size=(size, size), default_grid=default_grid(*frame_hw),
-        int8_decode=int8, device=dev)
+        int8_decode=int8, int8_encode=int8_encode, device=dev)
     variables = model.state_dict()
     state = {"feat": None, "next_id": None, "windows": 0}
 
@@ -1235,7 +1278,8 @@ def run_main_path(model, wins, int8, tag, dev=torch.device("cuda"), n=FRAME_DELT
     if not bool(torch.isfinite(state["feat"]).all()):
         raise AssertionError("non-finite next-key encoding")
     # logits of one window (outside the counted run): finite, expected shape
-    logits = window_logits(model, timed[0], n, default_grid(*frame_hw), size, dev, int8)
+    logits = window_logits(model, timed[0], n, default_grid(*frame_hw), size, dev, int8,
+                           int8_encode)
     if logits.shape != (n, size, size, CLASSES) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError(f"logits {tuple(logits.shape)} not finite or misshapen")
@@ -3334,7 +3378,7 @@ def check_u2pl_step_card_vs_cpu(size=65, card=torch.device("cuda")) -> None:
 
 
 def u2pl_phase(dev, root, tag, layers=101, crop=873, epochs=4, steps=2,
-               frame_hw=FRAME_HW) -> dict:
+               frame_hw=FRAME_HW, remat=False) -> dict:
     """Phase 21: ``contrastive`` at full width through run_contrastive_fit
     on the tree at ``root``: PSPNet-``layers`` with its aux and rep heads
     (random weights, the teacher its own init), the repository's
@@ -3353,10 +3397,11 @@ def u2pl_phase(dev, root, tag, layers=101, crop=873, epochs=4, steps=2,
     by more than max_enqueue a step; the teacher's parameters the
     student's tensors after every semi step; its BN statistics its own;
     validation served the teacher; the profiled window traced kernels and
-    no copy to the host."""
+    no copy to the host. ``remat``: every bottleneck of the student
+    rematerialised (phase 25b)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     model = init_from_generator_(build_model("pspnet", classes=CLASSES, layers=layers,
-                                             semisupervised=True),
+                                             semisupervised=True, remat=remat),
                                  torch.Generator().manual_seed(7))
     cfg = default_fit_config(train_h=crop, train_w=crop, resize_h=frame_hw[0], resize_w=frame_hw[1],
                              max_epochs=epochs, limit_train_batches=steps, sup_only_epoch=1,
@@ -3690,8 +3735,79 @@ def cli_phase(dev, root) -> dict:
     log(f"  phase 22 launches {total}; peak memory {peak:.2f} GB on {nvidia_smi_line()}")
     del runner, model
     torch.cuda.empty_cache()
+    norm = cli_normalize_on_device(common)
+    total = {k: total[k] + norm["launches"][k] for k in CLI_KERNELS}
     return {"launches": total, "launches_by_subcommand": launches, "seconds": seconds,
-            "parts": parts, "peak_gb": peak}
+            "parts": parts, "peak_gb": peak, "normalize_on_device": norm}
+
+
+def cli_normalize_on_device(common) -> dict:
+    """Phase 22's fit with ``--data.normalize_on_device true`` and the same
+    fit normalised on the host: one epoch of 2 steps under ``no_cropping``
+    (the test skipped; predict the whole-frame route). The frames each
+    train step is given reach the card as float16; the weights and BN
+    statistics after the fit within 4t's rule of the host-normalised
+    fit's, the floor 23a's: the host fit on each batch reversed (both
+    fits' steps see the same float32 frames, whole grey levels, which
+    float16 holds; OHEM's selection turns a rounding into a step of its
+    own, so two fits of one thing on the card differ by more than
+    STEP_ABS)."""
+    from floodseg_tpu_torch.cli import main as cli
+    from floodseg_tpu_torch.cli.runner import Runner
+    from floodseg_tpu_torch.train import fit as fit_module
+
+    seen, p0 = [], {}
+    normalize, build = fit_module.normalize_frames, Runner._build_model
+
+    def recording(batch):
+        seen.append({k: (v.dtype, v.device.type) for k, v in batch.items()
+                     if k.startswith("frame_")})
+        return normalize(batch)
+
+    reverse = contextlib.ExitStack()
+
+    def first_model(runner):
+        model = build(runner)
+        p0.setdefault("state", {k: v.detach().clone() for k, v in model.state_dict().items()})
+        if runner.cfg.trainer.run_name.endswith("reversed"):
+            reverse.enter_context(reversed_samples(model))
+        return model
+
+    args = [*common, "--trainer.max_epochs", "1", "--trainer.limit_test_batches", "0",
+            "--model.no_cropping", "true", "--model.save_images", "false",
+            "--model.save_video", "false"]
+    states, launches = {}, {}
+    fit_module.normalize_frames, Runner._build_model = recording, first_model
+    try:
+        for name, on in (("normalize_on_device", True), ("host", False),
+                         ("host_reversed", False)):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with reverse:
+                runner = cli.run(["fit", *args, "--trainer.run_name", name,
+                                  "--data.normalize_on_device", str(on).lower()])
+            torch.cuda.synchronize()
+            launches[name] = launch_counts()
+            states[name] = {k: v.detach().cpu().clone()
+                            for k, v in runner.state.model.state_dict().items()}
+            log(f"  fit --data.normalize_on_device {str(on).lower()} ({name}): "
+                f"{time.perf_counter() - t0:.1f} s, train loss "
+                f"{runner.fit_summary['epochs'][0]['train_loss']:.6f}, launches "
+                f"{launches[name]}")
+            del runner
+    finally:
+        fit_module.normalize_frames, Runner._build_model = normalize, build
+    log(f"  the train steps' frames as the step receives them: {seen}")
+    if len(seen) != 2 or any(v != (torch.float16, "cuda") for d in seen for v in d.values()) \
+            or any(len(d) != 3 for d in seen):
+        raise AssertionError("phase 22: normalize_on_device's frames did not reach the card "
+                             "as float16")
+    floor = step_rel(states["host_reversed"], states["host"], p0["state"])
+    change_within("22 fit with normalize_on_device against the host-normalised fit",
+                  states["normalize_on_device"], states["host"], p0["state"], floor)
+    torch.cuda.empty_cache()
+    return {"launches": {k: sum(v[k] for v in launches.values()) for k in CLI_KERNELS},
+            "frames": [str(d) for d in seen]}
 
 
 def cli_alone() -> int:
@@ -4167,7 +4283,7 @@ def change_within(name, got, ref, p0, floor=None) -> float:
         f"median {statistics.median(e.values()):.2e}, largest over its limit {ratio:.3f} "
         f"({'; '.join(f'{k} {e[k]:.2e} of limit {limit[k]:.2e}' for k in worst)})")
     if ratio > 1.0 or moved != moved_got:
-        raise AssertionError(f"phase 23 {name}: a step's change outside 4t's rule "
+        raise AssertionError(f"phase {name}: a step's change outside 4t's rule "
                              f"({ratio:.3f} of the limit; moved sets equal: "
                              f"{moved == moved_got})")
     return ratio
@@ -4436,6 +4552,282 @@ def ddp_faults_alone() -> int:
         json.dump(rows, f, indent=1)
     log(f"  sound runs that fail a limit or faults that pass every one: {bad or 'none'}")
     return 1 if bad else 0
+
+
+# ----------------------------------------- the opt-ins: phases 24 and 25
+
+# 24a: the flow-predict slice with the int8 encoder, card against CPU
+# (float32 models, TF32 off, 129 px key frames, n = 5). The int8 sums are
+# exact on both, but the card's rsqrt in the BN fold and its float32
+# orders (the stem's convolution, the dequantization's rounding) put a few
+# values on the other side of a quantization boundary, and a per-tensor
+# scale that moves re-rounds a whole map; through 16 blocks the cases
+# compound (on the CPU against the JAX package at 49 px the encodings'
+# mean gap reads 2.0e-4 to 2.1e-3 of their largest magnitude, the largest
+# 8.0e-3 to 4.5e-2: tests/test_torch_int8_trunk.py). Held as the CPU
+# tests hold JAX: the encodings' and the logits' mean and largest gaps as
+# shares of their largest magnitude, and the share of map pixels equal.
+# Read on an H100 80GB HBM3 at 700 W: the means 1.3e-3 to 3.8e-3, the
+# largest 1.4e-2 to 3.7e-2, the maps 0.9798 (DeepLabV3) to 0.99999 equal,
+# 34-37% of the int8 lanes off by up to 8 steps after the cascade.
+INT8_ENC_SLICE = 129
+INT8_ENC_GAP = {"mean": 1e-2, "largest": 0.2}
+INT8_ENC_MAPS = 0.95
+INT8_ENC_CASES = (("pspnet", False), ("pspnet", True), ("deeplabv3", False))
+
+
+def gap_shares(got, ref) -> tuple:
+    """(mean, largest) of |got - ref| as shares of max|ref|."""
+    scale = float(ref.abs().max())
+    d = (got.float() - ref.float()).abs()
+    return float(d.mean()) / scale, float(d.max()) / scale
+
+
+def check_int8_encoder_card_vs_cpu(arch, int8_decode, n=5, size=INT8_ENC_SLICE,
+                                   seed=1) -> dict:
+    """Phase 24a: the slice of ``arch`` (float32, TF32 off) with the int8
+    encoder and the full-precision or int8 decoder, on the CPU with every
+    conv_int8 call recorded, then on the card: each recorded call replayed
+    on the card from the CPU's int8 input and weights gives the CPU's int32
+    accumulator (the trunk's 1x1s, its 3x3s at stride 2 and at dilations 2
+    and 4, the strided downsamples; the decoder's with int8_decode); the
+    int8 maps' share of lanes off and largest step logged; the logits and
+    the two windows' next-key encodings within INT8_ENC_GAP, the maps
+    equal on at least INT8_ENC_MAPS of the pixels."""
+    cpu_model = random_model(arch, torch.float32, seed, image_size=size)
+    gpu_model = copy.deepcopy(cpu_model)
+    wins = clip_windows(n, SLICE_FRAME_HW, 2, size, "cpu", seed)
+    with full_precision_f32():
+        t0 = time.perf_counter()
+        with Int8Calls() as ref_calls:
+            ref = slice_outputs(cpu_model, torch.device("cpu"), n, size, SLICE_FRAME_HW, wins,
+                                int8_decode, int8_encode=True)
+        t1 = time.perf_counter()
+        with Int8Calls() as got_calls:
+            got = slice_outputs(gpu_model, torch.device("cuda"), n, size, SLICE_FRAME_HW, wins,
+                                int8_decode, int8_encode=True)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    kinds, unequal = set(), 0
+    for x_q, w_q, padding, dilation, strides, acc in ref_calls.calls:
+        card = quant.conv_int8(x_q.cuda(), w_q.cuda(), padding, dilation, strides).cpu()
+        unequal += int(not torch.equal(card, acc))
+        kinds.add((w_q.shape[-1], strides, dilation))
+    lanes = [lanes_off(a, b) for (a, *_), (b, *_) in zip(got_calls.calls, ref_calls.calls)]
+    share = max(v[0] for v in lanes)
+    step = max(v[1] for v in lanes)
+    log(f"  {arch}, {'int8' if int8_decode else 'float32'} decoder: cpu {t1 - t0:.1f} s, card "
+        f"{t2 - t1:.1f} s; {len(ref_calls.calls)} int8 convs ({len(got_calls.calls)} on the "
+        f"card) replayed on the card from the CPU's operands: {unequal} accumulators differ; "
+        f"kinds (k, stride, dilation) {sorted(kinds)}; int8 maps card vs CPU: the largest "
+        f"share of lanes off {share:.2e}, the largest step {step}")
+    if unequal or len(got_calls.calls) != len(ref_calls.calls):
+        raise AssertionError("int32 accumulators differ between card and CPU")
+    wanted = {(3, (2, 2), (1, 1)), (1, (2, 2), (1, 1)), (3, (1, 1), (2, 2)),
+              (3, (1, 1), (4, 4))}
+    if not wanted <= kinds:
+        raise AssertionError(f"the trunk's convs lack {wanted - kinds}")
+    readings = {}
+    for k in ("logits", "enc0", "enc1"):
+        mean, largest = readings[k] = gap_shares(got[k], ref[k])
+        log(f"  {k} {tuple(ref[k].shape)}: gap mean {mean:.2e}, largest {largest:.2e} of "
+            f"max {float(ref[k].abs().max()):.3e} (limits {INT8_ENC_GAP['mean']:g}, "
+            f"{INT8_ENC_GAP['largest']:g})")
+        if mean > INT8_ENC_GAP["mean"] or largest > INT8_ENC_GAP["largest"]:
+            raise AssertionError(f"phase 24a: card and CPU {k} disagree")
+    for k in ("maps0", "maps1"):
+        same = readings[k] = float((got[k] == ref[k]).float().mean())
+        log(f"  {k}: {same:.6f} of the pixels equal (limit {INT8_ENC_MAPS})")
+        if same < INT8_ENC_MAPS:
+            raise AssertionError(f"phase 24a: card and CPU {k} agree on only {same:.6f}")
+    return {"lanes_share": share, "lanes_step": step, **readings}
+
+
+def int8_trunk_split(model, frame, reps=3) -> dict:
+    """Phase 24b's trunk split: ``reps`` int8 encoder calls on one key frame
+    (after a warm-up) under torch.profiler, each im2col, torch._int_mm and
+    activation quantization in a record_function range of its own; ms a
+    call of the kernels in each range (im2col, _int_mm, quantize), of the
+    whole call (the union of its kernels) and of the rest (the stem's
+    convolutions, the BN folds and weight quantization, the
+    dequantization epilogues, the residual adds, the max pool, PSPNet's
+    PPM, the casts)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    enc = _predict_encode(model, True)
+    dev = torch.device("cuda")
+    x = ((frame.float() - torch.tensor(MEAN, device=dev)) / torch.tensor(STD, device=dev))
+    pieces = {"im2col": (quant, "im2col_nhwc"), "_int_mm": (torch, "_int_mm"),
+              "quantize": (quant, "quantize_activation_dynamic")}
+    originals = {name: getattr(owner, attr) for name, (owner, attr) in pieces.items()}
+
+    def ranged(name):
+        fn = originals[name]
+
+        def call(*a, **k):
+            with torch.profiler.record_function(f"int8 trunk: {name}"):
+                return fn(*a, **k)
+        return call
+
+    for name, (owner, attr) in pieces.items():
+        setattr(owner, attr, ranged(name))
+    try:
+        with torch.inference_mode(), full_precision_f32():
+            enc(x)
+            torch.cuda.synchronize()
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    enc(x)
+                torch.cuda.synchronize()
+    finally:
+        for name, (owner, attr) in pieces.items():
+            setattr(owner, attr, originals[name])
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    trace = os.path.join(PROFILE_DIR, "int8_trunk_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel")
+    ranges = {name: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "gpu_user_annotation"
+                     and e["name"] == f"int8 trunk: {name}"] for name in pieces}
+    out = {"call_ms": union_us(kernels) / (1e3 * reps), "kernels": len(kernels) / reps}
+    for name, spans in ranges.items():
+        inside = [k for k in kernels if any(a <= k[0] < b for a, b in spans)]
+        out[f"{name}_ms"] = union_us(inside) / (1e3 * reps)
+    out["rest_ms"] = out["call_ms"] - sum(out[f"{n}_ms"] for n in pieces)
+    if not all(ranges.values()):
+        raise AssertionError(f"the trunk profile saw no range for "
+                             f"{[n for n, v in ranges.items() if not v]}")
+    return out
+
+
+def int8_encoder_phases(dev) -> dict:
+    """Phases 24a-c (see the module note); returns the main paths by tag."""
+    log(f"[24a] the slice with the int8 encoder on the card against the CPU (float32, "
+        f"{INT8_ENC_SLICE} px key frames, n = 5)")
+    t0 = time.perf_counter()
+    slices = {f"{a}_{'int8' if d else 'f32'}_decoder": check_int8_encoder_card_vs_cpu(a, d)
+              for a, d in INT8_ENC_CASES}
+    log(f"  phase 24a: {time.perf_counter() - t0:.1f} s")
+    paths = {}
+    for arch, size, name in (("pspnet", SIZE, "PSPNet-50"), ("deeplabv3", DL_SIZE,
+                                                             "DeepLabV3-50")):
+        model = random_model(arch, torch.bfloat16, seed=0)
+        wins = clip_windows(FRAME_DELTA, (512, 512), CLIPS_TIMED + 2, size, dev)
+        for int8 in (False, True):
+            tag = f"{arch}_int8enc_{'int8' if int8 else 'bf16'}"
+            log(f"[24b] the int8 encoder's main path: {name} bf16, {size} px key frames, n = "
+                f"{FRAME_DELTA}, {'int8' if int8 else 'bf16'} decoder (bench.py --int8-enc)")
+            r = paths[tag] = run_main_path(model, wins, int8, tag, size=size, int8_encode=True)
+            log(f"  {r['fps']:.2f} frames/s (median of {PASSES} passes x {CLIPS_TIMED} "
+                f"windows; passes {[round(f, 2) for f in r['fps_passes']]}), peak memory "
+                f"{r['peak_gb']:.2f} GB on {nvidia_smi_line()}")
+            # 24c: the same window through the full-precision encoder, for the record
+            w = wins[CLIPS_TIMED]
+            maps = {}
+            for enc in (False, True):
+                fn = make_flow_predict_fn(model, n=FRAME_DELTA, out_size=(size, size),
+                                          default_grid=default_grid(512, 512),
+                                          int8_decode=int8, int8_encode=enc, device=dev)
+                maps[enc] = fn(model.state_dict(), w["frame_prev"], w["frame_next"],
+                               w["mvs_left"], w["mvs_right"])
+            r["agree_bf16_encoder"] = float((maps[True] == maps[False]).float().mean())
+            log(f"  [24c] the int8 encoder's maps equal the bf16 encoder's on "
+                f"{r['agree_bf16_encoder']:.4f} of the pixels of one window (a reading: "
+                f"random weights, no limit)")
+        split = paths[f"{arch}_int8enc_bf16"]["trunk"] = int8_trunk_split(
+            model, wins[1]["frame_next"])
+        log(f"  the int8 encoder call by the profiler (ms a call, 3 calls): "
+            f"{ {k: round(v, 4) for k, v in split.items()} }")
+        model.cpu()
+        del wins
+        torch.cuda.empty_cache()
+    log(f"  phase 24a readings: {json.dumps(slices)}")
+    return paths
+
+
+def remat_flow_fit(dev, root, remat, reverse=False) -> dict:
+    """Phase 25a's fit: run_flow_fit of phase 14's PSPNet-50 (float32, aux
+    head, seed 7) with every bottleneck rematerialised or not, 433 px
+    crops, batch 2, DDP_STEPS steps, one validation frame; ``reverse``:
+    under ``reversed_samples``. Returns the state (on the host), the first
+    one (p0), each step's synchronised ms, the launches and the peak
+    memory."""
+    model = random_model("pspnet", torch.float32, seed=7, image_size=CROP, with_aux=True,
+                         remat=remat)
+    p0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    cfg = default_fit_config(train_h=CROP, train_w=CROP, resize_h=FRAME_HW[0],
+                             resize_w=FRAME_HW[1], frame_delta=FRAME_DELTA, max_epochs=1,
+                             limit_train_batches=DDP_STEPS, limit_val_batches=1)
+    prof = PhaseProfiler(sync=lambda: torch.cuda.synchronize(dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    with reversed_samples(model) if reverse else contextlib.nullcontext():
+        run_flow_fit(model, root, cfg, profiler=prof, device=dev)
+    torch.cuda.synchronize(dev)
+    return {"state": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+            "p0": p0, "step_ms": [round(1e3 * s, 1) for s in prof.recorded_durations[
+                "train_step"]], "launches": launch_counts(),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def remat_phases(dev, root) -> dict:
+    """Phase 25 (see the module note); returns the U2PL run by tag."""
+    log("[25a] phase 14's flow step with remat against the same step without it "
+        "(PSPNet-50 float32 with aux head, 433 px crops, batch 2, 2 steps), the floor from "
+        "the plain steps on the batch reversed (23a's)")
+    t0 = time.perf_counter()
+    runs = {name: remat_flow_fit(dev, root, r, rev) for name, r, rev in (
+        ("plain", False, False), ("remat", True, False), ("plain, reversed", False, True))}
+    for name, v in runs.items():
+        log(f"  {name}: ms a step {v['step_ms']}, peak {v['peak_gb']:.2f} GB, launches "
+            f"{v['launches']}")
+    plain, remat = runs["plain"], runs["remat"]
+    if remat["launches"] != plain["launches"] or not plain["launches"]["grid_sample_cuda"]:
+        raise AssertionError(f"phase 25a's launches differ: {remat['launches']}, "
+                             f"{plain['launches']}")
+    p0 = plain["p0"]
+    floor = step_rel(runs["plain, reversed"]["state"], plain["state"], p0)
+    stats = [k for k in plain["state"] if "running" in k]
+    change_within("25a remat flow step, every tensor", remat["state"], plain["state"], p0,
+                  floor)
+    change_within("25a remat flow step, the BN running statistics",
+                  {k: remat["state"][k] for k in stats}, {k: plain["state"][k] for k in stats},
+                  {k: p0[k] for k in stats}, floor)
+    log(f"  phase 25a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tag = "pspnet101_f32_contrastive_remat"
+    log("[25b] phase 21's contrastive run with remat (PSPNet-101 float32 with aux and rep "
+        "heads, 873 px crops, batch 2 + 2)")
+    result = u2pl_phase(dev, root, tag, remat=True)
+    log(f"  phase 25b: a semi step {result['step_ms']:.1f} ms, peak {result['peak_gb']:.2f} GB "
+        f"(phase 21 without remat, PR 15's run: 1563.4 ms, 63.98 GB) on {nvidia_smi_line()}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"pspnet_f32_remat_flow": {"launches": remat["launches"],
+                                      "step_ms": statistics.median(remat["step_ms"]),
+                                      "peak_gb": remat["peak_gb"],
+                                      "plain_step_ms": statistics.median(plain["step_ms"]),
+                                      "plain_peak_gb": plain["peak_gb"]},
+            tag: result}
+
+
+def int8_enc_alone() -> int:
+    """--int8-enc: build warp.cu and resize.cu, then phase 24."""
+    log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}")
+    build_kernels(["warp", "resize"])
+    int8_encoder_phases(torch.device("cuda"))
+    return 0
+
+
+def remat_alone() -> int:
+    """--remat: build warp.cu and the codec, write phase 14's tree, then
+    phase 25."""
+    log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}")
+    build_kernels(["warp", "jpeg"])
+    remat_phases(torch.device("cuda"), train_tree())
+    return 0
 
 
 # ------------------------------------------------------------------ main
@@ -4850,6 +5242,10 @@ def main() -> int:
         return ddp_alone()
     if sys.argv[1:] == ["--ddp-faults"]:
         return ddp_faults_alone()
+    if sys.argv[1:] == ["--int8-enc"]:
+        return int8_enc_alone()
+    if sys.argv[1:] == ["--remat"]:
+        return remat_alone()
     if sys.argv[1:2] == ["--ddp-rank"] and len(sys.argv) == 5:
         return ddp_rank(*sys.argv[2:])
     if sys.argv[1:2] == ["--k1"] and len(sys.argv) <= 3:
@@ -4998,6 +5394,14 @@ def main() -> int:
     log(f"  phase 22: {time.perf_counter() - t_cli:.1f} s")
     log("[23] data parallelism: one rank over NCCL, two gloo ranks on the card, DP predict")
     paths.update(ddp_phase(dev, os.path.join(DATA_DIR, "train_tree")))
+    t_opt = time.perf_counter()
+    paths.update(int8_encoder_phases(dev))
+    log(f"  phase 24: {time.perf_counter() - t_opt:.1f} s")
+    t_opt = time.perf_counter()
+    remat_paths = remat_phases(dev, os.path.join(DATA_DIR, "train_tree"))
+    paths.update(remat_paths)
+    train_paths.update({k: v for k, v in remat_paths.items() if "step_ms" in v})
+    log(f"  phase 25: {time.perf_counter() - t_opt:.1f} s")
 
     sources = {"grid_sample_cuda": ("floodseg_tpu/ops/pallas_warp.py:70", "warp.cu"),
                "grid_sample_backward_cuda": (

@@ -86,7 +86,6 @@ class Runner(FitHooks):
         if self.world.parallel and self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.is_flow = cfg.method in FLOW_METHODS
-        # raises for a field the port does not read yet
         self.fit_cfg = fit_config(cfg, num_devices=self.num_devices)
         run_name = cfg.trainer.run_name or cfg.runid or uuid.uuid4().hex[:8]
         self.logger = RunLogger(cfg.trainer.log_dir, run_name, wandb_project=cfg.wandb,
@@ -105,7 +104,7 @@ class Runner(FitHooks):
     def _build_model(self) -> nn.Module:
         m = self.cfg.model
         model = build_model(m.arch, classes=m.classes, layers=m.layers, image_size=m.test_w,
-                            with_aux=m.aux, dtype=_DTYPES[m.dtype],
+                            with_aux=m.aux, remat=m.remat, dtype=_DTYPES[m.dtype],
                             semisupervised=self.cfg.method == "contrastive" and m.semisupervised)
         return init_from_generator_(model, torch.Generator().manual_seed(self.cfg.trainer.seed))
 
@@ -360,7 +359,8 @@ class Runner(FitHooks):
     def predict(self, state=None) -> Dict:
         """``run_flow_predict`` of the predict video on the served model
         (flow methods; {} otherwise): the crop route by default, the cached
-        route under ``no_cropping``; PNGs under ``<run>/frames/<video>`` and
+        route under ``no_cropping`` (the only one ``model.int8_encode``
+        reaches, as in the JAX Runner); PNGs under ``<run>/frames/<video>`` and
         the AVI under ``<run>/video`` as the config asks."""
         cfg = self.cfg
         if not self.is_flow:
@@ -374,7 +374,8 @@ class Runner(FitHooks):
             model, model.state_dict(), d.data_root, d.predict_v_id, frame_delta=d.frame_delta,
             resize=out, crop=(m.test_h, m.test_w), no_cropping=m.no_cropping,
             num_classes=m.classes, feature_based=m.feature_based, no_warp=m.no_warp,
-            int8_decode=self._int8_decode(), classes_ignore=d.data_classes_ignore,
+            int8_decode=self._int8_decode(), int8_encode=m.int8_encode,
+            classes_ignore=d.data_classes_ignore,
             save_images_dir=(os.path.join(log_dir, "frames", d.predict_v_id)
                              if m.save_images else None),
             video_path=(os.path.join(log_dir, "video", f"{d.predict_v_id}.avi")

@@ -22,9 +22,8 @@ The layered YAML of configs/ is the one source of the port's settings:
 train_flow_supervised + dataset_flow + pspnet, ``DEFAULT_LAYERING``).
 
 ``FIELDS`` says, for every field of the seven dataclasses, what in the
-port reads it; ``NOT_READ`` lists those the port does not read yet, with
-the ROADMAP item that ports them. ``check_supported`` raises
-``NotImplementedError`` for such a field set away from what the port does.
+port reads it; ``NOT_READ``, the fields the port does not read (with the
+ROADMAP item that would port them), is empty: every field is read.
 
 Quirks copied from the JAX package (ROADMAP, queue 3): a CLI override
 resolves as YAML 1.1 does, so ``--model.optim.lr 1e-4`` sets the *string*
@@ -325,7 +324,8 @@ FIELDS: Dict[str, str] = {
     "model.semisupervised": _RUNNER, "model.feature_based": "fit:feature_based",
     "model.no_warp": "fit:no_warp", "model.no_cropping": "fit:no_cropping",
     "model.no_interpolation_percentage": "fit:no_interpolation_percentage",
-    "model.int8_decode": _RUNNER, "model.predict_v_id": "linked:data.predict_v_id",
+    "model.int8_decode": _RUNNER, "model.int8_encode": _RUNNER, "model.remat": _RUNNER,
+    "model.predict_v_id": "linked:data.predict_v_id",
     "model.save_images": _RUNNER, "model.save_video": _RUNNER,
     "model.compute_metrics": _RUNNER, "model.threshold_st": "fit:threshold_st",
     "model.lambda_fm": "fit:lambda_fm", "model.lambda_st": "fit:lambda_st",
@@ -348,6 +348,7 @@ FIELDS: Dict[str, str] = {
     "data.resize_factor_test": "fit:resize_factor_test",
     "data.resize_factor_predict": _RUNNER,
     "data.no_random_frame_delta": "fit:no_random_frame_delta",
+    "data.normalize_on_device": "fit:normalize_on_device",
     "data.arch": "linked:model.arch",
     "trainer.max_epochs": "fit:max_epochs", "trainer.seed": "fit:seed",
     "trainer.log_dir": _RUNNER, "trainer.run_name": _RUNNER,
@@ -363,15 +364,8 @@ FIELDS: Dict[str, str] = {
     "tag": _RUNNER,
 }
 
-# Not read by the port yet: field -> (ROADMAP item, what the port accepts).
-NOT_READ: Dict[str, tuple] = {
-    "model.remat": ("14", "False (torch.utils.checkpoint over the trunk is not ported)",
-                    lambda v: v is False),
-    "model.int8_encode": ("14", "False (the int8 ResNet trunk is not ported)",
-                          lambda v: v is False),
-    "data.normalize_on_device": ("14", "False (frames are normalized on the host)",
-                                 lambda v: v is False),
-}
+# Not read by the port: field -> (ROADMAP item, what the port accepts). Empty.
+NOT_READ: Dict[str, tuple] = {}
 
 
 def get_dotted(cfg, path: str) -> Any:
@@ -380,29 +374,16 @@ def get_dotted(cfg, path: str) -> Any:
     return cfg
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a field the port does not read yet
-    (``NOT_READ``) set away from what the port does."""
-    for path, (item, accepted, ok) in NOT_READ.items():
-        value = get_dotted(cfg, path)
-        if not ok(value):
-            raise NotImplementedError(
-                f"{path}={value!r} is not read by the port yet (ROADMAP item {item}); "
-                f"the port runs with {accepted}")
-
-
 def fit_config(cfg: Config, num_devices: int = 1):
     """The ``FitConfig`` (train/fit.py) of a resolved ``Config`` (the port's
     or the JAX package's): each of its fields from the config field that
     ``FIELDS`` maps to it ("fit:"), with the optimizer's name lower case,
     ``aux_weight`` 0 without the aux head, lists as tuples, and the
     "contrastive." fields a ``ContrastiveConfig`` whose loss is divided by
-    ``num_devices`` (the ranks of the run). Raises as ``check_supported``
-    does."""
+    ``num_devices`` (the ranks of the run)."""
     from floodseg_tpu_torch.train.contrastive import ContrastiveConfig
     from floodseg_tpu_torch.train.fit import FitConfig
 
-    check_supported(cfg)
     values: Dict[str, Any] = {}
     contrastive: Dict[str, Any] = {}
     for path, reader in FIELDS.items():

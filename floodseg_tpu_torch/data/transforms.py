@@ -133,18 +133,25 @@ def _scaled_hw(shape, fy: float, fx: float) -> Tuple[int, int]:
 
 class RandScale:
     """Scale frames and label by s drawn from the generator: frames
-    bilinear, the label nearest; grids are untouched. (The JAX transform's
-    aspect_ratio, which no pipeline sets, is not ported.)"""
+    bilinear, the label nearest; grids are untouched. With
+    ``aspect_ratio`` (a range, which no pipeline sets), a ratio ar drawn
+    after s stretches the two axes apart: fx = s * sqrt(ar), fy = s /
+    sqrt(ar), as the JAX transform draws and computes them."""
 
-    def __init__(self, scale):
+    def __init__(self, scale, aspect_ratio=None):
         if not 0 < scale[0] <= scale[1]:
             raise ValueError(f"RandScale needs 0 < min <= max, got {scale}")
         self.scale = scale
+        self.aspect_ratio = aspect_ratio
 
     def draw(self, rng) -> Tuple[float, float]:
         """(fy, fx), drawn as the JAX transform draws them."""
         s = self.scale[0] + (self.scale[1] - self.scale[0]) * rng.random()
-        return s, s
+        ar = 1.0
+        if self.aspect_ratio is not None:
+            lo, hi = self.aspect_ratio
+            ar = float(np.sqrt(lo + (hi - lo) * rng.random()))
+        return s / ar, s * ar
 
     @staticmethod
     def apply(sample, fy: float, fx: float):

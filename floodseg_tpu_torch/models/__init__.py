@@ -26,18 +26,22 @@ ARCHS = ("pspnet", "deeplabv3", "vit")
 
 def build_model(arch: str, classes: int = 5, layers: int = 50, image_size: int = 768,
                 with_aux: bool = True, dtype: torch.dtype = torch.float32,
-                semisupervised: bool = False) -> nn.Module:
+                semisupervised: bool = False, remat: bool = False) -> nn.Module:
     """The model for ``arch`` in eval mode, on the CPU, float32 parameters
     computing in ``dtype``. ``layers`` and ``with_aux`` are the CNNs',
     ``image_size`` (the position grid's frame size) the ViT's, as in the
     JAX factory; ``semisupervised`` adds the U2PL rep head in the
-    reference's ``ModelRepresentation`` layout. Weights come from
+    reference's ``ModelRepresentation`` layout; ``remat`` rematerialises
+    every bottleneck of the CNNs' trunks in training (models/resnet.py;
+    the ViT ignores it, as the JAX factory's does). Weights come from
     ``load_jax_variables``, ``load_state_dict`` or
     ``init_from_generator_``."""
     if arch == "pspnet":
-        model = PSPNet(classes=classes, layers=layers, with_aux=with_aux, dtype=dtype)
+        model = PSPNet(classes=classes, layers=layers, with_aux=with_aux, dtype=dtype,
+                       remat=remat)
     elif arch == "deeplabv3":
-        model = DeepLabV3(classes=classes, layers=layers, with_aux=with_aux, dtype=dtype)
+        model = DeepLabV3(classes=classes, layers=layers, with_aux=with_aux, dtype=dtype,
+                          remat=remat)
     elif arch == "vit":
         model = SegmenterViT(classes=classes, image_size=image_size, dtype=dtype)
     else:

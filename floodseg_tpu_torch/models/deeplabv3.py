@@ -109,10 +109,10 @@ class DeepLabV3(nn.Module):
     ``with_aux``, ``aux_classifier``."""
 
     def __init__(self, classes: int = 5, layers: int = 50, with_aux: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.backbone = ResNetFeatures(depth=layers, deep_base=False,
-                                       semseg_dilation=False, dtype=dtype)
+                                       semseg_dilation=False, dtype=dtype, remat=remat)
         self.classifier = deeplab_head(2048, classes, dtype=dtype)
         if with_aux:
             self.aux_classifier = fcn_head(1024, classes, dtype=dtype)

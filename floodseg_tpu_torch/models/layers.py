@@ -64,6 +64,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.compute_dtype = dtype
         self.world = None
+        # False while a rematerialised block is recomputed (models/resnet.py):
+        # the statistics moved once, in the forward
+        self.update_running = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(self.compute_dtype, torch.float32)
@@ -92,6 +95,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     @torch.no_grad()
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor, n: float) -> None:
+        if not self.update_running:
+            return
         m = 0.9
         rm, rv = self.running_mean, self.running_var
         rm.copy_(m * rm + (1.0 - m) * mean.detach().to(rm.dtype))

@@ -88,8 +88,8 @@ class PSPNet(ResNetFeatures):
     def __init__(self, classes: int = 5, layers: int = 50,
                  bins: Sequence[int] = (1, 2, 3, 6), dropout: float = 0.1,
                  zoom_factor: int = 8, with_aux: bool = True,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(depth=layers, dtype=dtype)
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__(depth=layers, dtype=dtype, remat=remat)
         self.zoom_factor = zoom_factor
         self.ppm = PPM(2048, 2048 // len(bins), bins, dtype)
         self.cls = seg_head(4096, 512, classes, dropout, dtype)

@@ -14,12 +14,24 @@ Counterpart of floodseg_tpu/models/resnet.py, in its two styles:
 
 layer3 and layer4 run at stride 1 in both, with a downsample on each
 first block.
+
+``remat=True`` is the JAX package's ``nn.remat(Bottleneck)``: in training
+with gradients on, each bottleneck keeps only its input and recomputes its
+activations in the backward (non-reentrant ``torch.utils.checkpoint``). The
+recompute runs each BN with the world and the float flags of its forward
+and without moving the running statistics again, so a step's values,
+gradients and statistics equal the plain step's bit for bit; over ranks it
+repeats BN's all-reduce inside the backward. Eval, ``no_grad`` (the U2PL
+teacher) and the state_dict keys are as without it.
 """
 
+import contextlib
+from functools import partial
 from typing import Dict, List
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from floodseg_tpu_torch.models.layers import BatchNorm2d, Conv2d, MaxPool
 
@@ -47,13 +59,51 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(
                 Conv2d(inplanes, out, 1, stride=stride, bias=False, dtype=dtype),
                 BatchNorm2d(out, dtype))
+        self.remat = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(self._forward, x, use_reentrant=False,
+                              context_fn=partial(_remat_contexts, self))
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.relu(self.bn1(self.conv1(x)))
         y = self.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         residual = x if self.downsample is None else self.downsample(x)
         return self.relu(y + residual)
+
+
+def _remat_contexts(block: nn.Module):
+    """``checkpoint``'s (forward, recompute) contexts for ``block``, made at
+    its forward: the recompute sets each BN's world (``data_parallel``'s,
+    which the backward runs outside of) and the TF32 / bf16-reduction flags
+    to their values at the forward, and leaves the running statistics."""
+    bns = [m for m in block.modules() if isinstance(m, BatchNorm2d)]
+    worlds = [m.world for m in bns]
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    flags = (cudnn.allow_tf32, matmul.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction)
+
+    @contextlib.contextmanager
+    def recompute():
+        prev = [(m.world, m.update_running) for m in bns]
+        prev_flags = (cudnn.allow_tf32, matmul.allow_tf32,
+                      matmul.allow_bf16_reduced_precision_reduction)
+        for m, w in zip(bns, worlds):
+            m.world, m.update_running = w, False
+        (cudnn.allow_tf32, matmul.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = flags
+        try:
+            yield
+        finally:
+            for m, (w, u) in zip(bns, prev):
+                m.world, m.update_running = w, u
+            (cudnn.allow_tf32, matmul.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction) = prev_flags
+
+    return contextlib.nullcontext(), recompute()
 
 
 def stage_dilations(n_blocks: int, new: int, prev: int, semseg: bool) -> List[int]:
@@ -67,13 +117,17 @@ def stage_dilations(n_blocks: int, new: int, prev: int, semseg: bool) -> List[in
 
 
 class ResNetFeatures(nn.Module):
-    """Stem + layer1..4 -> {"c2", "c3", "c4"} (layer2/3/4 outputs, NCHW)."""
+    """Stem + layer1..4 -> {"c2", "c3", "c4"} (layer2/3/4 outputs, NCHW);
+    ``remat``: every bottleneck rematerialised (module note)."""
 
     def __init__(self, depth: int = 50, deep_base: bool = True,
-                 semseg_dilation: bool = True, dtype: torch.dtype = torch.float32):
+                 semseg_dilation: bool = True, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         blocks = DEPTH_BLOCKS[depth]
+        self.depth = depth
         self.deep_base = deep_base
+        self.semseg_dilation = semseg_dilation
         if deep_base:
             self.layer0 = nn.Sequential(
                 Conv2d(3, 64, 3, stride=2, padding=1, bias=False, dtype=dtype),
@@ -102,6 +156,7 @@ class ResNetFeatures(nn.Module):
                     has_downsample=(i == 0 and (stride != 1
                                                 or inplanes != planes * 4)),
                     dtype=dtype))
+                layer[-1].remat = remat
                 inplanes = planes * 4
             setattr(self, f"layer{li}", nn.Sequential(*layer))
 

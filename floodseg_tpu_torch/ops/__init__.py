@@ -9,7 +9,9 @@ from floodseg_tpu_torch.ops.quant import (
     conv_int8,
     fold_bn,
     int8_deeplab_decode,
+    int8_resnet_trunk,
     int8_seghead_decode,
+    ppm_folded,
     quantize_activation_dynamic,
     quantize_weight_per_channel,
     quantize_with_scale,
@@ -52,9 +54,11 @@ __all__ = [
     "grid_sample_cuda",
     "grid_sample_matmul",
     "int8_deeplab_decode",
+    "int8_resnet_trunk",
     "int8_seghead_decode",
     "launch_counts",
     "max_pool",
+    "ppm_folded",
     "quantize_activation_dynamic",
     "quantize_weight_per_channel",
     "quantize_with_scale",

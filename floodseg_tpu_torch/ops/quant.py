@@ -21,8 +21,15 @@ padded input, as the JAX package leaves its int8 convolution to XLA; it is
 a library product, not one of the port's kernels. The integer sums are
 exact, so the accumulator equals the JAX package's bit for bit.
 
-Not here yet: ``int8_resnet_trunk`` and ``ppm_folded`` (the int8 encoder),
-``int8_auto_default`` (the port's benchmark decides the H100 default).
+The int8 encoder (``model.int8_encode``): ``int8_resnet_trunk`` runs the
+ResNet trunk's bottleneck convolutions in int8 (W8A8, BN folded, each
+block's input quantized once at a dynamic scale), the stem in the compute
+dtype with float32 sums, the residual adds in float32; ``ppm_folded`` is
+PSPNet's PPM with its BNs folded, in full precision. They read the
+trunk's and the PPM's state by the port's (the reference's) key names.
+
+Not here: ``int8_auto_default`` (the port's benchmark decides the H100
+default).
 """
 
 from typing import Mapping, Sequence, Tuple
@@ -30,6 +37,8 @@ from typing import Mapping, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from floodseg_tpu_torch.core.device import full_precision_f32
+from floodseg_tpu_torch.ops.pool import adaptive_avg_pool, max_pool
 from floodseg_tpu_torch.ops.resize import resize_bilinear
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -267,3 +276,134 @@ def seghead_decode_folded_f32(head: Mapping[str, torch.Tensor], f: torch.Tensor,
     y = torch.relu(y)
     out = F.conv2d(y, head["4.weight"].float(), head["4.bias"].float())
     return out.permute(0, 2, 3, 1)
+
+
+# ------------------------------------------------------------ int8 encoder
+
+# blocks a stage by depth (models/resnet.py::DEPTH_BLOCKS)
+_TRUNK_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+
+
+def _trunk_param(sd: Mapping[str, torch.Tensor], key: str):
+    if key not in sd:
+        raise ValueError(
+            f"int8_encode requires a ResNet trunk (state_dict[{key}] missing) — it "
+            f"supports the pspnet/deeplabv3 ResNet trunks; use the bf16 encoder for "
+            f"other archs")
+    return sd[key]
+
+
+def _trunk_fold(sd: Mapping[str, torch.Tensor], conv: str, bn: str, eps: float):
+    """The BN ``bn`` folded into the bias-free conv ``conv``: (w_f, b_f)."""
+    return fold_bn(_trunk_param(sd, f"{conv}.weight"), *(
+        _trunk_param(sd, f"{bn}.{k}")
+        for k in ("weight", "bias", "running_mean", "running_var")), eps)
+
+
+def _int8_conv_bn(sd, conv: str, bn: str, x_q: torch.Tensor, sx, *, strides=(1, 1),
+                  padding: Pairs = ((0, 0), (0, 0)), dilation=(1, 1), eps: float = 1e-5,
+                  relu: bool = True) -> torch.Tensor:
+    """One quantized conv + folded BN (+ ReLU): int8 input at scale ``sx``
+    -> float32, ``acc * (sx * sw) + b_f``."""
+    w_f, b_f = _trunk_fold(sd, conv, bn, eps)
+    w_q, sw = quantize_weight_per_channel(w_f)
+    acc = conv_int8(x_q, w_q, padding=padding, dilation=dilation, strides=strides)
+    y = acc.float() * (sx * sw) + b_f
+    return torch.relu(y) if relu else y
+
+
+def _conv_bn_relu_folded(sd, conv: str, bn: str, x: torch.Tensor, *, stride: int = 1,
+                         padding: int = 1, dtype: torch.dtype = torch.bfloat16,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """The stem: a conv with its BN folded on operands rounded to ``dtype``,
+    summed in float32 (the JAX package's ``preferred_element_type=float32``:
+    no rounding to ``dtype`` before the bias and the ReLU; TF32 off), then
+    ``relu(y + b_f)`` cast to ``dtype``. NHWC in and out."""
+    w_f, b_f = _trunk_fold(sd, conv, bn, eps)
+    with full_precision_f32():
+        y = F.conv2d(x.to(dtype).float().permute(0, 3, 1, 2), w_f.to(dtype).float(),
+                     stride=stride, padding=padding)
+    return torch.relu(y.permute(0, 2, 3, 1) + b_f).to(dtype)
+
+
+def _int8_bottleneck(sd, p: str, x: torch.Tensor, stride: int, dilation: int,
+                     dtype: torch.dtype, eps: float) -> torch.Tensor:
+    """models/resnet.py::Bottleneck eval forward (block ``p``, e.g.
+    "layer2.0"), the three bias-free convs and the downsample in int8 with
+    their BNs folded. The block input is quantized once: conv1 and the
+    downsample share its scale. The residual add and the ReLU are float32."""
+    x_q, sx = quantize_activation_dynamic(x)
+    y = _int8_conv_bn(sd, f"{p}.conv1", f"{p}.bn1", x_q, sx, eps=eps).to(dtype)
+    y_q, sy = quantize_activation_dynamic(y)
+    d = (dilation, dilation)
+    y = _int8_conv_bn(sd, f"{p}.conv2", f"{p}.bn2", y_q, sy, strides=(stride, stride),
+                      padding=(d, d), dilation=d, eps=eps).to(dtype)
+    y_q, sy = quantize_activation_dynamic(y)
+    y = _int8_conv_bn(sd, f"{p}.conv3", f"{p}.bn3", y_q, sy, relu=False, eps=eps)
+    if f"{p}.downsample.0.weight" in sd:
+        residual = _int8_conv_bn(sd, f"{p}.downsample.0", f"{p}.downsample.1", x_q, sx,
+                                 strides=(stride, stride), relu=False, eps=eps)
+    else:
+        residual = x.float()
+    return torch.relu(y + residual).to(dtype)
+
+
+def _dilations(n: int, new: int, prev: int, semseg: bool):
+    if new == 1:
+        return [1] * n
+    if semseg:
+        return [new] * n
+    return [prev] + [new] * (n - 1)
+
+
+def int8_resnet_trunk(trunk: Mapping[str, torch.Tensor], x: torch.Tensor, *,
+                      depth: int = 50, deep_base: bool = True,
+                      semseg_dilation: bool = True, dtype: torch.dtype = torch.bfloat16,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """models/resnet.py::ResNetFeatures eval forward (the dilated stride-8
+    trunks of both flow backbones) with every bottleneck conv in int8.
+
+    trunk: the trunk's state by the port's names: the PSPNet stem
+    ``layer0.{0,1,3,4,6,7}`` (``deep_base``) or torchvision's
+    ``conv1``/``bn1``, and ``layerX.Y.convZ/bnZ/downsample.{0,1}``; PSPNet's
+    whole state_dict serves, DeepLabV3's ``backbone``'s. x: (B, H, W, 3)
+    NHWC normalised frames. ``semseg_dilation``: every block of layer3 at
+    dilation 2 and of layer4 at 4 (PSPNet), else the first block of each
+    keeps the previous stage's (torchvision). Returns c4 (B, H/8, W/8, 2048)
+    in ``dtype``. Every scale stays on the device (no read-back)."""
+    blocks = _TRUNK_BLOCKS[depth]
+    if deep_base:
+        for conv, bn, stride in (("layer0.0", "layer0.1", 2), ("layer0.3", "layer0.4", 1),
+                                 ("layer0.6", "layer0.7", 1)):
+            x = _conv_bn_relu_folded(trunk, conv, bn, x, stride=stride, padding=1,
+                                     dtype=dtype, eps=eps)
+    else:
+        x = _conv_bn_relu_folded(trunk, "conv1", "bn1", x, stride=2, padding=3, dtype=dtype,
+                                 eps=eps)
+    x = max_pool(x, 3, 2, 1)
+    stages = (("layer1", 1, [1] * blocks[0]), ("layer2", 2, [1] * blocks[1]),
+              ("layer3", 1, _dilations(blocks[2], 2, 1, semseg_dilation)),
+              ("layer4", 1, _dilations(blocks[3], 4, 2, semseg_dilation)))
+    for name, stride, dils in stages:
+        for i, d in enumerate(dils):
+            x = _int8_bottleneck(trunk, f"{name}.{i}", x, stride if i == 0 else 1, d, dtype,
+                                 eps)
+    return x
+
+
+def ppm_folded(ppm: Mapping[str, torch.Tensor], f: torch.Tensor, bins=(1, 2, 3, 6),
+               dtype: torch.dtype = torch.bfloat16, eps: float = 1e-5) -> torch.Tensor:
+    """models/pspnet.py::PPM eval forward with each bin's BN folded into its
+    1x1 conv, in float32 (the bin maps are at most 6x6): adaptive average
+    pool of ``f`` in float32, the folded 1x1 and ReLU, cast to ``dtype`` and
+    resized back (align_corners=True). ppm: the PPM's state
+    (``features.i.1.weight``, ``features.i.2.*``). Returns (B, H, W, 2 C)."""
+    h, w = f.shape[1], f.shape[2]
+    out = [f]
+    f32 = f.float()
+    for i, b in enumerate(bins):
+        y = adaptive_avg_pool(f32, b)
+        wp, bp = _trunk_fold(ppm, f"features.{i}.1", f"features.{i}.2", eps)
+        y = torch.relu(torch.einsum("bhwi,oi->bhwo", y, wp[:, :, 0, 0]) + bp)
+        out.append(resize_bilinear(y.to(dtype), (h, w), align_corners=True))
+    return torch.cat(out, dim=-1)

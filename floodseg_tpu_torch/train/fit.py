@@ -16,7 +16,11 @@ optimizers and poly schedules, and the method's train and eval steps. All
 run one loop (``_fit_loop``): the epochs' steps, validation every
 ``check_val_every_n_epoch`` epochs through the eval step, and the early
 stopping counter. Step metrics stay on the device and are read back once
-an epoch. ``FitConfig`` holds the settings; the CLI makes it from the
+an epoch. ``normalize_on_device`` (``data.normalize_on_device``) is the JAX
+Runner's: the train transforms end in float32 without normalising, the
+training loaders (only those) copy the frames to the device as float16
+raw pixels, and every step first normalises ``(x.float() - MEAN) / STD``
+the frame keys of its (nested) batch. ``FitConfig`` holds the settings; the CLI makes it from the
 layered YAML (core/config.py::fit_config), and its defaults are that
 layering's for flow_supervised PSPNet-50. The crop size is linked to the
 architecture as ``apply_links`` links it (``round_train``). ``FitHooks``
@@ -41,6 +45,7 @@ with ``no_cropping``, the whole-frame eval step; ``contrastive`` serves
 the U2PL teacher once it is synced, the student before.
 """
 
+import functools
 import os
 import time
 from dataclasses import dataclass
@@ -57,6 +62,7 @@ from floodseg_tpu_torch.data.dataset import FlowDataset, SemDataset
 from floodseg_tpu_torch.data.loader import DataLoader, device_put
 from floodseg_tpu_torch.data.transforms import (
     MEAN,
+    STD,
     Compose,
     build_test_transform,
     build_train_transform,
@@ -121,7 +127,10 @@ class FitConfig:
     ``true_ema`` (model.contrastive.*), ``sup_only_epoch``,
     ``unsupervised_apply_aug``, ``unsupervised_drop_percent``,
     ``unsupervised_loss_weight`` and ``ema_decay``; the loss is always OHEM
-    plus the aux loss at ``aux_weight`` (``loss`` is not read)."""
+    plus the aux loss at ``aux_weight`` (``loss`` is not read).
+
+    ``normalize_on_device``: the training frames cross to the device as
+    float16 raw pixels and the steps normalise them (module note)."""
     data_variant: Optional[str]
     classes: int
     ignore_index: int
@@ -171,6 +180,7 @@ class FitConfig:
     lambda_fm: float
     lambda_st: float
     data_ratio: float
+    normalize_on_device: bool
     contrastive: ContrastiveConfig
     bank_capacity: int
     bank_class0_capacity: int
@@ -209,7 +219,8 @@ def sem_transforms(cfg: FitConfig, arch: str) -> Dict[str, Compose]:
     return {
         "train": build_train_transform(th, tw, classes_ignore, cfg.scale_min,
                                        cfg.scale_max, resize, with_rotate=True,
-                                       crop_padding=MEAN, ignore_index=cfg.ignore_index),
+                                       crop_padding=MEAN, ignore_index=cfg.ignore_index,
+                                       normalize=not cfg.normalize_on_device),
         "val": build_val_transform(th, tw, classes_ignore, resize, crop_padding=MEAN,
                                    ignore_index=cfg.ignore_index),
         "test": build_test_transform(classes_ignore, resize, normalize=False),
@@ -260,7 +271,8 @@ def flow_transforms(cfg: FitConfig, arch: str = "pspnet") -> Dict[str, Compose]:
     return {
         "train": build_train_transform(th, tw, list(cfg.classes_ignore), scale_min, scale_max,
                                        resize, with_rotate=cfg.no_warp, crop_padding=None,
-                                       ignore_index=cfg.ignore_index),
+                                       ignore_index=cfg.ignore_index,
+                                       normalize=not cfg.normalize_on_device),
         "val": build_val_transform(th, tw, list(cfg.classes_ignore), resize_val,
                                    crop=not cfg.no_cropping, crop_padding=None,
                                    ignore_index=cfg.ignore_index),
@@ -304,7 +316,8 @@ def train_loaders(cfg: FitConfig, roles: Mapping[str, object], device: DeviceLik
     role's seed offset, which loads this rank's contiguous share of each
     batch and copies it to ``device``; and the steps an epoch, the longer
     of the labeled and unlabeled sets over the global batch (at least 1),
-    then at most ``limit_train_batches``. A labeled or unlabeled set
+    then at most ``limit_train_batches``. With ``normalize_on_device`` the
+    frames cross as float16 (``half_frames``). A labeled or unlabeled set
     smaller than the global batch raises (its loader would yield
     nothing)."""
     dev = resolve_device(device)
@@ -314,7 +327,8 @@ def train_loaders(cfg: FitConfig, roles: Mapping[str, object], device: DeviceLik
     if small:
         raise ValueError(f"batch {batch} exceeds the train set(s) {small}; lower batch_size "
                          f"or adjust data_ratio")
-    put = (lambda b: device_put(b, dev))
+    put = ((lambda b: device_put(half_frames(b), dev)) if cfg.normalize_on_device
+           else (lambda b: device_put(b, dev)))
     loaders = {k: DataLoader(ds, batch_size=batch, shuffle=True, num_workers=cfg.workers,
                              seed=cfg.seed + ROLE_SEED_OFFSETS[k], infinite=True,
                              drop_last=True, device_put=put, world=world)
@@ -323,6 +337,40 @@ def train_loaders(cfg: FitConfig, roles: Mapping[str, object], device: DeviceLik
     if cfg.limit_train_batches is not None:
         steps_per_epoch = min(steps_per_epoch, cfg.limit_train_batches)
     return loaders, steps_per_epoch
+
+
+FRAME_KEYS = ("frame_current", "frame_prev", "frame_next")
+
+
+def half_frames(batch: Mapping[str, np.ndarray]) -> Dict:
+    """A host batch with its frame keys cast to float16: the training
+    loaders' copy under ``normalize_on_device`` (``Runner._device_batch``),
+    before the ranks' shares are put on their devices."""
+    return {k: (v.astype(np.float16) if k in FRAME_KEYS else v) for k, v in batch.items()}
+
+
+def normalize_frames(batch):
+    """``(x.float() - MEAN) / STD`` of the frame keys of a batch, or of a
+    dict of role batches (the JAX Runner's ``_norm_wrap``); every other
+    entry as it is. MEAN and STD are made once a device."""
+    if not isinstance(batch, dict):
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, dict):
+            out[k] = normalize_frames(v)
+        elif k in FRAME_KEYS:
+            mean, std = _mean_std(v.device)
+            out[k] = (v.float() - mean) / std
+        else:
+            out[k] = v
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _mean_std(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.tensor(MEAN, dtype=torch.float32, device=device),
+            torch.tensor(STD, dtype=torch.float32, device=device))
 
 
 def _flow_dataset(cfg: FitConfig, split: str, data_root: str, path: str, role: str,
@@ -482,7 +530,9 @@ def _fit_loop(cfg: FitConfig, state, train_fn: Callable, eval_fn: Callable,
     batch)`` and early stopping on the validation mIoU. ``state`` is the
     method's (a ``TrainState``, or s4GAN's (generator, discriminator)
     pair); ``batch`` is the "l" loader's batch when it is the only role,
-    else the dict of every role's batch, as the JAX Runner draws them.
+    else the dict of every role's batch, as the JAX Runner draws them;
+    with ``normalize_on_device`` its frames normalised first
+    (``normalize_frames``).
 
     Returns a summary: per epoch the mean train loss, the train mIoU and,
     on validation epochs, the validation mIoU, mAcc, accuracy and counts;
@@ -514,6 +564,8 @@ def _fit_loop(cfg: FitConfig, state, train_fn: Callable, eval_fn: Callable,
                     if len(batch) == 1:
                         batch = batch["l"]
                 with profiler.profile("train_step"):
+                    if cfg.normalize_on_device:
+                        batch = normalize_frames(batch)
                     state, metrics = train_fn(state, batch,
                                               step_generator(cfg.seed, global_step))
                 step_metrics.append(metrics)

@@ -51,7 +51,14 @@ from floodseg_tpu_torch.core.profiler import cuda_sync
 from floodseg_tpu_torch.data.transforms import MEAN, STD
 from floodseg_tpu_torch.models.deeplabv3 import ASPP
 from floodseg_tpu_torch.models.layers import data_parallel
-from floodseg_tpu_torch.ops.quant import int8_deeplab_decode, int8_seghead_decode
+from floodseg_tpu_torch.models.pspnet import PPM
+from floodseg_tpu_torch.models.resnet import ResNetFeatures
+from floodseg_tpu_torch.ops.quant import (
+    int8_deeplab_decode,
+    int8_resnet_trunk,
+    int8_seghead_decode,
+    ppm_folded,
+)
 from floodseg_tpu_torch.ops.resize import resize_bilinear
 from floodseg_tpu_torch.parallel.mesh import World, gather
 from floodseg_tpu_torch.train.state import TrainState
@@ -172,13 +179,38 @@ def make_flow_eval_step(model: nn.Module, num_classes: int, ignore_index: int = 
 
 
 def _predict_encode(model: nn.Module, int8_encode: bool) -> Callable:
-    """Encode closure: the model's ``encode`` (full precision)."""
-    if int8_encode:
-        raise NotImplementedError(
-            "the int8 encoder trunk (ops/quant.py::int8_resnet_trunk and "
-            "ppm_folded) is not ported yet (ROADMAP queue 1 item 14); use the "
-            "full-precision encoder")
-    return lambda x: model.encode(x)[0]
+    """Encode closure: the model's ``encode``, or the W8A8 ResNet trunk
+    (ops/quant.py::int8_resnet_trunk: every bottleneck conv in int8, the
+    stem, the residual adds and PSPNet's PPM in full precision), its
+    weights folded and quantized from the variables bound for the call.
+    Dispatches as the JAX package's ``_predict_encode``: PSPNet (``ppm``)
+    runs the deep-base stem with every block of layer3/4 dilated, then
+    ``ppm_folded`` with the model's bins; DeepLabV3 (``backbone``) the
+    torchvision trunk, whose c4 is the encoding; other models raise."""
+    if not int8_encode:
+        return lambda x: model.encode(x)[0]
+    if isinstance(getattr(model, "ppm", None), PPM) and isinstance(model, ResNetFeatures):
+        trunk, bins = model, tuple(b[0].bin_size for b in model.ppm.features)
+
+        def encode(x):
+            c4 = int8_resnet_trunk(model.state_dict(keep_vars=True), x, depth=trunk.depth,
+                                   deep_base=True, semseg_dilation=True, dtype=_dtype(trunk))
+            return ppm_folded(model.ppm.state_dict(keep_vars=True), c4, bins=bins,
+                              dtype=_dtype(trunk))
+
+        return encode
+    trunk = getattr(model, "backbone", None)
+    if not isinstance(trunk, ResNetFeatures):
+        raise ValueError("int8_encode supports the pspnet/deeplabv3 ResNet trunks; use the "
+                         "bf16 encoder for other archs")
+    return lambda x: int8_resnet_trunk(
+        trunk.state_dict(keep_vars=True), x, depth=trunk.depth, deep_base=trunk.deep_base,
+        semseg_dilation=trunk.semseg_dilation, dtype=_dtype(trunk))
+
+
+def _dtype(trunk: nn.Module) -> torch.dtype:
+    """A ResNet trunk's compute dtype (its first block's conv's)."""
+    return trunk.layer1[0].conv1.compute_dtype
 
 
 def _predict_decode(model: nn.Module, int8_decode: bool) -> Callable:

@@ -179,6 +179,7 @@ def run_flow_predict(
     feature_based: bool = True,
     no_warp: bool = False,
     int8_decode: bool = False,
+    int8_encode: bool = False,
     classes_ignore=None,
     save_images_dir: Optional[str] = None,
     video_path: Optional[str] = None,
@@ -199,9 +200,11 @@ def run_flow_predict(
     from the maps) and left as raw pixels (``build_test_transform(normalize=False)``): the
     port's builders normalize on the device. With ``no_cropping`` every
     window runs whole through the cached builders (key-feature reuse), its
-    batches copied to the device by the loader; otherwise each window runs
-    as a sliding window of ``crop`` crops (make_flow_predict_crop_fn and
-    flow_sliding_window_predict). Maps are resized to ``resize``. PNGs are
+    batches copied to the device by the loader, with the int8 encoder when
+    ``int8_encode``; otherwise each window runs as a sliding window of
+    ``crop`` crops (make_flow_predict_crop_fn and
+    flow_sliding_window_predict), which reads only ``int8_decode``, as the
+    JAX Runner's crop route passes only that. Maps are resized to ``resize``. PNGs are
     written to ``save_images_dir`` and the AVI to ``video_path`` when
     given and the tree has ``list/colors.txt``. ``profiler`` records
     run_predict's "predict_interference" and, on the crop route,
@@ -239,10 +242,11 @@ def run_flow_predict(
 
         loader = DataLoader(ds, batch_size=1, num_workers=workers, seed=seed)
     else:
-        predict_fn = make_flow_predict_fn(model, n=frame_delta, out_size=resize, **common)
+        predict_fn = make_flow_predict_fn(model, n=frame_delta, out_size=resize,
+                                          int8_encode=int8_encode, **common)
         if world is None:
             cached_fns = make_cached_flow_predict_fn(model, n=frame_delta, out_size=resize,
-                                                     **common)
+                                                     int8_encode=int8_encode, **common)
         else:
             predict_fn = make_dp_predict_fn(predict_fn, world)
         loader = DataLoader(ds, batch_size=1 if world is None else world.size,

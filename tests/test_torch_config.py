@@ -6,17 +6,21 @@ Every layering of configs/ resolves to the same Config field by field
 (values and types), ``fit_config`` maps each field ``FIELDS`` names onto
 FitConfig, overrides coerce as the JAX package coerces them (its quirks
 included), the YAML reader gives ``yaml.safe_load``'s values, and every
-config field is either read or raises when set.
+config field is read.
 """
 
 import dataclasses
 import os
 
+import numpy as np
 import pytest
+import torch
 import yaml
 
 from floodseg_tpu.core import config as jax_config
 
+from floodseg_tpu_torch.cli import runner as cli_runner
+from floodseg_tpu_torch.cli.runner import Runner
 from floodseg_tpu_torch.core import config, yaml_subset
 from floodseg_tpu_torch.core.config import (
     FIELDS,
@@ -25,7 +29,8 @@ from floodseg_tpu_torch.core.config import (
     fit_config,
     get_dotted,
 )
-from floodseg_tpu_torch.train import FitConfig
+from floodseg_tpu_torch.models.resnet import Bottleneck
+from floodseg_tpu_torch.train import FitConfig, train_loaders
 
 import test_cli
 
@@ -204,17 +209,30 @@ def _leaf_paths(obj, prefix=""):
             yield prefix + f.name
 
 
-def test_every_field_is_read_or_raises():
+class _Frames:
+    """A dataset of two float32 frame samples (the loader's ``get``)."""
+
+    def __len__(self):
+        return 2
+
+    def get(self, i, rng):
+        return {"frame_current": np.full((4, 4, 3), 100.0 + i, np.float32),
+                "label": np.zeros((4, 4), np.int32)}
+
+
+def test_every_field_is_read_or_raises(tmp_path, monkeypatch):
     """Every field of the seven dataclasses is in FIELDS (with what reads
-    it) or in NOT_READ (with its ROADMAP item), not both; "fit:" entries
-    name FitConfig fields, "linked:" ones a field apply_links copies; a
-    NOT_READ field set away from what the port accepts raises in fit_config
-    (and so in the Runner, which calls it)."""
+    it), and NOT_READ is empty; "fit:" entries name FitConfig fields,
+    "linked:" ones a field apply_links copies. The three opt-ins, set true
+    through load_config, reach their places: ``model.remat`` every
+    bottleneck of the model the Runner builds, ``model.int8_encode`` the
+    predict call (run_flow_predict), ``data.normalize_on_device`` the
+    training loaders, whose frames reach the device as float16."""
     paths = set(_leaf_paths(config.Config()))
     assert set(jax_config.config_to_dict(jax_config.Config())) == {
         p.split(".")[0] for p in paths if "." in p} | {p for p in paths if "." not in p}
-    assert not set(FIELDS) & set(NOT_READ)
-    assert set(FIELDS) | set(NOT_READ) == paths
+    assert NOT_READ == {}
+    assert set(FIELDS) == paths
     fit_fields = {f.name for f in dataclasses.fields(FitConfig)}
     for path, reader in FIELDS.items():
         kind, _, target = reader.partition(":")
@@ -229,14 +247,35 @@ def test_every_field_is_read_or_raises():
                                if target != "model.arch" else "vit")
             config.apply_links(cfg)
             assert get_dotted(cfg, path) == get_dotted(cfg, target), path
-    bad = {"model.remat": "true", "model.int8_encode": "true",
-           "data.normalize_on_device": "true"}
-    assert set(bad) == set(NOT_READ)
-    for path, value in bad.items():
-        assert NOT_READ[path][0] in ("13d", "14")
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {NOT_READ[path][0]}"):
-            fit_config(config.load_config([], {path: value}))
-    fit_config(config.load_config([], {"trainer.num_devices": "1"}))
+
+    on = {"model.remat": "true", "model.int8_encode": "true",
+          "data.normalize_on_device": "true", "model.layers": "50",
+          "model.no_cropping": "true", "trainer.log_dir": str(tmp_path)}
+    runner = Runner(config.load_config(_files("flow_supervised", "pspnet", "flow"), on),
+                    device="cpu")
+    blocks = [m for m in runner.model.modules() if isinstance(m, Bottleneck)]
+    assert len(blocks) == 16 and all(b.remat for b in blocks)
+    off = Runner(config.load_config(_files("flow_supervised", "pspnet", "flow"), {
+        "model.layers": "50", "trainer.log_dir": str(tmp_path)}), device="cpu")
+    assert not any(m.remat for m in off.model.modules() if isinstance(m, Bottleneck))
+    assert not off.fit_cfg.normalize_on_device
+
+    seen = {}
+    monkeypatch.setattr(cli_runner, "run_flow_predict",
+                        lambda model, variables, *a, **kw: seen.update(kw) or {})
+    runner.predict(runner._fresh_state())
+    assert seen["int8_encode"] is True and seen["no_cropping"] is True
+
+    assert runner.fit_cfg.normalize_on_device
+    loaders, _ = train_loaders(dataclasses.replace(runner.fit_cfg, batch_size=2, workers=1),
+                               {"l": _Frames()}, "cpu")
+    it = iter(loaders["l"])
+    try:
+        batch = next(it)
+    finally:
+        it.close()
+    assert batch["frame_current"].dtype == torch.float16
+    assert batch["label"].dtype == torch.int32
 
 
 def test_fit_fields_each_move_their_fitconfig_field():

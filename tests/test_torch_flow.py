@@ -258,12 +258,13 @@ def test_predict_builders_split_decode_for_the_seghead(pair, jax_windows, monkey
 
 
 def test_predict_builders_raise_on_int8():
-    """The int8 encoder trunk is not ported: asking for it raises. (The int8
-    decoder is, tests/test_torch_flow_int8.py.)"""
+    """The int8 encoder needs a PSPNet or DeepLabV3 ResNet trunk: a model
+    without one raises, with the JAX package's message, when the builder
+    is made (the trunk itself: tests/test_torch_int8_trunk.py)."""
     m = torch.nn.Module()
-    with pytest.raises(NotImplementedError, match="int8 encoder trunk"):
+    with pytest.raises(ValueError, match="int8_encode supports the pspnet/deeplabv3"):
         make_flow_predict_fn(m, n=5, int8_encode=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 encoder trunk"):
+    with pytest.raises(ValueError, match="int8_encode supports the pspnet/deeplabv3"):
         make_cached_flow_predict_fn(m, n=5, int8_encode=True, device="cpu")
 
 
@@ -369,10 +370,11 @@ def test_resize_frames_matches_cv2():
 
 def test_port_imports_no_jax():
     """No module of floodseg_tpu_torch, and not chip_smoke.py, imports jax,
-    floodseg_tpu, PIL, cv2, imageio or yaml; checked in a fresh
-    interpreter's sys.modules after importing every module of the port and
-    the test, profiling, s4GAN, U2PL and CLI entry points by name (the
-    config, checkpoint, logging, runner and main modules)."""
+    floodseg_tpu, PIL, cv2, imageio, yaml, pandas or mvextractor; checked
+    in a fresh interpreter's sys.modules after importing every module of
+    the port and the test, profiling, s4GAN, U2PL and CLI entry points by
+    name (the config, checkpoint, logging, runner and main modules) and
+    the dataset tools."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import floodseg_tpu_torch as pkg\n"
@@ -396,7 +398,8 @@ def test_port_imports_no_jax():
         "                                            'dataset_flow', 'pspnet')])\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'floodseg_tpu', 'PIL', 'cv2', 'imageio', 'yaml'))\n"
+        "             ('jax', 'floodseg_tpu', 'PIL', 'cv2', 'imageio', 'yaml', 'pandas',\n"
+        "              'mvextractor'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
         "for m in ('ops.warp_kernels', 'ops.quant', 'ops.resize_kernels',\n"
@@ -406,7 +409,8 @@ def test_port_imports_no_jax():
         "          'train.predict', 'train.gan', 'models.discriminator', 'ops.u2pl',\n"
         "          'train.memory_bank', 'train.contrastive', 'models.semi',\n"
         "          'core.config', 'core.yaml_subset', 'core.checkpoint', 'core.logging',\n"
-        "          'cli.runner', 'cli.main', 'models.torch_import'):\n"
+        "          'cli.runner', 'cli.main', 'models.torch_import',\n"
+        "          'data.tools.make_flow', 'data.tools.extract_motion_vectors'):\n"
         "    assert 'floodseg_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -164,12 +164,12 @@ def test_vit_decodes_a_window_as_one_call(pair, jax_windows, monkeypatch):
 
 def test_vit_has_no_int8_decoder_or_encoder(pair):
     """int8_decode raises ValueError, as the JAX package's _predict_decode
-    does for the MaskTransformer; int8_encode raises (the int8 encoder is
-    not ported, and the ViT has no ResNet trunk)."""
+    does for the MaskTransformer; int8_encode raises ValueError, as the JAX
+    package's _predict_encode does: the ViT has no ResNet trunk."""
     _, _, port = pair
     with pytest.raises(ValueError, match="use bf16 decode for other archs"):
         make_flow_predict_fn(port, n=N, int8_decode=True, device="cpu")
     with pytest.raises(ValueError, match="use bf16 decode for other archs"):
         make_cached_flow_predict_fn(port, n=N, int8_decode=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 encoder"):
+    with pytest.raises(ValueError, match="int8_encode supports the pspnet/deeplabv3"):
         make_flow_predict_fn(port, n=N, int8_encode=True, device="cpu")

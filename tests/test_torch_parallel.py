@@ -302,6 +302,8 @@ def flow_predict_case(tree, inference_cases, tmp_path_factory):
 def ranks(tmp_path_factory, vit_cases, inference_cases, fit_case, cli_case, flow_predict_case):
     """Every case on two ranks, in one launch."""
     task = {m: tiny_case(m) for m in TRAIN_METHODS}
+    task.update({f"supervised_remat_{r}": dict(tiny_case("supervised"), remat=r)
+                 for r in (False, True)})
     task.update(sup_vit=vit_cases["sup"], semi_vit=vit_cases["semi"],
                 crop_forward=inference_cases["crop"], predict=inference_cases["predict"],
                 fit=fit_case, cli=cli_case, flow_predict=flow_predict_case)
@@ -343,6 +345,19 @@ def test_d_rank_step_equals_one_rank_step(ranks, method):
     moved = [k for k, v in init.items() if not torch.equal(v, ours[f"model.{k}"])]
     assert any(k.endswith("running_var") for k in moved) and any(
         k.endswith("weight") for k in moved)
+
+
+def test_d_rank_remat_step_equals_plain_step(ranks):
+    """A model with a bottleneck, stepped over the ranks with the block
+    rematerialised (its BN's all-reduce repeated in the recompute, inside
+    the backward) and without: every rank's loss, parameters, BN
+    statistics and optimizer state equal bit for bit."""
+    for r in ranks:
+        plain, remat = r["supervised_remat_False"], r["supervised_remat_True"]
+        assert plain.keys() == remat.keys()
+        assert any(k.startswith("model.stem.4.bn3.running") for k in plain)
+        for k in plain:
+            assert torch.equal(plain[k], remat[k]), k
 
 
 def test_d_rank_fit_test_and_validate_equal_one_rank(ranks, fit_case):

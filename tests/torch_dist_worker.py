@@ -16,7 +16,8 @@ sup_vit, semi_vit, crop_forward and predict), ``batches`` (the global
 numpy batch of each step), and what the method needs. The train cases' model is ``TinySegNet``: float64, the
 port's Conv2d, BatchNorm2d and both kinds of Dropout (channel dropout with
 a batch axis drawn at the global shape, element dropout), an aux head and
-a 256-channel rep head, encode/decode for the flow steps, at 16 px.
+a 256-channel rep head, encode/decode for the flow steps, at 16 px; a
+case's ``remat`` (True or False) adds a bottleneck, rematerialised or not.
 """
 
 import os
@@ -37,6 +38,7 @@ from floodseg_tpu_torch.models.layers import (  # noqa: E402
     Dropout,
     init_from_generator_,
 )
+from floodseg_tpu_torch.models.resnet import Bottleneck  # noqa: E402
 from floodseg_tpu_torch.parallel import (  # noqa: E402
     World,
     current_world,
@@ -75,13 +77,18 @@ CAPS = dict(bank_capacity=24, bank_class0_capacity=32)
 
 class TinySegNet(nn.Module):
     """NHWC in, NHWC out: encode -> (features,), decode -> logits at the
-    same size; forward -> {"pred", "aux"} (and "rep" with ``rep``)."""
+    same size; forward -> {"pred", "aux"} (and "rep" with ``rep``). With
+    ``remat`` True or False the stem is followed by a ResNet bottleneck,
+    rematerialised or not."""
 
-    def __init__(self, rep: bool = False):
+    def __init__(self, rep: bool = False, remat=None):
         super().__init__()
         self.stem = nn.Sequential(Conv2d(3, WIDTH, 3, padding=1, dtype=F64),
                                   BatchNorm2d(WIDTH, F64), nn.ReLU(),
                                   Dropout(0.25, broadcast_dims=(2, 3)))
+        if remat is not None:
+            self.stem.append(Bottleneck(WIDTH, WIDTH // 4, dtype=F64))
+            self.stem[-1].remat = remat
         self.cls = nn.Sequential(Conv2d(WIDTH, WIDTH, 3, padding=1, dtype=F64),
                                  BatchNorm2d(WIDTH, F64), nn.ReLU(), Dropout(0.1),
                                  Conv2d(WIDTH, CLASSES, 1, dtype=F64))
@@ -105,8 +112,9 @@ class TinySegNet(nn.Module):
         return out
 
 
-def tiny_model(seed: int, rep: bool = False) -> nn.Module:
-    return init_from_generator_(TinySegNet(rep).double(), torch.Generator().manual_seed(seed))
+def tiny_model(seed: int, rep: bool = False, remat=None) -> nn.Module:
+    return init_from_generator_(TinySegNet(rep, remat).double(),
+                                torch.Generator().manual_seed(seed))
 
 
 def narrow_vit(config: dict, rep: bool, state_dict) -> nn.Module:
@@ -198,7 +206,7 @@ def run_case(case: dict, world: World) -> dict:
     out = {}
     if method in ("supervised", "flow_supervised", "sup_vit"):
         model = (narrow_vit(case["config"], False, case["state_dict"]) if method == "sup_vit"
-                 else tiny_model(seed))
+                 else tiny_model(seed, remat=case.get("remat")))
         opt, sched = make_optimizer(model, 1e-2, 10, head_lr_scale=case.get("head_lr_scale",
                                                                             1.0))
         state = create_train_state(model, opt, sched)

@@ -14,11 +14,13 @@ the port's Dropout modules by name.
 """
 
 import contextlib
+from types import SimpleNamespace
 
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from floodseg_tpu.data.transforms import MEAN as JAX_MEAN, STD as JAX_STD
@@ -29,6 +31,19 @@ from floodseg_tpu_torch.data import predict_windows, resize_frames, synthetic_cl
 from floodseg_tpu_torch.models import SegmenterViT, build_model, convert, load_jax_variables
 from floodseg_tpu_torch.train import make_cached_flow_predict_fn, make_flow_predict_fn
 from floodseg_tpu_torch.video import default_grid
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """The port's CPU ops of a test module on one thread. Tier-1 runs six
+    workers on the machine's cores; there a multi-threaded small kernel
+    (the int8 trunk's quantizations and im2cols, a float64 step's BN)
+    waits on its descheduled threads for orders of magnitude longer than
+    it computes. Every comparison of a module runs at the one count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _perturb_bn(params, stats, rng):
@@ -133,10 +148,12 @@ def pspnet50_pair(size: int = 65, seed: int = 0, classes: int = 5, key: int = 0,
     return _pair("pspnet", size, seed, classes, key, compiled_init)
 
 
-def deeplabv3_pair(size: int = 65, seed: int = 0, classes: int = 5, key: int = 0):
+def deeplabv3_pair(size: int = 65, seed: int = 0, classes: int = 5, key: int = 0,
+                   compiled_init: bool = True):
     """(jax_model, variables as numpy dicts, port DeepLabV3-50 with the same
-    weights), both float32 and without the aux head."""
-    return _pair("deeplabv3", size, seed, classes, key)
+    weights), both float32 and without the aux head; ``compiled_init`` as
+    in ``pspnet50_pair``."""
+    return _pair("deeplabv3", size, seed, classes, key, compiled_init)
 
 
 def _perturb_vit(params, rng):
@@ -350,13 +367,14 @@ def round_grids(sample, rng=None):
     return sample
 
 
-def jax_fit_data(tree, cfg, method, crop, extra=None):
+def jax_fit_data(tree, cfg, method, crop, extra=None, normalize_on_device=False):
     """``Runner.fit``'s data for ``method`` ("supervised" or
     "flow_supervised") at the ``crop`` size: ``Runner._transforms``'
-    transforms (``extra`` appended to the train and val ones), the
-    datasets, the infinite shuffled train loader and the val loader.
-    Returns (train loader, val loader, steps an epoch). ``cfg`` is the
-    port's FitConfig."""
+    transforms (``extra`` appended to the train and val ones; the train
+    one without normalising under ``normalize_on_device``), the datasets,
+    the infinite shuffled train loader and the val loader. Returns (train
+    loader, val loader, steps an epoch). ``cfg`` is the port's
+    FitConfig."""
     from floodseg_tpu.data import transforms as jax_tf
     from floodseg_tpu.data.dataset import FlowDataset as JaxFlowDataset
     from floodseg_tpu.data.dataset import SemDataset as JaxSemDataset
@@ -367,7 +385,8 @@ def jax_fit_data(tree, cfg, method, crop, extra=None):
     lists = f"{tree}/list/{cfg.data_variant}"
     if method == "flow_supervised":
         train = jax_tf.build_train_transform(crop, crop, ignore, cfg.scale_min, cfg.scale_max,
-                                             resize, with_rotate=False, crop_padding=None)
+                                             resize, with_rotate=False, crop_padding=None,
+                                             normalize=not normalize_on_device)
         val = jax_tf.build_val_transform(crop, crop, ignore, resize, crop=True,
                                          crop_padding=None)
         ds = JaxFlowDataset("train", tree, f"{lists}/train.txt", type="l", transform=train,
@@ -376,7 +395,7 @@ def jax_fit_data(tree, cfg, method, crop, extra=None):
                              frame_delta=cfg.frame_delta)
     else:
         train = jax_tf.build_train_transform(crop, crop, ignore, cfg.scale_min, cfg.scale_max,
-                                             resize)
+                                             resize, normalize=not normalize_on_device)
         val = jax_tf.build_val_transform(crop, crop, ignore, resize)
         ds = JaxSemDataset("train", tree, f"{lists}/train.txt", train)
         vds = JaxSemDataset("val", tree, f"{lists}/val.txt", val)
@@ -405,19 +424,23 @@ def jax_fit_state(variables, cfg, steps):
                          opt_state=tx.init(params), tx=tx)
 
 
-def jax_fit(tree, jm, variables, cfg, method, crop, extra=None):
+def jax_fit(tree, jm, variables, cfg, method, crop, extra=None, normalize_on_device=False):
     """The JAX package's ``Runner.fit`` loop on one device for ``method``
     ("supervised" or "flow_supervised"), without logger or checkpoints:
     ``jax_fit_data``'s loaders, the optimizer, the steps with
     ``fold_in(rng, step)`` keys, one epoch of ``cfg.limit_train_batches``
     steps, then validation through the eval step. Returns (the mean train
     loss, the validation MetricMeter, the steps taken). ``cfg`` is the
-    port's FitConfig."""
+    port's FitConfig. ``normalize_on_device``: the Runner's wiring of
+    ``data.normalize_on_device``, its own ``_device_batch`` (float16
+    frames) on the train batches and ``_norm_wrap`` around the jitted
+    step."""
+    from floodseg_tpu.cli.runner import Runner
     from floodseg_tpu.ops.metrics import MetricMeter as JaxMeter
     from floodseg_tpu.train import flow as jflow
     from floodseg_tpu.train import supervised as jax_sup
 
-    loader, vloader, steps = jax_fit_data(tree, cfg, method, crop, extra)
+    loader, vloader, steps = jax_fit_data(tree, cfg, method, crop, extra, normalize_on_device)
     if method == "flow_supervised":
         loss_fn = jax_sup.make_loss_fn(cfg.loss, 0.0, 255, cfg.ohem_thresh, cfg.ohem_min_kept)
         step, _ = jflow.make_flow_train_step(jm, loss_fn, cfg.classes, 255)
@@ -428,13 +451,16 @@ def jax_fit(tree, jm, variables, cfg, method, crop, extra=None):
         step = jax_sup.make_train_step(jm, loss_fn, cfg.classes, 255)
         ev = jax_sup.make_eval_step(jm, cfg.classes, 255)
     state = jax_fit_state(variables, cfg, steps)
-    step, ev = jax.jit(step), jax.jit(ev)
+    runner = object.__new__(Runner)
+    runner.mesh = None
+    runner.cfg = SimpleNamespace(data=SimpleNamespace(normalize_on_device=normalize_on_device))
+    step, ev = jax.jit(Runner._norm_wrap(runner, step)), jax.jit(ev)
 
     rng = jax.random.PRNGKey(cfg.seed)
     it = iter(loader)
     losses = []
     for i in range(steps):
-        batch = {k: jnp.asarray(v) for k, v in next(it).items()}
+        batch = Runner._device_batch(runner, next(it))
         state, m = step(state, batch, jax.random.fold_in(rng, i))
         losses.append(float(m["loss"]))
     meter = JaxMeter(cfg.classes)

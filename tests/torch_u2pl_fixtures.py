@@ -133,22 +133,45 @@ def jax_params(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def oracle(max_iter=MAX_ITER):
+def oracle():
     """The JAX side, made once a process: the flax model, the optimizer as
     ``_build_states_and_steps`` makes it (one object: a state's ``tx`` is
     part of jit's cache key), the jitted sup, semi and true-EMA semi steps
-    (no aux head: aux_weight 0), the eval step, and the mask recorders of a
-    labeled batch and of a joint one."""
+    (no aux head: aux_weight 0) for a schedule of ``max_iter`` steps
+    (``steps(max_iter)``), the eval step, and the mask recorders of a
+    labeled batch and of a joint one.
+
+    ``max_iter`` enters the jitted steps as a traced int32, so that the
+    trajectory's 8-step schedule and the fit's 4-step one share one
+    compile of each step: inside, the student's optimizer is
+    ``make_optimizer(LR, max_iter)`` made on it, whose poly schedule
+    computes ``minimum(count, max_iter) / max_iter`` in the dtypes a Python
+    int gives it (int32 in, float32 out), so each learning rate is the one
+    a constant ``max_iter`` gives; the state carries ``tx`` in and out."""
     jm = jax_model()
-    tx = jax_make_optimizer(LR, max_iter)
+    tx = jax_make_optimizer(LR, MAX_ITER)
     jcfg = jcon.ContrastiveConfig(**{k: getattr(CCFG, k) for k in (
         "num_queries", "num_negatives", "max_enqueue")})
     sup, semi = jcon.make_u2pl_steps(jm, CLASSES, jcfg, 255, 0.0)
     _, semi_ema = jcon.make_u2pl_steps(jm, CLASSES, jcfg, 255, 0.0, true_ema=True)
+
+    def scheduled(step):
+        def run(max_iter, state, *args):
+            student = state.student.replace(tx=jax_make_optimizer(LR, max_iter))
+            new, metrics = step(state._replace(student=student), *args)
+            return new._replace(student=new.student.replace(tx=tx)), metrics
+
+        return jax.jit(run)
+
+    jitted = {"sup": scheduled(sup), "semi": scheduled(semi), "semi_ema": scheduled(semi_ema)}
+
+    def steps(max_iter):
+        m = jnp.int32(max_iter)
+        return SimpleNamespace(**{k: functools.partial(f, m) for k, f in jitted.items()})
+
     frames = np.zeros((B, SIZE, SIZE, 3))
     return SimpleNamespace(
-        jm=jm, tx=tx, sup=jax.jit(sup), semi=jax.jit(semi), semi_ema=jax.jit(semi_ema),
-        ev=jax.jit(jsup.make_eval_step(jm, CLASSES, 255)),
+        jm=jm, tx=tx, steps=steps, ev=jax.jit(jsup.make_eval_step(jm, CLASSES, 255)),
         rec_l=flax_keep_masks_fn(jm, frames),
         rec_all=flax_keep_masks_fn(jm, np.zeros((2 * B, SIZE, SIZE, 3))))
 
