@@ -16,6 +16,7 @@
     python3 chip_smoke.py --ddp-faults  # 23b's contrastive check against planted faults
     python3 chip_smoke.py --int8-enc  # phase 24 alone: the int8 encoder
     python3 chip_smoke.py --remat  # phase 25 alone: rematerialisation
+    python3 chip_smoke.py --segm   # phase 26 alone: the standalone Segmenter stack
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -388,7 +389,31 @@ Then the main stack's opt-ins:
    4t's rule (STEP_ABS) of the plain fit. (b) Phase 21's contrastive run
    with the student rematerialised: its checks, ms a semi step and peak
    memory beside phase 21's.
-13. Last (after phase 25): a JSON line {"kernels": [...]} (each kernel's
+Then the standalone Segmenter stack (floodseg_tpu_torch/segm/, its
+launchers and the Lightning export), which launches none of K1-K3:
+26. (a) ``python -m floodseg_tpu_torch.segm.train --dataset ade20k`` in
+   process at full width: ViT-B/32 (d 768, 12 + 2 layers, patch 32),
+   512 px crops, batch 8, the preset's 150 classes, window 512, stride
+   480, on a synthetic ADE20K-layout tree from the port's codec (24
+   training JPEGs of 683x512 with L-PNG labels 0..150, 4 validation images
+   of 640x448): 2 epochs of 3 steps, each followed by the evaluation, then
+   a resume to a third epoch, float32 with TF32 off; then 3 steps with
+   ``--amp``. Checks: finite losses, log.txt's epochs and keys, the top-3
+   index by val_miou and its files, the resumed run ending at step 9, no
+   launch of K1, K1-bwd, K2 or K3. Logs ms a step (median after the
+   first), seconds an evaluation image, peak memory. (b) A narrow
+   Segmenter (d 128, 2 + 1 layers, 64 px) through the same runs on the
+   card and on the CPU: one segm.train step (the loss within
+   SEGM_LOSS_RTOL, what it changed by 4t's rule), sliding_inference on a
+   96x160 image with flip (SEGM_PROB_ATOL, argmax on SEGM_ARGMAX_SHARE),
+   attention_maps (SEGM_ATTN_ATOL a layer) and a ViTClassifier's logits
+   (SEGM_LOGIT_SHARE). (c) cli/segm_accuracy.py: ViTClassifier ViT-B/16 at
+   224 px, 1000 classes, over a synthetic ImageFolder tree of 128 JPEGs,
+   images/s of the second pass. (d) cli/segm_inference.py over the 4
+   validation images with their masks, cli/show_attn_map.py (layer 11,
+   patch and class queries) on (a)'s checkpoint, and cli/export_ckpt.py on
+   phase 22's last checkpoint, read back equal by the port's importer.
+13. Last (after phase 26): a JSON line {"kernels": [...]} (each kernel's
    max_abs_err is its largest over every check; max_abs_err_by_dtype gives
    the largest in float32 and in bf16 apart), then the nvidia-smi line, then the last line {"ok": true, "device": {...}}.
 """
@@ -429,7 +454,7 @@ from floodseg_tpu_torch.data import (
     resize_frames,
     synthetic_clip,
 )
-from floodseg_tpu_torch.data.image import decode_jpeg, encode_jpeg, imread
+from floodseg_tpu_torch.data.image import decode_jpeg, encode_jpeg, imread, write_jpeg, write_png
 from floodseg_tpu_torch.models import S4GANDiscriminator, build_model, init_from_generator_
 from floodseg_tpu_torch.models.layers import Dropout
 from floodseg_tpu_torch.ops import build, launch_counts, quant, reset_launch_counts
@@ -4830,6 +4855,418 @@ def remat_alone() -> int:
     return 0
 
 
+# ------------------------------------------- the Segmenter stack: phase 26
+
+SEGM_DIR = os.path.join(os.path.dirname(DATA_DIR), "segm")
+SEGM_TRAIN_HW, SEGM_VAL_HW = (512, 683), (448, 640)  # ADE20K's usual 4:3-ish frames
+SEGM_ARGS = ["--im-size", "512", "--crop-size", "512", "--batch-size", "8", "--window-size",
+             "512", "--window-stride", "480", "--workers", "8"]
+SEGM_NARROW = ["--im-size", "64", "--patch-size", "32", "--d-model", "128", "--n-layers", "2",
+               "--dec-layers", "1", "--batch-size", "2", "--epochs", "1", "--eval-freq", "2",
+               "--workers", "2"]
+# 26b's bounds, the card (float32, TF32 off) against the CPU: the step's
+# loss, rtol; its change by 4t's rule (STEP_ABS); the sliding window's
+# probabilities, atol, and the share of pixels whose argmax must agree;
+# each attention layer's probabilities, atol; the classifier's logits, a
+# share of their largest magnitude (tests/test_torch_vit.py's NET_SHARE)
+SEGM_LOSS_RTOL = 1e-4
+SEGM_PROB_ATOL = 1e-4
+SEGM_ARGMAX_SHARE = 0.999
+SEGM_ATTN_ATOL = 1e-5
+SEGM_LOGIT_SHARE = 1e-4
+
+
+def segm_tree(root, n_train, n_val, hw, val_hw, seed=0) -> str:
+    """An ADE20K-layout tree from the port's codec: images/{training,
+    validation} JPEGs and annotations/... L PNGs of 8x8 blocks of labels
+    0..150 (0 unlabeled), each block's pixels its class's colour plus
+    noise, so the classes carry signal."""
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(seed)
+    colours = rng.integers(0, 256, (151, 3))
+    for split, n, (h, w) in (("training", n_train, hw), ("validation", n_val, val_hw)):
+        for sub in ("images", "annotations"):
+            os.makedirs(os.path.join(root, sub, split))
+        for i in range(n):
+            blocks = np.kron(rng.integers(0, 151, (8, 8)), np.ones((h // 8 + 1, w // 8 + 1)))
+            lab = blocks[:h, :w].astype(np.uint8)
+            im = np.clip(colours[lab] + rng.normal(0, 24, (h, w, 3)), 0, 255).astype(np.uint8)
+            write_jpeg(os.path.join(root, "images", split, f"ade_{i:04d}.jpg"), im)
+            write_png(os.path.join(root, "annotations", split, f"ade_{i:04d}.png"), lab)
+    return root
+
+
+@contextlib.contextmanager
+def segm_timers(dev):
+    """Inside: each train step of segm.train timed between synchronisations,
+    each evaluation's seconds and images."""
+    from floodseg_tpu_torch.segm import inference
+    from floodseg_tpu_torch.train import supervised
+
+    rec = {"step_ms": [], "eval_s": [], "eval_images": 0}
+    own_step, own_eval = supervised.make_train_step, inference.evaluate_dataset
+
+    def make_step(*args, **kwargs):
+        step = own_step(*args, **kwargs)
+
+        def timed(*step_args):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = step(*step_args)
+            torch.cuda.synchronize(dev)
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return timed
+
+    def evaluate(model, dataset, *args, **kwargs):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = own_eval(model, dataset, *args, **kwargs)
+        torch.cuda.synchronize(dev)
+        rec["eval_s"].append(time.perf_counter() - t0)
+        rec["eval_images"] += len(dataset)
+        return out
+
+    supervised.make_train_step, inference.evaluate_dataset = make_step, evaluate
+    try:
+        yield rec
+    finally:
+        supervised.make_train_step, inference.evaluate_dataset = own_step, own_eval
+
+
+def segm_log(log_dir) -> list:
+    with open(os.path.join(log_dir, "log.txt")) as f:
+        return [json.loads(line) for line in f]
+
+
+def segm_step_alone(dev, root, amp) -> dict:
+    """26a's step (ViT-B/32, 512 px, batch 8) on one batch held on the
+    card with no loader running: ms a step (median of 5 after 2 warm-ups),
+    and torch.profiler's device busy time and kernels a step over 2 more
+    (the trace to build/profile/)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from floodseg_tpu_torch.models import SegmenterViT
+    from floodseg_tpu_torch.segm.data import segm_dataset
+
+    ds = segm_dataset("ade20k", root, "train", image_size=512, crop_size=512)
+    batch = device_put(collate([ds.get(i, np.random.default_rng(i)) for i in range(8)]), dev)
+    model = init_from_generator_(
+        SegmenterViT(classes=150, image_size=512, dropout=0.0,
+                     dtype=torch.bfloat16 if amp else torch.float32),
+        torch.Generator().manual_seed(42)).to(dev)
+    opt, schedule = make_optimizer(model, 1e-3, 100, weight_decay=0.0, head_lr_scale=1.0)
+    state = TrainState(step=0, model=model, optimizer=opt, schedule=schedule)
+    step = make_train_step(model, make_loss_fn("ce", aux_weight=0.0, ignore_index=255), 150)
+
+    def run():
+        nonlocal state
+        state, m = step(state, batch, None)
+        return float(m["loss"])
+
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    trace = os.path.join(PROFILE_DIR, f"vit_b32_{'bf16' if amp else 'f32'}_segm_step_trace.json")
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        run()
+        torch.cuda.synchronize(dev)
+    prof.export_chrome_trace(trace)
+    return {"step_ms": statistics.median(times[2:]), **device_time(trace, 2)}
+
+
+def segm_train_phase(dev, root) -> dict:
+    """26a: segm.train --dataset ade20k at full width (ViT-B/32, 512 px,
+    batch 8, 150 classes): 2 epochs of 3 steps with their evaluations, a
+    resume to a third, then 3 steps with --amp."""
+    from floodseg_tpu_torch.segm import train as segm_train
+
+    log_dir = os.path.join(SEGM_DIR, "vit_b32")
+    amp_dir = os.path.join(SEGM_DIR, "vit_b32_amp")
+    for d in (log_dir, amp_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    base = ["--dataset", "ade20k", "--data-root", root] + SEGM_ARGS
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with segm_timers(dev) as rec:
+        segm_train.main(["--log-dir", log_dir] + base + ["--epochs", "2"])
+        segm_train.main(["--log-dir", log_dir] + base + ["--epochs", "3"])
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches = launch_counts()
+    entries = segm_log(log_dir)
+    ckpts = sorted(os.listdir(os.path.join(log_dir, "checkpoints")))
+    with open(os.path.join(log_dir, "checkpoints", "index.json")) as f:
+        index = json.load(f)
+    step = torch.load(os.path.join(log_dir, "checkpoints", "last-2.pt"), map_location="cpu",
+                      weights_only=False)["step"]
+    top = [n for n in ckpts if n.startswith("epoch=")]
+    bad = []
+    if [e["epoch"] for e in entries] != [0, 1, 2]:
+        bad.append(f"log.txt epochs {[e['epoch'] for e in entries]}")
+    if any(sorted(e) != ["epoch", "train_loss", "val_mean_acc", "val_mean_iou"]
+           or not np.isfinite(e["train_loss"]) for e in entries):
+        bad.append(f"log.txt entries {entries}")
+    if (len(index) != 3 or sorted(f"{e['name']}.pt" for e in index) != top
+            or not all("-val_miou=" in n for n in top)):
+        bad.append(f"top-k index {index}, files {ckpts}")
+    if step != 9 or "last" not in ckpts:
+        bad.append(f"the resumed run ended at step {step} (9 expected), files {ckpts}")
+    if any(launches.values()):
+        bad.append(f"K1/K1-bwd/K2/K3 launched: {launches}")
+    train_steps = len(rec["step_ms"])
+    with segm_timers(dev) as amp_rec:
+        segm_train.main(["--log-dir", amp_dir] + base + ["--epochs", "1", "--amp",
+                                                         "--eval-freq", "2"])
+    amp = segm_log(amp_dir)
+    if len(amp) != 1 or not np.isfinite(amp[0]["train_loss"]) or "val_mean_iou" in amp[0]:
+        bad.append(f"--amp log {amp}")
+    if any(launch_counts().values()):
+        bad.append(f"K1/K1-bwd/K2/K3 launched under --amp: {launch_counts()}")
+    if bad:
+        raise AssertionError("phase 26a: " + "; ".join(bad))
+    step_ms = statistics.median(rec["step_ms"][1:])
+    amp_ms = statistics.median(amp_rec["step_ms"][1:])
+    eval_s = sum(rec["eval_s"]) / rec["eval_images"]
+    log(f"  float32 (TF32 off): {train_steps} steps, {step_ms:.1f} ms a step (median after the "
+        f"first; all {[round(t, 1) for t in rec['step_ms']]}), eval {eval_s:.3f} s an image "
+        f"({rec['eval_images']} images, window 512, stride 480), peak {peak_gb:.2f} GB, "
+        f"{seconds:.1f} s for both runs; losses {[round(e['train_loss'], 4) for e in entries]}, "
+        f"val mIoU {[round(e['val_mean_iou'], 4) for e in entries]}; launches {launches}")
+    log(f"  --amp (bf16 compute, float32 parameters): {amp_ms:.1f} ms a step (median after the "
+        f"first; all {[round(t, 1) for t in amp_rec['step_ms']]}), loss "
+        f"{amp[0]['train_loss']:.4f}; on {nvidia_smi_line()}")
+    for name, amp_on in (("float32", False), ("--amp", True)):
+        r = segm_step_alone(dev, root, amp_on)
+        log(f"  the same step on one batch held on the card, no loader running, {name}: "
+            f"{r['step_ms']:.1f} ms a step, device busy {r['busy_ms']:.1f} ms a step "
+            f"(torch.profiler), {r['kernels']:.0f} kernels a step")
+    return {"vit_b32_f32_segm_train": {"launches": launches, "step_ms": step_ms,
+                                       "eval_s_an_image": eval_s, "peak_gb": peak_gb,
+                                       "ckpt": os.path.join(log_dir, "checkpoints", "last")},
+            "vit_b32_bf16_segm_amp": {"launches": launch_counts(), "step_ms": amp_ms}}
+
+
+def segm_card_vs_cpu(dev) -> None:
+    """26b: the narrow Segmenter (d 128, 2 + 1 layers, 64 px) through the
+    same runs on the card and on the CPU: one segm.train step, the sliding
+    window with flip, the attention maps; and a narrow ViTClassifier's
+    logits."""
+    from floodseg_tpu_torch.core.checkpoint import read_model_state
+    from floodseg_tpu_torch.models import SegmenterViT, ViTClassifier
+    from floodseg_tpu_torch.segm import attn, inference
+    from floodseg_tpu_torch.segm import train as segm_train
+
+    cpu = torch.device("cpu")
+    root = segm_tree(os.path.join(SEGM_DIR, "ade_narrow"), 2, 1, (96, 128), (80, 112), seed=1)
+    runs = {}
+    for name, where in (("cpu", cpu), ("card", dev)):
+        d = os.path.join(SEGM_DIR, f"narrow_{name}")
+        shutil.rmtree(d, ignore_errors=True)
+        segm_train.main(["--log-dir", d, "--dataset", "ade20k", "--data-root", root]
+                        + SEGM_NARROW, device=str(where))
+        state = read_model_state(os.path.join(d, "checkpoints", "last"))
+        runs[name] = (segm_log(d)[0]["train_loss"], {k: v.cpu() for k, v in state.items()})
+    cfg = dict(classes=150, image_size=64, patch_size=32, d_model=128, n_layers=2, dec_layers=1,
+               dropout=0.0)
+    p0 = segm_train.init_model(SegmenterViT(**cfg), 42).state_dict()
+    (loss_cpu, s_cpu), (loss_card, s_card) = runs["cpu"], runs["card"]
+    if abs(loss_card - loss_cpu) > SEGM_LOSS_RTOL * abs(loss_cpu):
+        raise AssertionError(f"phase 26b: the step's loss {loss_card} on the card, {loss_cpu} "
+                             f"on the CPU")
+    log(f"  segm.train step: loss {loss_card:.6f} on the card, {loss_cpu:.6f} on the CPU "
+        f"(rtol {abs(loss_card - loss_cpu) / abs(loss_cpu):.2e} of {SEGM_LOSS_RTOL})")
+    change_within("26b segm.train step, card vs CPU", s_card, s_cpu, p0)
+
+    models = {}
+    for name, where in (("cpu", cpu), ("card", dev)):
+        m = SegmenterViT(**cfg)
+        m.load_state_dict(s_cpu)
+        models[name] = m.to(where).eval()
+    g = torch.Generator().manual_seed(5)
+    im = torch.randn((96, 160, 3), generator=g)
+    probs = {k: inference.sliding_inference(m, im.to(next(m.parameters()).device), 150, 64, 48,
+                                            flip=True).cpu()
+             for k, m in models.items()}
+    gap = float((probs["card"] - probs["cpu"]).abs().max())
+    agree = float((probs["card"].argmax(-1) == probs["cpu"].argmax(-1)).float().mean())
+    log(f"  sliding_inference (96x160, window 64, stride 48, flip): probabilities within "
+        f"{gap:.2e} (limit {SEGM_PROB_ATOL}), argmax equal on {agree:.5f} of pixels (at least "
+        f"{SEGM_ARGMAX_SHARE})")
+    if gap > SEGM_PROB_ATOL or agree < SEGM_ARGMAX_SHARE:
+        raise AssertionError("phase 26b: sliding_inference card vs CPU outside its bounds")
+    x = torch.randn((1, 64, 96, 3), generator=g)
+    maps = {k: attn.attention_maps(m, x.to(next(m.parameters()).device))
+            for k, m in models.items()}
+    gaps = [float(np.abs(a - b).max()) for part in ("encoder", "decoder")
+            for a, b in zip(maps["card"][part], maps["cpu"][part])]
+    log(f"  attention_maps: {len(gaps)} layers, largest gap per layer "
+        f"{[f'{v:.1e}' for v in gaps]} (limit {SEGM_ATTN_ATOL})")
+    if len(gaps) != 3 or max(gaps) > SEGM_ATTN_ATOL:
+        raise AssertionError("phase 26b: attention maps card vs CPU outside their bound")
+    clf = init_from_generator_(ViTClassifier(n_cls=10, image_size=32, patch_size=16,
+                                             d_model=128, n_layers=2),
+                               torch.Generator().manual_seed(3)).eval()
+    xc = torch.randn((4, 32, 32, 3), generator=g)
+    with torch.no_grad(), full_precision_f32():
+        ref = clf(xc)
+        got = copy.deepcopy(clf).to(dev)(xc.to(dev)).cpu()
+    share = float((got - ref).abs().max()) / float(ref.abs().max())
+    log(f"  ViTClassifier (ViT/16 d 128, 32 px, 10 classes) logits within {share:.2e} of their "
+        f"largest magnitude (limit {SEGM_LOGIT_SHARE})")
+    if share > SEGM_LOGIT_SHARE:
+        raise AssertionError("phase 26b: ViTClassifier logits card vs CPU outside their bound")
+
+
+def segm_accuracy_phase(dev, classes=8, per_class=16) -> dict:
+    """26c: cli/segm_accuracy.py, ViTClassifier ViT-B/16 at 224 px (1000
+    classes, random weights) over a synthetic ImageFolder tree; the second
+    pass timed."""
+    from floodseg_tpu_torch.cli import segm_accuracy
+
+    root = os.path.join(SEGM_DIR, "imagefolder")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(2)
+    for c in range(classes):
+        os.makedirs(os.path.join(root, f"class_{c:03d}"))
+        for i in range(per_class):
+            h, w = (int(v) for v in rng.integers(240, 480, 2))
+            write_jpeg(os.path.join(root, f"class_{c:03d}", f"{i:03d}.jpg"),
+                       rng.integers(0, 256, (h, w, 3), np.uint8))
+    argv = ["--data-dir", root, "--n-cls", "1000", "-bs", "32", "-nw", "8"]
+    segm_accuracy.main(argv)
+    reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    segm_accuracy.main(argv)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    n = classes * per_class
+    launches = launch_counts()
+    log(f"  {n} images in {seconds:.2f} s: {n / seconds:.1f} images/s end to end (JPEG decode, "
+        f"bicubic resize, the model, batch 32, 8 loader threads), launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 26c: K1/K1-bwd/K2/K3 launched: {launches}")
+    return {"vit_b16_f32_segm_accuracy": {"launches": launches, "images_per_s": n / seconds}}
+
+
+def segm_export(dev) -> None:
+    """26d's export: cli/export_ckpt.py writes a Lightning .ckpt of phase
+    22's last checkpoint (with --segm alone, a fresh state of the same
+    config saved first); the port's importer reads it back equal."""
+    from floodseg_tpu_torch.cli import export_ckpt
+    from floodseg_tpu_torch.cli.runner import Runner
+    from floodseg_tpu_torch.core.checkpoint import read_model_state
+    from floodseg_tpu_torch.core.config import load_config
+    from floodseg_tpu_torch.models.torch_import import load_torch_file
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    configs = [os.path.join(here, "configs", f"{n}.yaml") for n in CLI_CONFIGS]
+    log_dir = os.path.join(os.path.dirname(DATA_DIR), "cli_logs")
+    sets = [f"trainer.log_dir={log_dir}", "trainer.run_name=cli"]
+    last = os.path.join(log_dir, "cli", "checkpoints", "last")
+    if not os.path.exists(last):
+        runner = Runner(load_config(configs, dict(kv.split("=") for kv in sets)))
+        runner.ckpt.save(runner._fresh_state(), 0, {})
+        log("  phase 22's run is absent (--segm alone): a fresh state of its config saved")
+    out = os.path.join(SEGM_DIR, "exported.ckpt")
+    export_ckpt.main([a for c in configs for a in ("--config", c)]
+                     + [a for kv in sets for a in ("--set", kv)]
+                     + ["--ckpt", last, "--out", out, "--epoch", "1"])
+    back = load_torch_file(out)
+    want = {k: v for k, v in read_model_state(last).items()
+            if not k.startswith("aux.") and not k.endswith("num_batches_tracked")}
+    got = {k: v for k, v in back["roles"]["model"].items()
+           if not k.endswith("num_batches_tracked")}
+    n_keys = len(torch.load(out, map_location="cpu", weights_only=False)["state_dict"])
+    if (back["arch"], back["method_family"]) != ("pspnet", "flow_supervised") or \
+            got.keys() != want.keys() or not all(torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError("phase 26d: the exported checkpoint does not read back equal")
+    log(f"  export_ckpt: {n_keys} tensors (FlowPSPNet's layout with its aliases), read back "
+        f"equal by import_lightning_checkpoint ({len(want)} tensors of the model but its aux "
+        f"head)")
+
+
+def segm_launchers_phase(dev, root, ckpt) -> None:
+    """26d: segm_inference over the 4 validation images with their masks,
+    show_attn_map (encoder, patch and class queries) on 26a's checkpoint,
+    and the export."""
+    from floodseg_tpu_torch.cli import segm_inference, show_attn_map
+    from floodseg_tpu_torch.core.checkpoint import read_model_state
+
+    out = os.path.join(SEGM_DIR, "inference")
+    shutil.rmtree(out, ignore_errors=True)
+    val = os.path.join(root, "images", "validation")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    segm_inference.main(["--ckpt", ckpt, "-i", val, "-o", out, "--n-cls", "150",
+                         "--image-size", "512", "--window-size", "512", "--window-stride", "480",
+                         "--ann-dir", os.path.join(root, "annotations", "validation"),
+                         "--reduce-zero-label"])
+    seconds = time.perf_counter() - t0
+    written = sorted(os.listdir(out))
+    shapes = {imread(os.path.join(out, f)).shape for f in written}
+    log(f"  segm_inference: {len(written)} overlays of shape {shapes} in {seconds:.2f} s")
+    if len(written) != 4 or shapes != {SEGM_VAL_HW + (3,)}:
+        raise AssertionError(f"phase 26d: segm_inference wrote {written}, shapes {shapes}")
+    attn_dir = os.path.join(SEGM_DIR, "attn")
+    shutil.rmtree(attn_dir, ignore_errors=True)
+    image = os.path.join(val, sorted(os.listdir(val))[0])
+    maps = []
+    for query, extra in (("patch", []), ("cls", ["--cls"])):
+        d = os.path.join(attn_dir, query)
+        show_attn_map.main([ckpt, image, d, "--n-cls", "150", "--image-size", "512",
+                            "--patch-size", "32", "--layer-id", "11"] + extra)
+        maps += [os.path.join(d, f) for f in sorted(os.listdir(d))]
+    shapes = {imread(f).shape for f in maps}
+    log(f"  show_attn_map: {len(maps)} per-head maps of shape {shapes} (encoder layer 11, a "
+        f"patch query and the class token's)")
+    heads = read_model_state(ckpt)["encoder.cls_token"].shape[-1] // 64
+    if len(maps) != 2 * heads or shapes != {(512, 512)}:
+        raise AssertionError(f"phase 26d: show_attn_map wrote {maps}")
+    if any(launch_counts().values()):
+        raise AssertionError(f"phase 26d: K1/K1-bwd/K2/K3 launched: {launch_counts()}")
+    segm_export(dev)
+
+
+def segm_phases(dev) -> dict:
+    """Phase 26 (see the module note); returns its paths' records."""
+    t0 = time.perf_counter()
+    root = segm_tree(os.path.join(SEGM_DIR, "ade"), 24, 4, SEGM_TRAIN_HW, SEGM_VAL_HW)
+    log(f"[26a] segm.train --dataset ade20k: ViT-B/32 (d 768, 12 + 2 layers), 512 px crops, "
+        f"batch 8, 150 classes, 2 epochs of 3 steps with their evaluations, a resume to a third, "
+        f"then 3 steps with --amp (tree of 24 + 4 images written in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    paths = segm_train_phase(dev, root)
+    ckpt = paths["vit_b32_f32_segm_train"].pop("ckpt")
+    log("[26b] the narrow Segmenter card vs CPU (float32, TF32 off): a segm.train step, "
+        "sliding_inference, attention_maps, ViTClassifier")
+    segm_card_vs_cpu(dev)
+    log("[26c] cli/segm_accuracy.py: ViTClassifier ViT-B/16, 224 px, 1000 classes")
+    paths.update(segm_accuracy_phase(dev))
+    log("[26d] the launchers: segm_inference, show_attn_map, export_ckpt")
+    segm_launchers_phase(dev, root, ckpt)
+    for d in ("vit_b32", "vit_b32_amp", "narrow_cpu", "narrow_card"):
+        shutil.rmtree(os.path.join(SEGM_DIR, d), ignore_errors=True)
+    log(f"  phase 26: {time.perf_counter() - t0:.1f} s on {nvidia_smi_line()}")
+    return paths
+
+
+def segm_alone() -> int:
+    """--segm: build the codec, then phase 26."""
+    log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}")
+    build_kernels(["jpeg"])
+    segm_phases(torch.device("cuda"))
+    return 0
+
+
 # ------------------------------------------------------------------ main
 
 # slow-pipe conversions and functions, the divide's range check, calls
@@ -5246,6 +5683,8 @@ def main() -> int:
         return int8_enc_alone()
     if sys.argv[1:] == ["--remat"]:
         return remat_alone()
+    if sys.argv[1:] == ["--segm"]:
+        return segm_alone()
     if sys.argv[1:2] == ["--ddp-rank"] and len(sys.argv) == 5:
         return ddp_rank(*sys.argv[2:])
     if sys.argv[1:2] == ["--k1"] and len(sys.argv) <= 3:
@@ -5402,6 +5841,7 @@ def main() -> int:
     paths.update(remat_paths)
     train_paths.update({k: v for k, v in remat_paths.items() if "step_ms" in v})
     log(f"  phase 25: {time.perf_counter() - t_opt:.1f} s")
+    paths.update(segm_phases(dev))
 
     sources = {"grid_sample_cuda": ("floodseg_tpu/ops/pallas_warp.py:70", "warp.cu"),
                "grid_sample_backward_cuda": (

@@ -2,9 +2,11 @@
 floodseg_tpu/core/checkpoint.py).
 
 The JAX package's on-disk semantics with ``torch.save`` in place of orbax:
-a save every epoch; the top ``save_top_k`` by ``val_miou_epoch`` as
-``epoch={e}-val_miou_epoch={m:.4f}.pt`` (an epoch without the metric takes
-no top-k slot); the crash fallback ``last-{epoch}.pt``, of which the
+a save every epoch; the top ``save_top_k`` by ``monitor``
+(``val_miou_epoch`` unless the caller names another, as the standalone
+Segmenter trainer names ``val_miou``) as
+``epoch={e}-{monitor}={m:.4f}.pt`` (an epoch without the metric takes no
+top-k slot); the crash fallback ``last-{epoch}.pt``, of which the
 previous one is removed only at the next save, and a ``last`` symlink to
 the newest; ``index.json`` with the top-k entries, read back with entries
 whose file is missing (a crash between the write and the index) dropped.
@@ -139,14 +141,27 @@ def load_payload(state, payload: Dict[str, Any]):
     return state
 
 
+def read_model_state(path: str) -> Dict[str, torch.Tensor]:
+    """The model's state_dict from a file: a TrainState's checkpoint (what
+    ``segm.train`` and the supervised fits save), or a ``torch.save`` of a
+    state_dict itself. A ``.../last`` path resolves as in
+    ``CheckpointManager.restore``."""
+    if os.path.basename(path) == "last":
+        path = _resolve_last(path) or path
+    payload = torch.load(path, map_location="cpu", weights_only=False)
+    return payload["model"] if payload.get("kind") == "train" else payload
+
+
 # ---------------------------------------------------------------- manager
 
 class CheckpointManager:
     MONITOR = "val_miou_epoch"  # ranked highest first
 
-    def __init__(self, directory: str, save_top_k: int = 5, world=None):
+    def __init__(self, directory: str, save_top_k: int = 5, world=None,
+                 monitor: str = MONITOR):
         self.directory = os.path.abspath(directory)
         self.world = world
+        self.monitor = monitor
         if world is None or world.is_main:
             os.makedirs(self.directory, exist_ok=True)
         self.save_top_k = save_top_k
@@ -197,7 +212,7 @@ class CheckpointManager:
     # ---- save / restore ----
 
     def save(self, state: Any, epoch: int, metrics: Dict[str, float]):
-        """Save ``state`` as ``last-{epoch}.pt`` and, when ``val_miou_epoch``
+        """Save ``state`` as ``last-{epoch}.pt`` and, when the monitored metric
         was computed and ranks in the top k, under its top-k name. The
         previous save's last checkpoint is kept until now and then removed,
         all but the newest, and the ``last`` link points at the new one.
@@ -212,7 +227,7 @@ class CheckpointManager:
     def _save(self, state: Any, epoch: int, metrics: Dict[str, float]):
         for _, p in self._last_entries()[:-1]:
             os.remove(p)
-        metric = metrics.get(self.MONITOR)
+        metric = metrics.get(self.monitor)
         if metric is None or self.save_top_k == 0:
             keeps = False
         elif self.save_top_k < 0 or len(self._index) < self.save_top_k:
@@ -222,7 +237,7 @@ class CheckpointManager:
         payload = state_payload(state)
         if keeps:
             metric = float(metric)
-            name = f"epoch={epoch}-{self.MONITOR}={metric:.4f}"
+            name = f"epoch={epoch}-{self.monitor}={metric:.4f}"
             _atomic(self._path(name), lambda p: torch.save(payload, p))
             self._index.append({"name": name, "epoch": epoch, "metric": metric})
         _atomic(self._path(f"last-{epoch}"), lambda p: torch.save(payload, p))

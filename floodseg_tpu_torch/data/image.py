@@ -16,6 +16,9 @@ card has no PIL, cv2 or imageio, so the codec is the repository's own:
   (palette indices, as PIL reads a P image; PIL writes a palette of up to
   16 colours at 4 bits), the row filters undone in the same C++ library;
   written as 8-bit L or P with filter 0 on every row.
+- ``read_rgb``: PIL's ``Image.open(path).convert("RGB")`` of those files:
+  RGB as it is, L (a grayscale JPEG or PNG) repeated into three channels,
+  P looked up in its PLTE chunk (an index past the palette reads black).
 
 There is no fallback: a codec that does not build raises.
 """
@@ -109,12 +112,20 @@ def _chunks(data: bytes):
 def decode_png(data: bytes) -> np.ndarray:
     """A non-interlaced PNG in memory -> uint8 (H, W) for L and P (palette
     indices), (H, W, 3) for RGB."""
+    return _decode_png(data)[0]
+
+
+def _decode_png(data: bytes):
+    """(decode_png's array, the colour type, the PLTE chunk as (n, 3)
+    uint8 or None)."""
     if not data.startswith(_PNG_SIG):
         raise ValueError("not a PNG file")
-    header, idat = None, []
+    header, idat, palette = None, [], None
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -138,9 +149,9 @@ def decode_png(data: bytes) -> np.ndarray:
     if packed:  # palette indices, most significant bits first
         shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
         idx = (out[:, :, None] >> shifts) & ((1 << depth) - 1)
-        return np.ascontiguousarray(idx.reshape(h, -1)[:, :w])
+        return np.ascontiguousarray(idx.reshape(h, -1)[:, :w]), ctype, palette
     out = out.reshape(h, w, ch)
-    return out[..., 0] if ch == 1 else out
+    return (out[..., 0] if ch == 1 else out), ctype, palette
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -179,6 +190,29 @@ def imread(path: str) -> np.ndarray:
     if data.startswith(_PNG_SIG):
         return decode_png(data)
     raise ValueError(f"{path}: neither a JPEG nor a PNG file")
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """A JPEG or PNG file as PIL's ``np.asarray(Image.open(path)
+    .convert("RGB"))`` gives it: uint8 (H, W, 3). A P PNG without a PLTE
+    chunk, and any other file, raises."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] == b"\xff\xd8":
+        im = decode_jpeg(data)
+    elif data.startswith(_PNG_SIG):
+        im, ctype, palette = _decode_png(data)
+        if ctype == 3:
+            if palette is None:
+                raise ValueError(f"{path}: a palette PNG without a PLTE chunk")
+            lut = np.zeros((256, 3), np.uint8)
+            lut[:len(palette)] = palette[:256]
+            return lut[im]
+    else:
+        raise ValueError(f"{path}: neither a JPEG nor a PNG file")
+    if im.ndim == 2:
+        return np.repeat(im[..., None], 3, axis=2)
+    return im
 
 
 def write_jpeg(path: str, rgb: np.ndarray, quality: int = 92) -> None:

@@ -19,7 +19,12 @@ from floodseg_tpu_torch.models.layers import init_from_generator_
 from floodseg_tpu_torch.models.pspnet import PPM, PSPNet
 from floodseg_tpu_torch.models.resnet import ResNetFeatures
 from floodseg_tpu_torch.models.semi import ArchWrapper, ModelRepresentation, unwrap, with_rep
-from floodseg_tpu_torch.models.vit import MaskTransformer, SegmenterViT, VisionTransformer
+from floodseg_tpu_torch.models.vit import (
+    MaskTransformer,
+    SegmenterViT,
+    ViTClassifier,
+    VisionTransformer,
+)
 
 ARCHS = ("pspnet", "deeplabv3", "vit")
 
@@ -51,5 +56,5 @@ def build_model(arch: str, classes: int = 5, layers: int = 50, image_size: int =
 
 __all__ = ["ARCHS", "ArchWrapper", "DeepLabV3", "MaskTransformer", "ModelRepresentation", "PPM",
            "PSPNet", "ResNetFeatures", "S4GANDiscriminator", "SegmenterViT",
-           "VisionTransformer", "build_model", "from_jax_variables", "init_from_generator_",
+           "ViTClassifier", "VisionTransformer", "build_model", "from_jax_variables", "init_from_generator_",
            "load_jax_variables", "unwrap", "with_rep"]

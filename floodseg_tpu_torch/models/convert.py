@@ -42,6 +42,8 @@ Segmenter ViT (timm's and Segmenter's names):
   decoder proj_dec, cls_emb, proj_patch, proj_classes, decoder_norm,
           mask_norm, blocks.I.* under ``decoder.``; the linear decoder's
           head -> decoder.head
+  ViTClassifier (a tree of ``encoder`` and ``head``): the encoder as
+          above, the head -> head
 
 s4GAN discriminator:
   conv1..conv4 -> layers.{0,3,6,9}; final (a linear head) -> final.0
@@ -238,6 +240,9 @@ def _mask_transformer(out: dict, p: Mapping, prefix: str) -> None:
 def _vit(p: Mapping) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     _vit_encoder(out, p["encoder"], "encoder.")
+    if "decoder" not in p:  # ViTClassifier
+        _linear(out, p["head"], "head")
+        return out
     if "head" in p["decoder"]:
         _linear(out, p["decoder"]["head"], "decoder.head")
     else:
@@ -259,8 +264,8 @@ def _discriminator(p: Mapping) -> Dict[str, np.ndarray]:
 
 def from_jax_variables(variables: Mapping) -> Dict[str, np.ndarray]:
     """JAX PSPNet, DeepLabV3, SegmenterViT (each with or without the U2PL
-    rep head) or S4GANDiscriminator variables -> the reference's state_dict
-    (numpy)."""
+    rep head), ViTClassifier or S4GANDiscriminator variables -> the
+    reference's state_dict (numpy)."""
     p = variables["params"]
     if "final" in p and "conv1" in p:
         return _discriminator(p)

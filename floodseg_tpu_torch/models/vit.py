@@ -1,8 +1,11 @@
-"""Segmenter ViT: the patch-embed encoder and the MaskTransformer decoder.
+"""Segmenter ViT: the patch-embed encoder and the MaskTransformer decoder,
+and the ViT image classifier.
 
 Counterpart of floodseg_tpu/models/vit.py: by default ViT-B/32 (d = 768,
 12 layers, 12 heads, MLP 3072) and a 2-layer MaskTransformer, or the linear
-decoder (``decoder_type="linear"``). ``encode`` returns the spatial
+decoder (``decoder_type="linear"``). ``ViTClassifier`` is the encoder and a
+Linear head over its cls token (ViT-B/16 by default), the model of the
+classification-accuracy eval. ``encode`` returns the spatial
 patch-token map (the cls token dropped) and ``decode`` runs the decoder
 over such a map, the flow path's split; ``forward`` pads the frame to a
 patch multiple, upsamples the mask logits with align_corners=False and
@@ -36,11 +39,17 @@ embedding (``pos_drop``), and in every MaskTransformer block. Each is the
 port's element ``Dropout``, which holds no parameters and draws only from
 an explicit generator. DropPath is not ported: ``SegmenterViT`` never sets
 a drop-path rate, so every DropPath of the JAX package runs at rate 0. The
-U2PL rep head (``with_rep``) and ``ViTClassifier`` are not ported yet.
-Public methods take and return NHWC.
+U2PL rep head is ``models/semi.py``'s. Public methods take and return NHWC.
+
+Attention maps: ``capture_attention(model)`` makes every ``Attention`` of
+``model`` keep its probabilities (after the float32 softmax and its cast,
+before ``attn_drop``: the tensor the JAX package ``sow``s) in
+``attn_map`` for the block's duration. Off by default: outside the block
+no tensor is kept and nothing is read back (segm/attn.py reads them).
 """
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -87,6 +96,8 @@ class Attention(nn.Module):
         # the JAX package multiplies dtype-valued scores by hd**-0.5, a
         # weakly typed scalar that is first rounded to dtype
         self.scale = float(torch.tensor((d_model // heads) ** -0.5, dtype=dtype))
+        self.keep_attn = False
+        self.attn_map: Optional[torch.Tensor] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, d = x.shape
@@ -94,9 +105,27 @@ class Attention(nn.Module):
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
         attn = torch.matmul(q, k.transpose(-2, -1)) * self.scale
         sdt = torch.promote_types(x.dtype, torch.float32)
-        attn = self.attn_drop(torch.softmax(attn.to(sdt), dim=-1).to(x.dtype))
+        attn = torch.softmax(attn.to(sdt), dim=-1).to(x.dtype)
+        if self.keep_attn:
+            self.attn_map = attn
+        attn = self.attn_drop(attn)
         y = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, d)
         return self.proj_drop(self.proj(y))
+
+
+@contextlib.contextmanager
+def capture_attention(model: nn.Module) -> Iterator[None]:
+    """Every ``Attention`` of ``model`` keeps its probabilities in
+    ``attn_map`` inside the block; on exit they are dropped and capture is
+    off again."""
+    mods = [m for m in model.modules() if isinstance(m, Attention)]
+    for m in mods:
+        m.keep_attn = True
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.keep_attn, m.attn_map = False, None
 
 
 class FeedForward(nn.Module):
@@ -287,3 +316,21 @@ class SegmenterViT(nn.Module):
         masks = resize_bilinear(masks, (h, w), align_corners=False)
         out = {"pred": masks[:, :h_ori, :w_ori]}
         return (out, feats) if with_feature else out
+
+
+class ViTClassifier(nn.Module):
+    """ViT image classifier: ``encoder`` (VisionTransformer, d_model // 64
+    heads unless ``n_heads``) and a Linear ``head`` over the cls token's
+    features; float32 parameters, computing in ``dtype``. NHWC images ->
+    (B, n_cls) logits."""
+
+    def __init__(self, n_cls: int = 1000, image_size: int = 224, patch_size: int = 16,
+                 d_model: int = 768, n_layers: int = 12, n_heads: Optional[int] = None,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.encoder = VisionTransformer(image_size, patch_size, n_layers, d_model,
+                                         n_heads or d_model // 64, dtype, dropout)
+        self.head = Linear(d_model, n_cls, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.encoder(x)[:, 0])

@@ -15,7 +15,13 @@ machine with the card has no cv2. These reproduce cv2's results to the bit
   warpAffine with INTER_LINEAR on uint8 frames or INTER_NEAREST, and
   BORDER_CONSTANT, as OpenCV 5.0 computes them (float32 source
   coordinates and float32 interpolation, not the fixed-point tables of
-  OpenCV 4.10 and older).
+  OpenCV 4.10 and older);
+- ``cv2_resize_cubic``: INTER_CUBIC on uint8 frames, as OpenCV 5.0 with
+  its IPP back end computes it (see the function for how close);
+- ``cv2_rgb2hsv_u8`` and ``cv2_hsv2rgb_u8``: cvtColor COLOR_RGB2HSV and
+  COLOR_HSV2RGB on uint8 (H in 0..179), to the bit on every input;
+- ``pil_resize_bicubic``: PIL's ``Image.resize(size)`` (BICUBIC, its
+  default) on uint8 RGB or L images, to the bit.
 """
 
 import math
@@ -31,11 +37,16 @@ def _cv2_axis(n_in: int, n_out: int, scale: float, exact_fraction: bool = False)
     """cv2's source index and float32 fraction of each output index:
     fx = float((dx + 0.5) * scale - 0.5), sx = floor(fx), fx -= sx; with
     ``exact_fraction`` the fraction is taken in float64 and then rounded
-    (the 1-, 3- and 4-channel float32 path)."""
+    (the 1-, 3- and 4-channel float32 path). On that path a position within
+    about 1e-15 of an integer can still land up to ~50 ulps from cv2's
+    value (tests/test_torch_segm_cv2.py bounds it on random sizes)."""
     f = (np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5
     if not exact_fraction:
         f = f.astype(np.float32)
-    s = np.floor(f)
+    # the source index of a float64 position is taken from its float32
+    # rounding: a position just below an integer (14.999999999999998)
+    # reads that integer's pixel with a fraction of -2e-15, as cv2 does
+    s = np.floor(f.astype(np.float32)).astype(f.dtype)
     return s.astype(np.int64), (f - s).astype(np.float32)
 
 
@@ -303,3 +314,179 @@ def warp_affine(src: Source, m: np.ndarray, dsize: Tuple[int, int], nearest: boo
     v1 = _fma(a, p11 - p10, p10)
     v = _fma(b, v1 - v0, v0)
     return np.clip(np.rint(v), 0, 255).astype(np.uint8)
+
+
+# ------------------------------------------------------------ INTER_CUBIC
+
+def _cubic_weights(f: np.ndarray) -> np.ndarray:
+    """Keys' cubic (a = -0.75) weights of the 4 taps around each fraction
+    ``f`` (float64), the last one 1 minus the others; (n, 4) float64."""
+    a = -0.75
+    x1 = f + 1
+    c0 = ((a * x1 - 5 * a) * x1 + 8 * a) * x1 - 4 * a
+    c1 = ((a + 2) * f - (a + 3)) * f * f + 1
+    y = 1 - f
+    c2 = ((a + 2) * y - (a + 3)) * y * y + 1
+    return np.stack([c0, c1, c2, 1 - c0 - c1 - c2], -1)
+
+
+def _cubic_axis(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Each output index's 4 source indices, clamped to the border
+    (BORDER_REPLICATE), and their float32 weights, from the float64 source
+    position (dx + 0.5) * n_in / n_out - 0.5."""
+    f = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    s = np.floor(f)
+    idx = np.clip(s.astype(np.int64)[:, None] + np.arange(-1, 3)[None], 0, n_in - 1)
+    return idx, _cubic_weights(f - s).astype(np.float32)
+
+
+def cv2_resize_cubic(im: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(im, (w, h), interpolation=cv2.INTER_CUBIC)`` of an
+    (H, W) or (H, W, C) uint8 image.
+
+    OpenCV 5.0 hands this call to IPP, which does not take OpenCV's own
+    11-bit fixed-point path: the weights are float32 (computed from float64
+    positions), the horizontal pass sums taps (0, 1) and (2, 3) in float32
+    and adds the pairs, the vertical pass sums taps (0, 2) and (1, 3) and
+    adds those, and the result is rounded half to even and saturated. That
+    order is the closest found, not IPP's documented one: a value within
+    about one float32 ulp of a half can round the other way (9 of 1.57
+    million values in tests/test_torch_segm_cv2.py, each off by 1)."""
+    h, w = im.shape[:2]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if im.dtype != np.uint8:
+        raise TypeError(f"cv2_resize_cubic takes uint8, got {im.dtype}")
+    x = (im if im.ndim == 3 else im[..., None]).astype(np.float32)
+    xi, cx = _cubic_axis(w, ow)
+    yi, cy = _cubic_axis(h, oh)
+    t = [x[:, xi[:, k]] * cx[None, :, k, None] for k in range(4)]
+    t = (t[0] + t[1]) + (t[2] + t[3])
+    v = [t[yi[:, k]] * cy[:, k, None, None] for k in range(4)]
+    v = (v[0] + v[2]) + (v[1] + v[3])
+    out = np.clip(np.rint(v), 0, 255).astype(np.uint8)
+    return out if im.ndim == 3 else out[..., 0]
+
+
+# ------------------------------------------------------------ HSV
+
+_HSV_SHIFT = 12
+_SDIV = np.concatenate([[0], np.rint((255 << _HSV_SHIFT) / np.arange(1, 256))]).astype(np.int64)
+_HDIV180 = np.concatenate([[0], np.rint((180 << _HSV_SHIFT) / (6.0 * np.arange(1, 256)))]
+                          ).astype(np.int64)
+# (b, g, r) taken from (v, p, q, t) in each of the six sectors of the hue
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def cv2_rgb2hsv_u8(rgb: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV)`` of uint8 (..., 3): cv2's
+    12-bit fixed-point tables, H in 0..179, to the bit."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV180[diff] + half) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+def _fnma(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """float32 1 - a * b, rounded once (a fused negative multiply-add)."""
+    return (1.0 - a.astype(np.float64) * b.astype(np.float64)).astype(np.float32)
+
+
+# cvtColor's HSV2RGB converts 32 pixels of a row at a time; the last
+# (width % 32) pixels of each row go through its scalar loop
+_HSV_VECTOR_PIXELS = 32
+
+
+def cv2_hsv2rgb_u8(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)`` of uint8 (..., W, 3), H in
+    0..179, as OpenCV 5.0 computes it, to the bit: float32 h * (6 / 180), s
+    and v times 1 / 255, the sector and fraction of h, the tabulated
+    v * (1 - s), v * fma(-s, f, 1) and v * fma(-s, 1 - f, 1), times 255;
+    truncated in the vector body of each row, rounded half to even in its
+    scalar tail (the last W % 32 pixels)."""
+    f32 = np.float32
+    hh = hsv[..., 0].astype(f32) * f32(6.0 / 180)
+    sector = np.trunc(hh)
+    hh = hh - sector
+    s = hsv[..., 1].astype(f32) * f32(1 / 255)
+    v = hsv[..., 2].astype(f32) * f32(1 / 255)
+    one = f32(1)
+    tab = np.stack([v, v * (one - s), v * _fnma(s, hh), v * _fnma(s, one - hh)], -1)
+    bgr = np.take_along_axis(tab, _HSV_SECTORS[sector.astype(np.int64) % 6], -1)
+    rgb = bgr[..., ::-1] * f32(255)
+    w = hsv.shape[-2]
+    tail = np.arange(w) >= w - w % _HSV_VECTOR_PIXELS
+    out = np.where(tail[:, None], np.rint(rgb), np.trunc(rgb))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+# ------------------------------------------------------------ PIL's resize
+
+_PIL_PRECISION_BITS = 32 - 8 - 2
+
+
+def _pil_bicubic(x: np.ndarray) -> np.ndarray:
+    """PIL's bicubic filter (a = -0.5) at float64 x."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _pil_coeffs(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for one
+    axis: each output's first source index, tap count and integer weights
+    (22 fractional bits), (n_out,), (n_out,), (n_out, ksize)."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    lo = np.empty(n_out, np.int64)
+    cnt = np.empty(n_out, np.int64)
+    kk = np.zeros((n_out, ksize), np.float64)
+    for xx in range(n_out):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), n_in) - xmin
+        w = _pil_bicubic((np.arange(xmax) + xmin - center + 0.5) * (1.0 / filterscale))
+        ww = float(w.sum()) if xmax else 0.0
+        kk[xx, :xmax] = w / ww if ww != 0.0 else w
+        lo[xx], cnt[xx] = xmin, xmax
+    one = float(1 << _PIL_PRECISION_BITS)
+    ik = np.where(kk < 0, np.trunc(-0.5 + kk * one), np.trunc(0.5 + kk * one)).astype(np.int64)
+    return lo, cnt, ik
+
+
+def _pil_pass(x: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+    """One of PIL's 8-bit resampling passes along ``axis`` (0 rows, 1
+    columns) of an int64 (H, W, C) image: the integer sum from 2**21, shifted
+    by 22 and clipped to 0..255."""
+    lo, cnt, ik = _pil_coeffs(x.shape[axis], n_out)
+    x = np.moveaxis(x, axis, 0)
+    acc = np.full((n_out,) + x.shape[1:], 1 << (_PIL_PRECISION_BITS - 1), np.int64)
+    for k in range(ik.shape[1]):
+        valid = k < cnt
+        src = np.minimum(lo + k, x.shape[0] - 1)
+        wk = np.where(valid, ik[:, k], 0).reshape((n_out,) + (1,) * (x.ndim - 1))
+        acc += x[src] * wk
+    out = np.clip(acc >> _PIL_PRECISION_BITS, 0, 255)
+    return np.moveaxis(out, 0, axis)
+
+
+def pil_resize_bicubic(im: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """PIL's ``Image.fromarray(im).resize(size)`` (``size`` = (w, h),
+    BICUBIC, PIL's default) of an (H, W) or (H, W, 3) uint8 image, to the
+    bit: the horizontal pass first (only when the width changes), each
+    clipped to uint8."""
+    w_out, h_out = int(size[0]), int(size[1])
+    x = (im if im.ndim == 3 else im[..., None]).astype(np.int64)
+    if w_out != x.shape[1]:
+        x = _pil_pass(x, w_out, 1)
+    if h_out != x.shape[0]:
+        x = _pil_pass(x, h_out, 0)
+    out = x.astype(np.uint8)
+    return out if im.ndim == 3 else out[..., 0]

@@ -75,7 +75,14 @@ from floodseg_tpu_torch.parallel import World, maybe_initialize_multihost, shard
 from floodseg_tpu_torch.video import default_grid
 
 import torch_dist_worker as worker
-from torch_port_fixtures import jnorm, numpy_leaves, port_state, smooth_grids, vit_pair
+from torch_port_fixtures import (
+    jnorm,
+    numpy_leaves,
+    port_state,
+    smooth_grids,
+    vit_pair,
+    write_ade_tree,
+)
 from torch_u2pl_fixtures import JaxDraws
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_dist_worker.py")
@@ -260,6 +267,22 @@ def cli_case(tree, tmp_path_factory):
                 argv=cli_argv(tree, str(tmp_path_factory.mktemp("dp_cli")), 1))
 
 
+def segm_argv(tree, log_dir, batch):
+    """``segm.train`` on an ADE20K-layout tree (4 training images, 2
+    validation ones): one epoch of 2 steps at 64 px crops and its
+    evaluation, one image a rank."""
+    return ["--log-dir", log_dir, "--dataset", "ade20k", "--data-root", tree, "--im-size", "64",
+            "--patch-size", "32", "--d-model", "64", "--n-layers", "1", "--dec-layers", "1",
+            "--batch-size", str(batch), "--epochs", "1", "--workers", "1"]
+
+
+@pytest.fixture(scope="module")
+def segm_case(tmp_path_factory):
+    tree = write_ade_tree(str(tmp_path_factory.mktemp("dp_ade")))
+    return dict(method="segm", seed=8, tree=tree,
+                argv=segm_argv(tree, str(tmp_path_factory.mktemp("dp_segm")), 1))
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -299,14 +322,15 @@ def flow_predict_case(tree, inference_cases, tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory, vit_cases, inference_cases, fit_case, cli_case, flow_predict_case):
+def ranks(tmp_path_factory, vit_cases, inference_cases, fit_case, cli_case, flow_predict_case,
+          segm_case):
     """Every case on two ranks, in one launch."""
     task = {m: tiny_case(m) for m in TRAIN_METHODS}
     task.update({f"supervised_remat_{r}": dict(tiny_case("supervised"), remat=r)
                  for r in (False, True)})
     task.update(sup_vit=vit_cases["sup"], semi_vit=vit_cases["semi"],
                 crop_forward=inference_cases["crop"], predict=inference_cases["predict"],
-                fit=fit_case, cli=cli_case, flow_predict=flow_predict_case)
+                fit=fit_case, cli=cli_case, flow_predict=flow_predict_case, segm=segm_case)
     return launch(tmp_path_factory.mktemp("ranks"), task)
 
 
@@ -380,6 +404,18 @@ def test_cli_fit_over_ranks_equals_one_rank(ranks, tree, cli_case, tmp_path):
         assert os.path.exists(os.path.join(run_dir, name)), name
     _assert_close(ranks[0]["cli"], ref, REL, "cli")
     assert "summary.test_miou_epoch" in ref and "summary.best_val_miou" in ref
+
+
+def test_segm_train_over_ranks_equals_one_rank(ranks, segm_case, tmp_path):
+    """The standalone Segmenter trainer on two ranks of batch 1 (the
+    evaluation's images shared out) ends with the weights and log.txt of
+    one rank of batch 2; both ranks end equal."""
+    ref = worker.run_case(dict(segm_case, argv=segm_argv(segm_case["tree"], str(tmp_path),
+                                                         RANKS)), World())
+    a, b = ranks[0]["segm"], ranks[1]["segm"]
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    assert "epoch0.val_mean_iou" in ref and "epoch0.train_loss" in ref
+    _assert_close(a, ref, REL, "segm")
 
 
 def test_run_flow_predict_over_ranks_equals_one_rank(ranks, flow_predict_case, tmp_path):

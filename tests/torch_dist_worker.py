@@ -11,7 +11,7 @@ the CPU), runs every case of the task file on this rank's slice of each
 global batch (``run_case``) and saves the results to OUT_PREFIX.rank{r}.pt.
 
 A case is a dict: ``method`` (supervised, flow_supervised, gan, flow_gan,
-contrastive; fit, cli and flow_predict, the entry points; and for the JAX comparisons
+contrastive; fit, cli, flow_predict and segm, the entry points; and for the JAX comparisons
 sup_vit, semi_vit, crop_forward and predict), ``batches`` (the global
 numpy batch of each step), and what the method needs. The train cases' model is ``TinySegNet``: float64, the
 port's Conv2d, BatchNorm2d and both kinds of Dropout (channel dropout with
@@ -201,6 +201,8 @@ def run_case(case: dict, world: World) -> dict:
         return _run_cli(case)
     if method == "flow_predict":
         return _run_flow_predict(case, world)
+    if method == "segm":
+        return _run_segm(case)
     batches = [_torch(_local(b, world)) for b in case["batches"]]
     seed = case.get("seed", 0)  # the JAX cases' weights come in the case
     out = {}
@@ -324,6 +326,37 @@ def _run_cli(case: dict) -> dict:
                 if not isinstance(v, (list, str)) and k not in (
                     "predict_time_mean", "predict_time_sum", "frames_per_second")})
     out["writes"] = torch.tensor(runner.logger.writes)
+    return out
+
+
+def _run_segm(case: dict) -> dict:
+    """``segm.train.main(argv)`` (the epochs, each with its sliding-window
+    evaluation, the checkpoints, log.txt) with the float64 narrow Segmenter
+    drawn from ``seed``, in the world the process is in: the last
+    checkpoint's weights and log.txt's numbers."""
+    import json
+
+    from floodseg_tpu_torch.core.checkpoint import read_model_state
+    from floodseg_tpu_torch.models import vit
+    from floodseg_tpu_torch.segm import train
+
+    own_cls, own_init = vit.SegmenterViT, train.init_model
+    vit.SegmenterViT = lambda **kw: own_cls(**dict(kw, dtype=F64)).double()
+    train.init_model = lambda m, seed: init_from_generator_(
+        m, torch.Generator().manual_seed(case["seed"]))
+    try:
+        train.main(case["argv"], device="cpu")
+    finally:
+        vit.SegmenterViT, train.init_model = own_cls, own_init
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()  # rank 0 has written log.txt
+    log_dir = case["argv"][case["argv"].index("--log-dir") + 1]
+    out = {f"model.{k}": v for k, v in
+           read_model_state(os.path.join(log_dir, "checkpoints", "last")).items()}
+    with open(os.path.join(log_dir, "log.txt")) as f:
+        for e, line in enumerate(f):
+            out.update({f"epoch{e}.{k}": torch.tensor(float(v), dtype=F64)
+                        for k, v in json.loads(line).items()})
     return out
 
 

@@ -14,6 +14,7 @@ the port's Dropout modules by name.
 """
 
 import contextlib
+import os
 from types import SimpleNamespace
 
 import flax.linen as fnn
@@ -28,6 +29,7 @@ from floodseg_tpu.models import build_model as jax_build_model
 from floodseg_tpu.models.vit import SegmenterViT as JaxSegmenterViT
 from floodseg_tpu.train.optim import head_mask as jax_head_mask
 from floodseg_tpu_torch.data import predict_windows, resize_frames, synthetic_clip
+from floodseg_tpu_torch.data.image import write_jpeg, write_png
 from floodseg_tpu_torch.models import SegmenterViT, build_model, convert, load_jax_variables
 from floodseg_tpu_torch.train import make_cached_flow_predict_fn, make_flow_predict_fn
 from floodseg_tpu_torch.video import default_grid
@@ -493,3 +495,19 @@ def jax_runner(tree, method, cfg, arch="vit"):
     r = object.__new__(Runner)
     r.cfg, r.is_flow, r.num_devices, r.mesh = jcfg, method in FLOW_METHODS, 1, None
     return r
+
+
+def write_ade_tree(root, n_train=4, n_val=2, hw=(48, 64), val_hw=(40, 56), seed=0):
+    """An ADE20K-layout tree: images/{training,validation} JPEGs and
+    annotations/... L PNGs of blocky labels 0..150."""
+    rng = np.random.default_rng(seed)
+    for split, n, (h, w) in (("training", n_train, hw), ("validation", n_val, val_hw)):
+        os.makedirs(os.path.join(root, "images", split), exist_ok=True)
+        os.makedirs(os.path.join(root, "annotations", split), exist_ok=True)
+        for i in range(n):
+            write_jpeg(os.path.join(root, "images", split, f"ade_{i:04d}.jpg"),
+                       rng.integers(0, 256, (h, w, 3), np.uint8))
+            lab = np.kron(rng.integers(0, 151, (4, 4)), np.ones((h // 4 + 1, w // 4 + 1)))
+            write_png(os.path.join(root, "annotations", split, f"ade_{i:04d}.png"),
+                      lab[:h, :w].astype(np.uint8))
+    return root
