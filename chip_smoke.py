@@ -17,6 +17,7 @@
     python3 chip_smoke.py --int8-enc  # phase 24 alone: the int8 encoder
     python3 chip_smoke.py --remat  # phase 25 alone: rematerialisation
     python3 chip_smoke.py --segm   # phase 26 alone: the standalone Segmenter stack
+    python3 chip_smoke.py --converge  # phase 27 alone: the convergence gates, the launchers
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -294,10 +295,12 @@ Then U2PL (the contrastive method), after evaluation:
 22. The CLI in process on the card (floodseg_tpu_torch.cli.main; ``run``
    is ``main`` returning its Runner): PSPNet-50 flow_supervised from
    configs/{train_base,train_flow_supervised,dataset_flow,pspnet}.yaml on
-   phase 14's tree (433 px crops, n = 25, 1072x1920 predict frames, as the
-   configs give them), 2 epochs of 2 steps, one val and one test batch:
-   ``fit`` (checkpoints, then the test and the crop-route predict on the
-   best one), ``test --ckpt_path <run>/checkpoints/last``, ``predict`` on
+   phase 14's tree (433 px crops, n = 25, as the configs give them), 2
+   epochs of 2 steps, one val and one test batch: ``fit`` (checkpoints,
+   then the test and the crop-route predict on the best one, its frames
+   cut to 536x960, ``--data.resize_factor_predict 0.5``: 6 crops a window
+   where 1072x1920 takes 28; phase 12 runs the route at full size),
+   ``test --ckpt_path <run>/checkpoints/last``, ``predict`` on
    that checkpoint with no_cropping and the int8 decoder. Each
    subcommand's wall time and launches on a line. Checks: K1, K1-bwd, K2
    and K3 each launched; the state restore_best gives and the one the test
@@ -327,7 +330,7 @@ their output under build/ddp/):
    them), which reorders the sums over the batch as the ranks do (a
    float64 run of PSPNet-50 at this size is out of reach on the CPU, and
    K1 takes float32 and bf16 only). (b) Two ranks on the one card: NCCL with two ranks on cuda:0 is
-   tried with one all-reduce and refuses ("Duplicate GPU detected"; each
+   tried with one all-reduce (beside (a)'s launch) and refuses ("Duplicate GPU detected"; each
    rank's error logged), so the ranks run on gloo with CUDA tensors. The
    same fit over 2 ranks, 1 + 1 samples: the ranks' states bit-equal, each
    rank's K1 48 and K1-bwd 48 a step and K1 48 for its validation frame,
@@ -356,8 +359,11 @@ their output under build/ddp/):
    window and on at least COMPOSED_MIN_EQUAL of all pixels (5p's rule
    for a bf16 rounding elsewhere: it reuses an encoding made alone);
    each rank launches K1 6 and K2 4 (and K3 2 with
-   int8). Each part's wall time, and each rank's seconds, peak memory
-   and launches, beside the card's name and power limit.
+   int8). The 2-rank fit of (b), its contrastive steps and (c) run in one
+   launch of two rank processes, one part after another (a rank process
+   takes 15-20 s to start on the card). Each launch's wall time, and each
+   rank's seconds, peak memory and launches by part, beside the card's
+   name and power limit.
 23f. (``--ddp-faults`` alone) 23b's contrastive check read on a second
    one-rank run and a sound 2-rank run, which must pass every limit, and
    on 2 ranks under each planted fault of DDP_FAULTS (``planted_fault``:
@@ -413,7 +419,25 @@ launchers and the Lightning export), which launches none of K1-K3:
    validation images with their masks, cli/show_attn_map.py (layer 11,
    patch and class queries) on (a)'s checkpoint, and cli/export_ckpt.py on
    phase 22's last checkpoint, read back equal by the port's importer.
-13. Last (after phase 26): a JSON line {"kernels": [...]} (each kernel's
+27. The convergence gates of tests/test_convergence.py on the card, on its
+   synthetic tree (30 frames at 96x128, 20 labeled) and config: PSPNet-50,
+   5 classes, 30 epochs, batch 4, 65 px crops, seed 1, lr 0.01, float32
+   with TF32 off, each through Runner.fit, restore_best and test. (a) The
+   supervised gate: best val mIoU >= 0.40, test-on-best test_miou1_epoch
+   >= 0.30; (b) the flow_supervised gate: best val mIoU >= 0.12, with K1
+   and K1-bwd launched in the fit. Each logs the val mIoU of every epoch,
+   the fit's seconds and peak memory. (c) The launchers on (b)'s tree,
+   each fit cut to one epoch of 2 steps: cli/launch.py train
+   flow_supervised (K1, K1-bwd and K2 launched), test and predict on its
+   run; cli/sweep.py experiments/lr_example.yaml --count 2 as two runs in
+   their own processes, each with metrics.json and its point's lr and
+   batch in config.json; scripts/clean.py over that log dir naming only
+   a planted crashed run; cli/export_ckpt.py of (b)'s best state, then
+   cli/import_ckpt.py of it, equal bit for bit to Runner.load_torch_ckpt's
+   state and, but for the aux head the reference's flow layout lacks, to
+   the best checkpoint; ``test --ckpt_path`` of the import through K1;
+   ``launch ingress`` stopping on its missing tool.
+13. Last (after phase 27): a JSON line {"kernels": [...]} (each kernel's
    max_abs_err is its largest over every check; max_abs_err_by_dtype gives
    the largest in float32 and in bf16 apart), then the nvidia-smi line, then the last line {"ok": true, "device": {...}}.
 """
@@ -3586,10 +3610,9 @@ CLI_KERNELS = ("grid_sample_cuda", "grid_sample_backward_cuda", "warp_chain_cuda
                "resize_quantize_int8_cuda")
 
 
-def cpu_payload(state) -> dict:
-    """A state's checkpoint payload (core/checkpoint.py) with every tensor
-    copied to the host, flattened by name."""
-    from floodseg_tpu_torch.core.checkpoint import state_payload
+def flat_cpu(payload: dict) -> dict:
+    """A checkpoint payload (core/checkpoint.py) flattened by name, every
+    tensor copied to the host."""
     out = {}
 
     def walk(prefix, v):
@@ -3602,8 +3625,14 @@ def cpu_payload(state) -> dict:
         else:
             out[prefix] = v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v
 
-    walk("", state_payload(state))
+    walk("", payload)
     return out
+
+
+def cpu_payload(state) -> dict:
+    """A state's checkpoint payload, flattened with every tensor on the host."""
+    from floodseg_tpu_torch.core.checkpoint import state_payload
+    return flat_cpu(state_payload(state))
 
 
 def payload_bits_differ(a: dict, b: dict) -> int:
@@ -3681,7 +3710,7 @@ def cli_phase(dev, root) -> dict:
         setattr(owner, name, timer(owner, name))
     try:
         for name, argv in (
-                ("fit", ["fit", *common]),
+                ("fit", ["fit", *common, "--data.resize_factor_predict", "0.5"]),
                 ("test", ["test", *common, "--ckpt_path", last]),
                 ("predict", ["predict", *common, "--ckpt_path", last, "--model.no_cropping",
                              "true", "--model.int8_decode", "true", "--model.save_images",
@@ -3898,10 +3927,11 @@ def launch_ranks(part: str, size: int, backend: str, timeout: float, expect_fail
     """``part`` on ``size`` rank processes of this script (``--ddp-rank``),
     every one on cuda:0, rendezvousing through FLOODSEG_COORDINATOR on a
     free localhost port with ``backend`` (``ddp_rank``). Returns each
-    rank's result (what it saved). A rank that fails, or a launch that
-    outlives ``timeout``, raises, unless ``expect_fail`` (then the outputs
-    come back with the exit codes, None for a rank killed at the
-    timeout)."""
+    rank's result (what it saved); for parts joined by commas, run one after
+    another in the same processes (one start-up for all), {part: each
+    rank's result}. A rank that fails, or a launch that outlives
+    ``timeout``, raises, unless ``expect_fail`` (then the outputs come back
+    with the exit codes, None for a rank killed at the timeout)."""
     os.makedirs(DDP_DIR, exist_ok=True)
     prefix = os.path.join(DDP_DIR, part)
     env = {**os.environ, "FLOODSEG_MULTIHOST": "1",
@@ -3937,7 +3967,9 @@ def launch_ranks(part: str, size: int, backend: str, timeout: float, expect_fail
         if code != 0:
             raise AssertionError(f"phase 23 {part}: rank {r} of {size} exited {code}:\n"
                                  f"{out[-6000:]}")
-    return [torch.load(f"{prefix}.rank{r}.pt", weights_only=False) for r in range(size)]
+    results = {p: [torch.load(os.path.join(DDP_DIR, f"{p}.rank{r}.pt"), weights_only=False)
+                   for r in range(size)] for p in part.split(",")}
+    return results if "," in part else results[part]
 
 
 class _ReversedBatches:
@@ -4266,25 +4298,29 @@ def ddp_rank(part: str, backend: str, prefix: str) -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     log(f"[23 rank {world.rank}/{world.size}] {part} on {dev} "
         f"({torch.distributed.get_backend()}), up in {time.perf_counter() - t0:.1f} s")
-    if part == "nccl_probe":
-        try:
-            x = torch.ones(1, device=dev)
-            torch.distributed.all_reduce(x)
-            torch.cuda.synchronize(dev)
-            result = {"error": None, "value": float(x)}
-        except RuntimeError as e:  # DistBackendError among them
-            result = {"error": f"{type(e).__name__}: {e}"}
-    else:
-        build.build(["warp", "resize"])
-        if part == "fit":
-            result = ddp_fit(dev, os.path.join(DATA_DIR, "train_tree"), world,
-                             2 // world.size)
-        elif part.startswith("u2pl"):
-            result = ddp_u2pl(dev, world, part.partition("-")[2] or None)
+    for p in part.split(","):
+        pre = os.path.join(os.path.dirname(prefix), p)
+        if p == "nccl_probe":
+            try:
+                x = torch.ones(1, device=dev)
+                torch.distributed.all_reduce(x)
+                torch.cuda.synchronize(dev)
+                result = {"error": None, "value": float(x)}
+            except RuntimeError as e:  # DistBackendError among them
+                result = {"error": f"{type(e).__name__}: {e}"}
         else:
-            result = ddp_predict(dev, world, f"{prefix}.rank{world.rank}.out")
-    torch.save(result, f"{prefix}.rank{world.rank}.pt")
-    log(f"[23 rank {world.rank}/{world.size}] {part} done in {time.perf_counter() - t0:.1f} s")
+            build.build(["warp", "resize"])
+            if p == "fit":
+                result = ddp_fit(dev, os.path.join(DATA_DIR, "train_tree"), world,
+                                 2 // world.size)
+            elif p.startswith("u2pl"):
+                result = ddp_u2pl(dev, world, p.partition("-")[2] or None)
+            else:
+                result = ddp_predict(dev, world, f"{pre}.rank{world.rank}.out")
+        torch.save(result, f"{pre}.rank{world.rank}.pt")
+        del result
+        torch.cuda.empty_cache()
+        log(f"[23 rank {world.rank}/{world.size}] {p} done at {time.perf_counter() - t0:.1f} s")
     if part != "nccl_probe":  # its communicator is broken
         torch.distributed.destroy_process_group()
     return 0
@@ -4326,14 +4362,12 @@ def _rank_line(part, results) -> None:
                 f"{ {k: v['launches'][k] for k in DDP_KERNELS} }")
 
 
-def ddp_u2pl_part(dev) -> None:
-    """Phase 23b's contrastive check: the semi step over 2 gloo ranks
-    against one rank (``u2pl_readings`` within their limits)."""
+def ddp_u2pl_part(dev, u2) -> None:
+    """Phase 23b's contrastive check: the semi step over 2 gloo ranks (``u2``,
+    their results) against one rank (``u2pl_readings`` within their
+    limits)."""
     log(f"  contrastive: sup step, sync, semi step of PSPNet-50 (aux, rep), batch 2 + 2 at "
         f"{DDP_U2PL_CROP} px, num_devices 2, 2 gloo ranks against one rank")
-    t0 = time.perf_counter()
-    u2 = launch_ranks("u2pl", 2, "gloo", 600)
-    log(f"  wall {time.perf_counter() - t0:.1f} s")
     _rank_line("u2pl (gloo, 2 ranks)", u2)
     one_u2 = ddp_u2pl(dev, None)
     torch.cuda.empty_cache()
@@ -4348,21 +4382,12 @@ def ddp_u2pl_part(dev) -> None:
     del u2, one_u2
 
 
-def ddp_predict_part(dev) -> dict:
-    """Phase 23c: run_flow_predict over 2 gloo ranks against one rank.
-    Returns the ranks' launches, summed."""
+def ddp_predict_part(dev, dp) -> dict:
+    """Phase 23c: run_flow_predict over 2 gloo ranks (``dp``, their
+    results) against one rank. Returns the ranks' launches, summed."""
     log(f"[23c] DP predict through run_flow_predict(no_cropping, world): PSPNet-50 bf16, "
         f"{SIZE} px, n = {FRAME_DELTA}, {DDP_WINDOWS} windows (a batch of one a rank, then a "
         f"ragged batch of one), the bf16 and the int8 decoder, 2 gloo ranks against one rank")
-    t0 = time.perf_counter()
-    ddp_predict_tree()
-    for r in range(2):
-        shutil.rmtree(os.path.join(DDP_DIR, f"predict.rank{r}.out"), ignore_errors=True)
-    log(f"  tree: {DDP_WINDOWS * FRAME_DELTA + 1} frames of 512x512 written in "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    dp = launch_ranks("predict", 2, "gloo", 600)
-    log(f"  wall {time.perf_counter() - t0:.1f} s")
     _rank_line("predict (gloo, 2 ranks)", dp)
     ref_dir = os.path.join(DDP_DIR, "predict.one.out")
     plain_dir = os.path.join(DDP_DIR, "predict.plain.out")
@@ -4464,8 +4489,14 @@ def ddp_phase(dev, root) -> dict:
     log(f"[23a] one rank over NCCL: run_flow_fit, PSPNet-50 float32, global batch 2, "
         f"{CROP} px crops, {DDP_STEPS} steps, {DDP_VAL} validation frames, on {smi}")
     t0 = time.perf_counter()
-    (one,) = launch_ranks("fit", 1, "nccl", 600)
-    log(f"  wall {time.perf_counter() - t0:.1f} s with the process start")
+    # 23b's NCCL probe starts beside it: its two ranks fail at their first
+    # all-reduce, within the one rank's start-up
+    with ThreadPoolExecutor(1) as pool:
+        probe = pool.submit(launch_ranks, "nccl_probe", 2, "nccl", 120, expect_fail=True)
+        (one,) = launch_ranks("fit", 1, "nccl", 600)
+        log(f"  wall {time.perf_counter() - t0:.1f} s with the process start (23b's NCCL probe "
+            f"beside it)")
+        codes, outs = probe.result()
     _rank_line("fit (NCCL, 1 rank)", [one])
     warps = 2 * (FRAME_DELTA - 1)
     want = {"grid_sample_cuda": warps * (DDP_STEPS + DDP_VAL),
@@ -4489,8 +4520,6 @@ def ddp_phase(dev, root) -> dict:
     del one["state"]
 
     log("[23b] two ranks on the one card")
-    t0 = time.perf_counter()
-    codes, outs = launch_ranks("nccl_probe", 2, "nccl", 120, expect_fail=True)
     msgs = [next((ln for ln in out.splitlines() if "Duplicate GPU" in ln), None)
             for out in outs]
     for r, (c, out) in enumerate(zip(codes, outs)):
@@ -4499,11 +4528,19 @@ def ddp_phase(dev, root) -> dict:
         log(f"  NCCL, two ranks on cuda:0, one all-reduce: rank {r} exit {c}; "
             f"{(res.get('error') or 'no error')[:300]}")
     log(f"  NCCL refuses two ranks on one device: "
-        f"{'yes (Duplicate GPU detected)' if any(msgs) else 'see the lines above'}; "
-        f"{time.perf_counter() - t0:.1f} s. The two ranks run on gloo with CUDA tensors.")
+        f"{'yes (Duplicate GPU detected)' if any(msgs) else 'see the lines above'}. The two "
+        f"ranks run on gloo with CUDA tensors.")
     t0 = time.perf_counter()
-    two = launch_ranks("fit", 2, "gloo", 600)
-    log(f"  fit over 2 gloo ranks, 1 + 1 samples: wall {time.perf_counter() - t0:.1f} s")
+    ddp_predict_tree()  # 23c's, which the launch below reads
+    for r in range(2):
+        shutil.rmtree(os.path.join(DDP_DIR, f"predict.rank{r}.out"), ignore_errors=True)
+    log(f"  23c's tree: {DDP_WINDOWS * FRAME_DELTA + 1} frames of 512x512 written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launched = launch_ranks("fit,u2pl,predict", 2, "gloo", 900)
+    log(f"  the fit (1 + 1 samples), 23b's contrastive steps and 23c's DP predict over 2 gloo "
+        f"ranks, one launch: wall {time.perf_counter() - t0:.1f} s")
+    two = launched["fit"]
     _rank_line("fit (gloo, 2 ranks)", two)
     # each rank: every step's forward on its sample, its share of the
     # validation frames
@@ -4532,8 +4569,8 @@ def ddp_phase(dev, root) -> dict:
         del r["state"]
     del ref
 
-    ddp_u2pl_part(dev)
-    predict_launches = ddp_predict_part(dev)
+    ddp_u2pl_part(dev, launched["u2pl"])
+    predict_launches = ddp_predict_part(dev, launched["predict"])
     log(f"  phase 23: {time.perf_counter() - t_all:.1f} s on {smi}")
     return {"pspnet_f32_ddp_fit": {"launches": fit_launches},
             "pspnet_bf16_ddp_predict": {"launches": predict_launches}}
@@ -5267,6 +5304,274 @@ def segm_alone() -> int:
     return 0
 
 
+# ------------------------------------------- the convergence gates: phase 27
+
+CONVERGE_DIR = os.path.join(os.path.dirname(DATA_DIR), "converge")
+# tests/test_convergence.py's floors (:55, :66, :148): best val mIoU, and
+# for the supervised gate test-on-best
+CONVERGE_FLOORS = {"supervised": {"best_val_miou": 0.40, "test_miou1_epoch": 0.30},
+                   "flow_supervised": {"best_val_miou": 0.12}}
+
+
+def converge_gate(method, root, log_dir, run_name) -> dict:
+    """tests/test_convergence.py's gate config (:33-47, :118-132)."""
+    return {
+        "method": method,
+        "trainer": {"max_epochs": 30, "seed": 1, "log_dir": log_dir, "run_name": run_name,
+                    "num_devices": 1, "early_stopping_patience": 1000},
+        "model": {"arch": "pspnet", "layers": 50, "classes": 5, "test_base_size": 128,
+                  "optim": {"lr": 0.01}, "loss": {"min_kept": 200}, "pretrained": False,
+                  "save_video": False, "save_images": False},
+        "data": {"data_root": root, "data_variant": "all", "batch_size": 4, "train_w": 65,
+                 "workers": 2, "resize_h": 96, "resize_w": 128, "scale_min": 0.8,
+                 "scale_max": 1.2, "frame_delta": 5, "predict_v_id": "synth"},
+    }
+
+
+def converge_config(method, root, log_dir, run_name):
+    """The gate's Config through the port's ``load_config``, its values as
+    dot-path overrides on the defaults (no YAML reader needed)."""
+    from floodseg_tpu_torch.core.config import load_config
+
+    def flat(d, prefix=""):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", v
+
+    return load_config([], dict(flat(converge_gate(method, root, log_dir, run_name))))
+
+
+def converge_tree() -> str:
+    """tests/test_convergence.py's synthetic tree (the generator's seed 0)."""
+    root = os.path.join(CONVERGE_DIR, "data")
+    shutil.rmtree(root, ignore_errors=True)
+    return generate_synthetic_dataset(root, num_frames=30, frame_delta=5, size=(96, 128),
+                                      num_labeled=20)
+
+
+def val_curve(run_dir) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [r["val_miou_epoch"] for r in map(json.loads, f) if "val_miou_epoch" in r]
+
+
+def converge_fit(dev, method, root) -> dict:
+    """27a / 27b: the gate's fit through ``Runner.fit`` on the card (the
+    steps in float32, TF32 off), then ``restore_best`` and ``test``; each
+    floor of CONVERGE_FLOORS must hold. The counters are set to 0 before the
+    fit and read after the test."""
+    from floodseg_tpu_torch.cli.runner import Runner
+
+    log_dir = os.path.join(CONVERGE_DIR, "logs")
+    shutil.rmtree(os.path.join(log_dir, method), ignore_errors=True)  # no resume
+    runner = Runner(converge_config(method, root, log_dir, method), device=dev)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = runner.fit()
+    torch.cuda.synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    fit_launches = launch_counts()
+    best = runner.logger.summary.get("best_val_miou", 0.0)
+    state = runner.restore_best(state)
+    t0 = time.perf_counter()
+    results = runner.test(state)
+    torch.cuda.synchronize(dev)
+    test_s = time.perf_counter() - t0
+    launches = launch_counts()
+    runner.logger.close()
+    got = {"best_val_miou": best, "test_miou1_epoch": results["test_miou1_epoch"]}
+    curve = val_curve(runner.logger.log_dir)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"  val mIoU by epoch {[round(v, 4) for v in curve]}")
+    log(f"  best val mIoU {best:.4f} at epoch {runner.fit_summary['best_epoch']} (floor "
+        f"{CONVERGE_FLOORS[method]['best_val_miou']}), test-on-best test_miou1_epoch "
+        f"{got['test_miou1_epoch']:.4f}"
+        + (f" (floor {CONVERGE_FLOORS[method]['test_miou1_epoch']})"
+           if "test_miou1_epoch" in CONVERGE_FLOORS[method] else " (no floor)")
+        + f"; fit {fit_s:.1f} s, test {test_s:.1f} s, peak {peak:.2f} GB on {nvidia_smi_line()}")
+    log(f"  launches: the fit {fit_launches}; with the test {launches}")
+    failures = [f"{k} {got[k]:.4f} < {floor}" for k, floor in CONVERGE_FLOORS[method].items()
+                if not got[k] >= floor]
+    if method == "flow_supervised":
+        failures += [f"{k} launched {fit_launches[k]} times in the fit"
+                     for k in ("grid_sample_cuda", "grid_sample_backward_cuda")
+                     if fit_launches[k] <= 0]
+    if failures:
+        raise AssertionError(f"phase 27 {method} gate: {'; '.join(failures)}")
+    return {"launches": launches, "seconds": fit_s, "peak_gb": peak, "curve": curve, **got,
+            "best_path": runner.ckpt.best_path}
+
+
+LAUNCH_ARGS = ["--data.train_w", "65", "--data.resize_h", "96", "--data.resize_w", "128",
+               "--data.scale_min", "0.8", "--data.scale_max", "1.2",
+               "--data.frame_delta", "5", "--data.predict_v_id", "synth", "--data.workers", "2",
+               "--data.workers_test", "2", "--model.test_base_size", "128",
+               "--model.loss.min_kept", "200", "--model.pretrained", "false",
+               "--model.save_video", "false", "--trainer.max_epochs", "1",
+               "--trainer.limit_train_batches", "2", "--trainer.limit_val_batches", "1",
+               "--trainer.limit_test_batches", "1"]
+LAUNCH_KERNELS = ("grid_sample_cuda", "grid_sample_backward_cuda", "warp_chain_cuda")
+
+
+@contextlib.contextmanager
+def in_repo_root():
+    """The launchers take configs/ relative to the working directory, as
+    scripts/*.sh do."""
+    cwd = os.getcwd()
+    os.chdir(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+
+
+def launchers_phase(dev, root, flow) -> dict:
+    """27c: the launchers on the card on 27b's tree, each fit cut to one
+    epoch of 2 steps: ``launch train flow_supervised``, ``launch test`` and
+    ``launch predict`` on its run; ``sweep experiments/lr_example.yaml
+    --count 2`` as two runs in their own processes; scripts/clean.py over
+    that log dir with a planted crashed run; export_ckpt of 27b's best state
+    to a Lightning checkpoint, import_ckpt of it bit-equal to
+    ``Runner.load_torch_ckpt``'s state, and ``test --ckpt_path`` of the
+    import through K1; ``launch ingress`` stopping on a missing tool."""
+    from floodseg_tpu_torch.cli import export_ckpt, import_ckpt, launch, sweep
+    from floodseg_tpu_torch.cli import main as cli
+    from floodseg_tpu_torch.cli.runner import Runner
+    from floodseg_tpu_torch.core import yaml_subset
+
+    log_dir = os.path.join(CONVERGE_DIR, "launch_logs")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    on = [] if dev.type == "cuda" else ["--device", dev.type]  # the card by default
+    common = ["--data.data_root", root, *LAUNCH_ARGS, "--trainer.log_dir", log_dir, *on]
+    run_dir = os.path.join(log_dir, "launch")
+    total = dict.fromkeys(launch_counts(), 0)
+    failures = []
+
+    def counted(name, fn, *args, need=LAUNCH_KERNELS):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = fn(*args)
+        torch.cuda.synchronize(dev)
+        got = launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        log(f"  {name}: exit {rc}, {time.perf_counter() - t0:.1f} s, launches {got}")
+        failures.extend(f"{name}: {k} launched 0 times" for k in need if not got[k])
+        if rc:
+            failures.append(f"{name} exited {rc}")
+        return got
+
+    with in_repo_root():
+        counted("launch train flow_supervised", launch.main,
+                ["train", "flow_supervised", *common, "--trainer.run_name", "launch"])
+        counted("launch test", launch.main, ["test", "flow_supervised", run_dir, *common],
+                need=("grid_sample_cuda",))
+        counted("launch predict", launch.main,
+                ["predict", "flow_supervised", run_dir, *common],
+                need=("grid_sample_cuda", "warp_chain_cuda"))
+        if not os.path.exists(os.path.join(run_dir, "metrics.json")):
+            failures.append("launch train wrote no metrics.json")
+
+        sweep_yaml = os.path.join("experiments", "lr_example.yaml")
+        configs = [a for n in ("train_base", "train_flow_supervised", "dataset_flow")
+                   for a in ("--config", f"configs/{n}.yaml")]
+        t0 = time.perf_counter()
+        rc = sweep.main([sweep_yaml, "--count", "2", "--", *configs, *common])
+        with open(sweep_yaml) as f:
+            params = yaml_subset.load(f.read())["parameters"]
+        points = sweep.sweep_points(params, 2, 0)
+        log(f"  sweep {sweep_yaml} --count 2: exit {rc}, {time.perf_counter() - t0:.1f} s, "
+            f"points {points}")
+        if rc:
+            failures.append(f"sweep exited {rc}")
+        for lr, batch in points:
+            d = os.path.join(log_dir, f"sweep_lr={lr}_batch_size={batch}")
+            if not os.path.exists(os.path.join(d, "metrics.json")):
+                failures.append(f"sweep run {d} wrote no metrics.json")
+                continue
+            with open(os.path.join(d, "config.json")) as f:
+                resolved = json.load(f)
+            if (resolved["model"]["optim"]["lr"], resolved["data"]["batch_size"]) != (lr, batch):
+                failures.append(f"sweep run {d} resolved lr {resolved['model']['optim']['lr']}, "
+                                f"batch {resolved['data']['batch_size']}")
+
+        crashed = os.path.join(log_dir, "crashed", "checkpoints")
+        os.makedirs(crashed)
+        shutil.copy(os.path.join(run_dir, "checkpoints", "last"), os.path.join(crashed,
+                                                                              "last-0.pt"))
+        out = subprocess.run([sys.executable, os.path.join("scripts", "clean.py"), "--log_dir",
+                              log_dir], capture_output=True, text=True, timeout=120, check=True)
+        lines = out.stdout.splitlines()
+        log(f"  scripts/clean.py over {len(os.listdir(log_dir))} runs: {lines}")
+        if len(lines) != 1 or not lines[0].startswith(f"would delete {crashed} ("):
+            failures.append(f"clean.py reported {lines}")
+
+    gate = os.path.join(CONVERGE_DIR, "flow_supervised.yaml")
+    with open(gate, "w") as f:  # JSON is YAML: the port's reader takes it
+        json.dump(converge_gate("flow_supervised", root, os.path.join(CONVERGE_DIR, "logs"),
+                                "flow_supervised"), f)
+    lightning = os.path.join(CONVERGE_DIR, "best.ckpt")
+    imported = os.path.join(CONVERGE_DIR, "imported", "best.pt")
+    export_ckpt.main(["--config", gate, "--ckpt", flow["best_path"], "--out", lightning, *on])
+    import_ckpt.main(["--config", gate, "--ckpt", lightning, "--out", imported, *on])
+    runner = Runner(converge_config("flow_supervised", root, os.path.join(CONVERGE_DIR, "logs"),
+                                    "flow_supervised"), device=dev)
+    want = cpu_payload(runner.load_torch_ckpt(lightning))
+    got = torch.load(imported, map_location=dev, weights_only=False)
+    differ = payload_bits_differ(flat_cpu(got), want)
+    # the reference's flow layout has no aux head: the import keeps the model's
+    best, ours = (
+        {k: v for k, v in flat_cpu(p["model"]).items() if k.split(".")[1] not in AUX_KEYS}
+        for p in (torch.load(flow["best_path"], map_location="cpu", weights_only=False), got))
+    moved = payload_bits_differ(ours, best)
+    log(f"  export_ckpt -> import_ckpt of 27b's best state: {len(want)} payload entries, "
+        f"{differ} differ from load_torch_ckpt's bit for bit; {moved} of {len(ours)} "
+        f"model entries but the aux head's differ from the best checkpoint's")
+    if differ or moved:
+        failures.append(f"import_ckpt: {differ} entries differ from load_torch_ckpt's, "
+                        f"{moved} model entries from the best checkpoint's")
+    counted("test --ckpt_path <imported>", cli.main,
+            ["test", "--config", gate, "--ckpt_path", imported, *on], need=("grid_sample_cuda",))
+    try:
+        launch.ingress(os.path.join(CONVERGE_DIR, "clip"))
+        failures.append("launch ingress ran without ffmpeg and mvextractor")
+    except SystemExit as e:
+        log(f"  launch ingress stops: {e}")
+    if failures:
+        raise AssertionError(f"phase 27c: {'; '.join(failures)}")
+    return {"launches": total}
+
+
+def converge_phases(dev) -> dict:
+    """Phase 27 (see the module note); returns its paths' records."""
+    t0 = time.perf_counter()
+    root = converge_tree()
+    log(f"[27a] the supervised convergence gate on the card (tests/test_convergence.py:26): "
+        f"PSPNet-50, 5 classes, 30 epochs, batch 4, 65 px crops, seed 1, lr 0.01, float32 "
+        f"with TF32 off (tree of 30 frames at 96x128 in {time.perf_counter() - t0:.1f} s)")
+    paths = {"pspnet_f32_converge_supervised": converge_fit(dev, "supervised", root)}
+    log("[27b] the flow_supervised convergence gate on the card (tests/test_convergence.py:112)")
+    paths["pspnet_f32_converge_flow"] = flow = converge_fit(dev, "flow_supervised", root)
+    log("[27c] the launchers on the card: launch train/test/predict, sweep, clean.py, "
+        "export_ckpt -> import_ckpt -> test, ingress")
+    paths["pspnet_f32_launchers"] = launchers_phase(dev, root, flow)
+    for p in paths.values():
+        p.pop("best_path", None)
+    log(f"  phase 27: {time.perf_counter() - t0:.1f} s on {nvidia_smi_line()}")
+    return paths
+
+
+def converge_alone() -> int:
+    """--converge: build csrc/warp.cu and the codec, then phase 27."""
+    log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}")
+    build_kernels(["warp", "jpeg"])
+    converge_phases(torch.device("cuda"))
+    return 0
+
+
 # ------------------------------------------------------------------ main
 
 # slow-pipe conversions and functions, the divide's range check, calls
@@ -5685,6 +5990,8 @@ def main() -> int:
         return remat_alone()
     if sys.argv[1:] == ["--segm"]:
         return segm_alone()
+    if sys.argv[1:] == ["--converge"]:
+        return converge_alone()
     if sys.argv[1:2] == ["--ddp-rank"] and len(sys.argv) == 5:
         return ddp_rank(*sys.argv[2:])
     if sys.argv[1:2] == ["--k1"] and len(sys.argv) <= 3:
@@ -5842,6 +6149,7 @@ def main() -> int:
     train_paths.update({k: v for k, v in remat_paths.items() if "step_ms" in v})
     log(f"  phase 25: {time.perf_counter() - t_opt:.1f} s")
     paths.update(segm_phases(dev))
+    paths.update(converge_phases(dev))
 
     sources = {"grid_sample_cuda": ("floodseg_tpu/ops/pallas_warp.py:70", "warp.cu"),
                "grid_sample_backward_cuda": (

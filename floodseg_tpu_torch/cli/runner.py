@@ -6,8 +6,9 @@ for every rank, n for min(n, ranks), below the ranks raises). The global
 batch is ``batch_size`` times the ranks; only rank 0 writes checkpoints,
 logs and predict's files.
 
-- ``fit``: the method's ``run_*`` (train/fit.py) with the Runner as its
-  ``FitHooks``: an optional warm start from a reference checkpoint
+- ``fit``: the resolved config written to the run's config.json, then the
+  method's ``run_*`` (train/fit.py) with the Runner as its ``FitHooks``: an
+  optional warm start from a reference checkpoint
   (``--torch_ckpt``), resume from the run's ``last`` checkpoint at the next
   epoch with the early-stopping state of ``early_stop.json``, then every
   epoch the logger's records, a checkpoint (top-k by val mIoU plus last,
@@ -37,7 +38,7 @@ import torch
 import torch.nn as nn
 
 from floodseg_tpu_torch.core.checkpoint import CheckpointManager
-from floodseg_tpu_torch.core.config import Config, fit_config
+from floodseg_tpu_torch.core.config import Config, config_to_dict, fit_config
 from floodseg_tpu_torch.core.device import DeviceLike, resolve_device
 from floodseg_tpu_torch.core.logging import RunLogger
 from floodseg_tpu_torch.data.transforms import MEAN, STD
@@ -153,6 +154,7 @@ class Runner(FitHooks):
         warm-start from (fresh optimizer; a resume of this run wins)."""
         cfg, fc = self.cfg, self.fit_cfg
         self._torch_ckpt = torch_ckpt
+        self.logger.write_config(config_to_dict(cfg))
         kw = dict(pretrained=self._pretrained_variables(), device=self.device, hooks=self,
                   world=self.world)
         root = cfg.data.data_root

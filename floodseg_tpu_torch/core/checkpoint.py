@@ -16,7 +16,10 @@ index holds the names without it.
 Saves are synchronous and atomic: each file is written under a temporary
 name and moved into place with ``os.replace``, so a crash leaves either
 the old file or the new one; the ``last`` link points at the new last
-checkpoint when ``save`` returns. ``restore`` of a ``.../last`` path resolves
+checkpoint when ``save`` returns. An epoch that enters the top k writes
+its bytes once: its ``last-{epoch}.pt`` is a hard link of the top-k file
+(no file is ever rewritten in place, only replaced or removed), or a
+second write where the file system has no hard links. ``restore`` of a ``.../last`` path resolves
 to the newest ``last-{epoch}.pt`` in that directory.
 
 A checkpoint holds a method's whole state (``state_payload``): a
@@ -65,6 +68,15 @@ def _resolve_last(path: str) -> Optional[str]:
     if entries:
         return entries[-1][1]
     return path if os.path.exists(path) else None
+
+
+def _link_or_save(src: str, payload, path: str) -> None:
+    """``path`` as a hard link of ``src``, which holds ``payload``; the
+    payload written again where the link fails."""
+    try:
+        os.link(src, path)
+    except OSError:
+        torch.save(payload, path)
 
 
 def _atomic(path: str, write) -> None:
@@ -235,12 +247,15 @@ class CheckpointManager:
         else:
             keeps = metric > min(e["metric"] for e in self._index)
         payload = state_payload(state)
+        last = self._path(f"last-{epoch}")
         if keeps:
             metric = float(metric)
             name = f"epoch={epoch}-{self.monitor}={metric:.4f}"
             _atomic(self._path(name), lambda p: torch.save(payload, p))
             self._index.append({"name": name, "epoch": epoch, "metric": metric})
-        _atomic(self._path(f"last-{epoch}"), lambda p: torch.save(payload, p))
+            _atomic(last, lambda p: _link_or_save(self._path(name), payload, p))
+        else:
+            _atomic(last, lambda p: torch.save(payload, p))
         self._prune()
 
         def write_index(p):

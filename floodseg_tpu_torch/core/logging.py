@@ -1,5 +1,6 @@
 """Run logging (counterpart of floodseg_tpu/core/logging.py): metrics.jsonl,
-the run summary as metrics.json, and the test-image table.
+the run summary as metrics.json, the test-image table, and the fit's
+resolved config as config.json.
 
 TensorBoard (tensorboardX) and W&B are optional sinks, used only where
 they import, as in the JAX module; no device work goes through them.
@@ -81,6 +82,16 @@ class RunLogger:
         if self._wandb is not None:
             for k, v in values.items():
                 self._wandb.summary[k] = v
+
+    def write_config(self, config: Dict):
+        """The run's resolved config as config.json (None on a rank that
+        does not write)."""
+        if not self.writes:
+            return None
+        path = os.path.join(self.log_dir, "config.json")
+        with open(path, "w") as f:
+            json.dump(config, f, indent=1)
+        return path
 
     def write_metrics_json(self):
         """The run summary as metrics.json (None on a rank that does not

@@ -151,6 +151,17 @@ def _val_dataset(args, crop):
     return None
 
 
+def append_log(log_dir: str, epoch: int, train_loss: float, summ=None) -> None:
+    """The epoch's line of ``log_dir/log.txt``: its train loss and, after an
+    evaluation, ``summ``'s mean IoU and accuracy."""
+    entry = {"epoch": epoch, "train_loss": train_loss}
+    if summ is not None:
+        entry["val_mean_iou"] = summ["miou"]
+        entry["val_mean_acc"] = summ["macc"]
+    with open(os.path.join(log_dir, "log.txt"), "a") as f:
+        f.write(json.dumps(entry) + "\n")
+
+
 def main(argv=None, device=None) -> int:
     args = build_parser().parse_args(argv)
     crop = args.crop_size or args.im_size
@@ -231,12 +242,8 @@ def main(argv=None, device=None) -> int:
         ckpt.save(state, epoch, metrics)
 
         if world.is_main:
-            entry = {"epoch": epoch, "train_loss": logger.meters["loss"].global_avg}
-            if "val_miou" in metrics:
-                entry["val_mean_iou"] = metrics["val_miou"]
-                entry["val_mean_acc"] = summ["macc"]
-            with open(os.path.join(args.log_dir, "log.txt"), "a") as f:
-                f.write(json.dumps(entry) + "\n")
+            append_log(args.log_dir, epoch, logger.meters["loss"].global_avg,
+                       summ if "val_miou" in metrics else None)
     return 0
 
 

@@ -72,6 +72,27 @@ def _tiny_state(value: float):
     return TrainState(int(value), model, opt, lambda step: 0.1)
 
 
+@pytest.mark.parametrize("links", [True, False])
+def test_top_k_epoch_writes_its_bytes_once(tmp_path, monkeypatch, links):
+    """An epoch that enters the top k: its last-{epoch} is a hard link of
+    the top-k file, which outlives the link when the next save removes
+    it (two saves later, as the crash fallback stays until then); without
+    hard links both files are written, with the same state."""
+    if not links:
+        def refuse(src, dst):
+            raise OSError("no hard links here")
+        monkeypatch.setattr(os, "link", refuse)
+    ours = CheckpointManager(str(tmp_path / "ckpt"), save_top_k=2)
+    ours.save(_tiny_state(1.0), 0, {"val_miou_epoch": 0.5})
+    top, last = ours.best_path, ours.last_path
+    assert os.path.samefile(top, last) is links
+    ours.save(_tiny_state(2.0), 1, {})
+    ours.save(_tiny_state(3.0), 2, {})
+    assert not os.path.exists(last) and ours.best_path == top
+    restored = ours.restore(_tiny_state(0.0), top)
+    assert restored.step == 1 and torch.equal(restored.model.weight, torch.ones(2, 2))
+
+
 @pytest.mark.parametrize("top_k", [2, 0, -1])
 def test_manager_matches_jax(tmp_path, top_k):
     ours = CheckpointManager(str(tmp_path / "port"), save_top_k=top_k)

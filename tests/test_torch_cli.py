@@ -51,7 +51,7 @@ from floodseg_tpu.train.state import _merge as jax_merge
 
 from floodseg_tpu_torch.cli import main as cli
 from floodseg_tpu_torch.cli.runner import Runner
-from floodseg_tpu_torch.core.config import fit_config, load_config
+from floodseg_tpu_torch.core.config import config_to_dict, fit_config, load_config
 from floodseg_tpu_torch.data import generate_synthetic_dataset
 from floodseg_tpu_torch.data.image import imread
 from floodseg_tpu_torch.models import SegmenterViT, build_model, from_jax_variables
@@ -240,6 +240,8 @@ def test_fit_writes_the_jax_runner_metrics_and_image_table(flow_run):
                                          for c in ("ground_truth", "image", "prediction")]
     image = imread(os.path.join(table, "000_image.png"))
     assert image.shape == (96, 128, 3) and image.dtype == np.uint8
+    with open(os.path.join(log_dir, "flow_supervised", "config.json")) as f:
+        assert json.load(f) == json.loads(json.dumps(config_to_dict(runner.cfg)))
 
 
 def test_test_and_validate_on_the_restored_checkpoint(flow_run, tree):

@@ -39,13 +39,16 @@ from floodseg_tpu_torch.train.flow import _predict_decode, decode_split_ok
 from floodseg_tpu_torch.video import FlowInterpolator, default_grid
 
 from test_torch_deeplabv3 import assert_int8_maps_close
-from torch_port_fixtures import (
+from torch_port_fixtures import (  # noqa: F401
     builder_windows,
     deeplabv3_pair,
     jnorm,
+    one_torch_thread,
     run_port_builders,
     smooth_grids,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 LOGIT_ATOL = 0.05

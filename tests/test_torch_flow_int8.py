@@ -31,13 +31,16 @@ from floodseg_tpu_torch.train import make_cached_flow_predict_fn, make_flow_pred
 from floodseg_tpu_torch.train.flow import _predict_decode
 from floodseg_tpu_torch.video import FlowInterpolator, default_grid
 
-from torch_port_fixtures import (
+from torch_port_fixtures import (  # noqa: F401
     builder_windows,
     jnorm,
+    one_torch_thread,
     pspnet50_pair,
     run_port_builders,
     smooth_grids,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOGIT_ATOL = 5e-3
 LANE_SHARE = 1e-4
