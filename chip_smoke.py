@@ -17,7 +17,8 @@
     python3 chip_smoke.py --int8-enc  # phase 24 alone: the int8 encoder
     python3 chip_smoke.py --remat  # phase 25 alone: rematerialisation
     python3 chip_smoke.py --segm   # phase 26 alone: the standalone Segmenter stack
-    python3 chip_smoke.py --converge  # phase 27 alone: the convergence gates, the launchers
+    python3 chip_smoke.py --converge  # phase 27 alone: the convergence gates, the launchers;
+                                   # before it each gate at seeds 2 and 3, logged, unchecked
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -409,7 +410,8 @@ launchers and the Lightning export), which launches none of K1-K3:
    launch of K1, K1-bwd, K2 or K3. Logs ms a step (median after the
    first), seconds an evaluation image, peak memory. (b) A narrow
    Segmenter (d 128, 2 + 1 layers, 64 px) through the same runs on the
-   card and on the CPU: one segm.train step (the loss within
+   card and on the CPU, from init_from_generator_'s weights as every
+   card-vs-CPU check: one segm.train step (the loss within
    SEGM_LOSS_RTOL, what it changed by 4t's rule), sliding_inference on a
    96x160 image with flip (SEGM_PROB_ATOL, argmax on SEGM_ARGMAX_SHARE),
    attention_maps (SEGM_ATTN_ATOL a layer) and a ViTClassifier's logits
@@ -422,7 +424,9 @@ launchers and the Lightning export), which launches none of K1-K3:
 27. The convergence gates of tests/test_convergence.py on the card, on its
    synthetic tree (30 frames at 96x128, 20 labeled) and config: PSPNet-50,
    5 classes, 30 epochs, batch 4, 65 px crops, seed 1, lr 0.01, float32
-   with TF32 off, each through Runner.fit, restore_best and test. (a) The
+   with TF32 off, each through Runner.fit, restore_best and test, from the
+   Runner's own initial weights (init_flax_defaults_, the JAX package's
+   model.init distributions; the summary names it). (a) The
    supervised gate: best val mIoU >= 0.40, test-on-best test_miou1_epoch
    >= 0.30; (b) the flow_supervised gate: best val mIoU >= 0.12, with K1
    and K1-bwd launched in the fit. Each logs the val mIoU of every epoch,
@@ -5094,7 +5098,10 @@ def segm_card_vs_cpu(dev) -> None:
     """26b: the narrow Segmenter (d 128, 2 + 1 layers, 64 px) through the
     same runs on the card and on the CPU: one segm.train step, the sliding
     window with flip, the attention maps; and a narrow ViTClassifier's
-    logits."""
+    logits. Its weights, as every card-vs-CPU check's, are
+    ``init_from_generator_``'s (no LayerNorm at the identity): the product
+    init puts the step's LayerNorm changes at float32's own spread, which
+    STEP_ABS does not allow for."""
     from floodseg_tpu_torch.core.checkpoint import read_model_state
     from floodseg_tpu_torch.models import SegmenterViT, ViTClassifier
     from floodseg_tpu_torch.segm import attn, inference
@@ -5103,16 +5110,22 @@ def segm_card_vs_cpu(dev) -> None:
     cpu = torch.device("cpu")
     root = segm_tree(os.path.join(SEGM_DIR, "ade_narrow"), 2, 1, (96, 128), (80, 112), seed=1)
     runs = {}
-    for name, where in (("cpu", cpu), ("card", dev)):
-        d = os.path.join(SEGM_DIR, f"narrow_{name}")
-        shutil.rmtree(d, ignore_errors=True)
-        segm_train.main(["--log-dir", d, "--dataset", "ade20k", "--data-root", root]
-                        + SEGM_NARROW, device=str(where))
-        state = read_model_state(os.path.join(d, "checkpoints", "last"))
-        runs[name] = (segm_log(d)[0]["train_loss"], {k: v.cpu() for k, v in state.items()})
-    cfg = dict(classes=150, image_size=64, patch_size=32, d_model=128, n_layers=2, dec_layers=1,
-               dropout=0.0)
-    p0 = segm_train.init_model(SegmenterViT(**cfg), 42).state_dict()
+    init_model = segm_train.init_model
+    segm_train.init_model = lambda model, seed: init_from_generator_(
+        model, torch.Generator().manual_seed(seed))
+    try:
+        for name, where in (("cpu", cpu), ("card", dev)):
+            d = os.path.join(SEGM_DIR, f"narrow_{name}")
+            shutil.rmtree(d, ignore_errors=True)
+            segm_train.main(["--log-dir", d, "--dataset", "ade20k", "--data-root", root]
+                            + SEGM_NARROW, device=str(where))
+            state = read_model_state(os.path.join(d, "checkpoints", "last"))
+            runs[name] = (segm_log(d)[0]["train_loss"], {k: v.cpu() for k, v in state.items()})
+        cfg = dict(classes=150, image_size=64, patch_size=32, d_model=128, n_layers=2,
+                   dec_layers=1, dropout=0.0)
+        p0 = segm_train.init_model(SegmenterViT(**cfg), 42).state_dict()
+    finally:
+        segm_train.init_model = init_model
     (loss_cpu, s_cpu), (loss_card, s_card) = runs["cpu"], runs["card"]
     if abs(loss_card - loss_cpu) > SEGM_LOSS_RTOL * abs(loss_cpu):
         raise AssertionError(f"phase 26b: the step's loss {loss_card} on the card, {loss_cpu} "
@@ -5328,9 +5341,10 @@ def converge_gate(method, root, log_dir, run_name) -> dict:
     }
 
 
-def converge_config(method, root, log_dir, run_name):
+def converge_config(method, root, log_dir, run_name, seed=1):
     """The gate's Config through the port's ``load_config``, its values as
-    dot-path overrides on the defaults (no YAML reader needed)."""
+    dot-path overrides on the defaults (no YAML reader needed); ``seed``
+    other than the gate's 1 only for --converge's record runs."""
     from floodseg_tpu_torch.core.config import load_config
 
     def flat(d, prefix=""):
@@ -5340,7 +5354,9 @@ def converge_config(method, root, log_dir, run_name):
             else:
                 yield f"{prefix}{k}", v
 
-    return load_config([], dict(flat(converge_gate(method, root, log_dir, run_name))))
+    gate = converge_gate(method, root, log_dir, run_name)
+    gate["trainer"]["seed"] = seed
+    return load_config([], dict(flat(gate)))
 
 
 def converge_tree() -> str:
@@ -5356,16 +5372,17 @@ def val_curve(run_dir) -> list:
         return [r["val_miou_epoch"] for r in map(json.loads, f) if "val_miou_epoch" in r]
 
 
-def converge_fit(dev, method, root) -> dict:
+def converge_fit(dev, method, root, seed=1) -> dict:
     """27a / 27b: the gate's fit through ``Runner.fit`` on the card (the
     steps in float32, TF32 off), then ``restore_best`` and ``test``; each
     floor of CONVERGE_FLOORS must hold. The counters are set to 0 before the
-    fit and read after the test."""
+    fit and read after the test. At another ``seed`` (--converge's record
+    runs) the readings are logged and nothing is checked."""
     from floodseg_tpu_torch.cli.runner import Runner
 
     log_dir = os.path.join(CONVERGE_DIR, "logs")
     shutil.rmtree(os.path.join(log_dir, method), ignore_errors=True)  # no resume
-    runner = Runner(converge_config(method, root, log_dir, method), device=dev)
+    runner = Runner(converge_config(method, root, log_dir, method, seed), device=dev)
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -5391,7 +5408,10 @@ def converge_fit(dev, method, root) -> dict:
         + (f" (floor {CONVERGE_FLOORS[method]['test_miou1_epoch']})"
            if "test_miou1_epoch" in CONVERGE_FLOORS[method] else " (no floor)")
         + f"; fit {fit_s:.1f} s, test {test_s:.1f} s, peak {peak:.2f} GB on {nvidia_smi_line()}")
-    log(f"  launches: the fit {fit_launches}; with the test {launches}")
+    log(f"  launches: the fit {fit_launches}; with the test {launches}; initial weights "
+        f"{Runner.initializer.__name__} at seed {seed}")
+    if seed != 1:
+        return got
     failures = [f"{k} {got[k]:.4f} < {floor}" for k, floor in CONVERGE_FLOORS[method].items()
                 if not got[k] >= floor]
     if method == "flow_supervised":
@@ -5564,11 +5584,18 @@ def converge_phases(dev) -> dict:
 
 
 def converge_alone() -> int:
-    """--converge: build csrc/warp.cu and the codec, then phase 27."""
+    """--converge: build csrc/warp.cu and the codec, each gate at seeds 2 and
+    3 for the record (no floor checked), then phase 27."""
     log(f"[1] environment: {nvidia_smi_line()} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda}")
     build_kernels(["warp", "jpeg"])
-    converge_phases(torch.device("cuda"))
+    dev = torch.device("cuda")
+    root = converge_tree()
+    for seed in (2, 3):
+        for method in CONVERGE_FLOORS:
+            log(f"[27 record] the {method} gate at seed {seed} (asserts nothing)")
+            converge_fit(dev, method, root, seed)
+    converge_phases(dev)
     return 0
 
 

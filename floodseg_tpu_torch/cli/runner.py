@@ -24,7 +24,8 @@ logs and predict's files.
   generator for s4GAN, the U2PL teacher once synced.
 
 The model is ``build_model`` of the config with weights drawn from a
-generator seeded with ``trainer.seed`` (``init_from_generator_``), and a
+generator seeded with ``trainer.seed`` in the JAX package's initial
+distributions (``Runner.initializer``, ``init_flax_defaults_``), and a
 pretrained ResNet trunk overlaid when ``model.pretrained_path`` names one.
 """
 
@@ -42,7 +43,7 @@ from floodseg_tpu_torch.core.config import Config, config_to_dict, fit_config
 from floodseg_tpu_torch.core.device import DeviceLike, resolve_device
 from floodseg_tpu_torch.core.logging import RunLogger
 from floodseg_tpu_torch.data.transforms import MEAN, STD
-from floodseg_tpu_torch.models import build_model, init_from_generator_
+from floodseg_tpu_torch.models import build_model, init_flax_defaults_
 from floodseg_tpu_torch.models.torch_import import convert_resnet_backbone, load_torch_file
 from floodseg_tpu_torch.parallel.mesh import World, current_world, resolve_num_devices
 from floodseg_tpu_torch.train.contrastive import U2PLState, served_model
@@ -77,6 +78,9 @@ def _load_role(module: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
 
 
 class Runner(FitHooks):
+    # the model's initial weights: the JAX Runner's ``model.init`` distributions
+    initializer = staticmethod(init_flax_defaults_)
+
     def __init__(self, cfg: Config, device: DeviceLike = None, world: Optional[World] = None):
         if cfg.method not in METHODS:
             raise ValueError(f"unknown method {cfg.method!r}; expected one of {METHODS}")
@@ -107,7 +111,7 @@ class Runner(FitHooks):
         model = build_model(m.arch, classes=m.classes, layers=m.layers, image_size=m.test_w,
                             with_aux=m.aux, remat=m.remat, dtype=_DTYPES[m.dtype],
                             semisupervised=self.cfg.method == "contrastive" and m.semisupervised)
-        return init_from_generator_(model, torch.Generator().manual_seed(self.cfg.trainer.seed))
+        return self.initializer(model, torch.Generator().manual_seed(self.cfg.trainer.seed))
 
     def _pretrained_variables(self) -> Optional[Dict[str, torch.Tensor]]:
         """The trunk of ``model.pretrained_path`` (a reference ResNet

@@ -42,7 +42,7 @@ def main(argv=None) -> int:
     from floodseg_tpu_torch.core.checkpoint import read_model_state
     from floodseg_tpu_torch.core.device import full_precision_f32, resolve_device
     from floodseg_tpu_torch.data.loader import DataLoader, device_put
-    from floodseg_tpu_torch.models.layers import init_from_generator_
+    from floodseg_tpu_torch.models.layers import init_flax_defaults_
     from floodseg_tpu_torch.models.vit import ViTClassifier
     from floodseg_tpu_torch.ops.metrics import AverageMeter, topk_accuracy
     from floodseg_tpu_torch.segm.data import ImageFolderClsDataset
@@ -56,9 +56,10 @@ def main(argv=None) -> int:
                         device_put=lambda b: device_put(b, dev))
     model = ViTClassifier(n_cls=args.n_cls, image_size=crop, patch_size=args.patch_size,
                           d_model=args.d_model, n_layers=args.n_layers)
-    init_from_generator_(model, torch.Generator().manual_seed(0))
     if args.ckpt:
         model.load_state_dict(read_model_state(args.ckpt), strict=True)
+    else:  # the JAX script's model.init at PRNGKey(0)
+        init_flax_defaults_(model, torch.Generator().manual_seed(0))
     model = model.to(dev).eval()
 
     k2 = min(5, args.n_cls)  # top-5 needs >= 5 classes

@@ -65,7 +65,7 @@ def main(argv=None) -> int:
     from floodseg_tpu_torch.core.device import resolve_device
     from floodseg_tpu_torch.data.image import imread, read_rgb, write_jpeg, write_png
     from floodseg_tpu_torch.data.transforms import MEAN, STD
-    from floodseg_tpu_torch.models.layers import init_from_generator_
+    from floodseg_tpu_torch.models.layers import init_flax_defaults_
     from floodseg_tpu_torch.models.vit import SegmenterViT
     from floodseg_tpu_torch.ops.cv2_compat import pil_resize_bicubic
     from floodseg_tpu_torch.ops.metrics import MetricMeter, intersection_and_union
@@ -77,9 +77,10 @@ def main(argv=None) -> int:
     model = SegmenterViT(classes=args.n_cls, image_size=window, patch_size=args.patch_size,
                          d_model=args.d_model, n_layers=args.n_layers,
                          dec_layers=args.dec_layers, decoder_type=args.decoder)
-    init_from_generator_(model, torch.Generator().manual_seed(0))
     if args.ckpt != "-":
         model.load_state_dict(read_model_state(args.ckpt), strict=True)
+    else:  # the JAX script's model.init at PRNGKey(0)
+        init_flax_defaults_(model, torch.Generator().manual_seed(0))
     model = model.to(dev).eval()
     colors = palette(args.n_cls, args.colors)
     os.makedirs(args.output_dir, exist_ok=True)

@@ -45,7 +45,7 @@ def main(argv=None) -> int:
     from floodseg_tpu_torch.core.device import resolve_device
     from floodseg_tpu_torch.data.image import read_rgb, write_png
     from floodseg_tpu_torch.data.transforms import MEAN, STD
-    from floodseg_tpu_torch.models.layers import init_from_generator_
+    from floodseg_tpu_torch.models.layers import init_flax_defaults_
     from floodseg_tpu_torch.models.vit import SegmenterViT
     from floodseg_tpu_torch.ops.cv2_compat import pil_resize_bicubic
     from floodseg_tpu_torch.segm.attn import attention_maps, head_maps
@@ -53,9 +53,10 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     model = SegmenterViT(classes=args.n_cls, image_size=args.image_size,
                          patch_size=args.patch_size)
-    init_from_generator_(model, torch.Generator().manual_seed(0))
     if args.ckpt != "-":
         model.load_state_dict(read_model_state(args.ckpt), strict=True)
+    else:  # the JAX script's model.init at PRNGKey(0)
+        init_flax_defaults_(model, torch.Generator().manual_seed(0))
     model = model.to(dev)
 
     size = args.image_size - args.image_size % args.patch_size

@@ -15,7 +15,7 @@ import torch.nn as nn
 from floodseg_tpu_torch.models.convert import from_jax_variables, load_jax_variables
 from floodseg_tpu_torch.models.deeplabv3 import DeepLabV3
 from floodseg_tpu_torch.models.discriminator import S4GANDiscriminator
-from floodseg_tpu_torch.models.layers import init_from_generator_
+from floodseg_tpu_torch.models.layers import init_flax_defaults_, init_from_generator_
 from floodseg_tpu_torch.models.pspnet import PPM, PSPNet
 from floodseg_tpu_torch.models.resnet import ResNetFeatures
 from floodseg_tpu_torch.models.semi import ArchWrapper, ModelRepresentation, unwrap, with_rep
@@ -39,7 +39,8 @@ def build_model(arch: str, classes: int = 5, layers: int = 50, image_size: int =
     reference's ``ModelRepresentation`` layout; ``remat`` rematerialises
     every bottleneck of the CNNs' trunks in training (models/resnet.py;
     the ViT ignores it, as the JAX factory's does). Weights come from
-    ``load_jax_variables``, ``load_state_dict`` or
+    ``init_flax_defaults_`` (the JAX package's initial distributions),
+    ``load_jax_variables``, ``load_state_dict`` or, in tests,
     ``init_from_generator_``."""
     if arch == "pspnet":
         model = PSPNet(classes=classes, layers=layers, with_aux=with_aux, dtype=dtype,
@@ -56,5 +57,6 @@ def build_model(arch: str, classes: int = 5, layers: int = 50, image_size: int =
 
 __all__ = ["ARCHS", "ArchWrapper", "DeepLabV3", "MaskTransformer", "ModelRepresentation", "PPM",
            "PSPNet", "ResNetFeatures", "S4GANDiscriminator", "SegmenterViT",
-           "ViTClassifier", "VisionTransformer", "build_model", "from_jax_variables", "init_from_generator_",
-           "load_jax_variables", "unwrap", "with_rep"]
+           "ViTClassifier", "VisionTransformer", "build_model", "from_jax_variables",
+           "init_flax_defaults_", "init_from_generator_", "load_jax_variables", "unwrap",
+           "with_rep"]

@@ -256,7 +256,9 @@ _BN_JITTER = 0.1
 
 @torch.no_grad()
 def init_from_generator_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights drawn from ``generator`` alone, in module order.
+    """Random weights drawn from ``generator`` alone, in module order: the
+    tests' and the kernel checks' weights, not a model's default (which is
+    ``init_flax_defaults_``).
 
     Convolutions get He-normal weights (fan-in) and small biases. Every
     BatchNorm gets its scale, bias, running mean and running variance
@@ -296,4 +298,62 @@ def init_from_generator_(module: nn.Module, generator: torch.Generator) -> nn.Mo
                 p.normal_(0.0, 0.02, generator=generator)
             elif pname in ("proj_patch", "proj_classes"):
                 p.normal_(0.0, p.shape[0] ** -0.5, generator=generator)
+    return module
+
+
+# the standard deviation of a unit normal truncated to [-2, 2]: flax's
+# variance-scaling initializers divide by it, so that the truncated draw has
+# the variance asked for
+_TRUNC_STD = 0.87962566103423978
+_FLAX_LAYERS = (nn.Conv2d, nn.Linear, nn.BatchNorm2d, nn.LayerNorm)
+
+
+def _trunc_normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """N(0, std) truncated to [-2 std, 2 std] in place, by the inverse CDF
+    as ``jax.random.truncated_normal`` draws it: u uniform on [erf(-sqrt 2),
+    erf(sqrt 2)], x = sqrt 2 * erfinv(u), clipped to the bounds."""
+    lo = math.erf(-math.sqrt(2.0))
+    p.uniform_(lo, -lo, generator=generator).erfinv_().mul_(math.sqrt(2.0) * std)
+    p.clamp_(-2.0 * std, 2.0 * std)
+
+
+@torch.no_grad()
+def init_flax_defaults_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """A model's initial weights as the JAX package's ``model.init`` draws
+    them (flax's defaults and the ViT's own initializers), from
+    ``generator`` alone, in module order:
+
+    - every conv and Linear weight ``lecun_normal``: a normal truncated to
+      +-2 sigma, sigma = sqrt(1 / fan_in) / 0.8796 so that the draw's
+      variance is 1 / fan_in (fan_in = in / groups * kh * kw for a conv,
+      in_features for a Linear; the ViT's patch conv has the fan-in of the
+      JAX ``patch_proj`` Dense);
+    - every bias 0; every BatchNorm scale 1, bias 0, running mean 0 and
+      running variance 1; every LayerNorm scale 1 and bias 0;
+    - ``cls_token`` 0; ``pos_embed`` and ``cls_emb`` ``truncated_normal(0.02)``
+      (std 0.02 on [-0.04, 0.04], no variance correction); ``proj_patch``
+      and ``proj_classes`` ``normal(d ** -0.5)``.
+
+    A parameter of any other kind raises. The values are not JAX's draws
+    (the generators differ); the distributions are.
+    """
+    for name, m in module.named_modules():
+        for pname, p in m.named_parameters(recurse=False):
+            if isinstance(m, (nn.Conv2d, nn.Linear)) and pname == "weight":
+                _trunc_normal_(p, math.sqrt(1.0 / p[0].numel()) / _TRUNC_STD, generator)
+            elif isinstance(m, _FLAX_LAYERS) and pname == "bias" or pname == "cls_token":
+                p.zero_()
+            elif isinstance(m, _FLAX_LAYERS) and pname == "weight":
+                p.fill_(1.0)
+            elif pname in ("pos_embed", "cls_emb"):
+                _trunc_normal_(p, 0.02, generator)
+            elif pname in ("proj_patch", "proj_classes"):
+                p.normal_(0.0, p.shape[0] ** -0.5, generator=generator)
+            else:
+                raise ValueError(f"no flax default for {name}.{pname} of "
+                                 f"{type(m).__name__}")
+        if isinstance(m, nn.BatchNorm2d):
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+            m.num_batches_tracked.zero_()
     return module

@@ -94,10 +94,11 @@ def build_parser():
 
 
 def init_model(model: torch.nn.Module, seed: int) -> torch.nn.Module:
-    """The model's initial weights, drawn from ``seed``."""
-    from floodseg_tpu_torch.models.layers import init_from_generator_
+    """The model's initial weights, drawn from ``seed`` in the JAX
+    package's distributions (``init_flax_defaults_``)."""
+    from floodseg_tpu_torch.models.layers import init_flax_defaults_
 
-    return init_from_generator_(model, torch.Generator().manual_seed(seed))
+    return init_flax_defaults_(model, torch.Generator().manual_seed(seed))
 
 
 def _train_dataset(args, crop):

@@ -58,7 +58,7 @@ import torch
 import torch.nn as nn
 
 from floodseg_tpu_torch.core.device import full_precision_f32
-from floodseg_tpu_torch.models.layers import data_parallel, init_from_generator_
+from floodseg_tpu_torch.models.layers import data_parallel, init_flax_defaults_
 from floodseg_tpu_torch.ops.losses import ohem_with_aux
 from floodseg_tpu_torch.ops.u2pl import (
     U2PLDraws,
@@ -127,11 +127,11 @@ def create_u2pl_state(model: nn.Module, optimizer: torch.optim.Optimizer,
     """The state at step 0: the student ``model`` (``pretrained`` overlaid
     on it only), the ``teacher`` (None: a copy of the model's architecture
     with its own random weights and BN statistics from
-    ``init_from_generator_`` seeded with ``seed``, made before the overlay),
+    ``init_flax_defaults_`` seeded with ``seed``, made before the overlay),
     on the model's device, and an empty bank there."""
     if teacher is None:
-        teacher = init_from_generator_(copy.deepcopy(model).cpu(),
-                                       torch.Generator().manual_seed(seed))
+        teacher = init_flax_defaults_(copy.deepcopy(model).cpu(),
+                                      torch.Generator().manual_seed(seed))
     dev = next(model.parameters()).device
     teacher.to(dev)
     if dev.type == "cuda":

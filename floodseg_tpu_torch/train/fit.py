@@ -69,7 +69,7 @@ from floodseg_tpu_torch.data.transforms import (
     build_val_transform,
 )
 from floodseg_tpu_torch.models.discriminator import S4GANDiscriminator
-from floodseg_tpu_torch.models.layers import init_from_generator_
+from floodseg_tpu_torch.models.layers import init_flax_defaults_
 from floodseg_tpu_torch.ops.metrics import MetricMeter, intersection_and_union
 from floodseg_tpu_torch.parallel.mesh import World, all_reduce_array
 from floodseg_tpu_torch.train.contrastive import (
@@ -470,7 +470,7 @@ def method_state(model: nn.Module, cfg: FitConfig, method: str, steps_per_epoch:
     (``AUX_KEYS``: never updated), the discriminator's Adam (``lr_D``,
     betas (0.9, 0.99), no weight decay, one group; the same poly schedule),
     ``discriminator`` or one with weights drawn from a generator seeded with
-    ``seed``; for "contrastive" a ``U2PLState`` (create_u2pl_state: the
+    ``seed`` (``init_flax_defaults_``, the JAX package's distributions); for "contrastive" a ``U2PLState`` (create_u2pl_state: the
     ``teacher`` or one drawn from ``seed + 1``, the bank on the model's
     device). ``pretrained`` goes on ``model`` only. The run_* functions and
     the CLI's Runner (to restore a checkpoint into) build it here."""
@@ -479,8 +479,8 @@ def method_state(model: nn.Module, cfg: FitConfig, method: str, steps_per_epoch:
     if method in GAN_METHODS:
         state_g = _state(model, cfg, steps_per_epoch, pretrained, exclude=AUX_KEYS)
         if discriminator is None:
-            discriminator = init_from_generator_(S4GANDiscriminator(cfg.classes),
-                                                 torch.Generator().manual_seed(cfg.seed))
+            discriminator = init_flax_defaults_(S4GANDiscriminator(cfg.classes),
+                                                torch.Generator().manual_seed(cfg.seed))
         _prepare(discriminator, dev)
         opt_d, schedule_d = make_optimizer(discriminator, cfg.lr_D,
                                            _max_iter(cfg, steps_per_epoch), "adam",

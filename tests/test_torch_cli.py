@@ -55,7 +55,7 @@ from floodseg_tpu_torch.core.config import config_to_dict, fit_config, load_conf
 from floodseg_tpu_torch.data import generate_synthetic_dataset
 from floodseg_tpu_torch.data.image import imread
 from floodseg_tpu_torch.models import SegmenterViT, build_model, from_jax_variables
-from floodseg_tpu_torch.models import init_from_generator_, with_rep
+from floodseg_tpu_torch.models import init_flax_defaults_, init_from_generator_, with_rep
 from floodseg_tpu_torch.models.torch_import import convert_resnet_backbone
 from floodseg_tpu_torch.train import (
     run_contrastive_fit,
@@ -69,6 +69,9 @@ from floodseg_tpu_torch.train import (
 from floodseg_tpu_torch.train.state import overlay
 
 from torch_port_fixtures import numpy_leaves
+from torch_port_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIT = dict(image_size=64, patch_size=32, d_model=64, n_layers=1, dec_layers=1, n_heads=2)
@@ -323,15 +326,17 @@ def test_cli_without_device_needs_a_card(tree, tmp_path):
 
 def test_runner_builds_the_configured_model(monkeypatch, tmp_path):
     """The real ``_build_model``: build_model of the config's arch, depth,
-    classes, aux head and rep head, weights drawn from the seed."""
+    classes, aux head and rep head, weights drawn from the seed in the JAX
+    package's initial distributions (``init_flax_defaults_``, held to
+    flax's in tests/test_torch_init.py)."""
     monkeypatch.undo()
     cfg = load_config([os.path.join(REPO, "configs", n) for n in (
         "train_base.yaml", "train_contrastive.yaml", "dataset_flow.yaml", "pspnet.yaml")],
         {"trainer.log_dir": str(tmp_path), "trainer.run_name": "b", "trainer.seed": "3"})
     ours = Runner(cfg, device="cpu").model
-    ref = init_from_generator_(build_model("pspnet", classes=5, layers=50, with_aux=True,
-                                           semisupervised=True),
-                               torch.Generator().manual_seed(3))
+    ref = init_flax_defaults_(build_model("pspnet", classes=5, layers=50, with_aux=True,
+                                          semisupervised=True),
+                              torch.Generator().manual_seed(3))
     _state_dict_equal(ours.state_dict(), ref.state_dict())
 
 

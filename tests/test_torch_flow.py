@@ -41,6 +41,9 @@ from torch_port_fixtures import (
     run_port_builders,
     smooth_grids,
 )
+from torch_port_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

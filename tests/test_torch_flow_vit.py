@@ -31,6 +31,9 @@ from floodseg_tpu_torch.train.flow import _predict_decode, decode_split_ok
 from floodseg_tpu_torch.video import FlowInterpolator, default_grid
 
 from torch_port_fixtures import builder_windows, jnorm, run_port_builders, smooth_grids, vit_pair
+from torch_port_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SHARE = 1e-4
 NO_LAUNCHES = {"grid_sample_cuda": 0, "grid_sample_backward_cuda": 0,

@@ -64,6 +64,9 @@ from torch_gan_fixtures import (  # noqa: F401 (the tests run on this file's tra
     trajectory_of,
 )
 from torch_port_fixtures import jax_runner, masks_per_call
+from torch_port_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

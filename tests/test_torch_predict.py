@@ -50,6 +50,9 @@ from floodseg_tpu_torch.train import (
 from floodseg_tpu_torch.video import grid
 
 from torch_port_fixtures import jnorm, pspnet50_pair
+from torch_port_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 5
 SIZE = (64, 96)

@@ -39,6 +39,9 @@ from floodseg_tpu_torch.models import PSPNet
 from floodseg_tpu_torch.train import default_fit_config, flow_transforms, run_flow_fit
 
 from torch_port_fixtures import _perturb_bn, _to_dict, port_state
+from torch_port_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 5
 SIZE = (96, 128)

@@ -60,6 +60,9 @@ from torch_port_fixtures import (
     jax_head_mask_through_bridge,
     port_state,
 )
+from torch_port_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SIZE, B, T, CLASSES = 33, 2, 4, 5
 LR, MAX_ITER, MIN_KEPT = 1e-3, 10, 200

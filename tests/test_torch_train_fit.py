@@ -34,6 +34,9 @@ from floodseg_tpu_torch.models.layers import Dropout
 from floodseg_tpu_torch.train import default_fit_config, fit, run_flow_fit
 
 from torch_port_fixtures import _perturb_bn, _to_dict, jax_fit, port_state, round_grids
+from torch_port_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CROP = 33
 FIT = default_fit_config(train_h=CROP, train_w=CROP, resize_h=96, resize_w=128, frame_delta=5,

@@ -64,6 +64,9 @@ from floodseg_tpu_torch.train import (
 from floodseg_tpu_torch.train.fit import step_generator
 
 from torch_port_fixtures import _perturb_bn, _to_dict, jax_fit_data, jax_fit_state, port_state
+from torch_port_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CROP = 33
 FIT = default_fit_config(train_h=CROP, train_w=CROP, resize_h=96, resize_w=128, frame_delta=5,

@@ -48,6 +48,9 @@ from floodseg_tpu_torch.train import (
 )
 
 from torch_port_fixtures import _perturb_bn, _to_dict, port_state
+from torch_port_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SIZE, B, T, CLASSES = 33, 2, 4, 5
 LR, MAX_ITER, MIN_KEPT = 1e-3, 10, 200

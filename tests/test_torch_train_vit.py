@@ -61,6 +61,9 @@ from torch_port_fixtures import (
     port_state,
     vit_mask_names,
 )
+from torch_port_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SIZE, B, T, CLASSES = 64, 2, 4, 5
 LR, MAX_ITER, MIN_KEPT = 1e-3, 10, 2000

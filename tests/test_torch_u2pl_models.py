@@ -60,6 +60,9 @@ from floodseg_tpu_torch.train import (
 
 from torch_port_fixtures import _numpy_init, jax_head_mask_through_bridge
 from torch_u2pl_fixtures import jax_model, port_model, t, weights
+from torch_port_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 HW = 96
 VIT = dict(image_size=64, patch_size=32, d_model=64, n_layers=1, dec_layers=1, n_heads=2)

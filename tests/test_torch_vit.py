@@ -44,6 +44,9 @@ from floodseg_tpu_torch.models.layers import LayerNorm, Linear, dropout_generato
 from floodseg_tpu_torch.train.flow import decode_split_ok
 
 from torch_port_fixtures import vit_pair
+from torch_port_fixtures import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 F32_SHARE = 1e-5
 NET_SHARE = 1e-4
