@@ -16,13 +16,15 @@ version; for CUDA tensors it launches the kernel on the current stream, or
 raises. The scale stays on the device: the kernel reads it through a
 pointer, so nothing synchronises. The wrapper counts its launches in
 ``resize_quantize_int8_cuda.launches``, which ``reset_launch_counts`` sets
-back to 0.
+back to 0. While a profiler records, a launch is a host op named after the
+wrapper (core/profiler.py::kernel_launch).
 """
 
 import ctypes
 
 import torch
 
+from floodseg_tpu_torch.core.profiler import kernel_launch
 from floodseg_tpu_torch.ops import build
 from floodseg_tpu_torch.ops.quant import quantize_with_scale
 from floodseg_tpu_torch.ops.resize import resize_bilinear, tap_tensors
@@ -86,7 +88,7 @@ def resize_quantize_int8_cuda(x: torch.Tensor, scale: torch.Tensor, out_hw,
         return out
     h_idx, h_w = tap_tensors(h, hh, bool(align_corners), x.dtype, x.device)
     w_idx, w_w = tap_tensors(w, ww, bool(align_corners), x.dtype, x.device)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), kernel_launch("resize_quantize_int8_cuda"):
         err = _library().floodseg_resize_quantize(
             x.data_ptr(), scale.data_ptr(), h_idx.data_ptr(), h_w.data_ptr(),
             w_idx.data_ptr(), w_w.data_ptr(), out.data_ptr(), b, h, w, c, hh, ww,

@@ -51,7 +51,8 @@ tensors on the CPU it then computes the plain version; for CUDA tensors it
 launches the kernel on the current stream, or raises. Outputs are
 allocated with ``torch.empty`` and nothing synchronises. Each wrapper
 counts its launches in ``<wrapper>.launches``, a plain integer that
-``reset_launch_counts`` sets back to 0.
+``reset_launch_counts`` sets back to 0. While a profiler records, a launch
+is a host op named after its wrapper (core/profiler.py::kernel_launch).
 """
 
 import ctypes
@@ -59,6 +60,7 @@ from typing import NamedTuple
 
 import torch
 
+from floodseg_tpu_torch.core.profiler import kernel_launch
 from floodseg_tpu_torch.ops import build
 from floodseg_tpu_torch.ops.grid_sample import (
     blend_taps,
@@ -163,7 +165,7 @@ def _sample_launch(x: torch.Tensor, grid: torch.Tensor, out: torch.Tensor,
     wrapper counts)."""
     b, h, w, c = x.shape
     _, gh, gw, _ = grid.shape
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), kernel_launch("grid_sample_cuda"):
         err = _library().floodseg_grid_sample(
             x.data_ptr(), grid.data_ptr(), out.data_ptr(), b, h, w, c, gh, gw,
             int(bool(align_corners)), _DTYPE_CODES[x.dtype], int(vec), geo.lanes,
@@ -230,7 +232,7 @@ def grid_sample_backward_cuda(grad_out: torch.Tensor, grid: torch.Tensor, x_shap
     vec = _vectorized(c, grad_out, out)
     gh, gw = grid.shape[1], grid.shape[2]
     dev = grad_out.device
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernel_launch("grid_sample_backward_cuda"):
         lib = _library()
         offsets = torch.empty((b, h * w + 1), dtype=torch.int32, device=dev)
         entries = torch.empty((b, 4 * gh * gw, 2), dtype=torch.int32, device=dev)
@@ -384,7 +386,7 @@ def warp_chain_cuda(y0: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
     vec = _vectorized(c, y0, out)
     itemsize = y0.element_size()
     geo = _chain_geometry(gh * gw, c, itemsize, _VEC_BYTES // itemsize if vec else 1)
-    with torch.cuda.device(y0.device):
+    with torch.cuda.device(y0.device), kernel_launch("warp_chain_cuda"):
         err = _library().floodseg_warp_chain(
             y0.data_ptr(), grids.data_ptr(), out.data_ptr(), t, gh, gw, c,
             geo.c_tile, geo.threads, geo.table_points, _DTYPE_CODES[y0.dtype], int(vec),

@@ -47,7 +47,7 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from floodseg_tpu_torch.core.device import DeviceLike, full_precision_f32, resolve_device
-from floodseg_tpu_torch.core.profiler import cuda_sync
+from floodseg_tpu_torch.core.profiler import cuda_sync, span
 from floodseg_tpu_torch.data.transforms import MEAN, STD
 from floodseg_tpu_torch.models.deeplabv3 import ASPP
 from floodseg_tpu_torch.models.layers import data_parallel
@@ -328,15 +328,26 @@ def _builder(model, n, feature_based, no_warp, out_size, default_grid,
 
     def run(first, frame_next, mvs_left, mvs_right, return_next_enc):
         """first: a frame (full) or the cached previous encoding."""
-        frame_prev = None if cached_key else prog.norm(first)
-        f_prev_enc = torch.as_tensor(first, device=prog.dev) if cached_key else None
+        with span("predict_inputs"):
+            frame_prev = None if cached_key else prog.norm(first)
+            f_prev_enc = torch.as_tensor(first, device=prog.dev) if cached_key else None
+            frame_next = prog.norm(frame_next)
+            mvs_left, mvs_right = prog.grids(mvs_left), prog.grids(mvs_right)
         return prog.interp.predict_clip(
-            frame_prev, prog.norm(frame_next), prog.grids(mvs_left),
-            prog.grids(mvs_right), n, default_grid=prog.dg, out_size=out_size,
-            f_prev_enc=f_prev_enc, return_next_enc=return_next_enc,
+            frame_prev, frame_next, mvs_left, mvs_right, n, default_grid=prog.dg,
+            out_size=out_size, f_prev_enc=f_prev_enc, return_next_enc=return_next_enc,
             argmax_epilogue=True, fused_argmax=fused_argmax)
 
-    return _bind(model, run)
+    call = _bind(model, run)
+
+    def window(variables: Mapping[str, torch.Tensor], *args):
+        """The call inside the span ``predict_window``: its own time,
+        outside the phases' spans that ``run`` opens, is the binding and
+        the two modes."""
+        with span("predict_window"):
+            return call(variables, *args)
+
+    return window
 
 
 def make_flow_predict_fn(model: nn.Module, n: int, feature_based: bool = True,

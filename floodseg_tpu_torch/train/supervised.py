@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from floodseg_tpu_torch.core.device import full_precision_f32
+from floodseg_tpu_torch.core.profiler import span
 from floodseg_tpu_torch.models.layers import data_parallel, dropout_generator
 from floodseg_tpu_torch.ops.losses import cross_entropy_loss, ohem_with_aux
 from floodseg_tpu_torch.ops.metrics import intersection_and_union
@@ -85,12 +86,14 @@ def optimizer_params(state: TrainState) -> List[torch.Tensor]:
 def backward_and_update(state: TrainState, loss: torch.Tensor,
                         world: Optional[World] = None) -> None:
     """Gradients of ``loss`` into ``.grad`` (cleared first), summed over
-    the ranks of ``world`` when it has more than one, then
-    ``state.apply_gradients``."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    sum_gradients(optimizer_params(state), world)
-    state.apply_gradients()
+    the ranks of ``world`` when it has more than one (the span
+    ``train_backward``), then ``state.apply_gradients`` (``train_optimizer``)."""
+    with span("train_backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        sum_gradients(optimizer_params(state), world)
+    with span("train_optimizer"):
+        state.apply_gradients()
 
 
 def gather_outputs(out: Dict, world: Optional[World]) -> Dict:
@@ -109,15 +112,19 @@ def make_train_step(model: nn.Module, loss_fn: Callable, num_classes: int,
     """train_step(state, batch, rng) -> (state, metrics): the whole model in
     training mode on ``batch["frame_current"]`` (its aux head too), the loss
     of ``loss_fn``, one optimizer step; over the ranks of ``world`` as the
-    module note says."""
+    module note says. Its phases run in the spans ``train_forward``,
+    ``train_loss``, ``train_backward`` and ``train_optimizer``
+    (core/profiler.py::span)."""
     def train_step(state: TrainState, batch: Dict, rng: Optional[torch.Generator]):
         images, labels = batch["frame_current"], gather(batch["label"], world)
         (seed,) = split_seeds(rng, 1)
         with full_precision_f32():
             model.train()
-            with dropout_seed(model, seed, _device(model)), data_parallel(model, world):
+            with (span("train_forward"), dropout_seed(model, seed, _device(model)),
+                  data_parallel(model, world)):
                 out = gather_outputs(model(images), world)
-            loss = loss_fn(out, labels)
+            with span("train_loss"):
+                loss = loss_fn(out, labels)
             backward_and_update(state, loss, world)
         return state, {"loss": loss.detach(),
                        **step_metrics(out["pred"], labels, num_classes, ignore_index)}

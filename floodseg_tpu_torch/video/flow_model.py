@@ -34,6 +34,7 @@ from typing import Callable, Optional
 
 import torch
 
+from floodseg_tpu_torch.core.profiler import span
 from floodseg_tpu_torch.ops.quant import quantize_with_scale, scale_from_absmax
 from floodseg_tpu_torch.ops.resize import resize_argmax, resize_bilinear
 from floodseg_tpu_torch.ops.resize_kernels import resize_quantize_int8_cuda
@@ -173,6 +174,11 @@ class FlowInterpolator:
         ``f_prev_enc`` replaces the encoding of frame_prev (the previous
         window's next key); ``return_next_enc`` also returns the raw encoding
         of frame_next, before the identity-grid resample.
+
+        The phases run in the spans ``predict_encoder``, ``predict_warp``,
+        ``predict_fusion`` (the int8 bound, the key map, the blend, the
+        resize back or K3, the quantizing), ``predict_decoder`` and
+        ``predict_epilogue``, once a call each (core/profiler.py::span).
         """
         ref_frame = frame_prev if frame_prev is not None else frame_next
         h, w = _hw(ref_frame)
@@ -192,82 +198,87 @@ class FlowInterpolator:
             def dec(x):
                 return x
 
-        if single:
-            f = f_prev_enc if f_prev_enc is not None else enc(frame_prev)
-            f_next = None
-        elif f_prev_enc is not None:
-            f = f_prev_enc
-            f_next = enc(frame_next)
-        else:
-            # both key frames in one batched encoder call (eval BN is
-            # batch-invariant)
-            f_both = enc(torch.cat([frame_prev, frame_next], dim=0))
-            f, f_next = f_both[:1], f_both[1:]
+        with span("predict_encoder"):
+            if single:
+                f = f_prev_enc if f_prev_enc is not None else enc(frame_prev)
+                f_next = None
+            elif f_prev_enc is not None:
+                f = f_prev_enc
+                f_next = enc(frame_next)
+            else:
+                # both key frames in one batched encoder call (eval BN is
+                # batch-invariant)
+                f_both = enc(torch.cat([frame_prev, frame_next], dim=0))
+                f, f_next = f_both[:1], f_both[1:]
         f_next_raw = f_next
         fh, fw = _hw(f)
 
-        # int8 decoder: max|stack| <= max(max|f|, max|f_next|), known before
-        # the feature-resolution maps exist
-        absmax_hint = scale = None
-        if self.decode_wants_absmax and self.feature_based:
-            absmax_hint = _absmax(f)
-            if f_next is not None:
-                absmax_hint = torch.maximum(absmax_hint, _absmax(f_next))
-            scale = scale_from_absmax(absmax_hint)
+        with span("predict_warp"):
+            if not single and not self.no_warp:
+                fwd = self._predict_chain(f.contiguous(), mvs_left)
+                bwd = self._predict_chain(f_next.contiguous(), mvs_right)
 
-        if not single and not self.no_warp:
-            fwd = self._predict_chain(f.contiguous(), mvs_left)
-            bwd = self._predict_chain(f_next.contiguous(), mvs_right)
+        with span("predict_fusion"):
+            # int8 decoder: max|stack| <= max(max|f|, max|f_next|), a bound
+            # that the raw key encodings give before any map is fused
+            absmax_hint = scale = None
+            if self.decode_wants_absmax and self.feature_based:
+                absmax_hint = _absmax(f)
+                if f_next is not None:
+                    absmax_hint = torch.maximum(absmax_hint, _absmax(f_next))
+                scale = scale_from_absmax(absmax_hint)
 
-        # key-frame map through the identity grid (feature_based only)
-        if self.feature_based and not self.no_warp and default_grid is not None:
-            fk = grid_sample_cuda(f.contiguous(), default_grid[None],
-                                  align_corners=True)
-            if _hw(fk) != (fh, fw):
-                fk = resize_bilinear(fk, (fh, fw), align_corners=True)
-            f = fk
+            # key-frame map through the identity grid (feature_based only)
+            if self.feature_based and not self.no_warp and default_grid is not None:
+                fk = grid_sample_cuda(f.contiguous(), default_grid[None],
+                                      align_corners=True)
+                if _hw(fk) != (fh, fw):
+                    fk = resize_bilinear(fk, (fh, fw), align_corners=True)
+                f = fk
 
-        inter = None
-        if not single:
-            p = torch.arange(1, n, dtype=torch.float32,
-                             device=f.device)[:, None, None, None]
-            wf = ((n - p) / n).to(f.dtype)
-            wb = (p / n).to(f.dtype)
-            if self.no_warp:
-                inter = wf * f + wb * f_next
+            inter = None
+            if not single:
+                p = torch.arange(1, n, dtype=torch.float32,
+                                 device=f.device)[:, None, None, None]
+                wf = ((n - p) / n).to(f.dtype)
+                wb = (p / n).to(f.dtype)
+                if self.no_warp:
+                    inter = wf * f + wb * f_next
+                else:
+                    # step k pairs fwd[k] with bwd[n-2-k]; the blend and the
+                    # bilinear resize are both linear, so only the fused maps
+                    # are resized back to feature resolution
+                    inter = wf * fwd + wb * torch.flip(bwd, dims=(0,))
+                    if _hw(inter) != (fh, fw):
+                        if scale is not None:
+                            inter = resize_quantize_int8_cuda(inter, scale, (fh, fw),
+                                                              align_corners=True)
+                        else:
+                            inter = resize_bilinear(inter, (fh, fw), align_corners=True)
+
+            if scale is not None:
+                # every piece at the hint's scale: equal to quantizing the stack
+                f = quantize_with_scale(f, scale)
+                if inter is not None and inter.dtype != torch.int8:
+                    inter = quantize_with_scale(inter, scale)
+                dec = partial(dec, act_absmax=absmax_hint)
+
+        with span("predict_decoder"):
+            if single:
+                out = dec(f)
+            elif self.decode_split:
+                out = torch.cat([dec(f), dec(inter)], dim=0)
             else:
-                # step k pairs fwd[k] with bwd[n-2-k]; the blend and the
-                # bilinear resize are both linear, so only the fused maps
-                # are resized back to feature resolution
-                inter = wf * fwd + wb * torch.flip(bwd, dims=(0,))
-                if _hw(inter) != (fh, fw):
-                    if scale is not None:
-                        inter = resize_quantize_int8_cuda(inter, scale, (fh, fw),
-                                                          align_corners=True)
-                    else:
-                        inter = resize_bilinear(inter, (fh, fw), align_corners=True)
-
-        if scale is not None:
-            # every piece at the hint's scale: equal to quantizing the stack
-            f = quantize_with_scale(f, scale)
-            if inter is not None and inter.dtype != torch.int8:
-                inter = quantize_with_scale(inter, scale)
-            dec = partial(dec, act_absmax=absmax_hint)
-
-        if single:
-            out = dec(f)
-        elif self.decode_split:
-            out = torch.cat([dec(f), dec(inter)], dim=0)
-        else:
-            out = dec(torch.cat([f, inter], dim=0))
-        if argmax_epilogue and not fused_argmax:
-            if _hw(out) != out_size:
+                out = dec(torch.cat([f, inter], dim=0))
+        with span("predict_epilogue"):
+            if argmax_epilogue and not fused_argmax:
+                if _hw(out) != out_size:
+                    out = resize_bilinear(out, out_size, align_corners=True)
+                out = torch.argmax(out, dim=-1).to(torch.int32)
+            elif argmax_epilogue:
+                out = resize_argmax(out, out_size, align_corners=True)
+            elif _hw(out) != out_size:
                 out = resize_bilinear(out, out_size, align_corners=True)
-            out = torch.argmax(out, dim=-1).to(torch.int32)
-        elif argmax_epilogue:
-            out = resize_argmax(out, out_size, align_corners=True)
-        elif _hw(out) != out_size:
-            out = resize_bilinear(out, out_size, align_corners=True)
         if return_next_enc:
             return out, f_next_raw
         return out
